@@ -1,0 +1,134 @@
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here needs a CUDA device and skips without one.  On a machine
+with a GPU (which need not have JAX):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
+
+(``--noconftest``: the suite's conftest imports JAX.)  Inputs are a real
+pass on the 64K-triangle benchmark scene, whose wide16 table is committed
+under ``.bvh_cache``.  Tolerances: integer state equal; float state within
+rtol 1e-5 / atol 1e-6 (the kernels are built with -fmad=false and are
+expected to match their twins exactly; sin/cos/log/pow may differ by an
+ulp between the kernel's and PyTorch's builds).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from unity_webgpu_pathtracer_torch.config import RenderConfig
+from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
+from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
+from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
+from unity_webgpu_pathtracer_torch.render import fused
+from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
+
+pytestmark = pytest.mark.gpu
+
+W, H = 96, 64
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def scene64k(cuda):
+    scene, cam = million_triangle_scene(64_000)
+    return scene.build("wide16", device=cuda), make_camera_params(
+        width=W, height=H, device=cuda, **cam)
+
+
+def _config(**kw):
+    return RenderConfig(width=W, height=H, samples_per_pass=2, max_bounces=5,
+                        transition_every=4, pool_size=4096, **kw)
+
+
+def _assert_same(got, want, name):
+    if got.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, equal_nan=True,
+                                   msg=lambda m: f"{name}: {m}")
+    else:
+        assert torch.equal(got, want), name
+
+
+def test_kernels_build(cuda):
+    lib = cuda_build.load()
+    assert lib.arrival16_launch is not None and lib.transition16_launch is not None
+
+
+@pytest.mark.parametrize("flags", ["main_path", "firefly_and_canary"])
+def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
+    """Every K1 and K2 call of a real pass, against the twin on the same
+    inputs (the pass goes on with the kernel's outputs); also with K2's
+    firefly clamp, at a threshold that clamps lanes, and NaN canary on."""
+    sd, params = scene64k
+    if flags == "firefly_and_canary":
+        cfg = _config(use_firefly_filter=True, debug_nan_canary=True)
+        params = dataclasses.replace(
+            params, max_firefly_luminance=torch.tensor(0.5, device=cuda))
+    else:
+        cfg = _config()
+    calls = {"k1": 0, "k2": 0}
+
+    def k1(nodes, oT, dT, invT, s, active=None):
+        out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
+        ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active)
+        for name in out._fields:
+            _assert_same(getattr(out, name), getattr(ref, name), f"arrival.{name}")
+        calls["k1"] += 1
+        return out
+
+    def k2(**kw):
+        out = cuda_transition.transition_step16_cuda(**kw)
+        ref = cuda_transition.transition_step16_plain(**kw)
+        for name in out._fields:
+            _assert_same(getattr(out, name), getattr(ref, name), f"transition.{name}")
+        calls["k2"] += 1
+        return out
+
+    monkeypatch.setattr(fused, "arrival_step16_cuda", k1)
+    monkeypatch.setattr(fused, "transition_step16_cuda", k2)
+    film, _occ, _rays, _arr, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
+    assert calls == {"k1": 4 * iters, "k2": iters}
+    assert torch.isfinite(film).all()
+
+
+def test_pass_with_kernels_equals_pass_with_twins(cuda, scene64k, monkeypatch):
+    sd, params = scene64k
+    cfg = _config()
+    k1_before = cuda_arrival.arrival_step16_cuda.launches
+    k2_before = cuda_transition.transition_step16_cuda.launches
+    film_k, _occ, rays_k, arr_k, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
+    assert cuda_arrival.arrival_step16_cuda.launches - k1_before == 4 * iters
+    assert cuda_transition.transition_step16_cuda.launches - k2_before == iters
+
+    monkeypatch.setattr(fused, "arrival_step16_cuda",
+                        lambda n, o, d, i, s, a=None: arrival_step16(n, o.T, d.T, i.T, s, a))
+    monkeypatch.setattr(fused, "transition_step16_cuda",
+                        cuda_transition.transition_step16_plain)
+    film_p, _occ, rays_p, arr_p, _ = fused.fused_pass_with_stats(sd, cfg, params, 0)
+    assert int(rays_k) == int(rays_p) and int(arr_k) == int(arr_p)
+    a, b = film_k.cpu().numpy(), film_p.cpu().numpy()
+    assert np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1).mean() >= 0.99
+    assert abs(a.mean() - b.mean()) <= 0.01 * abs(b.mean())
+
+
+def test_wrappers_reject_bad_inputs(cuda, scene64k):
+    sd, _params = scene64k
+    from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import init_state16
+
+    b = 1024
+    s = init_state16(b, 1e5, depth=sd.stack_depth, device=cuda)
+    planes = torch.zeros((3, b), device=cuda)
+    with pytest.raises(ValueError):
+        cuda_arrival.arrival_step16_cuda(sd.wide16_nodes, planes.T, planes, planes, s)
+    with pytest.raises(ValueError):
+        cuda_arrival.arrival_step16_cuda(sd.wide16_nodes, planes, planes, planes,
+                                         s._replace(t=s.t.double()))

@@ -1,0 +1,135 @@
+"""Render configuration for the ported main path.
+
+:class:`RenderConfig` keeps the fields of the reference's ``RenderConfig``
+(``unity_webgpu_pathtracer_tpu/config.py``) that the fused wide16 main path
+reads, under the same names.  Defaults follow the reference except where
+the reference default selects a path this port does not implement
+(``traversal``, ``integrator``, ``sky_mode``, ``has_environment_texture``):
+those default to the main path's values.  Every knob the port does not
+implement raises ``ValueError`` at construction.
+
+:class:`RenderParams` is a dataclass of tensors (camera matrices and
+environment uniforms); ``params_from_numpy`` builds one from the
+reference's fields as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Sky modes (common.hlsl:85-86)
+SKY_MODE_ENVIRONMENT = 0
+SKY_MODE_BASIC = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render configuration of the fused wide16 main path."""
+
+    width: int = 512
+    height: int = 512
+    samples_per_pass: int = 1
+    max_bounces: int = 5
+    use_russian_roulette: bool = True
+    use_firefly_filter: bool = False
+    debug_nan_canary: bool = False
+    sky_mode: int = SKY_MODE_ENVIRONMENT
+    has_environment_texture: bool = True
+    has_lights: bool = False
+    has_textures: bool = False
+    has_tlas: bool = False
+    has_normal_maps: bool = False
+    use_depth_of_field: bool = False
+    traversal: str = "wide16"
+    integrator: str = "fused"
+    # Lanes resident in the pass; 0 = min(pixels * spp, 96K), rounded up
+    # to a multiple of 1024.
+    pool_size: int = 0
+    # Arrivals per transition step.
+    transition_every: int = 4
+    use_record_film: bool = True
+    use_lane_film: bool = False
+    attr_compact: int = 2
+
+    def __post_init__(self):
+        unsupported = {
+            "traversal": self.traversal != "wide16",
+            "integrator": self.integrator != "fused",
+            "attr_compact": self.attr_compact != 2,
+            "sky_mode": self.sky_mode != SKY_MODE_ENVIRONMENT,
+            "has_environment_texture": not self.has_environment_texture,
+            "has_lights": self.has_lights,
+            "has_textures": self.has_textures,
+            "has_normal_maps": self.has_normal_maps,
+            "has_tlas": self.has_tlas,
+            "use_depth_of_field": self.use_depth_of_field,
+            "use_record_film": not self.use_record_film,
+            "use_lane_film": self.use_lane_film,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise ValueError(
+                "the PyTorch port implements only the fused wide16 main path "
+                "(traversal='wide16', integrator='fused', attr_compact=2, HDRI "
+                "environment NEE, record film, no lights/textures/normal "
+                f"maps/TLAS/depth of field); unsupported settings: {bad}")
+        if self.transition_every < 1 or self.max_bounces < 0:
+            raise ValueError("transition_every must be >= 1 and "
+                             "max_bounces >= 0")
+
+    def pixel_count(self) -> int:
+        return self.width * self.height
+
+
+def _scalar(x, dtype=torch.float32, device="cpu"):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class RenderParams:
+    """Per-frame uniforms as tensors (the reference's ``RenderParams``).
+
+    Only the uniforms the main path reads: the reference's depth-of-field
+    and basic-sky fields have no use while ``RenderConfig`` refuses those
+    paths.  ``seed_root`` holds a uint32 value in an int64 tensor (the
+    port's PCG arithmetic runs in int64 masked to 32 bits)."""
+
+    cam_to_world: torch.Tensor          # (4, 4) float32
+    cam_inv_proj: torch.Tensor          # (4, 4) float32
+    environment_intensity: torch.Tensor
+    environment_rotation: torch.Tensor
+    max_firefly_luminance: torch.Tensor
+    seed_root: torch.Tensor             # () int64, value < 2**32
+
+    def to(self, device) -> "RenderParams":
+        return RenderParams(**{f.name: getattr(self, f.name).to(device)
+                               for f in dataclasses.fields(self)})
+
+
+_PARAM_DEFAULTS = dict(
+    environment_intensity=1.0, environment_rotation=0.0,
+    max_firefly_luminance=100.0, seed_root=0,
+)
+
+
+def params_from_numpy(arrays: dict, device="cpu") -> RenderParams:
+    """``RenderParams`` from a dict of numpy arrays keyed by the
+    reference's field names (``np.asarray`` of each JAX field); missing
+    keys take the reference's defaults, keys the port has no field for
+    are refused."""
+    extra = set(arrays) - {f.name for f in dataclasses.fields(RenderParams)}
+    if extra:
+        raise ValueError(f"RenderParams has no fields {sorted(extra)} (the port "
+                         "implements neither depth of field nor the basic sky)")
+    kw = {}
+    for f in dataclasses.fields(RenderParams):
+        val = arrays[f.name] if f.name in arrays else _PARAM_DEFAULTS[f.name]
+        if f.name == "seed_root":
+            kw[f.name] = _scalar(np.asarray(val).astype(np.uint32),
+                                 torch.int64, device)
+        else:
+            kw[f.name] = _scalar(np.asarray(val, np.float32), device=device)
+    return RenderParams(**kw)

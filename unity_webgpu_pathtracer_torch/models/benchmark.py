@@ -1,0 +1,82 @@
+"""The benchmark scene (``models/benchmark.py`` of the reference).
+
+``million_triangle_scene``: a grid of smooth spheres over a ground plane
+(~1M triangles at the default size) under a procedural HDRI.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from unity_webgpu_pathtracer_torch.models import primitives as prim
+from unity_webgpu_pathtracer_torch.scene.material import MaterialDesc
+from unity_webgpu_pathtracer_torch.scene.mesh import Mesh
+from unity_webgpu_pathtracer_torch.scene.scene import Scene
+
+
+def procedural_hdri(height: int = 256) -> np.ndarray:
+    """Sky gradient + bright sun disc, equirect (H, 2H, 3) float32."""
+    w = 2 * height
+    v = (np.arange(height) + 0.5) / height           # v=1 top (theta=0)
+    u = (np.arange(w) + 0.5) / w
+    theta = (1.0 - v)[:, None] * np.pi
+    phi = u[None, :] * 2 * np.pi
+    y = np.cos(theta)
+    horizon = np.exp(-np.abs(y) * 3.0)
+    sky = np.stack(
+        [0.2 + 0.3 * horizon, 0.35 + 0.3 * horizon, 0.7 + 0.25 * horizon], -1
+    ) * np.maximum(y, 0.02)[..., None]
+    # Sun at theta=60deg, phi=45deg.
+    sun_dir = np.array([np.sin(1.05) * np.cos(0.785), np.cos(1.05),
+                        np.sin(1.05) * np.sin(0.785)])
+    d = np.stack(
+        [np.sin(theta) * np.cos(phi) * np.ones_like(phi),
+         y * np.ones_like(phi),
+         np.sin(theta) * np.sin(phi) * np.ones_like(phi)], -1)
+    cosang = (d * sun_dir).sum(-1)
+    sun = np.where(cosang > 0.9995, 500.0, 0.0)
+    return (sky + sun[..., None] * np.array([1.0, 0.9, 0.7])).astype(np.float32)
+
+
+def million_triangle_scene(target_tris: int = 1_000_000) -> tuple[Scene, dict]:
+    """Sphere grid + ground, ~target_tris triangles, mixed materials.
+    Returns ``(scene, camera kwargs for make_camera_params)``."""
+    scene = Scene()
+    mats = [
+        scene.add_material(MaterialDesc(base_color=(0.8, 0.3, 0.2, 1.0), roughness=0.4)),
+        scene.add_material(MaterialDesc(base_color=(0.9, 0.9, 0.9, 1.0),
+                                        metallic=1.0, roughness=0.15)),
+        scene.add_material(MaterialDesc(base_color=(0.2, 0.5, 0.8, 1.0), roughness=0.7)),
+        scene.add_material(MaterialDesc(base_color=(0.95, 0.85, 0.5, 1.0),
+                                        metallic=0.8, roughness=0.3)),
+    ]
+    ground = scene.add_material(MaterialDesc(base_color=(0.55, 0.55, 0.55, 1.0),
+                                             roughness=0.9))
+
+    # One sphere mesh (~5.1K tris), instanced-by-flattening over a grid.
+    sphere = prim.uv_sphere(radius=0.45, stacks=36, slices=72)
+    tris_per = sphere.triangle_count
+    grid = max(int(np.sqrt(target_tris / tris_per)), 1)
+    rng = np.random.default_rng(42)
+    for i in range(grid):
+        for j in range(grid):
+            m = mats[(i * grid + j) % len(mats)]
+            x = (i - grid / 2) * 1.1 + rng.uniform(-0.1, 0.1)
+            z = (j - grid / 2) * 1.1 + rng.uniform(-0.1, 0.1)
+            scene.add_mesh(Mesh(vertices=sphere.vertices, indices=sphere.indices,
+                                normals=sphere.normals, tangents=sphere.tangents,
+                                uvs=sphere.uvs, material_index=m),
+                           prim.transform_trs(translate=(x, 0.45, z)))
+    g = prim.quad(size=(grid * 1.4, grid * 1.4), material_index=ground)
+    rx = np.eye(4, dtype=np.float32)
+    c, s = np.cos(-np.pi / 2), np.sin(-np.pi / 2)
+    rx[:3, :3] = np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32)
+    scene.add_mesh(g, rx)
+
+    scene.set_environment(procedural_hdri(128))
+    cam = dict(
+        eye=(grid * 0.62, grid * 0.36, grid * 0.62),
+        target=(0.0, 0.0, 0.0),
+        fov_y_deg=45.0,
+    )
+    return scene, cam

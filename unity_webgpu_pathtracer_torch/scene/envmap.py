@@ -1,0 +1,189 @@
+"""Equirectangular HDRI environment (``scene/envmap.py`` of the reference).
+
+Host side (numpy): the Vose alias table and the merged per-texel rows
+``[alias_row (8) | 2x2 bilinear footprint (12)]``.  Device side (torch):
+``sample_env_transition``, the fused transition's whole environment
+interaction in one row gather — miss lanes read the bilinear footprint at
+their direction's texel, env-NEE lanes the alias row of their sampled bin.
+``acos``/``atan2`` run here, outside the transition kernel, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from unity_webgpu_pathtracer_torch.utils import rng as urng
+from unity_webgpu_pathtracer_torch.utils.math import INV_PI, INV_TWO_PI, PI, TWO_PI, luminance
+
+QUAD_ROWS_MAX_TEXELS = 2_000_000
+
+
+class EnvMap(NamedTuple):
+    """Environment tables (numpy from ``build_envmap``, tensors after
+    ``to_tensors``); the same fields as the reference's ``EnvMap``."""
+
+    image: object        # (H, W, 3) float32 linear radiance
+    cdf: object          # (H*W,) inclusive prefix sum of luminance
+    cdf_sum: object      # () total luminance
+    alias_prob: object   # (H*W,)
+    alias_idx: object    # (H*W,) int32
+    alias_row: object    # (H*W, 8) [prob, alias idx bits, self rgb, alias rgb]
+    quad_rows: object    # (H*W, 12) 2x2 wrap footprint [p00|p10|p01|p11]
+    merged_rows: object  # (H*W, 20) [alias_row | quad_rows]
+
+    def to_tensors(self, device) -> "EnvMap":
+        return EnvMap(*(torch.from_numpy(np.array(a, order="C")).to(device)
+                        for a in self))
+
+
+def _build_alias(weights: np.ndarray):
+    """Vose alias table for O(1) categorical sampling."""
+    k = weights.size
+    p = weights.astype(np.float64)
+    total = p.sum()
+    if total <= 0 or k == 0:
+        return np.ones(max(k, 1), np.float32), np.zeros(max(k, 1), np.int32)
+    p = p * (k / total)
+    prob = np.ones(k, np.float64)
+    alias = np.arange(k, dtype=np.int32)
+    small = [i for i in range(k) if p[i] < 1.0]
+    large = [i for i in range(k) if p[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        l = large.pop()
+        prob[s] = p[s]
+        alias[s] = l
+        p[l] = p[l] - (1.0 - p[s])
+        (small if p[l] < 1.0 else large).append(l)
+    return prob.astype(np.float32), alias
+
+
+def build_envmap(image: np.ndarray) -> EnvMap:
+    """Luminance CDF, alias table and merged rows of an equirect image.
+
+    The main path needs the merged rows, so images above
+    ``QUAD_ROWS_MAX_TEXELS`` texels are refused."""
+    img = np.asarray(image, np.float32)
+    h, w = img.shape[0], img.shape[1]
+    if h * w > QUAD_ROWS_MAX_TEXELS:
+        raise ValueError(f"environment of {h * w} texels exceeds the "
+                         f"merged-row limit {QUAD_ROWS_MAX_TEXELS}")
+    lum = img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
+    flat = lum.reshape(-1)
+    cdf = np.cumsum(flat, dtype=np.float64).astype(np.float32)
+    prob, alias = _build_alias(flat)
+
+    texels = img.reshape(-1, 3)
+    alias_row = np.zeros((h * w, 8), np.float32)
+    alias_row[:, 0] = prob
+    alias_row[:, 1] = alias.view(np.float32)
+    alias_row[:, 2:5] = texels
+    alias_row[:, 5:8] = texels[alias]
+
+    right = np.roll(img, -1, axis=1)
+    down = np.roll(img, -1, axis=0)       # wrap in v, as the reference does
+    downright = np.roll(right, -1, axis=0)
+    quad_rows = np.concatenate([img, right, down, downright],
+                               axis=-1).reshape(-1, 12).astype(np.float32)
+    merged = np.concatenate([alias_row, quad_rows], axis=1)
+    return EnvMap(
+        image=img, cdf=cdf, cdf_sum=np.float32(cdf[-1]),
+        alias_prob=prob, alias_idx=alias, alias_row=alias_row,
+        quad_rows=quad_rows, merged_rows=merged,
+    )
+
+
+def _bilerp_coords(h: int, w: int, uv: torch.Tensor):
+    """Bilinear footprint with wrap addressing: (x0i, y0i, fx, fy)."""
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    return x0i, y0i, fx, fy
+
+
+def _bilinear_quad(env: EnvMap, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sky lookup through the pre-baked 2x2 footprint rows."""
+    h, w = env.image.shape[0], env.image.shape[1]
+    x0i, y0i, fx, fy = _bilerp_coords(h, w, uv)
+    row = env.quad_rows[y0i * w + x0i]
+    p00, p10 = row[..., 0:3], row[..., 3:6]
+    p01, p11 = row[..., 6:9], row[..., 9:12]
+    return (p00 * (1 - fx) + p10 * fx) * (1 - fy) + (p01 * (1 - fx) + p11 * fx) * fy
+
+
+def _texel_direction(h: int, w: int, idx: torch.Tensor, rotation):
+    """Texel index -> (world direction (B, 3), sin(theta))."""
+    x = (idx % w).to(torch.float32)
+    y = (idx // w).to(torch.float32)
+    uv0 = (x + 0.5) / w
+    uv1 = (y + 0.5) / h
+    theta = (1.0 - uv1) * PI
+    phi = (uv0 - rotation) * TWO_PI
+    sin_theta = torch.sin(theta)
+    direction = torch.stack(
+        [-sin_theta * torch.cos(phi), torch.cos(theta), -sin_theta * torch.sin(phi)],
+        dim=-1)
+    return direction, sin_theta
+
+
+def _solid_angle_pdf(color, cdf_sum, k: int, sin_theta):
+    pdf = luminance(color) / torch.clamp_min(cdf_sum, 1e-20)
+    pdf = pdf * k / torch.clamp_min((TWO_PI * PI) * sin_theta, 1e-8)
+    return torch.where(sin_theta <= 0.0, torch.zeros_like(pdf), pdf)
+
+
+def sample_env_transition(env: EnvMap, rotation, directions: torch.Tensor,
+                          want_alias: torch.Tensor, state: torch.Tensor,
+                          need: torch.Tensor | None = None):
+    """One merged-row gather serving both environment consumers.
+
+    ``directions`` (B, 3) are the lanes' path directions (sky lookup on a
+    miss); ``want_alias`` selects the lanes that take an env-NEE sample
+    from the alias row instead.  Lanes outside ``need`` gather row 0 (their
+    results are never consumed).  Every lane draws two uniforms.
+
+    Returns ``(sky_color, sky_pdf, nee_dir, nee_color, nee_pdf, state)``,
+    vectors as (B, 3)."""
+    h, w = env.image.shape[0], env.image.shape[1]
+    k = h * w
+    (u1, u2), state = urng.random_floats(state, 2)
+    bin_ = torch.clamp((u1 * k).to(torch.int32), 0, k - 1)
+
+    d = directions
+    theta = torch.acos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi_atan = torch.atan2(d[..., 2], d[..., 0])
+    uv = torch.stack([(PI + phi_atan) * INV_TWO_PI + rotation,
+                      1.0 - theta * INV_PI], dim=-1)
+
+    x0i, y0i, fx, fy = _bilerp_coords(h, w, uv)
+    idx = torch.where(want_alias, bin_, y0i * w + x0i)
+    if need is not None:
+        idx = torch.where(need, idx, torch.zeros_like(idx))
+    row = env.merged_rows[idx]                                  # (B, 20)
+
+    # NEE half (alias method).
+    take_alias = u2 >= row[:, 0]
+    alias_idx = env.merged_rows.view(torch.int32)[idx, 1]
+    a_idx = torch.where(take_alias, alias_idx, bin_)
+    nee_color = torch.where(take_alias[:, None], row[:, 5:8], row[:, 2:5])
+    nee_dir, sin_a = _texel_direction(h, w, a_idx, rotation)
+    nee_pdf = _solid_angle_pdf(nee_color, env.cdf_sum, k, sin_a)
+
+    # Sky half (bilinear from the pre-baked footprint).
+    p00, p10 = row[:, 8:11], row[:, 11:14]
+    p01, p11 = row[:, 14:17], row[:, 17:20]
+    sky_color = (p00 * (1 - fx) + p10 * fx) * (1 - fy) + (
+        p01 * (1 - fx) + p11 * fx) * fy
+    sky_pdf = _solid_angle_pdf(sky_color, env.cdf_sum, k, torch.sin(theta))
+    return sky_color, sky_pdf, nee_dir, nee_color, nee_pdf, state
