@@ -56,7 +56,10 @@ def _rays(b, tris, seed):
 
 
 def _torch_state(js) -> ttw.Wide16State:
-    return ttw.Wide16State(**{f: torch.from_numpy(np.array(getattr(js, f)))
+    """The reference's state in the port's layout (local rays as planes)."""
+    return ttw.Wide16State(**{f: torch.from_numpy(np.array(getattr(js, f)).T.copy()
+                                                  if f.startswith("local_")
+                                                  else np.array(getattr(js, f)))
                               for f in ttw.Wide16State._fields})
 
 

@@ -61,6 +61,58 @@ def _assert_same(got, want, name):
 def test_kernels_build(cuda):
     lib = cuda_build.load()
     assert lib.arrival16_launch is not None and lib.transition16_launch is not None
+    assert lib.arrival16_inst_launch is not None
+
+
+def _instanced_table():
+    """Three instances of one 400-triangle mesh (moved, scaled, rotated)
+    over a two-level table, and its depth."""
+    from unity_webgpu_pathtracer_torch.accel import wide16
+    from unity_webgpu_pathtracer_torch.models.primitives import transform_trs
+
+    rng = np.random.default_rng(4)
+    c = rng.uniform(-1.0, 1.0, (400, 1, 3))
+    tris = (c + rng.uniform(-0.3, 0.3, (400, 3, 3))).astype(np.float32)
+    recs = np.concatenate([tris[:, 2] - tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 0]],
+                          axis=1).astype(np.float32)
+    p = tris.reshape(-1, 3)
+    inst = [(0, transform_trs(translate=(x, 0.0, 0.0), rotate_y=0.4 * x, scale=0.5 + 0.3 * k),
+             None) for k, x in enumerate((-2.5, 0.0, 2.5))]
+    w, _l2w, _w2l, _layout = wide16.build_tlas_wide16(
+        [wide16.build_scene_wide16(tris, recs)], [(p.min(0), p.max(0))], inst, [0])
+    return w.nodes, w.depth
+
+
+def test_instanced_kernel_matches_twin(cuda):
+    """K1's instanced kernel against the twin, arrival by arrival, on random
+    rays (half aimed at the instances) over a two-level table."""
+    from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import init_state16
+    from unity_webgpu_pathtracer_torch.utils.math import safe_rcp
+
+    nodes, depth = _instanced_table()
+    b = 8192
+    rng = np.random.default_rng(11)
+    o = rng.uniform(-5.0, 5.0, (b, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    aim = rng.uniform(-3.0, 3.0, (b, 3)) * np.float32([1.0, 0.3, 0.3]) - o
+    d[: b // 2] = aim[: b // 2]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = torch.from_numpy(nodes).to(cuda)
+    oT = torch.from_numpy(o.T.copy()).to(cuda)
+    dT = torch.from_numpy(d.T.copy()).to(cuda)
+    invT = safe_rcp(dT)
+    active = torch.from_numpy(rng.random(b) < 0.9).to(cuda)
+    s = init_state16(b, 1e5, depth=depth + 4, device=cuda)
+    before = cuda_arrival.arrival_step16_cuda.launches_inst
+    for _ in range(40):
+        out = cuda_arrival.arrival_step16_cuda(tn, oT, dT, invT, s, active, has_instances=True)
+        ref = arrival_step16(tn, oT.T, dT.T, invT.T, s, active, has_instances=True)
+        for name in out._fields:
+            _assert_same(getattr(out, name), getattr(ref, name), f"arrival_inst.{name}")
+        s = out
+    torch.cuda.synchronize()
+    assert cuda_arrival.arrival_step16_cuda.launches_inst - before == 40
+    assert bool((s.hit_inst >= 0).any()) and bool(s.found.any())
 
 
 @pytest.mark.parametrize("flags", ["main_path", "firefly_and_canary"])
@@ -77,9 +129,9 @@ def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
         cfg = _config()
     calls = {"k1": 0, "k2": 0}
 
-    def k1(nodes, oT, dT, invT, s, active=None):
-        out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
-        ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active)
+    def k1(nodes, oT, dT, invT, s, active=None, has_instances=False):
+        out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+        ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances)
         for name in out._fields:
             _assert_same(getattr(out, name), getattr(ref, name), f"arrival.{name}")
         calls["k1"] += 1
@@ -110,7 +162,8 @@ def test_pass_with_kernels_equals_pass_with_twins(cuda, scene64k, monkeypatch):
     assert cuda_transition.transition_step16_cuda.launches - k2_before == iters
 
     monkeypatch.setattr(fused, "arrival_step16_cuda",
-                        lambda n, o, d, i, s, a=None: arrival_step16(n, o.T, d.T, i.T, s, a))
+                        lambda n, o, d, i, s, a=None, has_instances=False:
+                        arrival_step16(n, o.T, d.T, i.T, s, a, has_instances))
     monkeypatch.setattr(fused, "transition_step16_cuda",
                         cuda_transition.transition_step16_plain)
     film_p, _occ, rays_p, arr_p, _ = fused.fused_pass_with_stats(sd, cfg, params, 0)

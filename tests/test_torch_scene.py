@@ -87,8 +87,8 @@ def test_cache_key_names_the_committed_table():
 
 @pytest.mark.parametrize("knob", [
     dict(traversal="wide8"), dict(integrator="megakernel"), dict(attr_compact=3),
-    dict(sky_mode=1), dict(has_environment_texture=False), dict(has_lights=True),
-    dict(has_textures=True), dict(has_normal_maps=True), dict(has_tlas=True),
+    dict(sky_mode=3), dict(attr_compact=1), dict(has_lights=True),
+    dict(has_textures=True), dict(has_normal_maps=True), dict(traversal="bvh2"),
     dict(use_depth_of_field=True), dict(use_record_film=False), dict(use_lane_film=True),
 ])
 def test_config_refuses_unported_knobs(knob):

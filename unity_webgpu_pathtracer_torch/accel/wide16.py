@@ -2,18 +2,21 @@
 content-keyed build cache (``accel/wide16.py`` of the reference).
 
 Row layout, ``(N, 96)`` float32 with integers bitcast; ``f[3]`` (meta) is
-0 for an inner row and the triangle count (1..16) for a leaf row:
+0 for an inner row, the triangle count (1..16) for a leaf row and
+``-(id + 1)`` for a TLAS instance row:
 
-======= ======================================= ==========================
-floats  inner                                    leaf
-======= ======================================= ==========================
-0:3     anchor (node AABB min)                   anchor (leaf AABB min)
-3       meta = 0                                 meta = count
-4       exponents ``ex | ey<<8 | ez<<16``        f16 triangle SoA (72
-8:32    u8 child boxes ``[qlo x,y,z | qhi        floats, 9 comps x 16
-        x,y,z]``, 16 slots each, SPLIT order     slots, SPLIT order, 4:76)
-32:48   child row pointers (-1 empty)            attr index x16 (76:92)
-======= ======================================= ==========================
+======= =========================== ====================== ==================
+floats  inner                        leaf                   instance
+======= =========================== ====================== ==================
+0:3     anchor (node AABB min)       anchor (leaf AABB min) unused
+3       meta = 0                     meta = count           meta = -(id+1)
+4       exponents                    f16 triangle SoA (72   world->local 3x4
+        ``ex | ey<<8 | ez<<16``      floats, 9 comps x 16   (4:16)
+8:32    u8 child boxes ``[qlo x,y,z  slots, SPLIT order,    BLAS root row (16)
+        | qhi x,y,z]``, 16 slots     4:76)
+        each, SPLIT order
+32:48   child row pointers (-1)      attr index x16 (76:92)
+======= =========================== ====================== ==================
 
 SPLIT orders: byte j of child-box word w holds slot ``4j + w``
 (``PERM_Q``); the low half of leaf word w holds slot w and the high half
@@ -23,6 +26,13 @@ Tables are built by the native SBVH builder and cached on disk under
 ``UWPT_BVH_CACHE_DIR`` (default: the repository's ``.bvh_cache``), keyed
 exactly as the reference keys them, so a table committed there for the
 benchmark scene is loaded instead of rebuilt.
+
+Two-level (instanced) tables put a 16-wide TLAS over the instance boxes in
+rows ``[0, tlas_cap)`` and the per-mesh BLAS tables at fixed offsets after
+it, so moving an instance re-emits only the TLAS rows
+(``emit_tlas_rows16``).  The TLAS is emitted in numpy exactly as the
+reference emits it (``accel/bvh2.py`` + ``_collapse16`` +
+``_quantize_node``), byte for byte.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import tempfile
 import numpy as np
 
 from unity_webgpu_pathtracer_torch.accel import native
+from unity_webgpu_pathtracer_torch.accel.bvh2 import BVH2, build_bvh2
 
 ROW = 96
 WIDTH = 16
@@ -46,6 +57,8 @@ OFF_QBOX = 8     # 24 floats: 96 bytes comp-major
 OFF_PTRS = 32    # 16 ints
 OFF_TRIS = 4     # 72 floats: 9 comps x 16 f16
 OFF_IDX = 76     # 16 ints
+OFF_W2L = 4      # instance rows: 12 floats
+OFF_BLAS = 16    # instance rows: BLAS root row (int)
 
 # Slot -> leaf halfword position, and the child-box byte involution.
 PERM_H_POS = np.array([2 * s if s < 8 else 2 * (s - 8) + 1
@@ -159,3 +172,205 @@ def _cache_store(path: str, w: Wide16) -> None:
         os.replace(tmp, path)
     except OSError:
         pass
+
+
+# ---------------------------------------------------------------------- TLAS
+
+def _f32(i) -> np.ndarray:
+    return np.asarray(i, np.int32).view(np.float32)
+
+
+def _subtree_ranges(bvh: BVH2) -> tuple[np.ndarray, np.ndarray]:
+    """(start, count) triangle range per node (subtrees are contiguous)."""
+    start = np.array(bvh.start, np.int64)
+    count = np.array(bvh.count, np.int64)
+    # Children always follow their parent in the arrays; sweep backwards.
+    for ni in range(bvh.node_count - 1, -1, -1):
+        li = bvh.left[ni]
+        if li >= 0:
+            start[ni] = min(start[li], start[li + 1])
+            count[ni] = count[li] + count[li + 1]
+    return start.astype(np.int32), count.astype(np.int32)
+
+
+def _area(bvh: BVH2, c: int) -> float:
+    d = np.maximum(bvh.nmax[c] - bvh.nmin[c], 0.0)
+    return float(d[0] * d[1] + d[1] * d[2] + d[2] * d[0])
+
+
+def _collapse16(bvh: BVH2, node: int, counts: np.ndarray, max_leaf: int = 16) -> list:
+    """Greedy 2-wide -> up-to-16-wide collapse: repeatedly expand the child
+    with the largest surface area; subtrees with <= max_leaf primitives
+    stay whole."""
+    l = bvh.left[node]
+    kids = [l, l + 1]
+    while len(kids) < WIDTH:
+        expandable = [(_area(bvh, c), i) for i, c in enumerate(kids)
+                      if bvh.left[c] >= 0 and counts[c] > max_leaf]
+        if not expandable:
+            break
+        _, i = max(expandable)
+        c = kids.pop(i)
+        cl = bvh.left[c]
+        kids.extend([cl, cl + 1])
+    return kids
+
+
+def _pack_u8_t(vals16: np.ndarray) -> np.ndarray:
+    """(16,) uint8 slots -> (4,) float32 words in SPLIT order: byte j of
+    word w = slot 4j + w."""
+    s = np.asarray(vals16, np.uint8).astype(np.uint32)
+    words = (s[0:4] | (s[4:8] << 8) | (s[8:12] << 16) | (s[12:16] << 24))
+    return words.view(np.int32).view(np.float32)
+
+
+def _quantize_node(row: np.ndarray, nmin, nmax, boxes: list) -> None:
+    """Anchor, power-of-two exponents and conservative 8-bit child boxes."""
+    anchor = np.asarray(nmin, np.float32)
+    extent = np.maximum(np.asarray(nmax, np.float32) - anchor, 0.0)
+    e = np.ceil(np.log2(np.maximum(extent / 255.0, 1e-30))).astype(np.int32)
+    e = np.clip(e, -126, 127)
+    scale = np.ldexp(np.ones(3, np.float32), e)
+    short = 255.0 * scale < extent
+    e = np.clip(e + short.astype(np.int32), -126, 127)
+    scale = np.ldexp(np.ones(3, np.float32), e)
+    row[0:3] = anchor
+    row[OFF_EXPS] = _f32(int(e[0] + 127) | (int(e[1] + 127) << 8) | (int(e[2] + 127) << 16))
+    qlo = np.full((WIDTH, 3), 255, np.uint8)
+    qhi = np.zeros((WIDTH, 3), np.uint8)
+    for k, b in enumerate(boxes):
+        if b is None:
+            continue
+        lo, hi = b
+        qlo[k] = np.clip(np.floor((np.asarray(lo, np.float32) - anchor) / scale), 0, 255)
+        qhi[k] = np.clip(np.ceil((np.asarray(hi, np.float32) - anchor) / scale), 0, 255)
+    # comp-major: qlo x, y, z then qhi x, y, z, SPLIT byte order in each.
+    row[OFF_QBOX : OFF_QBOX + 24] = np.concatenate(
+        [_pack_u8_t(arr[:, c]) for arr in (qlo, qhi) for c in range(3)])
+
+
+@dataclasses.dataclass
+class TlasLayout:
+    """Fixed layout of a two-level table: the TLAS owns rows
+    ``[0, tlas_cap)``, the BLAS tables sit at immutable offsets after it."""
+
+    tlas_cap: int
+    blas_root: dict          # mesh id -> absolute root row
+    blas_depth: int
+    tlas_depth0: int = 0     # TLAS depth at build time (the stack has +3 spare)
+
+
+def tlas_capacity(n_instances: int) -> int:
+    """Rows covering any TLAS over n instances: one instance row each, at
+    most one inner row per instance, and slack."""
+    return 2 * max(n_instances, 1) + 8
+
+
+def emit_tlas_rows16(instances, blas_bounds, blas_root: dict, tlas_cap: int):
+    """The 16-wide TLAS rows over ``instances`` ((mesh id, 4x4 transform,
+    material) triples), zero-padded to ``tlas_cap``.  Returns ``(rows,
+    depth, l2w (I, 12), w2l (I, 12))``."""
+    ni = len(instances)
+    inst_aabb_min = np.zeros((ni, 3), np.float32)
+    inst_aabb_max = np.zeros((ni, 3), np.float32)
+    l2w = np.zeros((ni, 12), np.float32)
+    w2l = np.zeros((ni, 12), np.float32)
+    for i, (mesh_id, transform, _mat) in enumerate(instances):
+        t = np.asarray(transform, np.float32).reshape(4, 4)
+        lo, hi = blas_bounds[mesh_id]
+        corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                            for z in (lo[2], hi[2])], np.float32)
+        wc = corners @ t[:3, :3].T + t[:3, 3]
+        inst_aabb_min[i] = wc.min(0)
+        inst_aabb_max[i] = wc.max(0)
+        l2w[i] = t[:3, :4].reshape(-1)
+        w2l[i] = np.linalg.inv(t)[:3, :4].reshape(-1)
+
+    # BVH2 over the instance boxes, one instance per leaf.
+    fake_tris = np.stack([inst_aabb_min, inst_aabb_max,
+                          (inst_aabb_min + inst_aabb_max) * 0.5], axis=1)
+    tb = build_bvh2(fake_tris, leaf_size=1)
+    starts, counts = _subtree_ranges(tb)
+    rows: list[np.ndarray] = []
+    max_depth = 0
+
+    def emit_inst(inst_i: int) -> int:
+        row = np.zeros(ROW, np.float32)
+        rows.append(row)
+        row[OFF_META] = _f32(-(inst_i + 1))
+        row[OFF_W2L : OFF_W2L + 12] = w2l[inst_i]
+        row[OFF_BLAS] = _f32(blas_root[instances[inst_i][0]])
+        return len(rows) - 1
+
+    def emit(node: int, depth: int) -> int:
+        nonlocal max_depth
+        max_depth = max(max_depth, depth)
+        if counts[node] == 1:
+            return emit_inst(int(tb.order[starts[node]]))
+        my = len(rows)
+        row = np.zeros(ROW, np.float32)
+        rows.append(row)
+        kids = _collapse16(tb, node, counts)
+        # Every instance needs its own row: expand inner children while
+        # slots remain.
+        changed = True
+        while changed:
+            changed = False
+            for i, c in enumerate(list(kids)):
+                if tb.left[c] >= 0 and len(kids) < WIDTH:
+                    kids.pop(i)
+                    kids.extend([tb.left[c], tb.left[c] + 1])
+                    changed = True
+                    break
+        slots = (sorted(kids, key=lambda c: _area(tb, c), reverse=True)
+                 + [None] * (WIDTH - len(kids)))
+        _quantize_node(row, tb.nmin[node], tb.nmax[node],
+                       [None if c is None else (tb.nmin[c], tb.nmax[c]) for c in slots])
+        ptrs = np.full(WIDTH, -1, np.int32)
+        for k, c in enumerate(slots):
+            if c is not None:
+                ptrs[k] = emit(c, depth + 1)
+        row[OFF_PTRS : OFF_PTRS + 16] = ptrs.view(np.float32)
+        return my
+
+    emit(0, 1)
+    if len(rows) > tlas_cap:
+        raise ValueError(f"TLAS rows {len(rows)} > capacity {tlas_cap}")
+    out = np.zeros((tlas_cap, ROW), np.float32)
+    out[: len(rows)] = np.stack(rows)
+    return out, max_depth, l2w, w2l
+
+
+def build_tlas_wide16(blas: list, blas_bounds, instances, attr_bases: list):
+    """Two-level table: the TLAS rows, then each referenced mesh's BLAS
+    (``blas[mesh_id]``, a ``Wide16``) rebased to its offset, its leaf
+    attribute indices shifted by ``attr_bases[mesh_id]``.  Returns
+    ``(Wide16 (order None), l2w, w2l, TlasLayout)``."""
+    cap = tlas_capacity(len(instances))
+    ref_meshes = list(dict.fromkeys(mesh_id for mesh_id, _t, _m in instances))
+    blas_root: dict[int, int] = {}
+    offset = cap
+    blas_depth = 0
+    tables = []
+    for mesh_id in ref_meshes:
+        t = np.array(blas[mesh_id].nodes)
+        meta = t[:, OFF_META].view(np.int32)
+        inner = meta == 0
+        ptrs = t[:, OFF_PTRS : OFF_PTRS + 16].view(np.int32)
+        ptrs[inner] = np.where(ptrs[inner] >= 0, ptrs[inner] + offset, -1)
+        idx = t[:, OFF_IDX : OFF_IDX + 16].view(np.int32)
+        leaf = meta > 0
+        idx[leaf] = np.where(idx[leaf] >= 0, idx[leaf] + attr_bases[mesh_id], -1)
+        blas_root[mesh_id] = offset
+        blas_depth = max(blas_depth, blas[mesh_id].depth)
+        tables.append(t)
+        offset += t.shape[0]
+
+    tlas_rows, tdepth, l2w, w2l = emit_tlas_rows16(instances, blas_bounds, blas_root, cap)
+    depth = tdepth + blas_depth + 1
+    if depth >= MAX_DEPTH:
+        raise ValueError(f"TLAS+BLAS depth {depth} >= {MAX_DEPTH}")
+    layout = TlasLayout(tlas_cap=cap, blas_root=blas_root, blas_depth=blas_depth,
+                        tlas_depth0=tdepth)
+    return (Wide16(nodes=np.concatenate([tlas_rows] + tables, axis=0), depth=depth,
+                   order=None), l2w, w2l, layout)

@@ -24,17 +24,23 @@ import torch
 from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.fused import fused_pass_and_accumulate
-from unity_webgpu_pathtracer_torch.scene.scene import Scene, SceneData
+from unity_webgpu_pathtracer_torch.scene.material import MaterialDesc, pack_materials
+from unity_webgpu_pathtracer_torch.scene.scene import Scene, SceneData, rebuild_tlas_rows
 
 
 class Renderer:
-    """Owns the device scene, the film and the last pass's statistics."""
+    """Owns the device scene, the film and the last pass's statistics.
+    Built from a host ``Scene``, it also takes the dynamic-scene edits
+    (``update_instance_transform``, ``update_material``), each of which
+    restarts accumulation as the reference's dirty tracking does
+    (``PathTracer.cs:169-180, 463-471``)."""
 
     def __init__(self, scene, config: RenderConfig, params: RenderParams,
                  device="cpu"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self._host_scene = scene if isinstance(scene, Scene) else None
         if isinstance(scene, Scene):
             scene = scene.build(config.traversal, device=self.device)
         if not isinstance(scene, SceneData):
@@ -52,6 +58,36 @@ class Renderer:
         """Restart accumulation; the last pass's statistics go with it."""
         self.film = ufilm.reset(self.film)
         self._last = None
+
+    def _require_host_scene(self) -> Scene:
+        if self._host_scene is None:
+            raise ValueError("the renderer was built from SceneData; dynamic "
+                             "updates need the host Scene")
+        return self._host_scene
+
+    def update_instance_transform(self, instance_id: int, transform) -> None:
+        """Move an instance: only the TLAS rows of the node table and the
+        instance transforms are re-emitted and copied to the device, the
+        rows in place (cost independent of the BLAS sizes, as the
+        reference's per-frame TLAS upload, ``BVHScene.cs:823-838``);
+        accumulation restarts."""
+        host = self._require_host_scene()
+        host.set_instance_transform(instance_id, transform)
+        rows, l2w, w2l = rebuild_tlas_rows(host)
+        self.scene.wide16_nodes[: rows.shape[0]].copy_(torch.from_numpy(rows))
+        self.scene = self.scene._replace(
+            inst_l2w=torch.from_numpy(l2w).to(self.device),
+            inst_w2l=torch.from_numpy(w2l).to(self.device))
+        self.reset()
+
+    def update_material(self, material_id: int, desc: MaterialDesc) -> None:
+        """Replace a material (``PathTracer.UpdateMaterialData``, :474);
+        accumulation restarts."""
+        host = self._require_host_scene()
+        host.materials[material_id] = desc
+        self.scene = self.scene._replace(
+            materials=torch.from_numpy(pack_materials(host.materials)).to(self.device))
+        self.reset()
 
     def step(self) -> None:
         """Render one progressive pass (``samples_per_pass`` samples/pixel)."""

@@ -1,12 +1,13 @@
-"""Render configuration for the ported main path.
+"""Render configuration of the ported fused wide16 integrator.
 
 :class:`RenderConfig` keeps the fields of the reference's ``RenderConfig``
-(``unity_webgpu_pathtracer_tpu/config.py``) that the fused wide16 main path
+(``unity_webgpu_pathtracer_tpu/config.py``) that the fused wide16 path
 reads, under the same names.  Defaults follow the reference except where
 the reference default selects a path this port does not implement
-(``traversal``, ``integrator``, ``sky_mode``, ``has_environment_texture``):
-those default to the main path's values.  Every knob the port does not
-implement raises ``ValueError`` at construction.
+(``traversal``, ``integrator``) or is not the main path's (``sky_mode``,
+``has_environment_texture``): those default to the main path's values.
+Every knob the port does not implement raises ``ValueError`` at
+construction.
 
 :class:`RenderParams` is a dataclass of tensors (camera matrices and
 environment uniforms); ``params_from_numpy`` builds one from the
@@ -23,11 +24,18 @@ import torch
 # Sky modes (common.hlsl:85-86)
 SKY_MODE_ENVIRONMENT = 0
 SKY_MODE_BASIC = 1
+SKY_MODE_NONE = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static render configuration of the fused wide16 main path."""
+    """Static render configuration of the fused wide16 integrator.
+
+    ``sky_mode`` 0 is the environment (the HDRI when
+    ``has_environment_texture``, else the constant ``environment_color``),
+    with environment NEE; 1 the basic gradient sky; 2 no sky.  The
+    reference's ``has_tlas`` is not a field: it reads it nowhere, and here
+    as there the scene's instance table selects the two-level traversal."""
 
     width: int = 512
     height: int = 512
@@ -40,7 +48,6 @@ class RenderConfig:
     has_environment_texture: bool = True
     has_lights: bool = False
     has_textures: bool = False
-    has_tlas: bool = False
     has_normal_maps: bool = False
     use_depth_of_field: bool = False
     traversal: str = "wide16"
@@ -59,12 +66,11 @@ class RenderConfig:
             "traversal": self.traversal != "wide16",
             "integrator": self.integrator != "fused",
             "attr_compact": self.attr_compact != 2,
-            "sky_mode": self.sky_mode != SKY_MODE_ENVIRONMENT,
-            "has_environment_texture": not self.has_environment_texture,
+            "sky_mode": self.sky_mode not in (SKY_MODE_ENVIRONMENT, SKY_MODE_BASIC,
+                                              SKY_MODE_NONE),
             "has_lights": self.has_lights,
             "has_textures": self.has_textures,
             "has_normal_maps": self.has_normal_maps,
-            "has_tlas": self.has_tlas,
             "use_depth_of_field": self.use_depth_of_field,
             "use_record_film": not self.use_record_film,
             "use_lane_film": self.use_lane_film,
@@ -72,10 +78,10 @@ class RenderConfig:
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise ValueError(
-                "the PyTorch port implements only the fused wide16 main path "
-                "(traversal='wide16', integrator='fused', attr_compact=2, HDRI "
-                "environment NEE, record film, no lights/textures/normal "
-                f"maps/TLAS/depth of field); unsupported settings: {bad}")
+                "the PyTorch port implements only the fused wide16 integrator "
+                "(traversal='wide16', integrator='fused', attr_compact=2, sky "
+                "modes 0-2, record film, no lights/textures/normal maps/depth "
+                f"of field); unsupported settings: {bad}")
         if self.transition_every < 1 or self.max_bounces < 0:
             raise ValueError("transition_every must be >= 1 and "
                              "max_bounces >= 0")
@@ -92,15 +98,17 @@ def _scalar(x, dtype=torch.float32, device="cpu"):
 class RenderParams:
     """Per-frame uniforms as tensors (the reference's ``RenderParams``).
 
-    Only the uniforms the main path reads: the reference's depth-of-field
-    and basic-sky fields have no use while ``RenderConfig`` refuses those
-    paths.  ``seed_root`` holds a uint32 value in an int64 tensor (the
-    port's PCG arithmetic runs in int64 masked to 32 bits)."""
+    Only the uniforms the port reads: the reference's depth-of-field fields
+    have no use while ``RenderConfig`` refuses that path.
+    ``environment_color`` (3,) is the constant environment's radiance.
+    ``seed_root`` holds a uint32 value in an int64 tensor (the port's PCG
+    arithmetic runs in int64 masked to 32 bits)."""
 
     cam_to_world: torch.Tensor          # (4, 4) float32
     cam_inv_proj: torch.Tensor          # (4, 4) float32
     environment_intensity: torch.Tensor
     environment_rotation: torch.Tensor
+    environment_color: torch.Tensor     # (3,) float32
     max_firefly_luminance: torch.Tensor
     seed_root: torch.Tensor             # () int64, value < 2**32
 
@@ -111,7 +119,7 @@ class RenderParams:
 
 _PARAM_DEFAULTS = dict(
     environment_intensity=1.0, environment_rotation=0.0,
-    max_firefly_luminance=100.0, seed_root=0,
+    environment_color=(0.5, 0.5, 0.5), max_firefly_luminance=100.0, seed_root=0,
 )
 
 
@@ -123,7 +131,7 @@ def params_from_numpy(arrays: dict, device="cpu") -> RenderParams:
     extra = set(arrays) - {f.name for f in dataclasses.fields(RenderParams)}
     if extra:
         raise ValueError(f"RenderParams has no fields {sorted(extra)} (the port "
-                         "implements neither depth of field nor the basic sky)")
+                         "does not implement depth of field)")
     kw = {}
     for f in dataclasses.fields(RenderParams):
         val = arrays[f.name] if f.name in arrays else _PARAM_DEFAULTS[f.name]

@@ -1,7 +1,10 @@
-// wide16 BVH arrival step, one thread per lane.
+// wide16 BVH arrival step, one thread per lane, in two instantiations:
+// arrival16_launch (flat tables) and arrival16_inst_launch (two-level
+// tables with TLAS instance rows).
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py::_arrival_kernel
-// (reached from arrival_step16_pallas), non-instanced, 96-float rows.
+// (reached from arrival_step16_pallas), 96-float rows, without and with
+// has_inst.
 //
 // What bounds it on an H100: memory latency.  Each live lane reads its own
 // 384-byte node row at a data-dependent address (a gather with little
@@ -15,6 +18,15 @@
 // copy is coalesced, and lanes that do not run copied through unchanged.
 // Compiled with -fmad=false so it rounds op for op like the plain twin
 // (ops/traverse_wide16.py::arrival_step16).
+//
+// Instanced tables (HAS_INST): a lane inside a BLAS (inst >= 0) tests
+// boxes and triangles with its instance-local ray; an instance row
+// (meta < 0) takes the world ray through the row's world-to-local 3x4 in
+// the twin's order ((m0*o0 + m1*o1) + m2*o2) + m3, jumps to the BLAS root
+// (word 16) and records the stack height; a pop below that height returns
+// the lane to world space.  The instance state is six more planes
+// (InstArgs), read and written only by this instantiation, so the flat
+// kernel pays nothing for it.
 //
 // Constants come from the Python side as -D macros (ops/cuda_build.py).
 
@@ -53,6 +65,22 @@ struct ArrivalArgs {
   int depth;
 };
 
+// Instance registers of two-level tables (Wide16State's instance fields).
+struct InstArgs {
+  const int* inst;              // (B,) -1 = world space
+  const int* hit_inst;
+  const int* sp_enter;
+  const float* local_o;         // (3, B) planes
+  const float* local_d;
+  const float* local_inv;
+  int* o_inst;
+  int* o_hit_inst;
+  int* o_sp_enter;
+  float* o_local_o;
+  float* o_local_d;
+  float* o_local_inv;
+};
+
 // jnp.minimum / jnp.maximum: NaN-propagating.
 __device__ __forceinline__ float jmin(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fminf(a, b));
@@ -61,7 +89,8 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
-__global__ void arrival16_kernel(ArrivalArgs a) {
+template <bool HAS_INST>
+__global__ void arrival16_kernel(ArrivalArgs a, InstArgs n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.b) return;
   const int B = a.b;
@@ -74,6 +103,14 @@ __global__ void arrival16_kernel(ArrivalArgs a) {
   bool found = a.found[i] != 0;
   const bool live = ptr >= 0 && (a.active == nullptr || a.active[i] != 0);
 
+  // Instance registers (HAS_INST only).
+  const int inst0 = HAS_INST ? n.inst[i] : -1;
+  int inst = inst0;
+  int hit_inst = HAS_INST ? n.hit_inst[i] : -1;
+  int sp_enter = HAS_INST ? n.sp_enter[i] : 0;
+  bool enter = false;
+  float lo3[3] = {0.0f, 0.0f, 0.0f}, ld3[3] = {0.0f, 0.0f, 0.0f};
+
   int new_ptr = ptr, new_pend = pend, new_sp = sp;
   float t = t0;
   bool push = false;
@@ -83,14 +120,19 @@ __global__ void arrival16_kernel(ArrivalArgs a) {
     const float* row = a.nodes + (size_t)ptr * 96;
     const int* rowi = reinterpret_cast<const int*>(row);
     const int meta = rowi[3];
-    const float o0 = a.o[i], o1 = a.o[B + i], o2 = a.o[2 * B + i];
+    // The ray this row is tested with: instance-local inside a BLAS.
+    const bool in_blas = HAS_INST && inst0 >= 0;
+    const float* ro = in_blas ? n.local_o : a.o;
+    const float* rd = in_blas ? n.local_d : a.d;
+    const float* ri = in_blas ? n.local_inv : a.inv;
+    const float o0 = ro[i], o1 = ro[B + i], o2 = ro[2 * B + i];
     const float ax = row[0], ay = row[1], az = row[2];
     bool found_child = false;
     bool need_pop = false;
 
     if (meta == 0) {
       // ---- inner: 16 quantized child boxes, slab test ----
-      const float i0 = a.inv[i], i1 = a.inv[B + i], i2 = a.inv[2 * B + i];
+      const float i0 = ri[i], i1 = ri[B + i], i2 = ri[2 * B + i];
       const int eword = rowi[4];
       const float s0 = __int_as_float((eword & 0xFF) << 23);
       const float s1 = __int_as_float(((eword >> 8) & 0xFF) << 23);
@@ -155,7 +197,7 @@ __global__ void arrival16_kernel(ArrivalArgs a) {
     } else if (meta > 0) {
       // ---- leaf: up to 16 anchor-relative f16 triangles ----
       need_pop = true;
-      const float d0 = a.d[i], d1 = a.d[B + i], d2 = a.d[2 * B + i];
+      const float d0 = rd[i], d1 = rd[B + i], d2 = rd[2 * B + i];
       float best_t = 0.0f, best_u = 0.0f, best_v = 0.0f;
       int best_tri = 0;
       const int cnt = meta < 16 ? meta : 16;
@@ -200,9 +242,24 @@ __global__ void arrival16_kernel(ArrivalArgs a) {
         v = best_v;
         tri = best_tri;
         found = true;
+        hit_inst = inst0;   // the instance of the best hit (pre-update)
       }
+    } else if (HAS_INST) {
+      // ---- instance row: enter instance space, jump to the BLAS root ----
+      // (flat tables have no meta < 0 rows.)
+      const float ow0 = a.o[i], ow1 = a.o[B + i], ow2 = a.o[2 * B + i];
+      const float dw0 = a.d[i], dw1 = a.d[B + i], dw2 = a.d[2 * B + i];
+      for (int c = 0; c < 3; ++c) {
+        const float* m = row + 4 + 4 * c;
+        lo3[c] = ((m[0] * ow0 + m[1] * ow1) + m[2] * ow2) + m[3];
+        ld3[c] = (m[0] * dw0 + m[1] * dw1) + m[2] * dw2;
+      }
+      enter = true;
+      inst = -meta - 1;
+      sp_enter = sp;   // no push on an instance row
+      new_ptr = rowi[16];
+      new_pend = UWPT_TRAV_FULL;
     }
-    // meta < 0 (instance rows) does not occur in non-instanced tables.
 
     if (need_pop) {
       if (sp > 0) {
@@ -211,9 +268,12 @@ __global__ void arrival16_kernel(ArrivalArgs a) {
         new_ptr = top_row;
         new_pend = top_mask == 0 ? UWPT_TRAV_FULL : top_mask;
         new_sp = sp - 1;
+        // Popping below the entry height returns the lane to world space.
+        if (HAS_INST && inst0 >= 0 && new_sp < sp_enter) inst = -1;
       } else {
         new_ptr = UWPT_TRAV_DONE;
         new_pend = UWPT_TRAV_FULL;
+        if (HAS_INST) inst = -1;
       }
     } else if (push) {
       new_sp = sp + 1;
@@ -234,15 +294,39 @@ __global__ void arrival16_kernel(ArrivalArgs a) {
   a.o_v[i] = v;
   a.o_tri[i] = tri;
   a.o_found[i] = found ? 1 : 0;
+  if (HAS_INST) {
+    n.o_inst[i] = inst;
+    n.o_hit_inst[i] = hit_inst;
+    n.o_sp_enter[i] = sp_enter;
+    for (int c = 0; c < 3; ++c) {
+      const size_t k = (size_t)c * B + i;
+      const float ld = ld3[c];
+      n.o_local_o[k] = enter ? lo3[c] : n.local_o[k];
+      n.o_local_d[k] = enter ? ld : n.local_d[k];
+      // utils/math.py::safe_rcp: exact zeros nudged to 1e-30.
+      n.o_local_inv[k] = enter ? 1.0f / (ld == 0.0f ? 1.0e-30f : ld) : n.local_inv[k];
+    }
+  }
 }
 
-extern "C" int arrival16_launch(const ArrivalArgs* args, void* stream) {
+template <bool HAS_INST>
+static int launch(const ArrivalArgs* args, const InstArgs* inst, void* stream) {
   const int threads = 256;
   const int blocks = (args->b + threads - 1) / threads;
   if (blocks > 0) {
-    arrival16_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    arrival16_kernel<HAS_INST><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int arrival16_launch(const ArrivalArgs* args, void* stream) {
+  const InstArgs none = {};
+  return launch<false>(args, &none, stream);
+}
+
+extern "C" int arrival16_inst_launch(const ArrivalArgs* args, const InstArgs* inst,
+                                     void* stream) {
+  return launch<true>(args, inst, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

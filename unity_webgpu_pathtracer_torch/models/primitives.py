@@ -19,6 +19,38 @@ def quad(size=(1.0, 1.0), material_index=0) -> Mesh:
     return Mesh(vertices=v, indices=f, normals=n, uvs=uv, material_index=material_index)
 
 
+def box(size=(1.0, 1.0, 1.0), material_index=0) -> Mesh:
+    """Axis-aligned box, outward normals, centered at origin."""
+    sx, sy, sz = np.asarray(size, np.float32) * 0.5
+    verts, faces, normals, uvs = [], [], [], []
+    # (axis, sign): for each face build 4 verts.
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            u_axis = (axis + 1) % 3
+            v_axis = (axis + 2) % 3
+            if sign < 0:
+                u_axis, v_axis = v_axis, u_axis
+            n = np.zeros(3, np.float32)
+            n[axis] = sign
+            c = n * (sx, sy, sz)[axis] * 1.0
+            base = len(verts)
+            for du, dv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = c.copy()
+                p[u_axis] = du * (sx, sy, sz)[u_axis]
+                p[v_axis] = dv * (sx, sy, sz)[v_axis]
+                verts.append(p)
+                normals.append(n)
+                uvs.append([(du + 1) / 2, (dv + 1) / 2])
+            faces += [[base, base + 1, base + 2], [base, base + 2, base + 3]]
+    return Mesh(
+        vertices=np.asarray(verts, np.float32),
+        indices=np.asarray(faces, np.int32),
+        normals=np.asarray(normals, np.float32),
+        uvs=np.asarray(uvs, np.float32),
+        material_index=material_index,
+    )
+
+
 def uv_sphere(radius=1.0, stacks=16, slices=32, material_index=0) -> Mesh:
     """UV sphere with smooth normals."""
     verts, normals, uvs = [], [], []

@@ -108,6 +108,8 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]   # args struct, stream
+    lib.arrival16_inst_launch.restype = ctypes.c_int
+    lib.arrival16_inst_launch.argtypes = [ctypes.c_void_p] * 3   # args, instance args, stream
     lib.cuda_error_string.restype = ctypes.c_char_p
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     _LIB = lib

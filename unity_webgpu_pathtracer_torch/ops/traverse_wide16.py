@@ -1,13 +1,18 @@
 """wide16 stack traversal in plain PyTorch (``ops/traverse_wide16.py`` of
-the reference, non-instanced).
+the reference).
 
 ``arrival_step16`` is one traversal step per lane on the row ``nodes[ptr]``:
 an inner row slab-tests its 16 quantized child boxes, descends to the
 nearest hit child and pushes the rest as (row, remaining-mask) on the
 lane's register stack (a single survivor is pushed as a direct pointer,
 mask 0); a leaf row runs Möller-Trumbore on its up to 16 f16 triangles and
-keeps the closest hit; then the lane pops.  It is the independent plain
-twin of the CUDA arrival kernel (``ops/cuda_arrival.py``).
+keeps the closest hit; then the lane pops.  With ``has_instances`` an
+instance row (two-level tables) takes the lane into the instance's space:
+the ray goes through the row's world-to-local 3x4 (unnormalized
+direction, so ``t`` stays in world units, ``tlas.hlsl:131-135``), the lane
+jumps to the BLAS root and records the stack height; popping below that
+height returns it to world space.  It is the independent plain twin of
+the CUDA arrival kernels (``ops/cuda_arrival.py``).
 
 ``prestep16`` runs the first two inner levels of fresh segments from the
 root row and the host slot table, without row gathers.
@@ -19,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE
+from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
 
 DONE = -1
 FULL = 0xFFFF
@@ -40,12 +45,20 @@ class Wide16State(NamedTuple):
     v: torch.Tensor
     tri: torch.Tensor         # (B,) int32 attribute row of the best hit (-1 none)
     found: torch.Tensor       # (B,) bool
+    # Instance registers, read and written only with has_instances.
+    inst: torch.Tensor        # (B,) int32 current instance (-1 = world space)
+    hit_inst: torch.Tensor    # (B,) int32 instance of the best hit
+    sp_enter: torch.Tensor    # (B,) int32 stack height at instance entry
+    local_o: torch.Tensor     # (3, B) float32 instance-local ray planes
+    local_d: torch.Tensor
+    local_inv: torch.Tensor
 
 
 def init_state16(b: int, t_max: float, ptr0: int = 0, depth: int = 20,
                  device="cpu") -> Wide16State:
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
+    z3 = torch.zeros((3, b), **f32)
     return Wide16State(
         ptr=torch.full((b,), ptr0, **i32),
         pend=torch.full((b,), FULL, **i32),
@@ -57,6 +70,10 @@ def init_state16(b: int, t_max: float, ptr0: int = 0, depth: int = 20,
         v=torch.zeros((b,), **f32),
         tri=torch.full((b,), -1, **i32),
         found=torch.zeros((b,), dtype=torch.bool, device=device),
+        inst=torch.full((b,), -1, **i32),
+        hit_inst=torch.full((b,), -1, **i32),
+        sp_enter=torch.zeros((b,), **i32),
+        local_o=z3, local_d=z3.clone(), local_inv=z3.clone(),
     )
 
 
@@ -118,8 +135,10 @@ def _push(stack_row, stack_mask, level, do_push, entry_row, entry_mask):
 
 def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                    inv: torch.Tensor, s: Wide16State,
-                   active: torch.Tensor | None = None) -> Wide16State:
-    """One arrival for every lane; ``o``/``d``/``inv`` are (B, 3)."""
+                   active: torch.Tensor | None = None,
+                   has_instances: bool = False) -> Wide16State:
+    """One arrival for every lane; ``o``/``d``/``inv`` are the world ray,
+    (B, 3)."""
     nodes_i = nodes.view(torch.int32)
     live = s.ptr >= 0
     if active is not None:
@@ -131,6 +150,13 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     is_leaf = live & (meta > 0)
     is_inner = live & (meta == 0)
     anchor = row[:, 0:3]
+    o_w, d_w = o, d
+    if has_instances:
+        # Lanes inside a BLAS trace their instance-local ray.
+        in_blas = (s.inst >= 0)[:, None]
+        o = torch.where(in_blas, s.local_o.T, o)
+        d = torch.where(in_blas, s.local_d.T, d)
+        inv = torch.where(in_blas, s.local_inv.T, inv)
 
     # ---- inner: decode 16 quantized child boxes, slab-test ----
     qbytes = row_i[:, 8:32].contiguous().view(torch.uint8).to(torch.float32)  # (B, 96)
@@ -205,12 +231,40 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     new_pend = torch.where(found_child, full,
                            torch.where(need_pop, torch.where(has, pop_pend, full),
                                        s.pend))
-    return s._replace(
+    out = s._replace(stack_row=stack_row, stack_mask=stack_mask,
+                     t=t_new, u=u_new, v=v_new, tri=tri_new, found=found_new)
+    if not has_instances:
+        return out._replace(ptr=torch.where(live, new_ptr, s.ptr),
+                            pend=torch.where(live, new_pend, s.pend),
+                            sp=torch.where(live, sp_after, s.sp))
+
+    # ---- instance row: enter instance space, jump to the BLAS root ----
+    is_inst = live & (meta < 0)
+    w2l = row[:, 4:16]
+    lo3 = torch.stack([w2l[:, 4 * c] * o_w[:, 0] + w2l[:, 4 * c + 1] * o_w[:, 1]
+                       + w2l[:, 4 * c + 2] * o_w[:, 2] + w2l[:, 4 * c + 3]
+                       for c in range(3)])                       # (3, B)
+    ld3 = torch.stack([w2l[:, 4 * c] * d_w[:, 0] + w2l[:, 4 * c + 1] * d_w[:, 1]
+                       + w2l[:, 4 * c + 2] * d_w[:, 2] for c in range(3)])
+    e3 = is_inst[None, :]
+    inst = torch.where(is_inst, -meta - 1, s.inst)
+    sp_enter = torch.where(is_inst, sp, s.sp_enter)
+    # Popping below the instance-entry height returns the lane to world
+    # space (every entry at or above it is BLAS-local).
+    exited = need_pop & (s.inst >= 0) & (sp_after < sp_enter)
+    inst = torch.where(exited | (need_pop & ~has), torch.full_like(inst, -1), inst)
+    new_ptr = torch.where(is_inst, row_i[:, 16], new_ptr)
+    new_pend = torch.where(is_inst, full, new_pend)
+    return out._replace(
         ptr=torch.where(live, new_ptr, s.ptr),
         pend=torch.where(live, new_pend, s.pend),
         sp=torch.where(live, sp_after, s.sp),
-        stack_row=stack_row, stack_mask=stack_mask,
-        t=t_new, u=u_new, v=v_new, tri=tri_new, found=found_new,
+        inst=torch.where(live, inst, s.inst),
+        hit_inst=torch.where(improved, s.inst, s.hit_inst),   # the instance before entry
+        sp_enter=torch.where(live, sp_enter, s.sp_enter),
+        local_o=torch.where(e3, lo3, s.local_o),
+        local_d=torch.where(e3, ld3, s.local_d),
+        local_inv=torch.where(e3, safe_rcp(ld3), s.local_inv),
     )
 
 
@@ -219,10 +273,12 @@ def prestep16(nodes: torch.Tensor, top: torch.Tensor, o: torch.Tensor,
               mask: torch.Tensor) -> Wide16State:
     """Gather-free first one or two arrivals for fresh lanes.
 
-    ``mask`` selects fresh lanes (ptr == 0, pend == FULL, sp == 0).  Level
-    1 slab-tests the root's children from the root row; level 2 takes the
-    chosen child's decoded fields from the slot table ``top`` (skipped
-    when ``top`` is the (1, 119) placeholder).  Lanes with no grandchild
+    ``mask`` selects fresh lanes (ptr == 0, pend == FULL, sp == 0, world
+    space).  Level 1 slab-tests the root's children from the root row;
+    level 2 takes the chosen child's decoded fields from the slot table
+    ``top`` (skipped when ``top`` is the (1, 119) placeholder, as for
+    instanced scenes, whose level-1 children may be instance rows: the
+    next arrival enters them).  Lanes with no grandchild
     hit stay at the child row, where the next arrival repeats the test.
     ``o``/``d``/``inv`` are (B, 3)."""
     b = s.ptr.shape[0]

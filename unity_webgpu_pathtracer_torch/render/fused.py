@@ -1,13 +1,20 @@
-"""Fused wavefront integrator, wide16 + record-film main path
+"""Fused wavefront integrator over wide16 tables with the record film
 (``render/fused.py`` of the reference).
 
 One pass is a loop of super-iterations over a pool of B lanes.  Each
 super-iteration runs ``transition_every`` arrivals (kernel K1,
-``ops/cuda_arrival.py``), one transition (the env sample and the
-attribute/material gathers in PyTorch, then kernel K2,
-``ops/cuda_transition.py``, then the record-film append and work-queue
-regeneration in PyTorch), and the gather-free prestep on fresh lanes,
-in the reference's order: the RNG stream depends on it.
+``ops/cuda_arrival.py``; its instanced variant on two-level tables), one
+transition, and the gather-free prestep on fresh lanes, in the
+reference's order: the RNG stream depends on it.
+
+The transition is routed per pass as the reference routes it
+(``_pallas_transition_supported``): the HDRI configuration on a flat
+scene runs kernel K2 (``ops/cuda_transition.py``) on pre-gathered inputs
+(``_transition_kernel_path``); every other configuration the port admits
+(the constant environment, the basic sky, no sky, instanced scenes) runs
+the general transition (``_transition``), plain PyTorch like the
+reference's XLA one.  Both end in the same record-film append and
+work-queue regeneration.
 
 Dead lanes pull (pixel, sample) work items off a pixel-major queue.  Each
 path's radiance is appended once, keyed by pixel, to a pass-lifetime
@@ -26,7 +33,11 @@ import dataclasses
 
 import torch
 
-from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams
+from unity_webgpu_pathtracer_torch.config import (
+    SKY_MODE_ENVIRONMENT,
+    RenderConfig,
+    RenderParams,
+)
 from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw16
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
 from unity_webgpu_pathtracer_torch.ops.cuda_transition import (
@@ -35,14 +46,36 @@ from unity_webgpu_pathtracer_torch.ops.cuda_transition import (
     MODE_SHADOW_ENV,
     transition_step16_cuda,
 )
+from unity_webgpu_pathtracer_torch.render import bsdf
 from unity_webgpu_pathtracer_torch.render import camera as ucamera
 from unity_webgpu_pathtracer_torch.render import film as ufilm
+from unity_webgpu_pathtracer_torch.render.hitinfo import (
+    instance_material_override,
+    instance_normal_to_world,
+)
+from unity_webgpu_pathtracer_torch.render.sampling import power_heuristic, uniform_sample_sphere
+from unity_webgpu_pathtracer_torch.render.sky import sample_sky_radiance
 from unity_webgpu_pathtracer_torch.scene.envmap import sample_env_transition
+from unity_webgpu_pathtracer_torch.scene.material import derive_material
 from unity_webgpu_pathtracer_torch.utils import rng as urng
-from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
+from unity_webgpu_pathtracer_torch.utils.math import (
+    EPSILON,
+    FAR_PLANE,
+    PI,
+    safe_rcp,
+    vdot,
+    vluminance,
+    vneg,
+    vnormalize,
+    vscale,
+    vwhere,
+)
 
 # Sort key of record rows never written in a pass (behind every pixel).
 _UNWRITTEN_KEY = 1 << 30
+# Alpha modes (common.hlsl:88-90).
+_ALPHA_BLEND = 1
+_ALPHA_MASK = 2
 
 
 @dataclasses.dataclass
@@ -57,6 +90,7 @@ class FusedState:
     hit_t: torch.Tensor           # (B,)
     hit_uv_bary: torch.Tensor     # (2, B)
     hit_tri: torch.Tensor         # (B,) int32 attribute row (-1 = miss)
+    hit_inst: torch.Tensor        # (B,) int32 instance of the hit (-1 = none)
     pending: torch.Tensor         # (3, B) NEE contribution awaiting its shadow ray
     throughput: torch.Tensor      # (3, B)
     radiance: torch.Tensor        # (3, B)
@@ -78,11 +112,18 @@ class FusedState:
     rec_cursor: torch.Tensor      # () int64
 
 
-def _set_trav(s: FusedState, mask: torch.Tensor) -> None:
-    """Point masked lanes' traversal at their path ray, registers reset."""
+def _stack(v) -> torch.Tensor:
+    """Planes (a 3-tuple or a (3, B) tensor) as one (3, B) tensor."""
+    return torch.stack([v[0], v[1], v[2]])
+
+
+def _set_trav(s: FusedState, mask: torch.Tensor, o, d) -> None:
+    """Start masked lanes on a fresh world-space segment along ``(o, d)``
+    ((3, B) planes) at the root, registers reset."""
     tr = s.trav
     zi = torch.zeros_like(tr.ptr)
     zf = torch.zeros_like(tr.t)
+    minus1 = torch.full_like(tr.tri, -1)
     s.trav = tr._replace(
         ptr=torch.where(mask, zi, tr.ptr),
         pend=torch.where(mask, torch.full_like(tr.pend, tw16.FULL), tr.pend),
@@ -90,23 +131,98 @@ def _set_trav(s: FusedState, mask: torch.Tensor) -> None:
         t=torch.where(mask, torch.full_like(tr.t, FAR_PLANE), tr.t),
         u=torch.where(mask, zf, tr.u),
         v=torch.where(mask, zf, tr.v),
-        tri=torch.where(mask, torch.full_like(tr.tri, -1), tr.tri),
+        tri=torch.where(mask, minus1, tr.tri),
         found=tr.found & ~mask,
+        inst=torch.where(mask, minus1, tr.inst),
+        hit_inst=torch.where(mask, minus1, tr.hit_inst),
     )
-    s.trav_o = torch.where(mask, s.path_o, s.trav_o)
-    s.trav_d = torch.where(mask, s.path_d, s.trav_d)
+    s.trav_o = torch.where(mask, o, s.trav_o)
+    s.trav_d = torch.where(mask, d, s.trav_d)
+
+
+def _kernel_transition_supported(scene, config: RenderConfig) -> bool:
+    """The reference's ``_pallas_transition_supported`` on what the port
+    admits: the HDRI with its NEE, on a flat scene.  (Its other conditions,
+    wide16, paired-f16 rows, no lights, textures or normal maps, the record
+    film and at most 65536 materials, hold for every scene and config the
+    port builds.)"""
+    return (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
+            and scene.inst_w2l.shape[0] == 0)
+
+
+def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedState,
+                           budget: int, current_sample: int, died: torch.Tensor,
+                           rad_out: torch.Tensor) -> None:
+    """The end of every transition, on ``s`` already shaded: append the
+    dying lanes' records, then start queued work items in the dead lanes
+    (updates ``s`` in place).
+
+    Every lane's record is keyed by its pixel if the lane died and past
+    every pixel otherwise, stably sorted (each pixel keeps its order) and
+    written at the cursor; only the dead lanes' records advance it, so
+    the tail is overwritten by the next append.  All deaths are taken at
+    once (the reference's default ``film_k_shift = 0``), so no lane ever
+    waits with a pending record."""
+    b = s.mode.shape[0]
+    npix = config.pixel_count()
+    lane = torch.arange(b, device=s.mode.device)
+    key = torch.where(died, s.pixel, (npix + lane).to(torch.int32))
+    ks, perm = torch.sort(key, stable=True)
+    at = s.rec_cursor + lane
+    s.rec_keys[at] = ks
+    s.rec_rgb[:, at] = rad_out[:, perm]
+    s.rec_cursor = s.rec_cursor + died.sum()
+
+    avail = s.mode == MODE_DEAD
+    remaining = budget - s.queue_head
+    rank = torch.cumsum(avail.to(torch.int64), 0) - 1
+    work_id = s.queue_head + rank
+    take = avail & (rank < remaining)
+    pixel_new = torch.remainder(work_id, npix)
+    sample_new = torch.div(work_id, npix, rounding_mode="floor") + current_sample
+    s.queue_head = s.queue_head + torch.minimum(avail.sum(), remaining)
+    s.radiance = torch.where(died | take, torch.zeros_like(s.radiance), s.radiance)
+
+    rng_new = urng.seed(pixel_new, sample_new, params.seed_root)
+    coords, rng_new = ucamera.jittered_pixel_coords(pixel_new, config, rng_new)
+    o_new, d_new = ucamera.get_screen_ray(coords, config, params)
+    s.mode = torch.where(take, torch.full_like(s.mode, MODE_PRIMARY), s.mode)
+    # (3, B) planes: the kernels take contiguous planes, and torch.where
+    # keeps a transposed operand's strides.
+    s.path_o = torch.where(take, o_new.T.contiguous(), s.path_o)
+    s.path_d = torch.where(take, d_new.T.contiguous(), s.path_d)
+    _set_trav(s, take, s.path_o, s.path_d)
+    s.throughput = torch.where(take, torch.ones_like(s.throughput), s.throughput)
+    s.rng = torch.where(take, rng_new, s.rng)
+    s.pixel = torch.where(take, pixel_new.to(torch.int32), s.pixel)
+    s.depth = torch.where(take, torch.zeros_like(s.depth), s.depth)
+    s.max_roughness = torch.where(take, torch.zeros_like(s.max_roughness), s.max_roughness)
+    s.prev_pdf = torch.where(take, torch.zeros_like(s.prev_pdf), s.prev_pdf)
+    s.lane_cap = torch.where(take, torch.full_like(s.lane_cap, 3 * (config.max_bounces + 2) + 32),
+                             s.lane_cap)
+    s.rays = s.rays + take.sum()
+
+
+def _shade_rows(scene, s: FusedState, a: torch.Tensor, hit_valid: torch.Tensor,
+                shadow_done: torch.Tensor):
+    """The attribute row of each lane's hit as (15, B) f32 planes (3 vertex
+    normals, 3 uvs) and its u16 material index.  Lanes that consume no
+    attributes this transition read row 0."""
+    need_mat = (a & hit_valid) | ((s.mode == MODE_SHADOW_ENV) & shadow_done)
+    sel_tri = torch.where(a, s.trav.tri, s.hit_tri)
+    attr = torch.where(need_mat, torch.clamp_min(sel_tri, 0), torch.zeros_like(sel_tri)).long()
+    rows = scene.attr_shade_c[attr]                              # (B, 8) int32
+    shade_rowT = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
+    return shade_rowT, (rows[:, 7] >> 16) & 0xFFFF
 
 
 def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
                             s: FusedState, budget: int, current_sample: int,
                             trav_done: torch.Tensor) -> None:
-    """One transition: env sample and gathers, kernel K2, record-film
-    append and work-queue regeneration (updates ``s`` in place)."""
-    b = s.mode.shape[0]
-    npix = config.pixel_count()
-    dev = s.mode.device
+    """One transition through kernel K2: env sample and gathers, the
+    kernel, then the record-film append and regeneration (updates ``s``
+    in place)."""
     tr = s.trav
-
     a = (s.mode == MODE_PRIMARY) & trav_done
     hit_valid = tr.tri >= 0
     sky_raw, sky_pdf, env_dir, env_col, env_pdf, rng_state = sample_env_transition(
@@ -116,17 +232,8 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
                             torch.ones_like(sky_pdf))
     sky_color = sky_raw * intensity[:, None]
     env_li = env_col * params.environment_intensity
-
-    # Attribute row of this lane's hit: 15 f16 halfwords + a u16 material
-    # index.  Lanes that consume no attributes this transition read row 0.
-    shadow_done = trav_done | tr.found
-    need_mat = (a & hit_valid) | ((s.mode == MODE_SHADOW_ENV) & shadow_done)
-    attr = torch.where(need_mat, torch.clamp_min(torch.where(a, tr.tri, s.hit_tri), 0),
-                       torch.zeros_like(tr.tri)).long()
-    rows = scene.attr_shade_c[attr]                              # (B, 8) int32
-    shade_rowT = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
-    mat_idx = ((rows[:, 7] >> 16) & 0xFFFF).long()
-    mdataT = scene.materials[mat_idx, 0:22].T.contiguous()
+    shade_rowT, mat_idx = _shade_rows(scene, s, a, hit_valid, trav_done | tr.found)
+    mdataT = scene.materials[mat_idx.long(), 0:22].T.contiguous()
 
     k = transition_step16_cuda(
         mode=s.mode, trav_done=trav_done, ptr=tr.ptr, pend=tr.pend, sp=tr.sp,
@@ -145,57 +252,184 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
         firefly_max=params.max_firefly_luminance.reshape(1),
         nan_canary=config.debug_nan_canary)
 
-    # ---- record-film append: every lane's record, keyed by its pixel if
-    # the lane died and past every pixel otherwise, stably sorted (each
-    # pixel keeps its order) and written at the cursor; only the dead
-    # lanes' records advance it, the tail is overwritten by the next
-    # append.  All deaths are taken at once (the reference's default
-    # film_k_shift = 0), so no lane ever waits with a pending record. ----
-    lane = torch.arange(b, device=dev)
-    key = torch.where(k.died, s.pixel, (npix + lane).to(torch.int32))
-    ks, perm = torch.sort(key, stable=True)
-    at = s.rec_cursor + lane
-    s.rec_keys[at] = ks
-    s.rec_rgb[:, at] = k.rad_outT[:, perm]
-    s.rec_cursor = s.rec_cursor + k.died.sum()
-
-    # ---- work-queue regeneration into dead lanes ----
-    avail = k.mode == MODE_DEAD
-    remaining = budget - s.queue_head
-    rank = torch.cumsum(avail.to(torch.int64), 0) - 1
-    work_id = s.queue_head + rank
-    take = avail & (rank < remaining)
-    pixel_new = torch.remainder(work_id, npix)
-    sample_new = torch.div(work_id, npix, rounding_mode="floor") + current_sample
-    s.queue_head = s.queue_head + torch.minimum(avail.sum(), remaining)
-    radiance = torch.where(k.died | take, torch.zeros_like(k.radianceT), k.radianceT)
-
-    rng_new = urng.seed(pixel_new, sample_new, params.seed_root)
-    coords, rng_new = ucamera.jittered_pixel_coords(pixel_new, config, rng_new)
-    o_new, d_new = ucamera.get_screen_ray(coords, config, params)
-    o_new, d_new = o_new.T.contiguous(), d_new.T.contiguous()   # (3, B) planes
-
-    s.mode = torch.where(take, torch.full_like(k.mode, MODE_PRIMARY), k.mode)
-    s.trav = tw16.Wide16State(ptr=k.ptr, pend=k.pend, sp=k.sp,
-                              stack_row=tr.stack_row, stack_mask=tr.stack_mask,
-                              t=k.t, u=k.u, v=k.v, tri=k.tri, found=k.found)
+    s.mode = k.mode
+    s.trav = tr._replace(ptr=k.ptr, pend=k.pend, sp=k.sp, t=k.t, u=k.u, v=k.v,
+                         tri=k.tri, found=k.found)
     s.trav_o, s.trav_d = k.trav_oT, k.trav_dT
-    s.path_o = torch.where(take, o_new, k.path_oT)
-    s.path_d = torch.where(take, d_new, k.path_dT)
-    _set_trav(s, take)
+    s.path_o, s.path_d = k.path_oT, k.path_dT
     s.hit_t, s.hit_uv_bary, s.hit_tri = k.hit_t, k.hit_baryT, k.hit_tri
-    s.pending = k.pendingT
-    s.throughput = torch.where(take, torch.ones_like(k.throughputT), k.throughputT)
-    s.radiance = radiance
-    s.rng = torch.where(take, rng_new, k.rng)
-    s.pixel = torch.where(take, pixel_new.to(torch.int32), s.pixel)
-    s.depth = torch.where(take, torch.zeros_like(k.depth), k.depth)
-    s.max_roughness = torch.where(take, torch.zeros_like(k.max_rough), k.max_rough)
-    s.prev_pdf = torch.where(take, torch.zeros_like(k.prev_pdf), k.prev_pdf)
-    s.lane_cap = torch.where(take, torch.full_like(k.lane_cap, 3 * (config.max_bounces + 2) + 32),
-                             k.lane_cap)
-    # Bounce and shadow starts are counted in-kernel (nray); regens here.
-    s.rays = s.rays + k.nray.sum() + take.sum()
+    s.pending, s.throughput, s.radiance = k.pendingT, k.throughputT, k.radianceT
+    s.rng, s.depth, s.max_roughness = k.rng, k.depth, k.max_rough
+    s.prev_pdf, s.lane_cap = k.prev_pdf, k.lane_cap
+    # Bounce and shadow starts are counted in-kernel (nray); regens below.
+    s.rays = s.rays + k.nray.sum()
+    _record_and_regenerate(config, params, s, budget, current_sample, k.died, k.rad_outT)
+
+
+def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState,
+                budget: int, current_sample: int, trav_done: torch.Tensor) -> None:
+    """The general transition (the reference's ``_transition``, the
+    branches the port admits): miss -> sky with MIS; hit -> shade with the
+    instance hooks, emission, alpha passthrough; shadow result -> pending
+    contribution; environment NEE (HDRI or constant colour) for sky mode
+    0; BSDF sample, Russian roulette, firefly clamp, NaN canary, lane cap;
+    then the record-film append and regeneration.  The uniforms are drawn
+    in the reference's order: the env sample, the alpha draw (every
+    lane), the constant-env pair, the BSDF triple, the RR draw.  Updates
+    ``s`` in place."""
+    env_nee = config.sky_mode == SKY_MODE_ENVIRONMENT
+    tr = s.trav
+    shadow_done = trav_done | tr.found
+    rng = s.rng
+    a = (s.mode == MODE_PRIMARY) & trav_done
+    hit_valid = tr.tri >= 0
+    zero = torch.zeros_like(tr.t)
+    z3 = (zero, zero, zero)
+    path_o, path_d, throughput = s.path_o, s.path_d, s.throughput
+
+    # --- miss -> sky with MIS (the HDRI's sky and NEE share one gather) ---
+    if env_nee and config.has_environment_texture:
+        sky_raw, sky_pdf, env_dir, env_col, env_pdf, rng = sample_env_transition(
+            scene.env, params.environment_rotation, path_d.T, a & hit_valid, rng, need=a)
+        intensity = torch.where(s.depth > 0, params.environment_intensity,
+                                torch.ones_like(sky_pdf))
+        sky_color = (sky_raw * intensity[:, None]).T
+        env_dir = env_dir.T
+        env_li = (env_col * params.environment_intensity).T
+    else:
+        sky_color, sky_pdf = sample_sky_radiance(config, params, path_d.T, s.depth)
+        sky_color = sky_color.T
+    mis = torch.where(s.depth > 0, power_heuristic(s.prev_pdf, sky_pdf), torch.ones_like(zero))
+    miss = a & ~hit_valid
+    g_miss = miss & (mis > 0)
+    radiance = tuple(s.radiance[c] + torch.where(g_miss, mis * sky_color[c] * throughput[c],
+                                                 zero) for c in range(3))
+    shade = a & hit_valid
+
+    # --- hit frame: one attribute + material fetch serves the lanes that
+    # just hit (their fresh registers) and the shadow lanes (saved ones) ---
+    b0 = torch.where(a, tr.u, s.hit_uv_bary[0])
+    b1 = torch.where(a, tr.v, s.hit_uv_bary[1])
+    sel_t = torch.where(a, tr.t, s.hit_t)
+    sr, mat_idx = _shade_rows(scene, s, a, hit_valid, shadow_done)
+    w0 = 1.0 - b0 - b1
+    normal = vnormalize((sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
+                         sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
+                         sr[2] * w0 + sr[5] * b0 + sr[8] * b1))
+    if scene.inst_w2l.shape[0] > 0:
+        sel_inst = torch.where(a, tr.hit_inst, s.hit_inst)
+        normal = instance_normal_to_world(scene, sel_inst, normal)
+        mat_idx = instance_material_override(scene, sel_inst, mat_idx)
+    mdataT = scene.materials[torch.clamp_min(mat_idx, 0).long()].T
+    mat = derive_material(mdataT, path_d, normal)
+    max_roughness = torch.where(shade, torch.maximum(s.max_roughness, mat.roughness),
+                                s.max_roughness)
+    mat = bsdf.with_roughness(mat, max_roughness)
+    ffnormal = vwhere(vdot(normal, path_d) <= 0.0, normal, vneg(normal))
+    position = tuple(path_o[c] + sel_t * path_d[c] for c in range(3))
+    scatter_pos = tuple(position[c] + normal[c] * EPSILON for c in range(3))
+
+    radiance = tuple(radiance[c] + torch.where(shade, mat.emission[c] * throughput[c], zero)
+                     for c in range(3))
+    over_budget = s.depth >= config.max_bounces
+    ended_budget = shade & over_budget
+    shade = shade & ~over_budget
+
+    # --- alpha passthrough (pathtrace.hlsl:84-89) ---
+    u_alpha, rng = urng.random_float(rng)
+    passthrough = shade & (((mat.alpha_mode == _ALPHA_MASK) & (mat.opacity < mat.alpha_cutoff))
+                           | ((mat.alpha_mode == _ALPHA_BLEND) & (u_alpha > mat.opacity)))
+    shade = shade & ~passthrough
+
+    # --- shadow traversal finished -> apply the pending contribution ---
+    env_done = (s.mode == MODE_SHADOW_ENV) & shadow_done
+    g_app = env_done & ~tr.found
+    radiance = tuple(radiance[c] + torch.where(g_app, s.pending[c] * throughput[c], zero)
+                     for c in range(3))
+    to_env = shade if env_nee else torch.zeros_like(shade)
+    to_bsdf = env_done if env_nee else shade
+    pending = s.pending
+    new_mode = s.mode
+
+    # --- env NEE direction/Li and evaluation (light.hlsl:125-158) ---
+    if env_nee:
+        if not config.has_environment_texture:
+            (r1, r2), rng = urng.random_floats(rng, 2)
+            env_dir = uniform_sample_sphere(r1, r2)
+            env_pdf = torch.full_like(zero, 1.0 / (4.0 * PI))
+            env_li = (params.environment_color * params.environment_intensity)[:, None] \
+                .expand(3, zero.shape[0])
+        f_u, bpdf_u = bsdf.eval_brdf(mat, vneg(path_d), ffnormal, env_dir)
+        mis_e = power_heuristic(env_pdf, bpdf_u)
+        epdf_den = torch.clamp_min(env_pdf, 1e-20)
+        contrib = tuple(mis_e * env_li[c] * f_u[c] / epdf_den for c in range(3))
+        ok = (bpdf_u > 0) & (env_pdf > 0) & (mis_e > 0)
+        pending = vwhere(to_env, vwhere(ok, contrib, z3), pending)
+        new_mode = torch.where(to_env, torch.full_like(new_mode, MODE_SHADOW_ENV), new_mode)
+
+    # --- BSDF sample + Russian roulette -> next bounce or death ---
+    f_s, l_s, pdf_s, rng = bsdf.sample_brdf(mat, vneg(path_d), ffnormal, rng)
+    nan_lane = ((f_s[0] != f_s[0]) | (f_s[1] != f_s[1])
+                | (f_s[2] != f_s[2]) | (pdf_s != pdf_s))
+    sample_ok = to_bsdf & ~nan_lane & (pdf_s > 0.0)
+    pdf_den = torch.clamp_min(pdf_s, 1e-20)
+    throughput = vwhere(sample_ok, tuple(throughput[c] * f_s[c] / pdf_den for c in range(3)),
+                        throughput)
+    continue_ray = sample_ok
+    if config.use_russian_roulette:
+        u_rr, rng = urng.random_float(rng)
+        t_max3 = torch.maximum(torch.maximum(throughput[0], throughput[1]), throughput[2])
+        p_cont = torch.clamp_max(t_max3 + 0.001, 0.95)
+        rr_kill = continue_ray & (u_rr >= p_cont)
+        throughput = vwhere(continue_ray & ~rr_kill,
+                            tuple(throughput[c] / p_cont for c in range(3)), throughput)
+        continue_ray = continue_ray & ~rr_kill
+
+    # The lane cap counts processed stage transitions (it stops endless
+    # alpha passthrough); lanes waiting in traversal spend none.
+    processed = a | env_done
+    cap_exhausted = processed & (s.lane_cap <= 0)
+    died = miss | ended_budget | (to_bsdf & ~continue_ray) | cap_exhausted
+    rad_out = radiance
+    if config.use_firefly_filter:
+        lum = vluminance(rad_out)
+        ffly = params.max_firefly_luminance
+        rad_out = vscale(rad_out, torch.where(lum > ffly, ffly / torch.clamp_min(lum, 1e-20),
+                                              torch.ones_like(lum)))
+    if config.debug_nan_canary:
+        g_nan = to_bsdf & nan_lane
+        rad_out = (torch.where(g_nan, zero, rad_out[0]),
+                   torch.where(g_nan, torch.ones_like(zero), rad_out[1]),
+                   torch.where(g_nan, zero, rad_out[2]))
+
+    # --- continuing bounce: the new primary ray starts at the hit ---
+    new_dir = vwhere(passthrough, path_d, l_s)
+    bounce = (continue_ray | passthrough) & ~died
+    new_origin = tuple(position[c] + new_dir[c] * EPSILON for c in range(3))
+    saved = shade | passthrough
+
+    s.mode = torch.where(bounce, torch.full_like(new_mode, MODE_PRIMARY),
+                         torch.where(died, torch.full_like(new_mode, MODE_DEAD), new_mode))
+    s.path_o = _stack(vwhere(bounce, new_origin, path_o))
+    s.path_d = _stack(vwhere(bounce, new_dir, path_d))
+    s.hit_t = torch.where(saved, tr.t, s.hit_t)
+    s.hit_uv_bary = torch.where(saved, torch.stack([tr.u, tr.v]), s.hit_uv_bary)
+    s.hit_tri = torch.where(saved, tr.tri, s.hit_tri)
+    s.hit_inst = torch.where(saved, tr.hit_inst, s.hit_inst)
+    s.pending = _stack(pending)
+    s.throughput = _stack(throughput)
+    s.radiance = _stack(radiance)
+    s.rng = rng
+    s.depth = torch.where(continue_ray, s.depth + 1, s.depth)
+    s.max_roughness = max_roughness
+    s.prev_pdf = torch.where(to_bsdf, pdf_s, s.prev_pdf)
+    s.lane_cap = torch.where(processed, s.lane_cap - 1, s.lane_cap)
+    if env_nee:
+        _set_trav(s, to_env, _stack(scatter_pos), _stack(env_dir))
+    _set_trav(s, bounce, s.path_o, s.path_d)
+    s.rays = s.rays + bounce.sum() + to_env.sum()
+    _record_and_regenerate(config, params, s, budget, current_sample, died,
+                           _stack(rad_out))
 
 
 def _initial_state(b: int, depth: int, budget: int, dev) -> FusedState:
@@ -215,7 +449,7 @@ def _initial_state(b: int, depth: int, budget: int, dev) -> FusedState:
         trav=tw16.init_state16(b, 0.0, ptr0=tw16.DONE, depth=depth, device=dev),
         trav_o=z3.clone(), trav_d=dz.clone(), path_o=z3.clone(), path_d=dz.clone(),
         hit_t=zf.clone(), hit_uv_bary=torch.zeros((2, b), **f32),
-        hit_tri=torch.full((b,), -1, **i32),
+        hit_tri=torch.full((b,), -1, **i32), hit_inst=torch.full((b,), -1, **i32),
         pending=z3.clone(), throughput=z3.clone(), radiance=z3.clone(),
         rng=torch.zeros((b,), dtype=torch.int64, device=dev),
         pixel=zi.clone(), depth=zi.clone(), max_roughness=zf.clone(),
@@ -234,7 +468,14 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
 
     Returns ``(film_sum (npix, 3), occupancy, rays, arrivals,
     super_iterations)``: the first four as in the reference (device
-    tensors), the last a host int."""
+    tensors), the last a host int.  Raises ``ValueError`` when the
+    configuration samples the HDRI of a scene that has none (its 1x1
+    placeholder table)."""
+    if (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
+            and tuple(scene.env.image.shape[:2]) == (1, 1)):
+        raise ValueError("sky_mode 0 with has_environment_texture samples the scene's HDRI, "
+                         "and this scene has none (Scene.set_environment); for the constant "
+                         "environment set has_environment_texture=False")
     npix = config.pixel_count()
     spp = config.samples_per_pass
     budget = npix * spp
@@ -244,6 +485,9 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
     dev = scene.wide16_nodes.device
     nodes = scene.wide16_nodes
     te = config.transition_every
+    has_instances = scene.inst_w2l.shape[0] > 0
+    transition = (_transition_kernel_path if _kernel_transition_supported(scene, config)
+                  else _transition)
     s = _initial_state(b, scene.stack_depth, budget, dev)
 
     iters = 0
@@ -255,15 +499,15 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         trav = s.trav
         for _ in range(te):
             trav = arrival_step16_cuda(nodes, s.trav_o, s.trav_d, inv, trav,
-                                       live & ~(shadowing & trav.found))
+                                       live & ~(shadowing & trav.found),
+                                       has_instances=has_instances)
         stepping = live & (s.trav.ptr >= 0)
         trav_done = trav.ptr < 0
         s.trav = trav
         s.arrivals = s.arrivals + te * stepping.sum()
         s.busy = s.busy + live.sum()
         s.ticks = s.ticks + b
-        _transition_kernel_path(scene, config, params, s, budget, current_sample,
-                                trav_done)
+        transition(scene, config, params, s, budget, current_sample, trav_done)
         fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
                  & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
         s.trav = tw16.prestep16(nodes, scene.wide16_top, s.trav_o.T, s.trav_d.T,

@@ -1,0 +1,49 @@
+"""Sky radiance for escaped rays (``render/sky.py`` of the reference;
+``sky.hlsl``), the modes the general transition reads: the constant
+environment colour, the basic gradient sky and no sky.  The HDRI is read
+through ``scene/envmap.py::sample_env_transition`` instead (one merged
+row gather serves both its sky and its NEE sample).  Directions and
+colours are (B, 3), as in the reference."""
+
+from __future__ import annotations
+
+import torch
+
+from unity_webgpu_pathtracer_torch.config import (
+    SKY_MODE_BASIC,
+    SKY_MODE_ENVIRONMENT,
+    RenderConfig,
+    RenderParams,
+)
+from unity_webgpu_pathtracer_torch.utils.math import PI
+
+
+def basic_sky(directions: torch.Tensor, intensity: torch.Tensor):
+    """RTiOW gradient (``sky.hlsl:101-108``): ``(color (B, 3), pdf (B,))``."""
+    a = torch.clamp(0.5 * (directions[..., 1] + 1.0), 0.0, 1.0)[..., None]
+    horizon = torch.ones(3, dtype=directions.dtype, device=directions.device)
+    zenith = torch.tensor([0.5, 0.7, 1.0], dtype=directions.dtype,
+                          device=directions.device) ** 2.2
+    color = (1.0 - a) * horizon + a * zenith
+    pdf = torch.full(directions.shape[:-1], 1.0 / (4.0 * PI), dtype=directions.dtype,
+                     device=directions.device)
+    return color * intensity[..., None], pdf
+
+
+def sample_sky_radiance(config: RenderConfig, params: RenderParams,
+                        directions: torch.Tensor, ray_depth: torch.Tensor):
+    """Sky radiance and its pdf for every sky but the HDRI
+    (``sky.hlsl:110-129``).  Primary rays (depth 0) see the sky at
+    intensity 1, secondary rays at ``environment_intensity``."""
+    if config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture:
+        raise ValueError("the HDRI is sampled by sample_env_transition")
+    intensity = torch.where(ray_depth > 0, params.environment_intensity,
+                            torch.ones_like(params.environment_intensity))
+    if config.sky_mode == SKY_MODE_ENVIRONMENT:
+        color = params.environment_color * intensity[..., None]
+        pdf = torch.full(directions.shape[:-1], 1.0 / (4.0 * PI), dtype=directions.dtype,
+                         device=directions.device)
+        return color, pdf
+    if config.sky_mode == SKY_MODE_BASIC:
+        return basic_sky(directions, intensity)
+    return torch.zeros_like(directions), torch.zeros_like(directions[..., 0])

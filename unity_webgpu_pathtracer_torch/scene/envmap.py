@@ -97,6 +97,20 @@ def build_envmap(image: np.ndarray) -> EnvMap:
     )
 
 
+def empty_envmap() -> EnvMap:
+    """Placeholder tables of a scene with no HDRI (the reference's
+    ``empty_envmap``); only the constant, basic and no-sky modes read
+    such a scene."""
+    alias_row = np.zeros((1, 8), np.float32)
+    alias_row[0, 0] = 1.0
+    return EnvMap(
+        image=np.zeros((1, 1, 3), np.float32), cdf=np.ones((1,), np.float32),
+        cdf_sum=np.float32(1.0), alias_prob=np.ones((1,), np.float32),
+        alias_idx=np.zeros((1,), np.int32), alias_row=alias_row,
+        quad_rows=np.zeros((1, 12), np.float32), merged_rows=np.zeros((1, 20), np.float32),
+    )
+
+
 def _bilerp_coords(h: int, w: int, uv: torch.Tensor):
     """Bilinear footprint with wrap addressing: (x0i, y0i, fx, fy)."""
     u = uv[..., 0] - torch.floor(uv[..., 0])

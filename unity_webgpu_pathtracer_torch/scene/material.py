@@ -1,10 +1,10 @@
-"""Material descriptions and 32-float packing (``scene/material.py`` of
-the reference).
+"""Material descriptions, 32-float packing and the per-lane runtime
+derivation (``scene/material.py`` of the reference).
 
 The packed layout is the reference's ``MaterialData`` record
-(``BVHScene.cs:241-282``); the runtime derivation (roughness
-regularisation, anisotropy, eta) happens per lane inside the transition
-kernel and its plain twin (``ops/cuda_transition.py``).
+(``BVHScene.cs:241-282``); ``derive_material`` turns gathered records into
+the runtime :class:`~unity_webgpu_pathtracer_torch.render.bsdf.Material`
+(roughness regularisation, anisotropy, eta), untextured.
 """
 
 from __future__ import annotations
@@ -12,6 +12,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from unity_webgpu_pathtracer_torch.render.bsdf import Material
 
 MATERIAL_SIZE = 32
 
@@ -81,3 +84,38 @@ def pack_materials(materials: list[MaterialDesc]) -> np.ndarray:
         out[i, 28:30] = np.asarray(m.uv_scale, np.float32)
         out[i, 30:32] = np.asarray(m.uv_offset, np.float32)
     return out
+
+
+def derive_material(md, ray_dir, normal) -> Material:
+    """Packed records -> runtime ``Material`` (``material.hlsl:84-137``),
+    the reference's untextured branch.  ``md`` is the gathered records as
+    planes (``md[k]`` is field k for every lane, e.g. a (32, B) tensor);
+    ``ray_dir`` and ``normal`` are planes."""
+    opacity = md[3]
+    roughness = torch.clamp_min(md[9], 0.001)
+    ior = torch.clamp(md[11], 1.001, 2.0)
+    anisotropic = torch.clamp(md[13], -0.9, 0.9)
+    aspect = torch.sqrt(1.0 - anisotropic * 0.9)
+    entering = (ray_dir[0] * normal[0] + ray_dir[1] * normal[1]
+                + ray_dir[2] * normal[2]) < 0.0
+    return Material(
+        base_color=(md[0], md[1], md[2]),
+        opacity=opacity,
+        emission=(md[4], md[5], md[6]),
+        alpha_mode=md[12].to(torch.int32),
+        alpha_cutoff=md[7],
+        anisotropic=anisotropic,
+        metallic=md[8],
+        roughness=roughness,
+        subsurface=md[18],
+        specular_tint=md[15],
+        sheen=md[16],
+        sheen_tint=md[17],
+        clearcoat=md[19],
+        clearcoat_roughness=0.1 + (0.001 - 0.1) * md[20],
+        spec_trans=1.0 - torch.clamp(opacity, 0.0, 1.0),
+        ior=ior,
+        ax=torch.clamp_min(roughness / aspect, 0.001),
+        ay=torch.clamp_min(roughness * aspect, 0.001),
+        eta=torch.where(entering, 1.0 / ior, ior),
+    )

@@ -1,9 +1,15 @@
 """Scene assembly: host meshes -> device tables (``scene/scene.py`` of the
-reference, the non-instanced ``build("wide16")`` branch).
+reference, its ``build("wide16")`` branches).
 
-``SceneData`` holds only what the main path reads: the wide16 node table
+A scene without instances is flattened to world space under one wide16
+table.  A scene with instances (``Scene.add_instance``) builds one BLAS per
+mesh in mesh space (cached on the ``Scene``) and a TLAS over the instance
+boxes, joined in one table (``accel/wide16.py::build_tlas_wide16``);
+moving an instance re-emits only the TLAS rows (``rebuild_tlas_rows``).
+
+``SceneData`` holds what the fused integrator reads: the wide16 node table
 and its root slot table, the stack depth, the paired-f16 attribute rows,
-the material records and the environment tables.
+the material records, the instance transforms and the environment tables.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 
 from unity_webgpu_pathtracer_torch.accel import wide16 as w16
 from unity_webgpu_pathtracer_torch.scene import material as umaterial
-from unity_webgpu_pathtracer_torch.scene.envmap import EnvMap, build_envmap
+from unity_webgpu_pathtracer_torch.scene.envmap import EnvMap, build_envmap, empty_envmap
 from unity_webgpu_pathtracer_torch.scene.mesh import FlatTriangles, Mesh, concat_flat, flatten_mesh
 
 
@@ -37,14 +43,22 @@ def _pack_attr_shade_c(normals9: np.ndarray, uvs6: np.ndarray,
 
 
 class SceneData(NamedTuple):
-    """Device tables of the main path."""
+    """Device tables of the fused integrator."""
 
     wide16_nodes: torch.Tensor   # (N16, 96) float32 (ints bitcast)
     wide16_top: torch.Tensor     # (16, 119) root slot table, or (1, 119) placeholder
-    stack_depth: int             # register-stack planes (tree depth + 1)
+    stack_depth: int             # register-stack planes (tree depth + 1; +4 instanced)
     attr_shade_c: torch.Tensor   # (T_pad, 8) int32 view of the uint32 rows
     materials: torch.Tensor      # (NM, 32) float32
     env: EnvMap
+    inst_l2w: torch.Tensor       # (I, 12) float32 row-major 3x4; (0, 12) flat
+    inst_w2l: torch.Tensor       # (I, 12)
+    inst_offsets: torch.Tensor   # (I, 4) int32, [:, 3] material override (-1 none)
+
+
+def _env_arrays(image) -> dict:
+    env = build_envmap(image) if image is not None else empty_envmap()
+    return dict(env._asdict())
 
 
 @dataclasses.dataclass
@@ -54,6 +68,11 @@ class Scene:
     meshes: list = dataclasses.field(default_factory=list)      # (Mesh, transform|None)
     materials: list = dataclasses.field(default_factory=list)   # MaterialDesc
     env_image: np.ndarray | None = None
+    # (mesh id, 4x4 transform, material index or None) per instance.
+    instances: list = dataclasses.field(default_factory=list)
+    # Per-mesh BLASes of the last instanced build and its TLAS layout.
+    _blas16_cache: tuple | None = dataclasses.field(default=None, repr=False)
+    _tlas16_layout: w16.TlasLayout | None = dataclasses.field(default=None, repr=False)
 
     def add_material(self, desc: umaterial.MaterialDesc) -> int:
         self.materials.append(desc)
@@ -62,6 +81,18 @@ class Scene:
     def add_mesh(self, mesh: Mesh, transform: np.ndarray | None = None) -> int:
         self.meshes.append((mesh, transform))
         return len(self.meshes) - 1
+
+    def add_instance(self, mesh_id: int, transform: np.ndarray,
+                     material_index: int | None = None) -> int:
+        """Place mesh ``mesh_id`` (its own transform is ignored) under
+        ``transform``; ``material_index`` overrides the mesh's material."""
+        self.instances.append((mesh_id, np.asarray(transform, np.float32), material_index))
+        return len(self.instances) - 1
+
+    def set_instance_transform(self, instance_id: int, transform: np.ndarray) -> None:
+        """Move an instance; the next build reuses the cached BLASes."""
+        mesh_id, _old, mat = self.instances[instance_id]
+        self.instances[instance_id] = (mesh_id, np.asarray(transform, np.float32), mat)
 
     def set_environment(self, image: np.ndarray) -> None:
         self.env_image = np.asarray(image, np.float32)
@@ -75,9 +106,8 @@ class Scene:
     def build_arrays(self) -> dict:
         """Host build of the device tables as numpy arrays (the layout of
         ``scene_from_numpy``'s input)."""
-        if self.env_image is None:
-            raise ValueError("the main path needs an HDRI environment "
-                             "(Scene.set_environment)")
+        if self.instances:
+            return self._build_instanced_arrays()
         flat = self.flatten()
         w = w16.build_scene_wide16(flat.positions, flat.tri_records())
         top = w16.derive_top16(w.nodes)
@@ -91,7 +121,47 @@ class Scene:
             attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
                                             flat.uvs.reshape(m, 6), flat.material),
             materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
-            env=dict(build_envmap(self.env_image)._asdict()),
+            env=_env_arrays(self.env_image),
+        )
+
+    def _build_instanced_arrays(self) -> dict:
+        """Two-level build: cached per-mesh BLASes in mesh space and the
+        TLAS over the instances (the reference's
+        ``_build_instanced_quant("wide16")``).  Attributes stay in mesh
+        space; shading takes normals to world space per hit."""
+        if self._blas16_cache is None:
+            blas, bounds, parts, attr_bases = [], [], [], []
+            attr_base = 0
+            for mesh, _transform in self.meshes:
+                flat = flatten_mesh(mesh, None)
+                w = w16.build_scene_wide16(flat.positions, flat.tri_records())
+                blas.append(w)
+                p = flat.positions.reshape(-1, 3)
+                bounds.append((p.min(0), p.max(0)))
+                # Leaf indices are mesh-local BVH reference positions.
+                parts.append(flat.permuted(w.order))
+                attr_bases.append(attr_base)
+                attr_base += int(w.order.shape[0])
+            self._blas16_cache = (blas, bounds, parts, attr_bases)
+        blas, bounds, parts, attr_bases = self._blas16_cache
+        flat = concat_flat(parts)
+        m = flat.count
+        w, l2w, w2l, self._tlas16_layout = w16.build_tlas_wide16(
+            blas, bounds, self.instances, attr_bases)
+        offsets = np.zeros((len(self.instances), 4), np.int32)
+        offsets[:, 3] = [-1 if mat is None else mat for _m, _t, mat in self.instances]
+        return dict(
+            wide16_nodes=w.nodes,
+            # No root slot table: the TLAS rows change under transform
+            # updates, so the prestep runs its first level only.
+            wide16_top=np.zeros((1, w16.TOP_COLS), np.float32),
+            # +4 planes: a TLAS-only refresh may deepen the tree a little.
+            stack_levels=np.zeros((w.depth + 4,), np.int32),
+            attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
+                                            flat.uvs.reshape(m, 6), flat.material),
+            materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
+            env=_env_arrays(self.env_image),
+            inst_l2w=l2w, inst_w2l=w2l, inst_offsets=offsets,
         )
 
     def build(self, traversal: str = "wide16", device="cpu") -> SceneData:
@@ -101,13 +171,31 @@ class Scene:
         return scene_from_numpy(self.build_arrays(), device)
 
 
+def rebuild_tlas_rows(scene: Scene):
+    """Transform-only refresh of an instanced scene's last build: only the
+    fixed-capacity TLAS rows are re-emitted.  Returns ``(rows (cap, 96),
+    inst_l2w, inst_w2l)``; rows ``[0, cap)`` of the node table take
+    ``rows``."""
+    cache, layout = scene._blas16_cache, scene._tlas16_layout
+    if cache is None or layout is None:
+        raise ValueError("no cached instanced wide16 build; build the scene first")
+    rows, depth, l2w, w2l = w16.emit_tlas_rows16(
+        list(scene.instances), cache[1], layout.blas_root, layout.tlas_cap)
+    # The stack was sized at build time with 3 planes to spare.
+    if depth > layout.tlas_depth0 + 3:
+        raise ValueError(f"the TLAS deepened past the traversal stack (depth {depth} > "
+                         f"{layout.tlas_depth0} + 3); rebuild the scene")
+    return rows, l2w, w2l
+
+
 def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
     """``SceneData`` from numpy arrays keyed by the reference's
     ``SceneData`` field names: ``wide16_nodes``, ``wide16_top``,
     ``stack_levels`` (only its length is read), ``attr_shade_c``,
-    ``materials`` and ``env``, a dict of the ``EnvMap`` fields.  Tests
-    feed it ``np.asarray`` of the JAX fields, so both packages trace the
-    same tables."""
+    ``materials``, ``env`` (a dict of the ``EnvMap`` fields) and, for
+    instanced scenes, ``inst_l2w``, ``inst_w2l`` and ``inst_offsets``
+    (empty when absent).  Tests feed it ``np.asarray`` of the JAX fields,
+    so both packages trace the same tables."""
     def t(a, dtype=None):
         a = np.asarray(a)
         a = np.array(a if dtype is None else a.view(dtype), order="C")
@@ -121,6 +209,9 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
         attr_shade_c=t(arrays["attr_shade_c"], np.int32),
         materials=t(arrays["materials"]),
         env=env,
+        inst_l2w=t(arrays.get("inst_l2w", np.zeros((0, 12), np.float32))),
+        inst_w2l=t(arrays.get("inst_w2l", np.zeros((0, 12), np.float32))),
+        inst_offsets=t(arrays.get("inst_offsets", np.zeros((0, 4), np.int32))),
     )
 
 
@@ -136,4 +227,6 @@ def scene_to_numpy(scene: SceneData) -> dict:
         attr_shade_c=n(scene.attr_shade_c).view(np.uint32),
         materials=n(scene.materials),
         env={f: n(getattr(scene.env, f)) for f in EnvMap._fields},
+        inst_l2w=n(scene.inst_l2w), inst_w2l=n(scene.inst_w2l),
+        inst_offsets=n(scene.inst_offsets),
     )

@@ -1,9 +1,13 @@
 """Per-lane vector math (``utils/math.py`` of the reference).
 
-Functions take the vector on the LAST axis, as in the reference; dot
-products are written in component form in the reference's order.  The
-reference's ``gather_small`` (a one-hot matmul for small tables on the
-TPU) is plain indexing here.
+Two dialects.  The first functions take the vector on the LAST axis, as in
+the reference; dot products are written in component form in the
+reference's order.  The ``v*`` functions take lane vectors as planes: any
+``v`` with ``v[0]``, ``v[1]``, ``v[2]`` of shape (B,) (a 3-tuple of
+tensors or a (3, B) tensor), and return 3-tuples.  The shading code (the
+transitions and the BSDF) is written in planes, the layout the kernels
+read.  The reference's ``gather_small`` (a one-hot matmul for small tables
+on the TPU) is plain indexing here.
 """
 
 from __future__ import annotations
@@ -36,3 +40,93 @@ def luminance(color: torch.Tensor) -> torch.Tensor:
 def safe_rcp(v: torch.Tensor) -> torch.Tensor:
     """``1 / v`` with exact zeros nudged to 1e-30 (``common.hlsl:205``)."""
     return 1.0 / torch.where(v == 0.0, torch.full_like(v, 1.0e-30), v)
+
+
+# ---- planes dialect ----
+
+def vdot(a, b) -> torch.Tensor:
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def vcross(a, b) -> tuple:
+    return (a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0])
+
+
+def vadd(a, b) -> tuple:
+    return (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+
+
+def vscale(a, s) -> tuple:
+    return (a[0] * s, a[1] * s, a[2] * s)
+
+
+def vneg(a) -> tuple:
+    return (-a[0], -a[1], -a[2])
+
+
+def vwhere(m: torch.Tensor, a, b) -> tuple:
+    return (torch.where(m, a[0], b[0]), torch.where(m, a[1], b[1]),
+            torch.where(m, a[2], b[2]))
+
+
+def vnormalize(v, eps: float = 1.0e-20) -> tuple:
+    return vscale(v, 1.0 / torch.sqrt(torch.clamp_min(vdot(v, v), eps)))
+
+
+def vluminance(c) -> torch.Tensor:
+    return c[0] * 0.299 + c[1] * 0.587 + c[2] * 0.114
+
+
+def vreflect(i, n) -> tuple:
+    d = vdot(i, n)
+    return (i[0] - 2.0 * d * n[0], i[1] - 2.0 * d * n[1], i[2] - 2.0 * d * n[2])
+
+
+def vrefract(i, n, eta) -> tuple:
+    """Refracted direction, zero on total internal reflection."""
+    cos_i = -vdot(i, n)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    coef = eta * cos_i - torch.sqrt(torch.clamp_min(k, 0.0))
+    refr = (eta * i[0] + coef * n[0], eta * i[1] + coef * n[1],
+            eta * i[2] + coef * n[2])
+    zero = torch.zeros_like(k)
+    return vwhere(k < 0.0, (zero, zero, zero), refr)
+
+
+def safe_div(a, b, eps: float = 1e-20):
+    """``a / b`` with ``|b| < eps`` replaced by ``+-eps``."""
+    return a / torch.where(torch.abs(b) < eps,
+                           torch.where(b < 0, torch.full_like(b, -eps),
+                                       torch.full_like(b, eps)), b)
+
+
+def build_onb(z) -> tuple:
+    """Orthonormal basis ``(x, y, z)`` around ``z`` (``common.hlsl``'s
+    branch-free frame; a zero ``z`` gets the identity frame)."""
+    len_sq = vdot(z, z)
+    zn = vnormalize(z)
+    zx, zy, zz = zn
+    k = 1.0 / torch.clamp_min(1.0 + zz, 1.0e-5)
+    a = zy * k
+    b = zy * a
+    c = -zx * a
+    x = vnormalize((zz + b, c, -zx))
+    y = vnormalize((c, 1.0 - b, -zy))
+    deg = len_sq == 0.0
+    one, zero = torch.ones_like(zx), torch.zeros_like(zx)
+    return (vwhere(deg, (one, zero, zero), x), vwhere(deg, (zero, one, zero), y),
+            vwhere(deg, (zero, zero, one), zn))
+
+
+def to_local(onb, w) -> tuple:
+    x, y, z = onb
+    return (vdot(x, w), vdot(y, w), vdot(z, w))
+
+
+def to_world(onb, local) -> tuple:
+    x, y, z = onb
+    return (x[0] * local[0] + y[0] * local[1] + z[0] * local[2],
+            x[1] * local[0] + y[1] * local[1] + z[1] * local[2],
+            x[2] * local[0] + y[2] * local[1] + z[2] * local[2])
