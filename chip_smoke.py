@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA Hopper GPU, the
 CUDA toolkit and PyTorch built for CUDA; it imports nothing of JAX.
 Phases, each printing one or more lines:
 
-1. build the CUDA kernels from ``unity_webgpu_pathtracer_torch/csrc``;
+1. build the CUDA kernels from ``unity_webgpu_pathtracer_torch/csrc``
+   (one nvcc per source, all at once);
 2. kernel K1 (wide16 arrival) against its plain twin, on the card, on a
    lane state captured from a real 1920x1080 pass over the 1M-triangle
    benchmark scene (pool 98,304);
@@ -17,9 +18,11 @@ Phases, each printing one or more lines:
    committed ``.bvh_cache``), 1920x1080, 5 bounces, HDRI NEE,
    ``transition_every=8``, two passes, with the kernels' launch counts;
 5. the whole slice with kernels against the slice with twins on the
-   card, and against the twins on the CPU: a 2,000-triangle scene (K2
-   path), ``tlas_scene(n=4)`` at 48x48 (instanced path) and the Cornell
-   box at 32x32 (no sky, general transition);
+   card, and against the twins on the CPU, on seven small cases: a
+   2,000-triangle scene (K2 path; on leaf8 rows with ``attr_in_kernel``;
+   with ``attr_compact=3``), ``tlas_scene(n=4)`` at 48x48 (instanced path;
+   on leaf8 BLAS rows) and the Cornell box at 32x32 (no sky, general
+   transition; with ``attr_compact=3``);
 6. K1's instanced kernel against its twin on a lane state captured from
    a 1920x1080 pass over the instanced copy of the benchmark grid (one
    5,040-triangle sphere BLAS, 196 sphere instances and the ground as one
@@ -31,10 +34,28 @@ Phases, each printing one or more lines:
 8. path B, the Cornell box at the reference bench's configuration
    (256x256, 64 spp per pass, 4 bounces, no sky, pool 131,072): K1
    against its twin on a lane state captured from that pass, then two
-   passes through ``Renderer``.
+   passes through ``Renderer``;
+9. K1 on leaf8 rows (``arrival16_leaf8``) against its twin on a lane
+   state captured from a 1080p pass over the benchmark scene built as a
+   leaf8 table (natively, at first use: the build seconds are printed);
+10. K2's raw-row form (``transition16_attr_raw``) against its twin, and
+    against the ``shade_rowT`` kernel, on a pre-transition state of the
+    same pass; the kernels' f16 decode over all 65,536 halfwords and their
+    uint32 -> uniform conversion at the uint32 edges;
+11. path C through ``Renderer``: the leaf8 benchmark scene with
+    ``attr_in_kernel``, as phase 4 otherwise, held against phase 4's film
+    as path A is;
+12. K1's instanced leaf8 kernel against its twin on the instanced grid
+    with leaf8 BLAS rows, then one pass of 2 spp of that scene through
+    ``Renderer``, held against phase 4's film.
 
-The ``arrival16`` entry of the kernels' line carries phase 2's times and
-the larger of the errors of phases 2 and 8.
+Every kernel's line gives its launches on its path, its largest error
+against its twin, its device time and its twin's, and its bound: the
+least time an H100 could take for the same work, the larger of the bytes
+it must move (each input read once, each output written once; for K1 the
+distinct node rows the live lanes load) over 3.35 TB/s and its f32
+operations over 67 TFLOP/s.  No single PyTorch call computes an arrival
+or a transition, so ``library_ms`` is null.
 
 Every failure raises (non-zero exit).  The last two lines are the
 kernels' JSON summary line and the device line; without a CUDA device it
@@ -48,12 +69,22 @@ import subprocess
 import sys
 import time
 
-SPP = 4          # samples per pass in phase 4 (two passes)
-SPP_INST = 2     # samples per pass in phase 7 (two passes)
+SPP = 4          # samples per pass in phases 4 and 11 (two passes)
+SPP_INST = 2     # samples per pass in phases 7 and 12
 POOL = 98_304
 TE = 8
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
-TILE = 32        # phase 7 tile statistic
+TILE = 32        # film tile statistic of phases 7, 11 and 12
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
+# tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# f32 operations per lane, counted from csrc/*.cu: K1's 16 slab tests of
+# an inner row (36 each), one Moller-Trumbore test per leaf triangle, the
+# world-to-local transform of an instance row; K2's body (two BSDF
+# evaluations, one sample, the material and frame; roughly).
+K1_OPS_INNER, K1_OPS_TRI, K1_OPS_INST = 576, 55, 30
+K2_OPS_LANE = 1000
 
 
 def log(msg: str) -> None:
@@ -132,10 +163,10 @@ def instanced_bench_scene():
     return scene, cam
 
 
-def run_passes(r, passes: int, label: str) -> tuple[float, int]:
+def run_passes(r, passes: int, label: str) -> tuple[float, int, int, int]:
     """Render ``passes`` passes through ``r``, one line each; returns the
-    total seconds and super-iterations."""
-    total_s, total_iters = 0.0, 0
+    total seconds, super-iterations, rays and arrivals."""
+    total_s, total_iters, rays, arrivals = 0.0, 0, 0, 0
     for p in range(passes):
         t0 = time.perf_counter()
         r.render(passes=1)
@@ -143,10 +174,12 @@ def run_passes(r, passes: int, label: str) -> tuple[float, int]:
         st = r.stats()
         total_s += dt
         total_iters += st["super_iterations"]
+        rays += st["rays"]
+        arrivals += st["arrivals"]
         log(f"{label} pass {p}: {dt:.3f} s/pass, {st['rays'] / dt / 1e6:.3f} Mrays/s, "
             f"rays {st['rays']}, arrivals {st['arrivals']}, occupancy "
             f"{st['occupancy']:.4f}, super-iterations {st['super_iterations']}")
-    return total_s, total_iters
+    return total_s, total_iters, rays, arrivals
 
 
 def check_film(img, shape, what: str) -> None:
@@ -156,6 +189,25 @@ def check_film(img, shape, what: str) -> None:
             and float(img.mean()) > 0.0):
         raise AssertionError(f"{what}: film not finite/positive: shape {tuple(img.shape)}, "
                              f"mean {float(img.mean())}")
+
+
+def film_vs_flat(img, flat_img, what: str) -> tuple[float, float]:
+    """Hold a film of the benchmark grid against phase 4's: global mean
+    within 3%, 32x32-pixel tiles' mean |difference| / (flat + 0.05) below
+    5%; returns (relative mean difference, tile statistic)."""
+    h, w = flat_img.shape[:2]
+    mean_rel = abs(float(img.mean()) - float(flat_img.mean())) / float(flat_img.mean())
+    rows = (h // TILE) * TILE
+
+    def tiles(x):
+        return x[:rows].reshape(rows // TILE, TILE, w // TILE, TILE, 3).mean(dim=(1, 3))
+
+    a_t, f_t = tiles(img), tiles(flat_img)
+    tile_stat = float(((a_t - f_t).abs() / (f_t + 0.05)).mean())
+    if mean_rel > 0.03 or tile_stat > 0.05:
+        raise AssertionError(f"{what} film vs flat: mean rel {mean_rel:g}, tile "
+                             f"statistic {tile_stat:g}")
+    return mean_rel, tile_stat
 
 
 def time_ms(fn, reps: int = 100) -> float:
@@ -205,6 +257,47 @@ def compare(out, ref, what: str) -> float:
     return worst
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least time (ms) for ``nbytes`` of traffic and ``ops`` f32
+    operations on an H100, and which of the two binds."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def arrival_work(nodes, oT, dT, invT, s, active, has_instances: bool):
+    """(bytes, f32 operations, distinct rows) of one arrival on this state:
+    each distinct row the live lanes load, the ray planes, and the state
+    planes read and written once."""
+    import torch
+
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import _FLAT_FIELDS, _INST_FIELDS
+
+    live = (s.ptr >= 0) if active is None else (s.ptr >= 0) & active
+    ptrs = s.ptr[live].long()
+    rows = int(torch.unique(ptrs).numel())
+    meta = nodes.view(torch.int32)[ptrs, 3]
+    slots = 16 if nodes.shape[1] == 96 else 8
+    ops = (K1_OPS_INNER * int((meta == 0).sum()) + K1_OPS_INST * int((meta < 0).sum())
+           + K1_OPS_TRI * int(meta[meta > 0].clamp(max=slots).sum()))
+    fields = _FLAT_FIELDS + (_INST_FIELDS if has_instances else ())
+    state = sum(getattr(s, f).nbytes for f in fields)
+    rays = sum(x.nbytes for x in (oT, dT, invT)) + (0 if active is None else active.nbytes)
+    return rows * nodes.shape[1] * 4 + rays + 2 * state, ops, rows
+
+
+def transition_work(kw, out) -> tuple[int, int]:
+    """(bytes, f32 operations) of one transition: every input plane read
+    and every output plane written once; in the raw form, the index plane
+    and each distinct 32-byte attribute row."""
+    import torch
+
+    planes = sum(v.nbytes for k, v in kw.items()
+                 if isinstance(v, torch.Tensor) and k != "attr_table")
+    if "attr_table" in kw:
+        planes += int(torch.unique(kw["attr"]).numel()) * 32
+    return planes + sum(x.nbytes for x in out), K2_OPS_LANE * kw["mode"].shape[0]
+
+
 def main() -> int:
     import torch
 
@@ -225,29 +318,66 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
     from unity_webgpu_pathtracer_torch.render import fused
     from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
+    from unity_webgpu_pathtracer_torch.utils import rng as urng
 
     dev = torch.device("cuda")
     card = gpu_line()
+    arrivals_n = cuda_arrival.arrival_step16_cuda.launches
+    transitions_n = cuda_transition.transition_step16_cuda.launches
 
     def reset_counts():
-        cuda_arrival.arrival_step16_cuda.launches = 0
-        cuda_arrival.arrival_step16_cuda.launches_inst = 0
-        cuda_transition.transition_step16_cuda.launches = 0
+        for counter in (arrivals_n, transitions_n):
+            for k in counter:
+                counter[k] = 0
 
-    def counts():
-        return (cuda_arrival.arrival_step16_cuda.launches,
-                cuda_arrival.arrival_step16_cuda.launches_inst,
-                cuda_transition.transition_step16_cuda.launches)
+    def counts() -> dict:
+        return {**arrivals_n, **transitions_n}
+
+    def expect_only(got: dict, want: dict, what: str) -> None:
+        """Exactly the kernels in ``want`` launched, that many times."""
+        full = dict.fromkeys(got, 0) | want
+        if got != full or not all(v > 0 for v in want.values()):
+            raise AssertionError(f"{what} launch counts {got}, expected {full}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kernels = {}
+
+    def record(name, source, replaces, err, ms, plain, work_bytes, ops):
+        b_ms, b_by = bound(work_bytes, ops)
+        kernels[name] = {"name": name, "route": "cuda",
+                         "source": f"unity_webgpu_pathtracer_torch/csrc/{source}",
+                         "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None}
+        return f"bound {b_ms:.4f} ms ({b_by}, {work_bytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mflop)"
+
+    K1_SRC, K1_TPU = "arrival16.cu", "unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py:85"
+    K2_SRC, K2_TPU = "transition16.cu", "unity_webgpu_pathtracer_tpu/ops/pallas_transition.py:579"
+
+    def check_arrival(name, k1_in, has_instances, label):
+        """K1 against its twin on a captured state; timing and bound."""
+        nodes, oT, dT, invT, s, active = k1_in
+        out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+        ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances)
+        torch.cuda.synchronize()
+        err = compare(out, ref, name)
+        ms = time_ms(lambda: cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active,
+                                                              has_instances))
+        plain = time_ms(lambda: arrival_step16(nodes, oT.T, dT.T, invT.T, s, active,
+                                               has_instances))
+        nbytes, ops, rows = arrival_work(nodes, oT, dT, invT, s, active, has_instances)
+        live = int(((s.ptr >= 0) & active).sum())
+        b = record(name, K1_SRC, K1_TPU, err, ms, plain, nbytes, ops)
+        log(f"{label} K1 {name}: B={s.ptr.shape[0]} live={live} distinct rows={rows} "
+            f"max_abs_err={err:g} (tol {FLOAT_TOL}); {ms:.4f} ms vs plain {plain:.4f} ms; {b}")
 
     # ---- 1. build ----
     t0 = time.perf_counter()
     cuda_build.load()
     regs = [ln.strip() for ln in cuda_build.BUILD_INFO["log"].splitlines()
             if "registers" in ln]
-    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc "
+    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc, all sources at once, "
         f"{cuda_build.BUILD_INFO['seconds']:.2f} s); ptxas: {regs}; card: {card}")
 
     # ---- 2./3. kernels against twins on a real 1080p state ----
@@ -261,16 +391,7 @@ def main() -> int:
     log(f"scene: {sd.wide16_nodes.shape[0]} rows, depth {sd.stack_depth}, "
         f"bvh cache {w16.CACHE_STATS}, set-up {time.perf_counter() - t0:.1f} s")
     k1_in, k2_in = capture_inputs(fused, sd, cfg, params, k1_call=3 * TE + 3, k2_call=4)
-    nodes, oT, dT, invT, s, active = k1_in
-    out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
-    ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active)
-    torch.cuda.synchronize()
-    k1_err = compare(out, ref, "arrival16")
-    k1_ms = time_ms(lambda: cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active))
-    k1_plain = time_ms(lambda: arrival_step16(nodes, oT.T, dT.T, invT.T, s, active))
-    live = int(((s.ptr >= 0) & active).sum())
-    log(f"phase 2 K1 arrival16: B={s.ptr.shape[0]} live={live} max_abs_err={k1_err:g} "
-        f"(tol {FLOAT_TOL}); {k1_ms:.4f} ms vs plain {k1_plain:.4f} ms")
+    check_arrival("arrival16", k1_in, False, "phase 2")
 
     out = cuda_transition.transition_step16_cuda(**k2_in)
     ref = cuda_transition.transition_step16_plain(**k2_in)
@@ -278,33 +399,33 @@ def main() -> int:
     k2_err = compare(out, ref, "transition16")
     k2_ms = time_ms(lambda: cuda_transition.transition_step16_cuda(**k2_in))
     k2_plain = time_ms(lambda: cuda_transition.transition_step16_plain(**k2_in))
-    died = int(out.died.sum())
-    log(f"phase 3 K2 transition16: B={k2_in['mode'].shape[0]} died={died} "
-        f"max_abs_err={k2_err:g} (tol {FLOAT_TOL}); {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms")
-    del k1_in, k2_in, out, ref, s, sd
+    b = record("transition16", K2_SRC, K2_TPU, k2_err, k2_ms, k2_plain,
+               *transition_work(k2_in, out))
+    log(f"phase 3 K2 transition16: B={k2_in['mode'].shape[0]} died={int(out.died.sum())} "
+        f"max_abs_err={k2_err:g} (tol {FLOAT_TOL}); {k2_ms:.4f} ms vs plain "
+        f"{k2_plain:.4f} ms; {b}")
+    del k1_in, k2_in, out, ref, sd
 
     # ---- 4. the main path through Renderer ----
     scene, cam = million_triangle_scene(1_000_000)
     t0 = time.perf_counter()
     hits = w16.CACHE_STATS["hit"]
-    r = Renderer(scene, cfg, make_camera_params(width=w, height=h, **cam), device="cuda")
+    r = Renderer(scene, cfg, make_camera_params(width=w, height=h, **cam))
     setup = time.perf_counter() - t0
     log(f"phase 4 set-up: {setup:.1f} s, bvh cache "
         f"{'hit' if w16.CACHE_STATS['hit'] > hits else 'miss'}, spp/pass {SPP}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    _s, total_iters = run_passes(r, 2, "phase 4")
-    k1_launches, k1i, k2_launches = counts()
+    _s, iters_4, rays_4, arr_4 = run_passes(r, 2, "phase 4")
+    got = counts()
+    expect_only(got, {"arrival16": TE * iters_4, "transition16": iters_4}, "phase 4")
+    kernels["arrival16"]["launches"] = got["arrival16"]
+    kernels["transition16"]["launches"] = got["transition16"]
     flat_img = r.film.accum
     check_film(flat_img, (h, w, 3), "phase 4")
-    if not (k1_launches == TE * total_iters > 0 and k2_launches == total_iters > 0
-            and k1i == 0):
-        raise AssertionError(f"launch counts K1 {k1_launches} K1 inst {k1i} K2 "
-                             f"{k2_launches} vs {total_iters} super-iterations")
-    log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches K1 "
-        f"{k1_launches} K2 {k2_launches}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches {got}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
     del r
 
     # ---- 5. slice with kernels vs slice with twins (CUDA) and CPU twins ----
@@ -314,30 +435,42 @@ def main() -> int:
     scene, cam = million_triangle_scene(2000)
     tscene, tcam, tover = tlas_scene(n=4)
     cscene, ccam = cornell_box()
-    cases = (
-        ("bench2k", scene, cam, RenderConfig(width=40, height=24, samples_per_pass=4,
-                                             max_bounces=5, transition_every=4,
-                                             pool_size=1024)),
-        ("tlas", tscene, tcam, RenderConfig(width=48, height=48, samples_per_pass=2,
-                                            max_bounces=4, transition_every=4,
-                                            pool_size=1024, **tover)),
-        ("cornell", cscene, ccam, RenderConfig(width=32, height=32, samples_per_pass=4,
-                                               max_bounces=4, transition_every=4,
-                                               pool_size=1024, sky_mode=2)),
+    bench = dict(width=40, height=24, samples_per_pass=4, max_bounces=5, transition_every=4,
+                 pool_size=1024)
+    tlas = dict(width=48, height=48, samples_per_pass=2, max_bounces=4, transition_every=4,
+                pool_size=1024, **tover)
+    box = dict(width=32, height=32, samples_per_pass=4, max_bounces=4, transition_every=4,
+               pool_size=1024, sky_mode=2)
+    cases = (  # (name, scene, camera, config, leaf8, kernels the case must launch)
+        ("bench2k", scene, cam, RenderConfig(**bench), False, ("arrival16", "transition16")),
+        ("bench2k leaf8 attr_in_kernel", scene, cam, RenderConfig(**bench, attr_in_kernel=True),
+         True, ("arrival16_leaf8", "transition16_attr_raw")),
+        ("bench2k attr_compact=3", scene, cam, RenderConfig(**bench, attr_compact=3), False,
+         ("arrival16", "transition16")),
+        ("tlas", tscene, tcam, RenderConfig(**tlas), False, ("arrival16_inst",)),
+        ("tlas leaf8", tscene, tcam, RenderConfig(**tlas), True, ("arrival16_inst_leaf8",)),
+        ("cornell", cscene, ccam, RenderConfig(**box), False, ("arrival16",)),
+        ("cornell attr_compact=3", cscene, ccam, RenderConfig(**box, attr_compact=3), False,
+         ("arrival16",)),
     )
-    for case, sc, cm, small in cases:
+    for case, sc, cm, small, leaf8, used in cases:
         films = {}
         for name, device in (("kernels", dev), ("twins", dev), ("cpu", torch.device("cpu"))):
-            sd = sc.build("wide16", device=device)
+            sd = sc.build("wide16", device=device, leaf8=leaf8)
             pr = make_camera_params(width=small.width, height=small.height, device=device, **cm)
             arrive, trans = fused.arrival_step16_cuda, fused.transition_step16_cuda
             if name == "twins":
                 fused.arrival_step16_cuda = twin_arrival
                 fused.transition_step16_cuda = cuda_transition.transition_step16_plain
+            reset_counts()
             try:
                 film, _occ, rays, arr, _it = fused.fused_pass_with_stats(sd, small, pr, 0)
             finally:
                 fused.arrival_step16_cuda, fused.transition_step16_cuda = arrive, trans
+            if name == "kernels":
+                launched = {k for k, v in counts().items() if v > 0}
+                if launched != set(used):
+                    raise AssertionError(f"{case}: kernels launched {launched}, expected {used}")
             films[name] = (film.cpu().numpy(), int(rays), int(arr))
 
         # Same card: counters equal.  Against the CPU (other sin/cos/log
@@ -363,51 +496,29 @@ def main() -> int:
     iparams = make_camera_params(width=w, height=h, device=dev, **icam)
     log(f"phase 6 scene: {len(iscene.instances)} instances, {isd.wide16_nodes.shape[0]} rows, "
         f"depth {isd.stack_depth}, set-up {time.perf_counter() - t0:.1f} s")
-    (nodes, oT, dT, invT, s, active), _ = capture_inputs(fused, isd, icfg, iparams,
-                                                          k1_call=3 * TE + 3, k2_call=None)
-    out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances=True)
-    ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances=True)
-    torch.cuda.synchronize()
-    k1i_err = compare(out, ref, "arrival16_inst")
-    k1i_ms = time_ms(lambda: cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active,
-                                                              has_instances=True))
-    k1i_plain = time_ms(lambda: arrival_step16(nodes, oT.T, dT.T, invT.T, s, active,
-                                               has_instances=True))
-    live = int(((s.ptr >= 0) & active).sum())
-    in_blas = int(((s.inst >= 0) & (s.ptr >= 0) & active).sum())
-    log(f"phase 6 K1 arrival16_inst: B={s.ptr.shape[0]} live={live} in_blas={in_blas} "
-        f"max_abs_err={k1i_err:g} (tol {FLOAT_TOL}); {k1i_ms:.4f} ms vs plain "
-        f"{k1i_plain:.4f} ms")
-    del out, ref, s, nodes
+    k1_in, _ = capture_inputs(fused, isd, icfg, iparams, k1_call=3 * TE + 3, k2_call=None)
+    check_arrival("arrival16_inst", k1_in, True, "phase 6")
+    s = k1_in[4]
+    log(f"phase 6 lanes inside a BLAS: "
+        f"{int(((s.inst >= 0) & (s.ptr >= 0) & k1_in[5]).sum())}")
+    del k1_in, s
 
     # ---- 7. path A: the instanced scene through Renderer ----
-    r = Renderer(isd, icfg, iparams, device="cuda")
+    r = Renderer(isd, icfg, iparams)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    _s, iters_a = run_passes(r, 2, "phase 7")
-    k1_a, k1i_launches, k2_a = counts()
+    _s, iters_a, _rays, _arr = run_passes(r, 2, "phase 7")
+    got = counts()
+    expect_only(got, {"arrival16_inst": TE * iters_a}, "phase 7")
+    kernels["arrival16_inst"]["launches"] = got["arrival16_inst"]
     img = r.film.accum
     check_film(img, (h, w, 3), "phase 7")
-    if not (k1i_launches == TE * iters_a > 0 and k1_a == 0 and k2_a == 0):
-        raise AssertionError(f"phase 7 launch counts K1 inst {k1i_launches} K1 {k1_a} K2 "
-                             f"{k2_a} vs {iters_a} super-iterations")
-    mean_rel = abs(float(img.mean()) - float(flat_img.mean())) / float(flat_img.mean())
-    rows = (h // TILE) * TILE
-
-    def tiles(x):
-        return x[:rows].reshape(rows // TILE, TILE, w // TILE, TILE, 3).mean(dim=(1, 3))
-
-    a_t, f_t = tiles(img), tiles(flat_img)
-    tile_stat = float(((a_t - f_t).abs() / (f_t + 0.05)).mean())
-    if mean_rel > 0.03 or tile_stat > 0.05:
-        raise AssertionError(f"phase 7 film vs flat: mean rel {mean_rel:g}, tile "
-                             f"statistic {tile_stat:g}")
+    mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 7")
     log(f"phase 7 path A: film mean {float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, "
-        f"rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic {tile_stat:.5f}, launches K1 "
-        f"inst {k1i_launches} K1 {k1_a} K2 {k2_a}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-    del r, isd, flat_img, img
+        f"rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    del r, isd, img
 
     # ---- 8. path B: the Cornell box at the bench's configuration ----
     cscene, ccam = cornell_box()
@@ -418,52 +529,133 @@ def main() -> int:
     # The first arrival of a super-iteration: the box's shallow tree ends
     # most traversals within two arrivals.
     cte = ccfg.transition_every
-    (nodes, oT, dT, invT, s, active), _ = capture_inputs(fused, csd, ccfg, cparams,
-                                                          k1_call=3 * cte + 1, k2_call=None)
+    k1_in, _ = capture_inputs(fused, csd, ccfg, cparams, k1_call=3 * cte + 1, k2_call=None)
+    nodes, oT, dT, invT, s, active = k1_in
     out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
     ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active)
     torch.cuda.synchronize()
     k1c_err = compare(out, ref, "arrival16 (Cornell)")
     k1c_ms = time_ms(lambda: cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active))
     k1c_plain = time_ms(lambda: arrival_step16(nodes, oT.T, dT.T, invT.T, s, active))
+    kernels["arrival16"]["max_abs_err"] = max(kernels["arrival16"]["max_abs_err"], k1c_err)
     live = int(((s.ptr >= 0) & active).sum())
     log(f"phase 8 K1 arrival16 (Cornell): B={s.ptr.shape[0]} live={live} "
         f"max_abs_err={k1c_err:g} (tol {FLOAT_TOL}); {k1c_ms:.4f} ms vs plain "
         f"{k1c_plain:.4f} ms")
-    del out, ref, s, nodes
-    r = Renderer(csd, ccfg, cparams, device="cuda")
+    del out, ref, s, nodes, k1_in
+    r = Renderer(csd, ccfg, cparams)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    secs_b, iters_b = run_passes(r, 2, "phase 8")
-    k1_b, k1i_b, k2_b = counts()
+    secs_b, iters_b, _rays, _arr = run_passes(r, 2, "phase 8")
+    got = counts()
+    expect_only(got, {"arrival16": ccfg.transition_every * iters_b}, "phase 8")
     img = r.film.accum
     check_film(img, (256, 256, 3), "phase 8")
-    if not (k1_b == ccfg.transition_every * iters_b > 0 and k1i_b == 0 and k2_b == 0):
-        raise AssertionError(f"phase 8 launch counts K1 {k1_b} K1 inst {k1i_b} K2 {k2_b} "
-                             f"vs {iters_b} super-iterations")
     log(f"phase 8 path B: {r.sample_count} spp in {secs_b:.3f} s, film mean "
-        f"{float(img.mean()):.6f}, launches K1 {k1_b} K2 {k2_b}, peak memory "
+        f"{float(img.mean()):.6f}, launches {got}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-    del r
+    del r, img
 
-    kernels = [
-        {"name": "arrival16", "route": "cuda",
-         "source": "unity_webgpu_pathtracer_torch/csrc/arrival16.cu",
-         "replaces": "unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py:85",
-         "launches": k1_launches, "max_abs_err": max(k1_err, k1c_err), "ms": k1_ms,
-         "plain_ms": k1_plain},
-        {"name": "arrival16_inst", "route": "cuda",
-         "source": "unity_webgpu_pathtracer_torch/csrc/arrival16.cu",
-         "replaces": "unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py:85",
-         "launches": k1i_launches, "max_abs_err": k1i_err, "ms": k1i_ms,
-         "plain_ms": k1i_plain},
-        {"name": "transition16", "route": "cuda",
-         "source": "unity_webgpu_pathtracer_torch/csrc/transition16.cu",
-         "replaces": "unity_webgpu_pathtracer_tpu/ops/pallas_transition.py:579",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
-    ]
-    print(json.dumps({"kernels": kernels}))
+    # ---- 9./10. leaf8 K1 and raw-row K2 against twins on a 1080p state ----
+    scene, cam = million_triangle_scene(1_000_000)
+    lcfg = RenderConfig(width=w, height=h, samples_per_pass=SPP, max_bounces=5,
+                        transition_every=TE, pool_size=POOL, attr_in_kernel=True)
+    t0 = time.perf_counter()
+    misses = w16.CACHE_STATS["miss"]
+    lsd = scene.build("wide16", device=dev, leaf8=True)
+    built = "built natively" if w16.CACHE_STATS["miss"] > misses else "from the cache"
+    log(f"phase 9 leaf8 scene: {lsd.wide16_nodes.shape[0]} rows of "
+        f"{lsd.wide16_nodes.shape[1]} floats ({lsd.wide16_nodes.nbytes / 2**20:.1f} MiB), depth "
+        f"{lsd.stack_depth}, table {built} in {time.perf_counter() - t0:.1f} s")
+    k1_in, k2_in = capture_inputs(fused, lsd, lcfg, params, k1_call=3 * TE + 3, k2_call=4)
+    check_arrival("arrival16_leaf8", k1_in, False, "phase 9")
+    del k1_in
+
+    out = cuda_transition.transition_step16_cuda(**k2_in)
+    ref = cuda_transition.transition_step16_plain(**k2_in)
+    torch.cuda.synchronize()
+    raw_err = compare(out, ref, "transition16_attr_raw")
+    rows = k2_in["attr_table"][k2_in["attr"].long()]
+    decoded = {k: v for k, v in k2_in.items() if k not in ("attr_table", "attr")}
+    decoded["shade_rowT"] = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
+    out_c = cuda_transition.transition_step16_cuda(**decoded)
+    torch.cuda.synchronize()
+    for name in out._fields:
+        a, b = getattr(out, name), getattr(out_c, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"transition16_attr_raw vs transition16: {name} differs")
+    raw_ms = time_ms(lambda: cuda_transition.transition_step16_cuda(**k2_in))
+    raw_plain = time_ms(lambda: cuda_transition.transition_step16_plain(**k2_in))
+    rows_ms = time_ms(lambda: cuda_transition.transition_step16_cuda(**decoded))
+    b = record("transition16_attr_raw", K2_SRC, K2_TPU, raw_err, raw_ms, raw_plain,
+               *transition_work(k2_in, out))
+    log(f"phase 10 K2 transition16_attr_raw: B={k2_in['mode'].shape[0]} "
+        f"died={int(out.died.sum())} max_abs_err={raw_err:g} (tol {FLOAT_TOL}); bit-identical "
+        f"to transition16 on the same rows; {raw_ms:.4f} ms vs plain {raw_plain:.4f} ms, "
+        f"transition16 on the same state {rows_ms:.4f} ms; {b}")
+    halves = torch.arange(65536, dtype=torch.int32, device=dev)
+    k = np.arange(-4, 5)
+    u32 = np.concatenate([[0, 1, 2, 0xFFFFFFFE, 0xFFFFFFFF], 2**31 + k, 2**24 + k, 2**32 - 2**7 + k,
+                          np.random.default_rng(0).integers(0, 2**32, 1 << 16)]).astype(np.int64)
+    got_h, got_u = cuda_transition.decode_check_cuda(halves, torch.from_numpy(u32).to(dev))
+    want_h = np.arange(65536).astype(np.uint16).view(np.float16).astype(np.float32)
+    want_u = torch.from_numpy(u32).to(dev).to(torch.float32) * urng._INV_U32
+    if not (np.array_equal(got_h.cpu().numpy().view(np.uint32), want_h.view(np.uint32))
+            and torch.equal(got_u.view(torch.int32), want_u.view(torch.int32))):
+        raise AssertionError("the kernels' f16 decode or uint32 -> f32 uniform differs")
+    log(f"phase 10 decode check: f16 decode bit-exact against numpy over 65536 halfwords; "
+        f"uint32 -> uniform bit-exact against PyTorch's int64 -> f32 on {u32.size} states "
+        f"(0, 2^31+-4, 2^24+-4, 2^32-2^7+-4, 0xFFFFFFFF, random)")
+    del k2_in, out, ref, out_c, rows, decoded
+
+    # ---- 11. path C: the leaf8 scene with attr_in_kernel through Renderer ----
+    r = Renderer(lsd, lcfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _s, iters_c, rays_c, arr_c = run_passes(r, 2, "phase 11")
+    got = counts()
+    expect_only(got, {"arrival16_leaf8": TE * iters_c, "transition16_attr_raw": iters_c},
+                "phase 11")
+    kernels["arrival16_leaf8"]["launches"] = got["arrival16_leaf8"]
+    kernels["transition16_attr_raw"]["launches"] = got["transition16_attr_raw"]
+    img = r.film.accum
+    check_film(img, (h, w, 3), "phase 11")
+    mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 11")
+    log(f"phase 11 path C: rays {rays_c} (phase 4: {rays_4}), arrivals {arr_c} (phase 4: "
+        f"{arr_4}), super-iterations {iters_c} (phase 4: {iters_4}); film mean "
+        f"{float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, rel {mean_rel:.5f}), "
+        f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    del r, lsd, img
+
+    # ---- 12. K1's instanced leaf8 kernel, and one pass of that scene ----
+    t0 = time.perf_counter()
+    isd = iscene.build("wide16", device=dev, leaf8=True)
+    log(f"phase 12 scene: {isd.wide16_nodes.shape[0]} rows of {isd.wide16_nodes.shape[1]} "
+        f"floats, depth {isd.stack_depth}, set-up {time.perf_counter() - t0:.1f} s")
+    k1_in, _ = capture_inputs(fused, isd, icfg, iparams, k1_call=3 * TE + 3, k2_call=None)
+    check_arrival("arrival16_inst_leaf8", k1_in, True, "phase 12")
+    del k1_in
+    r = Renderer(isd, icfg, iparams)
+    reset_counts()
+    _s, iters_d, _rays, _arr = run_passes(r, 1, "phase 12")
+    got = counts()
+    expect_only(got, {"arrival16_inst_leaf8": TE * iters_d}, "phase 12")
+    kernels["arrival16_inst_leaf8"]["launches"] = got["arrival16_inst_leaf8"]
+    img = r.film.accum
+    check_film(img, (h, w, 3), "phase 12")
+    mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 12")
+    log(f"phase 12 instanced leaf8: film mean {float(img.mean()):.6f} (rel {mean_rel:.5f}), "
+        f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}; card: {card}")
+    del r, isd, img, flat_img
+
+    order = ("arrival16", "arrival16_inst", "arrival16_leaf8", "arrival16_inst_leaf8",
+             "transition16", "transition16_attr_raw")
+    print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -141,7 +141,7 @@ def test_prestep_bit_exact():
     js = jtw.prestep16(jnp.asarray(nodes), jnp.asarray(top), jo, jd,
                        1.0 / jnp.where(jd == 0.0, 1e-30, jd), js, jnp.asarray(fresh))
     td = torch.from_numpy(d)
-    ts = ttw.init_state16(b, FAR_PLANE, depth=sd.stack_levels.shape[0])
+    ts = ttw.init_state16(b, FAR_PLANE, depth=sd.stack_levels.shape[0], device="cpu")
     ts = ttw.prestep16(torch.from_numpy(nodes), torch.from_numpy(top),
                        torch.from_numpy(o), td, safe_rcp(td), ts, torch.from_numpy(fresh))
     assert (ts.ptr.numpy() > 0).mean() > 0.3   # the test exercises both levels

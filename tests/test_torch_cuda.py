@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+"""The port's CUDA kernels against their plain PyTorch twins, on the card,
+and the kernel entries the wrappers call against the sources (on the CPU).
 
-Every test here needs a CUDA device and skips without one.  On a machine
-with a GPU (which need not have JAX):
+Every test marked ``gpu`` needs a CUDA device and skips without one.  On a
+machine with a GPU (which need not have JAX):
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
@@ -14,6 +15,8 @@ ulp between the kernel's and PyTorch's builds).
 """
 
 import dataclasses
+import os
+import re
 
 import numpy as np
 import pytest
@@ -26,9 +29,8 @@ from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
 from unity_webgpu_pathtracer_torch.render import fused
 from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
 
-pytestmark = pytest.mark.gpu
-
 W, H = 96, 64
+gpu = pytest.mark.gpu
 
 
 @pytest.fixture(scope="module")
@@ -58,15 +60,52 @@ def _assert_same(got, want, name):
         assert torch.equal(got, want), name
 
 
+def test_entries_match_sources():
+    """The C entries of each source are exactly those ``cuda_build`` binds,
+    with as many arguments, and every kernel the wrappers name has one."""
+    for name, entries in cuda_build.ENTRIES.items():
+        with open(os.path.join(cuda_build.SRC_DIR, f"{name}.cu")) as f:
+            text = f.read()
+        found = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text))
+        assert set(found) == set(entries), name
+        for entry, args in found.items():
+            assert len(args.split(",")) == len(entries[entry]), entry
+        assert 'extern "C" const char* cuda_error_string' in text
+    launches = {f"{k}_launch" for k in (*cuda_arrival.KERNELS.values(),
+                                         *cuda_transition.KERNELS.values())}
+    assert launches <= {e for entries in cuda_build.ENTRIES.values() for e in entries}
+    assert set(cuda_arrival.arrival_step16_cuda.launches) == set(cuda_arrival.KERNELS.values())
+    assert set(cuda_transition.transition_step16_cuda.launches) == set(
+        cuda_transition.KERNELS.values())
+
+
+@gpu
 def test_kernels_build(cuda):
-    lib = cuda_build.load()
-    assert lib.arrival16_launch is not None and lib.transition16_launch is not None
-    assert lib.arrival16_inst_launch is not None
+    libs = cuda_build.load()
+    for name, entries in cuda_build.ENTRIES.items():
+        for entry in entries:
+            assert getattr(libs[name], entry) is not None
 
 
-def _instanced_table():
+@gpu
+def test_decode_check_entry_exact(cuda):
+    """The kernels' f16 decode over all 65,536 halfwords against numpy, and
+    their uint32 -> uniform conversion at the edges against PyTorch's."""
+    h = torch.arange(65536, dtype=torch.int32, device=cuda)
+    k = np.arange(-4, 5)
+    u = np.concatenate([[0, 1, 2, 0xFFFFFFFF, 0xFFFFFFFE], 2**31 + k, 2**24 + k,
+                        np.random.default_rng(0).integers(0, 2**32, 4096)]).astype(np.int64)
+    half, uni = cuda_transition.decode_check_cuda(h, torch.from_numpy(u).to(cuda))
+    want = np.arange(65536).astype(np.uint16).view(np.float16).astype(np.float32)
+    np.testing.assert_array_equal(half.cpu().numpy().view(np.uint32), want.view(np.uint32))
+    from unity_webgpu_pathtracer_torch.utils import rng as urng
+    ref = torch.from_numpy(u).to(cuda).to(torch.float32) * urng._INV_U32
+    assert torch.equal(uni.view(torch.int32), ref.view(torch.int32))
+
+
+def _instanced_table(leaf8=False):
     """Three instances of one 400-triangle mesh (moved, scaled, rotated)
-    over a two-level table, and its depth."""
+    over a two-level table (leaf8 rows with ``leaf8``), and its depth."""
     from unity_webgpu_pathtracer_torch.accel import wide16
     from unity_webgpu_pathtracer_torch.models.primitives import transform_trs
 
@@ -79,17 +118,19 @@ def _instanced_table():
     inst = [(0, transform_trs(translate=(x, 0.0, 0.0), rotate_y=0.4 * x, scale=0.5 + 0.3 * k),
              None) for k, x in enumerate((-2.5, 0.0, 2.5))]
     w, _l2w, _w2l, _layout = wide16.build_tlas_wide16(
-        [wide16.build_scene_wide16(tris, recs)], [(p.min(0), p.max(0))], inst, [0])
+        [wide16.build_scene_wide16(tris, recs, leaf8)], [(p.min(0), p.max(0))], inst, [0])
     return w.nodes, w.depth
 
 
-def test_instanced_kernel_matches_twin(cuda):
-    """K1's instanced kernel against the twin, arrival by arrival, on random
-    rays (half aimed at the instances) over a two-level table."""
+@gpu
+@pytest.mark.parametrize("leaf8", [False, True])
+def test_instanced_kernel_matches_twin(cuda, leaf8):
+    """K1's instanced kernels against the twin, arrival by arrival, on
+    random rays (half aimed at the instances) over a two-level table."""
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import init_state16
     from unity_webgpu_pathtracer_torch.utils.math import safe_rcp
 
-    nodes, depth = _instanced_table()
+    nodes, depth = _instanced_table(leaf8)
     b = 8192
     rng = np.random.default_rng(11)
     o = rng.uniform(-5.0, 5.0, (b, 3)).astype(np.float32)
@@ -103,7 +144,8 @@ def test_instanced_kernel_matches_twin(cuda):
     invT = safe_rcp(dT)
     active = torch.from_numpy(rng.random(b) < 0.9).to(cuda)
     s = init_state16(b, 1e5, depth=depth + 4, device=cuda)
-    before = cuda_arrival.arrival_step16_cuda.launches_inst
+    kernel = cuda_arrival.KERNELS[(nodes.shape[1], True)]
+    before = cuda_arrival.arrival_step16_cuda.launches[kernel]
     for _ in range(40):
         out = cuda_arrival.arrival_step16_cuda(tn, oT, dT, invT, s, active, has_instances=True)
         ref = arrival_step16(tn, oT.T, dT.T, invT.T, s, active, has_instances=True)
@@ -111,20 +153,29 @@ def test_instanced_kernel_matches_twin(cuda):
             _assert_same(getattr(out, name), getattr(ref, name), f"arrival_inst.{name}")
         s = out
     torch.cuda.synchronize()
-    assert cuda_arrival.arrival_step16_cuda.launches_inst - before == 40
+    assert cuda_arrival.arrival_step16_cuda.launches[kernel] - before == 40
     assert bool((s.hit_inst >= 0).any()) and bool(s.found.any())
 
 
-@pytest.mark.parametrize("flags", ["main_path", "firefly_and_canary"])
+@gpu
+@pytest.mark.parametrize("flags", ["main_path", "firefly_and_canary", "leaf8_attr_raw",
+                                   "oct_rows"])
 def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
     """Every K1 and K2 call of a real pass, against the twin on the same
     inputs (the pass goes on with the kernel's outputs); also with K2's
-    firefly clamp, at a threshold that clamps lanes, and NaN canary on."""
+    firefly clamp, at a threshold that clamps lanes, and NaN canary on;
+    on leaf8 rows with K2 fed the raw attribute rows; and with oct rows."""
     sd, params = scene64k
     if flags == "firefly_and_canary":
         cfg = _config(use_firefly_filter=True, debug_nan_canary=True)
         params = dataclasses.replace(
             params, max_firefly_luminance=torch.tensor(0.5, device=cuda))
+    elif flags == "leaf8_attr_raw":
+        scene, _cam = million_triangle_scene(64_000)
+        sd = scene.build("wide16", device=cuda, leaf8=True)
+        cfg = _config(attr_in_kernel=True)
+    elif flags == "oct_rows":
+        cfg = _config(attr_compact=3)
     else:
         cfg = _config()
     calls = {"k1": 0, "k2": 0}
@@ -152,14 +203,15 @@ def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
     assert torch.isfinite(film).all()
 
 
+@gpu
 def test_pass_with_kernels_equals_pass_with_twins(cuda, scene64k, monkeypatch):
     sd, params = scene64k
     cfg = _config()
-    k1_before = cuda_arrival.arrival_step16_cuda.launches
-    k2_before = cuda_transition.transition_step16_cuda.launches
+    k1_before = cuda_arrival.arrival_step16_cuda.launches["arrival16"]
+    k2_before = cuda_transition.transition_step16_cuda.launches["transition16"]
     film_k, _occ, rays_k, arr_k, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
-    assert cuda_arrival.arrival_step16_cuda.launches - k1_before == 4 * iters
-    assert cuda_transition.transition_step16_cuda.launches - k2_before == iters
+    assert cuda_arrival.arrival_step16_cuda.launches["arrival16"] - k1_before == 4 * iters
+    assert cuda_transition.transition_step16_cuda.launches["transition16"] - k2_before == iters
 
     monkeypatch.setattr(fused, "arrival_step16_cuda",
                         lambda n, o, d, i, s, a=None, has_instances=False:
@@ -173,6 +225,7 @@ def test_pass_with_kernels_equals_pass_with_twins(cuda, scene64k, monkeypatch):
     assert abs(a.mean() - b.mean()) <= 0.01 * abs(b.mean())
 
 
+@gpu
 def test_wrappers_reject_bad_inputs(cuda, scene64k):
     sd, _params = scene64k
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import init_state16

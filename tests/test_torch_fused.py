@@ -46,8 +46,9 @@ def both():
     tparams = tconfig.params_from_numpy(
         {f: np.asarray(getattr(params, f)) for f in
          ("cam_to_world", "cam_inv_proj", "environment_intensity",
-          "environment_rotation", "max_firefly_luminance", "seed_root")})
-    return sd, params, jcfg, scene_from_numpy(arrays), tparams, tconfig.RenderConfig(**SLICE)
+          "environment_rotation", "max_firefly_luminance", "seed_root")}, device="cpu")
+    return (sd, params, jcfg, scene_from_numpy(arrays, device="cpu"), tparams,
+            tconfig.RenderConfig(**SLICE))
 
 
 def _film_close(got, want):
@@ -75,7 +76,7 @@ def test_fused_pass_matches_reference(both, current_sample):
 def test_renderer_accumulates_like_reference(both):
     sd, params, jcfg, tsd, tparams, tcfg = both
     jr = JRenderer(sd, jcfg, params, compile_cache=False)
-    tr = TRenderer(tsd, tcfg, tparams)
+    tr = TRenderer(tsd, tcfg, tparams, device="cpu")
     assert tr.stats() == {}
     for _ in range(2):
         jr.step()

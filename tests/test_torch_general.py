@@ -171,8 +171,8 @@ def test_general_transition_matches_reference(name):
     jcfg = jconfig.RenderConfig(traversal="wide16", integrator="fused", attr_compact=2,
                                 **common)
     tcfg = tconfig.RenderConfig(**common)
-    tsd = scene_from_numpy(_arrays(jsd))
-    tparams = tcamera(width=W, height=H, **cam, **uniforms)
+    tsd = scene_from_numpy(_arrays(jsd), device="cpu")
+    tparams = tcamera(width=W, height=H, **cam, **uniforms, device="cpu")
     jparams = jcamera(width=W, height=H, **cam, **uniforms)
     cap = _capture(tsd, tcfg, tparams)
     s = copy.deepcopy(cap["s"])
@@ -204,8 +204,8 @@ def test_cornell_pass_matches_reference():
     step = jax.jit(jfused.fused_pass_with_stats, static_argnums=(1,))
     jfilm, jocc, jrays, jarr = step(sd, jcfg, jcamera(width=w, height=h, **cam), 0)
     tfilm, tocc, trays, tarr, iters = tfused.fused_pass_with_stats(
-        scene_from_numpy(_arrays(sd)), tconfig.RenderConfig(**common),
-        tcamera(width=w, height=h, **cam), 0)
+        scene_from_numpy(_arrays(sd), device="cpu"), tconfig.RenderConfig(**common),
+        tcamera(width=w, height=h, **cam, device="cpu"), 0)
     print(f"rays port {int(trays)} reference {int(jrays)}; arrivals port {int(tarr)} "
           f"reference {int(jarr)}; super-iterations {iters}")
     assert abs(int(trays) - int(jrays)) <= 0.005 * int(jrays)
@@ -225,12 +225,12 @@ def test_cornell_golden():
     size, spp = golden_common.SIZE, golden_common.SPP
     cfg = tconfig.RenderConfig(width=size, height=size, samples_per_pass=spp, max_bounces=4,
                                pool_size=4096, use_firefly_filter=True, sky_mode=2)
-    sd = scene.build()
+    sd = scene.build(device="cpu")
     passes = []
     for seed in golden_common.seed_roots(golden_common.TEST_SEED_BASE,
                                          golden_common.N_TEST_PASSES):
         params = tcamera(width=size, height=size, **cam, seed_root=np.uint32(seed),
-                         max_firefly_luminance=np.float32(2.0))
+                         max_firefly_luminance=np.float32(2.0), device="cpu")
         film, *_ = tfused.fused_pass_with_stats(sd, cfg, params, 0)
         passes.append(film.numpy().reshape(size, size, 3) / spp)
     ok, stats = golden_common.compare_to_golden(np.stack(passes), "cornell")
@@ -254,8 +254,9 @@ def test_update_material_changes_image_and_resets():
     cfg = tconfig.RenderConfig(width=size, height=size, samples_per_pass=8, max_bounces=2,
                                pool_size=1024, sky_mode=0, has_environment_texture=False)
     r = Renderer(scene, cfg, tcamera(eye=(0, 0, 3), target=(0, 0, 0), fov_y_deg=45,
-                                     width=size, height=size,
-                                     environment_color=np.float32([1.0, 1.0, 1.0])))
+                                     width=size, height=size, device="cpu",
+                                     environment_color=np.float32([1.0, 1.0, 1.0])),
+                 device="cpu")
     r.render(2)
     before = r.radiance().copy()
     assert r.sample_count == 16
@@ -280,6 +281,6 @@ def test_hdri_config_refuses_scene_without_hdri():
     cfg = tconfig.RenderConfig(width=8, height=8, pool_size=1024)
     assert cfg.sky_mode == 0 and cfg.has_environment_texture
     r = Renderer(scene, cfg, tcamera(eye=(0, 0, 3), target=(0, 0, 0), fov_y_deg=45,
-                                     width=8, height=8))
+                                     width=8, height=8, device="cpu"), device="cpu")
     with pytest.raises(ValueError, match="has none"):
         r.render(1)

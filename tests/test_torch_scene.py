@@ -60,7 +60,7 @@ def test_host_build_byte_identical(jax_scene, tmp_path, monkeypatch):
 
 
 def test_scene_from_numpy_round_trip(jax_scene):
-    sd = scene_from_numpy(jax_scene)
+    sd = scene_from_numpy(jax_scene, device="cpu")
     assert sd.stack_depth == jax_scene["stack_levels"].shape[0]
     back = scene_to_numpy(sd)
     for f in ("wide16_nodes", "wide16_top", "attr_shade_c", "materials"):
@@ -86,7 +86,9 @@ def test_cache_key_names_the_committed_table():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(traversal="wide8"), dict(integrator="megakernel"), dict(attr_compact=3),
+    # attr_compact=3 stores no uv: refused with textures, as the reference does.
+    dict(traversal="wide8"), dict(integrator="megakernel"),
+    dict(attr_compact=3, has_textures=True),
     dict(sky_mode=3), dict(attr_compact=1), dict(has_lights=True),
     dict(has_textures=True), dict(has_normal_maps=True), dict(traversal="bvh2"),
     dict(use_depth_of_field=True), dict(use_record_film=False), dict(use_lane_film=True),
@@ -99,10 +101,10 @@ def test_config_refuses_unported_knobs(knob):
 def test_params_from_numpy_refuses_unported_fields():
     cam = dict(eye=(0.0, 1.0, 5.0), target=(0.0, 0.0, 0.0), fov_y_deg=45.0,
                width=8, height=8)
-    p = make_camera_params(**cam, seed_root=np.uint32(0xFFFFFFFF))
+    p = make_camera_params(**cam, seed_root=np.uint32(0xFFFFFFFF), device="cpu")
     assert p.seed_root.dtype == torch.int64 and int(p.seed_root) == 0xFFFFFFFF
     with pytest.raises(ValueError, match="aperture"):
-        make_camera_params(**cam, aperture=0.1)
+        make_camera_params(**cam, aperture=0.1, device="cpu")
 
 
 def test_port_imports_no_jax():

@@ -157,7 +157,7 @@ def test_instanced_arrivals_match_pallas(steps):
     jo, jd = jnp.asarray(o), jnp.asarray(d)
     jinv = 1.0 / jnp.where(jd == 0.0, 1e-30, jd)
     js = jtw.init_state16(b, jnp.float32(FAR_PLANE), depth=w.depth + 2)
-    ts = ttw.init_state16(b, FAR_PLANE, depth=w.depth + 2)
+    ts = ttw.init_state16(b, FAR_PLANE, depth=w.depth + 2, device="cpu")
     tnodes = torch.from_numpy(w.nodes)
     to, td = torch.from_numpy(o.T.copy()), torch.from_numpy(d.T.copy())
     tinv = safe_rcp(td)
@@ -197,8 +197,8 @@ def tlas_both():
     jcfg = jconfig.RenderConfig(traversal="wide16", integrator="fused", attr_compact=2,
                                 use_pallas_arrival=True, use_pallas_transition=True,
                                 sky_mode=overrides["sky_mode"], **SLICE)
-    tparams = tcamera(width=W, height=H, **cam)
-    return sd, params, jcfg, scene_from_numpy(_jax_arrays(sd)), tparams, \
+    tparams = tcamera(width=W, height=H, **cam, device="cpu")
+    return sd, params, jcfg, scene_from_numpy(_jax_arrays(sd), device="cpu"), tparams, \
         tconfig.RenderConfig(sky_mode=overrides["sky_mode"], **SLICE)
 
 
@@ -242,10 +242,10 @@ GOLDEN = dict(width=golden_common.SIZE, height=golden_common.SIZE,
               use_firefly_filter=True)
 
 
-def _golden_params(camera, cam):
+def _golden_params(camera, cam, **device):
     return camera(width=golden_common.SIZE, height=golden_common.SIZE, **cam,
                   seed_root=np.uint32(golden_common.TEST_SEED_BASE),
-                  max_firefly_luminance=np.float32(2.0))
+                  max_firefly_luminance=np.float32(2.0), **device)
 
 
 @pytest.fixture(scope="module")
@@ -255,8 +255,8 @@ def tlas_golden_port():
     seed): the scene, its camera, the config and the pass's outputs."""
     scene, cam, overrides = texamples.tlas_scene()
     cfg = tconfig.RenderConfig(**GOLDEN, **overrides)
-    return scene, cam, cfg, tfused.fused_pass_with_stats(scene.build(), cfg,
-                                                         _golden_params(tcamera, cam), 0)
+    return scene, cam, cfg, tfused.fused_pass_with_stats(
+        scene.build(device="cpu"), cfg, _golden_params(tcamera, cam, device="cpu"), 0)
 
 
 def test_tlas_matches_reference_at_golden_config(tlas_golden_port):
@@ -282,8 +282,8 @@ def test_tlas_matches_flattened_at_golden_config(tlas_golden_port):
     """The same pass against the same scene baked flat."""
     scene, cam, cfg, (film, *_) = tlas_golden_port
     size, spp = golden_common.SIZE, golden_common.SPP
-    flat = tfused.fused_pass_with_stats(_flattened(scene).build(), cfg,
-                                        _golden_params(tcamera, cam), 0)[0]
+    flat = tfused.fused_pass_with_stats(_flattened(scene).build(device="cpu"), cfg,
+                                        _golden_params(tcamera, cam, device="cpu"), 0)[0]
     films = [f.numpy().reshape(size, size, 3) / spp for f in (film, flat)]
     k = 8
     a, b = (f.reshape(size // k, k, size // k, k, 3).mean((1, 3)) for f in films)
@@ -299,7 +299,8 @@ def test_update_instance_transform_moves_object():
     scene, cam, overrides = texamples.tlas_scene(n=3, phase=0.0)
     cfg = tconfig.RenderConfig(width=size, height=size, samples_per_pass=8, max_bounces=2,
                                pool_size=1024, **overrides)
-    r = TRenderer(scene, cfg, tcamera(width=size, height=size, **cam))
+    r = TRenderer(scene, cfg, tcamera(width=size, height=size, **cam, device="cpu"),
+                  device="cpu")
     r.render(1)
     before = r.radiance().copy()
     # Move the middle sphere up by 1.5 (Bounce.cs analogue).
@@ -314,7 +315,7 @@ def test_tlas_only_update_matches_full_rebuild():
     untouched."""
     scene, cam, overrides = texamples.tlas_scene(n=5)
     cfg = tconfig.RenderConfig(width=8, height=8, **overrides)
-    r = TRenderer(scene, cfg, tcamera(width=8, height=8, **cam))
+    r = TRenderer(scene, cfg, tcamera(width=8, height=8, **cam, device="cpu"), device="cpu")
     before = r.scene.wide16_nodes.clone()
     r.update_instance_transform(2, tprim.transform_trs(translate=(0.0, 1.5, 0.5)))
     cap = tw16.tlas_capacity(len(scene.instances))

@@ -76,12 +76,16 @@ def captured():
 
 
 def _to_torch(kw):
+    """The captured kernel inputs as the port's keyword tensors (the
+    attribute row in the form the capture has)."""
     ins = {}
     for name, dtype, _rows in tct._INPUTS:
         a = kw[name]
         if dtype == torch.int64:
             a = a.astype(np.int64)
         ins[name] = torch.from_numpy(np.array(a))
+    if "shade_rowT" in kw:
+        ins["shade_rowT"] = torch.from_numpy(np.array(kw["shade_rowT"]))
     return ins
 
 

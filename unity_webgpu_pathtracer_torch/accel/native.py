@@ -1,6 +1,8 @@
 """ctypes binding to the repository's C++ BVH builder (``native/``).
 
-Only the wide16 entry (``build_wide16_ex``) is bound.  The library is
+Two entries are bound: ``build_wide16_ex`` (96-float rows, 16-triangle
+leaves) and ``build_wide16l8_ex`` (48-float leaf8 rows, 8-triangle
+leaves), with the same arguments.  The library is
 built with ``make -C native`` when it is missing; if it cannot be built or
 loaded this raises: the port has no numpy SBVH fallback.
 """
@@ -43,35 +45,38 @@ def _load() -> ctypes.CDLL:
             if time.monotonic() > deadline:
                 raise
             time.sleep(1.0)
-    fn = lib.build_wide16_ex
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p,       # positions, tri records
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tris, leaf size, quality
-        ctypes.c_void_p, ctypes.c_int,          # out rows, row capacity
-        ctypes.POINTER(ctypes.c_int),           # out depth
-        ctypes.c_void_p, ctypes.c_int,          # out order, order capacity
-        ctypes.POINTER(ctypes.c_int),           # out reference count
-    ]
+    for fn in (lib.build_wide16_ex, lib.build_wide16l8_ex):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p,       # positions, tri records
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # tris, leaf size, quality
+            ctypes.c_void_p, ctypes.c_int,          # out rows, row capacity
+            ctypes.POINTER(ctypes.c_int),           # out depth
+            ctypes.c_void_p, ctypes.c_int,          # out order, order capacity
+            ctypes.POINTER(ctypes.c_int),           # out reference count
+        ]
     _LIB = lib
     return lib
 
 
 def native_wide16(positions: np.ndarray, tri_records: np.ndarray,
-                  leaf_size: int, quality: int):
-    """Native wide16 build: ``(rows (N, 96) f32, depth, order)``.
+                  leaf_size: int, quality: int, leaf8: bool = False):
+    """Native wide16 build: ``(rows (N, 96) f32, depth, order)``, or
+    ``(N, 48)`` leaf8 rows with ``leaf8``.
 
     ``quality`` 1 = SBVH spatial splits, 0 = binned SAH.  With SBVH,
     ``order`` is a reference list (original triangle ids, length >= the
     triangle count, repeats allowed)."""
-    fn = _load().build_wide16_ex
+    lib = _load()
+    fn = lib.build_wide16l8_ex if leaf8 else lib.build_wide16_ex
     pos = np.ascontiguousarray(np.asarray(positions, np.float32).reshape(-1, 9))
     recs = np.ascontiguousarray(np.asarray(tri_records, np.float32).reshape(-1, 9))
     f = pos.shape[0]
     # Same buffer bounds as the reference binding (SBVH ref budget).
     order_cap = f + f // 2 + 128
-    cap = max(order_cap // 2 + order_cap // 8 + 64, 16)
-    rows = np.empty((cap, 96), np.float32)
+    # leaf8 leaves hold half the triangles: up to ~2x the rows.
+    cap = max(order_cap // 2 + order_cap // 8 + 64, 16) * (2 if leaf8 else 1)
+    rows = np.empty((cap, 48 if leaf8 else 96), np.float32)
     order = np.empty((order_cap,), np.int32)
     depth = ctypes.c_int(0)
     nrefs = ctypes.c_int(0)

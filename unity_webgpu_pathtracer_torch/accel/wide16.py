@@ -22,6 +22,13 @@ SPLIT orders: byte j of child-box word w holds slot ``4j + w``
 (``PERM_Q``); the low half of leaf word w holds slot w and the high half
 slot ``w + 8`` (``PERM_H_POS``).
 
+leaf8 tables (``build_scene_wide16(..., leaf8=True)``) have ``(N, 48)``
+rows: inner and instance rows are the words below 48 of the layout above
+(they use no others), and a leaf holds up to 8 triangles, 9 comps x 8 f16
+at 4:40 (word w = slot w low, slot ``w + 4`` high: ``PERM_H8_POS``) and
+8 attribute indices at 40:48.  Every consumer reads the width from
+``nodes.shape[1]``.
+
 Tables are built by the native SBVH builder and cached on disk under
 ``UWPT_BVH_CACHE_DIR`` (default: the repository's ``.bvh_cache``), keyed
 exactly as the reference keys them, so a table committed there for the
@@ -59,16 +66,23 @@ OFF_TRIS = 4     # 72 floats: 9 comps x 16 f16
 OFF_IDX = 76     # 16 ints
 OFF_W2L = 4      # instance rows: 12 floats
 OFF_BLAS = 16    # instance rows: BLAS root row (int)
+# leaf8 rows: 48 floats, 8 triangles per leaf, attr indices at 40:48.
+ROW8 = 48
+LEAF8 = 8
+OFF_IDX8 = 40
 
-# Slot -> leaf halfword position, and the child-box byte involution.
+# Slot -> leaf halfword position (16-slot and leaf8 rows), and the
+# child-box byte involution.
 PERM_H_POS = np.array([2 * s if s < 8 else 2 * (s - 8) + 1
                        for s in range(16)])
+PERM_H8_POS = np.array([2 * s if s < 4 else 2 * (s - 4) + 1
+                        for s in range(8)])
 PERM_Q = np.array([4 * (s % 4) + s // 4 for s in range(16)])
 
 TOP_COLS = 119  # anchor 3 | scale 3 | qlo 48 | qhi 48 | ptrs 16 | meta 1
 
 # Build options the main path uses: SBVH spatial splits, greedy collapse,
-# 96-float rows, leaf size 4 (the reference's defaults).
+# leaf size 4 (the reference's defaults).
 QUALITY = 1
 LEAF_SIZE = 4
 # Bump with the reference's _BVH_CACHE_VERSION (shared cache files).
@@ -80,7 +94,7 @@ CACHE_STATS = {"hit": 0, "miss": 0}
 
 @dataclasses.dataclass
 class Wide16:
-    nodes: np.ndarray      # (N, 96) float32
+    nodes: np.ndarray      # (N, 96) or leaf8 (N, 48) float32
     depth: int             # max stack depth (pushes per path)
     order: np.ndarray      # BVH reference order -> original triangle id
 
@@ -124,11 +138,12 @@ def derive_top16(nodes: np.ndarray) -> np.ndarray | None:
     return top
 
 
-def bvh_cache_path(positions: np.ndarray, tri_records: np.ndarray) -> str:
+def bvh_cache_path(positions: np.ndarray, tri_records: np.ndarray,
+                   leaf8: bool = False) -> str:
     """Content-keyed cache path, computed exactly as the reference's
     ``_bvh_cache_path`` with the native builder present: geometry bytes,
-    build options, the builder's ``UWPT_COLLAPSE_CNODE`` knob and the sha1
-    of ``native/bvh_builder.cpp``."""
+    build options (leaf8 among them), the builder's
+    ``UWPT_COLLAPSE_CNODE`` knob and the sha1 of ``native/bvh_builder.cpp``."""
     c_node = os.environ.get("UWPT_COLLAPSE_CNODE", "")
     cache_dir = os.environ.get("UWPT_BVH_CACHE_DIR") or os.path.join(
         os.path.dirname(native.NATIVE_DIR), ".bvh_cache")
@@ -137,15 +152,24 @@ def bvh_cache_path(positions: np.ndarray, tri_records: np.ndarray) -> str:
     h = hashlib.sha1()
     h.update(np.ascontiguousarray(positions, np.float32).tobytes())
     h.update(np.ascontiguousarray(tri_records, np.float32).tobytes())
-    h.update(f"v{_BVH_CACHE_VERSION}|{LEAF_SIZE}|{QUALITY}|0|"
+    h.update(f"v{_BVH_CACHE_VERSION}|{LEAF_SIZE}|{QUALITY}|{int(leaf8)}|"
              f"cnode={c_node}|{lib_id}".encode())
     return os.path.join(cache_dir, f"wide16-{h.hexdigest()}.npz")
 
 
-def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray) -> Wide16:
+def resolve_leaf8(leaf8: bool | None) -> bool:
+    """``leaf8``, or for None the reference's switch ``UWPT_WIDE16_LEAF8``
+    (``1`` = leaf8 rows)."""
+    return os.environ.get("UWPT_WIDE16_LEAF8", "0") == "1" if leaf8 is None else bool(leaf8)
+
+
+def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
+                       leaf8: bool | None = None) -> Wide16:
     """Load the table from the disk cache, or build it natively and store
-    it there."""
-    path = bvh_cache_path(positions, tri_records)
+    it there.  ``leaf8`` selects 48-float rows with 8-triangle leaves
+    (``resolve_leaf8``)."""
+    leaf8 = resolve_leaf8(leaf8)
+    path = bvh_cache_path(positions, tri_records, leaf8)
     if os.path.exists(path):
         with np.load(path) as z:
             w = Wide16(nodes=z["nodes"], depth=int(z["depth"]), order=z["order"])
@@ -153,7 +177,7 @@ def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray) -> Wide16
         return w
     CACHE_STATS["miss"] += 1
     rows, depth, order = native.native_wide16(positions, tri_records,
-                                              LEAF_SIZE, QUALITY)
+                                              LEAF_SIZE, QUALITY, leaf8)
     if depth >= MAX_DEPTH:
         raise ValueError(f"tree depth {depth} >= {MAX_DEPTH}")
     w = Wide16(nodes=rows, depth=depth, order=order)
@@ -266,10 +290,12 @@ def tlas_capacity(n_instances: int) -> int:
     return 2 * max(n_instances, 1) + 8
 
 
-def emit_tlas_rows16(instances, blas_bounds, blas_root: dict, tlas_cap: int):
+def emit_tlas_rows16(instances, blas_bounds, blas_root: dict, tlas_cap: int,
+                     row_f: int = ROW):
     """The 16-wide TLAS rows over ``instances`` ((mesh id, 4x4 transform,
-    material) triples), zero-padded to ``tlas_cap``.  Returns ``(rows,
-    depth, l2w (I, 12), w2l (I, 12))``."""
+    material) triples), ``row_f`` floats wide (96, or 48 for leaf8 BLAS
+    tables; TLAS rows use only words below 48), zero-padded to
+    ``tlas_cap``.  Returns ``(rows, depth, l2w (I, 12), w2l (I, 12))``."""
     ni = len(instances)
     inst_aabb_min = np.zeros((ni, 3), np.float32)
     inst_aabb_max = np.zeros((ni, 3), np.float32)
@@ -295,7 +321,7 @@ def emit_tlas_rows16(instances, blas_bounds, blas_root: dict, tlas_cap: int):
     max_depth = 0
 
     def emit_inst(inst_i: int) -> int:
-        row = np.zeros(ROW, np.float32)
+        row = np.zeros(row_f, np.float32)
         rows.append(row)
         row[OFF_META] = _f32(-(inst_i + 1))
         row[OFF_W2L : OFF_W2L + 12] = w2l[inst_i]
@@ -308,7 +334,7 @@ def emit_tlas_rows16(instances, blas_bounds, blas_root: dict, tlas_cap: int):
         if counts[node] == 1:
             return emit_inst(int(tb.order[starts[node]]))
         my = len(rows)
-        row = np.zeros(ROW, np.float32)
+        row = np.zeros(row_f, np.float32)
         rows.append(row)
         kids = _collapse16(tb, node, counts)
         # Every instance needs its own row: expand inner children while
@@ -336,18 +362,22 @@ def emit_tlas_rows16(instances, blas_bounds, blas_root: dict, tlas_cap: int):
     emit(0, 1)
     if len(rows) > tlas_cap:
         raise ValueError(f"TLAS rows {len(rows)} > capacity {tlas_cap}")
-    out = np.zeros((tlas_cap, ROW), np.float32)
+    out = np.zeros((tlas_cap, row_f), np.float32)
     out[: len(rows)] = np.stack(rows)
     return out, max_depth, l2w, w2l
 
 
 def build_tlas_wide16(blas: list, blas_bounds, instances, attr_bases: list):
     """Two-level table: the TLAS rows, then each referenced mesh's BLAS
-    (``blas[mesh_id]``, a ``Wide16``) rebased to its offset, its leaf
-    attribute indices shifted by ``attr_bases[mesh_id]``.  Returns
-    ``(Wide16 (order None), l2w, w2l, TlasLayout)``."""
+    (``blas[mesh_id]``, a ``Wide16``; all of one row width) rebased to its
+    offset, its leaf attribute indices shifted by ``attr_bases[mesh_id]``.
+    Returns ``(Wide16 (order None), l2w, w2l, TlasLayout)``."""
     cap = tlas_capacity(len(instances))
     ref_meshes = list(dict.fromkeys(mesh_id for mesh_id, _t, _m in instances))
+    row_f = blas[ref_meshes[0]].nodes.shape[1]
+    if any(blas[m].nodes.shape[1] != row_f for m in ref_meshes):
+        raise ValueError("every BLAS of a two-level table must have the same row width")
+    slots, off_idx = (WIDTH, OFF_IDX) if row_f == ROW else (LEAF8, OFF_IDX8)
     blas_root: dict[int, int] = {}
     offset = cap
     blas_depth = 0
@@ -358,7 +388,7 @@ def build_tlas_wide16(blas: list, blas_bounds, instances, attr_bases: list):
         inner = meta == 0
         ptrs = t[:, OFF_PTRS : OFF_PTRS + 16].view(np.int32)
         ptrs[inner] = np.where(ptrs[inner] >= 0, ptrs[inner] + offset, -1)
-        idx = t[:, OFF_IDX : OFF_IDX + 16].view(np.int32)
+        idx = t[:, off_idx : off_idx + slots].view(np.int32)
         leaf = meta > 0
         idx[leaf] = np.where(idx[leaf] >= 0, idx[leaf] + attr_bases[mesh_id], -1)
         blas_root[mesh_id] = offset
@@ -366,7 +396,8 @@ def build_tlas_wide16(blas: list, blas_bounds, instances, attr_bases: list):
         tables.append(t)
         offset += t.shape[0]
 
-    tlas_rows, tdepth, l2w, w2l = emit_tlas_rows16(instances, blas_bounds, blas_root, cap)
+    tlas_rows, tdepth, l2w, w2l = emit_tlas_rows16(instances, blas_bounds, blas_root, cap,
+                                                   row_f)
     depth = tdepth + blas_depth + 1
     if depth >= MAX_DEPTH:
         raise ValueError(f"TLAS+BLAS depth {depth} >= {MAX_DEPTH}")
@@ -374,3 +405,68 @@ def build_tlas_wide16(blas: list, blas_bounds, instances, attr_bases: list):
                         tlas_depth0=tdepth)
     return (Wide16(nodes=np.concatenate([tlas_rows] + tables, axis=0), depth=depth,
                    order=None), l2w, w2l, layout)
+
+
+# ---------------------------------------------------------------- validation
+
+def decode_leaf_tris(row: np.ndarray):
+    """One leaf row (96 or 48 floats) -> ``(count, records (count, 9),
+    attribute indices (count,))``, the records in world space."""
+    slots, off_idx = (WIDTH, OFF_IDX) if row.shape[0] == ROW else (LEAF8, OFF_IDX8)
+    cnt = int(row[OFF_META : OFF_META + 1].view(np.int32)[0])
+    words = row[OFF_TRIS : OFF_TRIS + 9 * slots // 2].view(np.uint32).reshape(9, slots // 2)
+    # SPLIT order: word w = slot w (low half) | slot w + slots/2 (high half).
+    halves = np.concatenate([(words & 0xFFFF).astype(np.uint16),
+                             (words >> 16).astype(np.uint16)], axis=-1)
+    comps = halves.view(np.float16).astype(np.float32)            # (9, slots)
+    comps[6:9] += row[0:3][:, None]
+    idx = row[off_idx : off_idx + slots].view(np.int32)
+    return cnt, comps[:, :cnt].T, idx[:cnt]
+
+
+def validate_wide16(w: Wide16, tri_count: int) -> None:
+    """Raise ``ValueError`` unless every triangle is covered by a leaf
+    (at least once for SBVH tables, whose ``order`` is longer than
+    ``tri_count``; exactly once otherwise), every leaf's triangles lie in
+    its quantized child box (not checked for SBVH tables, whose leaf boxes
+    bound clipped fragments), and the depth is below ``MAX_DEPTH``."""
+    spatial = w.order is not None and w.order.shape[0] != tri_count
+    nodes = w.nodes
+    meta = nodes[:, OFF_META].view(np.int32)
+    seen = np.zeros(tri_count, np.int32)
+    stack = [0]
+    while stack:
+        r = stack.pop()
+        m = meta[r]
+        if m > 0:
+            _cnt, _recs, idx = decode_leaf_tris(nodes[r])
+            np.add.at(seen, w.order[idx] if spatial else idx, 1)
+        elif m < 0:
+            stack.append(int(nodes[r, OFF_BLAS : OFF_BLAS + 1].view(np.int32)[0]))
+        else:
+            anchor = nodes[r, 0:3]
+            e = int(nodes[r, OFF_EXPS : OFF_EXPS + 1].view(np.int32)[0])
+            ex = np.array([e & 255, (e >> 8) & 255, (e >> 16) & 255]) - 127
+            scale = np.ldexp(np.ones(3, np.float32), ex)
+            qb = (nodes[r, OFF_QBOX : OFF_QBOX + 24].view(np.uint8)
+                  .reshape(6, 16)[:, PERM_Q])                    # slot order
+            ptrs = nodes[r, OFF_PTRS : OFF_PTRS + 16].view(np.int32)
+            for k in range(WIDTH):
+                child = int(ptrs[k])
+                if child < 0:
+                    continue
+                if meta[child] > 0 and not spatial:
+                    lo = anchor + qb[0:3, k] * scale
+                    hi = anchor + qb[3:6, k] * scale
+                    _cnt, recs, _idx = decode_leaf_tris(nodes[child])
+                    v0 = recs[:, 6:9]
+                    pts = np.concatenate([v0, v0 + recs[:, 3:6], v0 + recs[:, 0:3]])
+                    tol = 1e-2 + 1e-3 * np.abs(pts)
+                    if not ((pts >= lo - tol) & (pts <= hi + tol)).all():
+                        raise ValueError(f"leaf row {child} is not inside its box in row {r}")
+                stack.append(child)
+    if not ((seen >= 1) if spatial else (seen == 1)).all():
+        raise ValueError(f"leaf coverage broken: {int((seen == 0).sum())} triangles in no "
+                         f"leaf, {int((seen > 1).sum())} in several")
+    if w.depth >= MAX_DEPTH:
+        raise ValueError(f"tree depth {w.depth} >= {MAX_DEPTH}")

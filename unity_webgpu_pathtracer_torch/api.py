@@ -10,8 +10,7 @@ Example::
     scene, cam = million_triangle_scene(1_000_000)
     cfg = RenderConfig(width=1920, height=1080, samples_per_pass=4,
                        transition_every=8)
-    r = Renderer(scene, cfg, make_camera_params(width=1920, height=1080, **cam),
-                 device="cuda")
+    r = Renderer(scene, cfg, make_camera_params(width=1920, height=1080, **cam))
     r.render(passes=2)
     rgb = r.radiance()         # (H, W, 3) linear mean radiance, numpy
 """
@@ -22,6 +21,7 @@ import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams
+from unity_webgpu_pathtracer_torch.device import resolve_device
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.fused import fused_pass_and_accumulate
 from unity_webgpu_pathtracer_torch.scene.material import MaterialDesc, pack_materials
@@ -33,13 +33,12 @@ class Renderer:
     Built from a host ``Scene``, it also takes the dynamic-scene edits
     (``update_instance_transform``, ``update_material``), each of which
     restarts accumulation as the reference's dirty tracking does
-    (``PathTracer.cs:169-180, 463-471``)."""
+    (``PathTracer.cs:169-180, 463-471``).  It runs on the CUDA device
+    unless ``device`` says otherwise (``device="cpu"``)."""
 
     def __init__(self, scene, config: RenderConfig, params: RenderParams,
-                 device="cpu"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+                 device=None):
+        self.device = resolve_device(device)
         self._host_scene = scene if isinstance(scene, Scene) else None
         if isinstance(scene, Scene):
             scene = scene.build(config.traversal, device=self.device)

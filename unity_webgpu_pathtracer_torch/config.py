@@ -21,6 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from unity_webgpu_pathtracer_torch.device import resolve_device
+
 # Sky modes (common.hlsl:85-86)
 SKY_MODE_ENVIRONMENT = 0
 SKY_MODE_BASIC = 1
@@ -35,7 +37,14 @@ class RenderConfig:
     ``has_environment_texture``, else the constant ``environment_color``),
     with environment NEE; 1 the basic gradient sky; 2 no sky.  The
     reference's ``has_tlas`` is not a field: it reads it nowhere, and here
-    as there the scene's instance table selects the two-level traversal."""
+    as there the scene's instance table selects the two-level traversal.
+
+    ``attr_compact`` picks the attribute rows the transitions read: 2, one
+    32-byte row of f16 normals and uvs per triangle; 3, one 16-byte row of
+    oct-encoded normals (no uv, so untextured scenes only).
+    ``attr_in_kernel`` hands kernel K2 the raw mode-2 rows to decode
+    itself (its ``attr_raw`` form); mode 3 and the general transition
+    ignore it, as in the reference."""
 
     width: int = 512
     height: int = 512
@@ -60,12 +69,13 @@ class RenderConfig:
     use_record_film: bool = True
     use_lane_film: bool = False
     attr_compact: int = 2
+    attr_in_kernel: bool = False
 
     def __post_init__(self):
         unsupported = {
             "traversal": self.traversal != "wide16",
             "integrator": self.integrator != "fused",
-            "attr_compact": self.attr_compact != 2,
+            "attr_compact": self.attr_compact not in (2, 3),
             "sky_mode": self.sky_mode not in (SKY_MODE_ENVIRONMENT, SKY_MODE_BASIC,
                                               SKY_MODE_NONE),
             "has_lights": self.has_lights,
@@ -79,8 +89,8 @@ class RenderConfig:
         if bad:
             raise ValueError(
                 "the PyTorch port implements only the fused wide16 integrator "
-                "(traversal='wide16', integrator='fused', attr_compact=2, sky "
-                "modes 0-2, record film, no lights/textures/normal maps/depth "
+                "(traversal='wide16', integrator='fused', attr_compact 2 or 3, "
+                "sky modes 0-2, record film, no lights/textures/normal maps/depth "
                 f"of field); unsupported settings: {bad}")
         if self.transition_every < 1 or self.max_bounces < 0:
             raise ValueError("transition_every must be >= 1 and "
@@ -90,7 +100,7 @@ class RenderConfig:
         return self.width * self.height
 
 
-def _scalar(x, dtype=torch.float32, device="cpu"):
+def _scalar(x, dtype, device):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
@@ -123,11 +133,12 @@ _PARAM_DEFAULTS = dict(
 )
 
 
-def params_from_numpy(arrays: dict, device="cpu") -> RenderParams:
-    """``RenderParams`` from a dict of numpy arrays keyed by the
-    reference's field names (``np.asarray`` of each JAX field); missing
-    keys take the reference's defaults, keys the port has no field for
-    are refused."""
+def params_from_numpy(arrays: dict, device=None) -> RenderParams:
+    """``RenderParams`` on ``device`` (None: the CUDA device) from a dict
+    of numpy arrays keyed by the reference's field names (``np.asarray``
+    of each JAX field); missing keys take the reference's defaults, keys
+    the port has no field for are refused."""
+    device = resolve_device(device)
     extra = set(arrays) - {f.name for f in dataclasses.fields(RenderParams)}
     if extra:
         raise ValueError(f"RenderParams has no fields {sorted(extra)} (the port "
@@ -139,5 +150,5 @@ def params_from_numpy(arrays: dict, device="cpu") -> RenderParams:
             kw[f.name] = _scalar(np.asarray(val).astype(np.uint32),
                                  torch.int64, device)
         else:
-            kw[f.name] = _scalar(np.asarray(val, np.float32), device=device)
+            kw[f.name] = _scalar(np.asarray(val, np.float32), torch.float32, device)
     return RenderParams(**kw)

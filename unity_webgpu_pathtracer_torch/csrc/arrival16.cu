@@ -1,16 +1,17 @@
-// wide16 BVH arrival step, one thread per lane, in two instantiations:
-// arrival16_launch (flat tables) and arrival16_inst_launch (two-level
-// tables with TLAS instance rows).
+// wide16 BVH arrival step, one thread per lane, in four instantiations:
+// arrival16_launch (flat tables), arrival16_inst_launch (two-level tables
+// with TLAS instance rows), and the same two on leaf8 tables,
+// arrival16_leaf8_launch and arrival16_inst_leaf8_launch.
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py::_arrival_kernel
-// (reached from arrival_step16_pallas), 96-float rows, without and with
-// has_inst.
+// (reached from arrival_step16_pallas): has_inst off and on, leaf_slots
+// 16 (96-float rows) and 8 (48-float leaf8 rows).
 //
 // What bounds it on an H100: memory latency.  Each live lane reads its own
-// 384-byte node row at a data-dependent address (a gather with little
-// coalescing across the warp), plus its register stack, which is copied
-// in and out as (D, B) planes.  The arithmetic (16 slab tests or 16
-// Moller-Trumbore tests) is small next to the row fetch.
+// node row (384 bytes, 192 on leaf8 tables) at a data-dependent address (a
+// gather with little coalescing across the warp), plus its register stack,
+// which is copied in and out as (D, B) planes.  The arithmetic (16 slab
+// tests or up to 16 Moller-Trumbore tests) is small next to the row fetch.
 //
 // First design: one thread per lane, the row loaded inside the kernel
 // (the TPU version had XLA gather it first), the decode done from integer
@@ -18,6 +19,11 @@
 // copy is coalesced, and lanes that do not run copied through unchanged.
 // Compiled with -fmad=false so it rounds op for op like the plain twin
 // (ops/traverse_wide16.py::arrival_step16).
+//
+// leaf8 tables (ROWF = 48): rows are 48 floats; inner and instance rows
+// are unchanged (they use only words below 48), and a leaf holds up to 8
+// triangles, 9 comps x 8 f16 at words 4:40 (word w = slot w low, slot
+// w + 4 high) and 8 attribute indices at 40:48.
 //
 // Instanced tables (HAS_INST): a lane inside a BLAS (inst >= 0) tests
 // boxes and triangles with its instance-local ray; an instance row
@@ -34,7 +40,7 @@
 #include <cuda_runtime.h>
 
 struct ArrivalArgs {
-  const float* nodes;           // (N, 96)
+  const float* nodes;           // (N, ROWF)
   const float* o;               // (3, B) planes
   const float* d;
   const float* inv;
@@ -89,8 +95,12 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
-template <bool HAS_INST>
+template <bool HAS_INST, int ROWF>
 __global__ void arrival16_kernel(ArrivalArgs a, InstArgs n) {
+  static_assert(ROWF == 96 || ROWF == 48, "wide16 rows are 96 or 48 floats");
+  constexpr int SLOTS = ROWF == 96 ? 16 : 8;   // triangles per leaf
+  constexpr int HALF = SLOTS / 2;              // f16 words per component
+  constexpr int OFF_IDX = 4 + 9 * HALF;        // attribute indices: 76 or 40
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.b) return;
   const int B = a.b;
@@ -117,7 +127,7 @@ __global__ void arrival16_kernel(ArrivalArgs a, InstArgs n) {
   int entry_row = 0, entry_mask = 0;
 
   if (live) {
-    const float* row = a.nodes + (size_t)ptr * 96;
+    const float* row = a.nodes + (size_t)ptr * ROWF;
     const int* rowi = reinterpret_cast<const int*>(row);
     const int meta = rowi[3];
     // The ray this row is tested with: instance-local inside a BLAS.
@@ -195,20 +205,20 @@ __global__ void arrival16_kernel(ArrivalArgs a, InstArgs n) {
         }
       }
     } else if (meta > 0) {
-      // ---- leaf: up to 16 anchor-relative f16 triangles ----
+      // ---- leaf: up to SLOTS anchor-relative f16 triangles ----
       need_pop = true;
       const float d0 = rd[i], d1 = rd[B + i], d2 = rd[2 * B + i];
       float best_t = 0.0f, best_u = 0.0f, best_v = 0.0f;
       int best_tri = 0;
-      const int cnt = meta < 16 ? meta : 16;
+      const int cnt = meta < SLOTS ? meta : SLOTS;
       for (int s = 0; s < cnt; ++s) {
-        // SPLIT halfword order: word w holds slot w (low) and w + 8 (high).
-        const int w = s & 7, sh = (s >> 3) * 16;
+        // SPLIT halfword order: word w holds slot w (low) and w + HALF (high).
+        const int w = s % HALF, sh = (s / HALF) * 16;
         float c[9];
 #pragma unroll
         for (int k = 0; k < 9; ++k) {
           const unsigned short h =
-              (unsigned short)((((unsigned int)rowi[4 + 8 * k + w]) >> sh) & 0xFFFFu);
+              (unsigned short)((((unsigned int)rowi[4 + HALF * k + w]) >> sh) & 0xFFFFu);
           c[k] = __half2float(__ushort_as_half(h));
         }
         const float e2x = c[0], e2y = c[1], e2z = c[2];
@@ -233,7 +243,7 @@ __global__ void arrival16_kernel(ArrivalArgs a, InstArgs n) {
           best_t = tt;
           best_u = uu;
           best_v = vv;
-          best_tri = rowi[76 + s];
+          best_tri = rowi[OFF_IDX + s];
         }
       }
       if (best_t < t0) {
@@ -309,24 +319,35 @@ __global__ void arrival16_kernel(ArrivalArgs a, InstArgs n) {
   }
 }
 
-template <bool HAS_INST>
+template <bool HAS_INST, int ROWF>
 static int launch(const ArrivalArgs* args, const InstArgs* inst, void* stream) {
   const int threads = 256;
   const int blocks = (args->b + threads - 1) / threads;
   if (blocks > 0) {
-    arrival16_kernel<HAS_INST><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst);
+    arrival16_kernel<HAS_INST, ROWF>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int arrival16_launch(const ArrivalArgs* args, void* stream) {
   const InstArgs none = {};
-  return launch<false>(args, &none, stream);
+  return launch<false, 96>(args, &none, stream);
 }
 
 extern "C" int arrival16_inst_launch(const ArrivalArgs* args, const InstArgs* inst,
                                      void* stream) {
-  return launch<true>(args, inst, stream);
+  return launch<true, 96>(args, inst, stream);
+}
+
+extern "C" int arrival16_leaf8_launch(const ArrivalArgs* args, void* stream) {
+  const InstArgs none = {};
+  return launch<false, 48>(args, &none, stream);
+}
+
+extern "C" int arrival16_inst_leaf8_launch(const ArrivalArgs* args, const InstArgs* inst,
+                                           void* stream) {
+  return launch<true, 48>(args, inst, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

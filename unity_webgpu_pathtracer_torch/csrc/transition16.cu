@@ -1,14 +1,23 @@
 // Fused-integrator transition step (shade / env NEE / BSDF / Russian
-// roulette), one thread per lane.
+// roulette), one thread per lane, in two instantiations:
+// transition16_launch (the hit's attribute row given as 15 decoded f32
+// planes, shade_row) and transition16_attr_raw_launch (the raw attribute
+// table and each lane's row index: the kernel loads the lane's 32-byte row
+// and decodes its f16 normals itself).
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_transition.py::_transition_kernel
-// (reached from transition_step16_pallas), shade_row form (attr_raw=False).
+// (reached from transition_step16_pallas), shade_row form (attr_raw=False)
+// and attr_raw form (attr_raw=True).  The reference's attr_raw input is a
+// pre-gathered 64-byte pair of rows plus a parity plane; the port stores
+// one triangle per 32-byte row, so the pair and the parity collapse to
+// "row attr of the table", loaded here as K1 loads its node row.
 //
 // What bounds it on an H100: memory traffic.  Each lane reads ~95 words of
 // state and pre-gathered inputs and writes ~50, all lane-contiguous
 // (coalesced); the per-lane arithmetic (a Disney BSDF evaluated twice, a
 // handful of sin/cos/log/pow) is a few hundred flops.  Branch divergence
-// is the second cost: lanes sit in different modes.
+// is the second cost: lanes sit in different modes.  The attr_raw form
+// reads 1 index plane and a 32-byte row per lane in place of 15 planes.
 //
 // First design: a direct per-lane transcription of the reference kernel
 // body, every branch evaluated and merged by selects exactly as the
@@ -51,13 +60,16 @@ struct TransitionArgs {
   const float* max_rough;
   const float* prev_pdf;
   const int* lane_cap;
-  const float* shade_row;  // (15, B)
   const float* mdata;      // (22, B)
   const float* sky_col;
   const float* sky_pdf;
   const float* env_dir;
   const float* env_li;
   const float* env_pdf;
+  // the hit's attribute row: one of the two forms, the other null
+  const float* shade_row;  // (15, B) decoded planes
+  const int* attr_table;   // (T, 8) raw rows, 16-byte aligned
+  const int* attr;         // (B,) row index of each lane
   const float* firefly_max;  // (1,) or null
   // outputs
   int* o_mode;
@@ -472,6 +484,16 @@ __device__ __forceinline__ void sample_brdf(const Mat& m, const Onb& onb, V3 v, 
   l_world = to_world(onb, l);
 }
 
+// f16 halfword (0..65535) -> f32 in integer steps, the reference's
+// _f16_decode: exact for every pattern, NaN payloads included.
+__device__ __forceinline__ float f16_decode(unsigned int h) {
+  const unsigned int s = (h >> 15) & 1u, e = (h >> 10) & 0x1Fu, m = h & 0x3FFu;
+  const unsigned int bits = e == 31u ? (s << 31) | (0xFFu << 23) | (m << 13)
+                                     : (s << 31) | ((e + 112u) << 23) | (m << 13);
+  const float mf = (float)m * F(5.9604644775390625e-08);  // m * 2^-24, exact
+  return e == 0u ? (s ? -mf : mf) : __uint_as_float(bits);
+}
+
 __device__ __forceinline__ V3 ld3(const float* p, int i, int B) {
   return v3(p[i], p[B + i], p[2 * B + i]);
 }
@@ -481,6 +503,7 @@ __device__ __forceinline__ void st3(float* p, int i, int B, V3 v) {
   p[2 * B + i] = v.z;
 }
 
+template <bool ATTR_RAW>
 __global__ void transition16_kernel(TransitionArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.b) return;
@@ -522,8 +545,18 @@ __global__ void transition16_kernel(TransitionArgs A) {
   const float b1 = a ? v_in : hb1_in;
   const float sel_t = a ? t_in : A.hit_t[i];
   float sr[9];
+  if (ATTR_RAW) {
+    // The lane's 32-byte row: halfword k (k < 9) of word k / 2, low first.
+    const int4* row = reinterpret_cast<const int4*>(A.attr_table) + (size_t)A.attr[i] * 2;
+    const int4 q0 = __ldg(row), q1 = __ldg(row + 1);
+    const unsigned int w[5] = {(unsigned int)q0.x, (unsigned int)q0.y, (unsigned int)q0.z,
+                               (unsigned int)q0.w, (unsigned int)q1.x};
 #pragma unroll
-  for (int k = 0; k < 9; ++k) sr[k] = A.shade_row[(size_t)k * B + i];
+    for (int k = 0; k < 9; ++k) sr[k] = f16_decode((w[k >> 1] >> (16 * (k & 1))) & 0xFFFFu);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) sr[k] = A.shade_row[(size_t)k * B + i];
+  }
   const float w0 = 1.0f - b0 - b1;
   const V3 normal = vnormalize(v3(sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
                                   sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
@@ -713,11 +746,46 @@ __global__ void transition16_kernel(TransitionArgs A) {
   A.o_nray[i] = (bounce ? 1 : 0) + (to_env ? 1 : 0);
 }
 
-extern "C" int transition16_launch(const TransitionArgs* args, void* stream) {
+template <bool ATTR_RAW>
+static int launch(const TransitionArgs* args, void* stream) {
   const int threads = 128;
   const int blocks = (args->b + threads - 1) / threads;
   if (blocks > 0) {
-    transition16_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    transition16_kernel<ATTR_RAW><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int transition16_launch(const TransitionArgs* args, void* stream) {
+  return launch<false>(args, stream);
+}
+
+extern "C" int transition16_attr_raw_launch(const TransitionArgs* args, void* stream) {
+  return launch<true>(args, stream);
+}
+
+// Check entry: the kernel's f16 decode of n halfwords and its uint32 ->
+// f32 uniform (rand_f32's conversion and scale) of m states, so both can
+// be held against numpy over every f16 pattern and the uint32 edge cases.
+__global__ void decode_check_kernel(const int* half, float* half_out, int n,
+                                    const long long* u32, float* u32_out, int m) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) half_out[i] = f16_decode((unsigned int)half[i] & 0xFFFFu);
+  if (i < m) u32_out[i] = __uint2float_rn((uint32_t)u32[i]) * F(1.0 / 4294967295.0);
+}
+
+extern "C" int transition16_decode_check(const int* half, float* half_out, int n,
+                                         const long long* u32, float* u32_out, int m,
+                                         void* stream) {
+  const int threads = 256;
+  const int blocks = ((n > m ? n : m) + threads - 1) / threads;
+  if (blocks > 0) {
+    decode_check_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(half, half_out, n, u32,
+                                                                        u32_out, m);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }

@@ -3,11 +3,14 @@ their plain twin.
 
 ``arrival_step16_cuda`` takes the ray as (3, B) planes, as the reference's
 ``ops/pallas_arrival.py::arrival_step16_pallas`` does.  Tensors on a CUDA
-device launch a kernel (the row ``nodes[ptr]`` is loaded inside it):
-``arrival16`` for flat tables, ``arrival16_inst`` with ``has_instances``
-(two-level tables, whose instance rows the flat kernel cannot read).
-Tensors on the CPU run the plain twin ``traverse_wide16.arrival_step16``
-with the same row gather, so the signatures match.
+device launch a kernel (the row ``nodes[ptr]`` is loaded inside it),
+picked by the table's row width and ``has_instances`` (two-level tables,
+whose instance rows the flat kernels cannot read): ``arrival16`` and
+``arrival16_inst`` on (N, 96) tables, ``arrival16_leaf8`` and
+``arrival16_inst_leaf8`` on (N, 48) leaf8 tables.  Each entry counts its
+launches in ``arrival_step16_cuda.launches[name]``.  Tensors on the CPU
+run the plain twin ``traverse_wide16.arrival_step16`` with the same row
+gather, so the signatures match.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import torch
 from unity_webgpu_pathtracer_torch.ops import cuda_build
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import Wide16State, arrival_step16
 
+
+# Kernel name by (row width, has_instances); its C entry is name + "_launch".
+KERNELS = {(96, False): "arrival16", (96, True): "arrival16_inst",
+           (48, False): "arrival16_leaf8", (48, True): "arrival16_inst_leaf8"}
 
 # Wide16State fields of each argument struct, in struct order.
 _FLAT_FIELDS = ("ptr", "pend", "sp", "stack_row", "stack_mask", "t", "u", "v", "tri",
@@ -42,14 +49,6 @@ class _InstArgs(ctypes.Structure):
                 + [("o_" + n, ctypes.c_void_p) for n in _INST_FIELDS])
 
 
-def _check(x: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} on "
-                         f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
-                         f"{'' if x.is_contiguous() else ' (non-contiguous)'}")
-
-
 def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
                         invT: torch.Tensor, s: Wide16State,
                         active: torch.Tensor | None = None,
@@ -62,26 +61,26 @@ def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     b = s.ptr.shape[0]
     depth = s.stack_row.shape[0]
-    if nodes.dim() != 2 or nodes.shape[1] != 96:
-        raise ValueError(f"nodes: expected (N, 96), got {tuple(nodes.shape)}")
-    _check(nodes, "nodes", torch.float32, nodes.shape, dev)
+    if nodes.dim() != 2 or nodes.shape[1] not in (96, 48):
+        raise ValueError(f"nodes: expected (N, 96) or leaf8 (N, 48), got {tuple(nodes.shape)}")
+    cuda_build.check_tensor(nodes, "nodes", torch.float32, nodes.shape, dev)
     for name, x in (("oT", oT), ("dT", dT), ("invT", invT)):
-        _check(x, name, torch.float32, (3, b), dev)
+        cuda_build.check_tensor(x, name, torch.float32, (3, b), dev)
     for name in ("ptr", "pend", "sp", "tri"):
-        _check(getattr(s, name), name, torch.int32, (b,), dev)
+        cuda_build.check_tensor(getattr(s, name), name, torch.int32, (b,), dev)
     for name in ("t", "u", "v"):
-        _check(getattr(s, name), name, torch.float32, (b,), dev)
-    _check(s.found, "found", torch.bool, (b,), dev)
-    _check(s.stack_row, "stack_row", torch.int32, (depth, b), dev)
-    _check(s.stack_mask, "stack_mask", torch.int32, (depth, b), dev)
+        cuda_build.check_tensor(getattr(s, name), name, torch.float32, (b,), dev)
+    cuda_build.check_tensor(s.found, "found", torch.bool, (b,), dev)
+    cuda_build.check_tensor(s.stack_row, "stack_row", torch.int32, (depth, b), dev)
+    cuda_build.check_tensor(s.stack_mask, "stack_mask", torch.int32, (depth, b), dev)
     if active is not None:
-        _check(active, "active", torch.bool, (b,), dev)
+        cuda_build.check_tensor(active, "active", torch.bool, (b,), dev)
     fields = _FLAT_FIELDS
     if has_instances:
         for name in ("inst", "hit_inst", "sp_enter"):
-            _check(getattr(s, name), name, torch.int32, (b,), dev)
+            cuda_build.check_tensor(getattr(s, name), name, torch.int32, (b,), dev)
         for name in ("local_o", "local_d", "local_inv"):
-            _check(getattr(s, name), name, torch.float32, (3, b), dev)
+            cuda_build.check_tensor(getattr(s, name), name, torch.float32, (3, b), dev)
         fields = _FLAT_FIELDS + _INST_FIELDS
     if dev.type == "cpu":
         return arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances)
@@ -94,21 +93,20 @@ def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
         *(getattr(s, n).data_ptr() for n in _FLAT_FIELDS),
         *(getattr(out, n).data_ptr() for n in _FLAT_FIELDS),
         b, depth)
-    lib = cuda_build.load()
+    lib = cuda_build.load()["arrival16"]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    name = KERNELS[(nodes.shape[1], has_instances)]
+    launch = getattr(lib, name + "_launch")
     if has_instances:
         inst = _InstArgs(*(getattr(s, n).data_ptr() for n in _INST_FIELDS),
                          *(getattr(out, n).data_ptr() for n in _INST_FIELDS))
-        err = lib.arrival16_inst_launch(ctypes.byref(args), ctypes.byref(inst), stream)
-        cuda_build.check(lib, err, "arrival16_inst")
-        arrival_step16_cuda.launches_inst += 1
+        err = launch(ctypes.byref(args), ctypes.byref(inst), stream)
     else:
-        err = lib.arrival16_launch(ctypes.byref(args), stream)
-        cuda_build.check(lib, err, "arrival16")
-        arrival_step16_cuda.launches += 1
+        err = launch(ctypes.byref(args), stream)
+    cuda_build.check(lib, err, name)
+    arrival_step16_cuda.launches[name] += 1
     return out
 
 
-# Launch counts of the flat and the instanced kernel.
-arrival_step16_cuda.launches = 0
-arrival_step16_cuda.launches_inst = 0
+# Launch count of each kernel entry.
+arrival_step16_cuda.launches = dict.fromkeys(KERNELS.values(), 0)

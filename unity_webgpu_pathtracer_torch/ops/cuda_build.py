@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` into ``_build/libuwpt_kernels.so``, a
-shared library with a plain C interface, and loaded with ctypes.  The
-build is keyed by the sha1 of the sources and the compiler flags, so an
-edit rebuilds and an unchanged checkout reuses the library.  Flags:
-``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that every kernel
-rounds op for op like its plain PyTorch twin; never ``--use_fast_math``,
-which flushes denormals and approximates division and square roots.
+Each source is compiled by its own ``nvcc``, all started together, into
+``_build/lib<source>.so``, a shared library with a plain C interface,
+loaded with ctypes.  Each build is keyed by the sha1 of its source and the
+compiler flags, so an edit rebuilds and an unchanged checkout reuses the
+library.  Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that
+every kernel rounds op for op like its plain PyTorch twin; never
+``--use_fast_math``, which flushes denormals and approximates division and
+square roots.
 
 Constants both sides must agree on (lane modes, traversal sentinels,
 epsilons) are defined once in Python and passed as ``-D`` macros.
@@ -25,16 +26,32 @@ import time
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libuwpt_kernels.so")
-SOURCES = ("arrival16.cu", "transition16.cu")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C entry points of each source and their argument types; every entry
+# returns a CUDA error code, and every library has ``cuda_error_string``.
+ENTRIES = {
+    "arrival16": {
+        "arrival16_launch": [_P, _P],                    # args struct, stream
+        "arrival16_leaf8_launch": [_P, _P],
+        "arrival16_inst_launch": [_P, _P, _P],           # args, instance args, stream
+        "arrival16_inst_leaf8_launch": [_P, _P, _P],
+    },
+    "transition16": {
+        "transition16_launch": [_P, _P],                 # args struct, stream
+        "transition16_attr_raw_launch": [_P, _P],
+        "transition16_decode_check": [_P, _P, _I, _P, _P, _I, _P],
+    },
+}
+SOURCES = tuple(f"{name}.cu" for name in ENTRIES)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_LIB = None
-# Seconds the last build took in this process (0.0 when the library was
-# already built for these sources) and the compiler's output.
+_LIBS: dict[str, ctypes.CDLL] = {}
+# Wall seconds the last build took in this process (0.0 when every
+# library was already built for its source) and the compilers' output.
 BUILD_INFO = {"seconds": 0.0, "log": ""}
 
 
@@ -62,62 +79,91 @@ def _nvcc() -> str:
     return found
 
 
-def _source_key(flags: list[str]) -> str:
+def _source_key(name: str, flags: list[str]) -> str:
     h = hashlib.sha1(" ".join(flags).encode())
-    for name in sorted(os.listdir(SRC_DIR)):
-        if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(SRC_DIR, name), "rb") as f:
-                h.update(name.encode() + b"\0" + f.read())
+    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
+        h.update(f.read())
     return h.hexdigest()
 
 
-def _build(flags: list[str], key: str) -> None:
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _fresh(name: str, key: str) -> bool:
+    try:
+        with open(lib_path(name) + ".sha1") as f:
+            return f.read() == key and os.path.exists(lib_path(name))
+    except OSError:
+        return False
+
+
+def _build(stale: dict[str, str], flags: list[str]) -> None:
+    """Compile every stale source (name -> key), one nvcc each, all at
+    once; raise if any fails."""
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [nvcc, *flags, "-o", tmp, *(os.path.join(SRC_DIR, s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    jobs = {}
+    for name in stale:
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+        os.close(fd)
+        cmd = [nvcc, *flags, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
+        jobs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))
+    logs, failed = [], []
+    for name, (tmp, proc) in jobs.items():
+        out, err = proc.communicate()
+        logs.append(f"{name}.cu:\n{out}{err}")
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
+            continue
+        os.replace(tmp, lib_path(name))
+        with open(lib_path(name) + ".sha1", "w") as f:
+            f.write(stale[name])
     BUILD_INFO["seconds"] = time.perf_counter() - t0
-    BUILD_INFO["log"] = proc.stdout + proc.stderr
-    os.replace(tmp, LIB_PATH)
-    with open(LIB_PATH + ".sha1", "w") as f:
-        f.write(key)
+    BUILD_INFO["log"] = "\n".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built first if the sources changed."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def load() -> dict[str, ctypes.CDLL]:
+    """The kernel libraries by source name (``"arrival16"``,
+    ``"transition16"``), built first where a source changed."""
+    if _LIBS:
+        return _LIBS
     flags = NVCC_FLAGS + _defines()
-    key = _source_key(flags)
-    try:
-        with open(LIB_PATH + ".sha1") as f:
-            fresh = f.read() == key and os.path.exists(LIB_PATH)
-    except OSError:
-        fresh = False
-    if not fresh:
-        _build(flags, key)
-    lib = ctypes.CDLL(LIB_PATH)
-    for name in ("arrival16_launch", "transition16_launch"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]   # args struct, stream
-    lib.arrival16_inst_launch.restype = ctypes.c_int
-    lib.arrival16_inst_launch.argtypes = [ctypes.c_void_p] * 3   # args, instance args, stream
-    lib.cuda_error_string.restype = ctypes.c_char_p
-    lib.cuda_error_string.argtypes = [ctypes.c_int]
-    _LIB = lib
-    return lib
+    keys = {name: _source_key(name, flags) for name in ENTRIES}
+    stale = {name: key for name, key in keys.items() if not _fresh(name, key)}
+    if stale:
+        _build(stale, flags)
+    libs = {}
+    for name, entries in ENTRIES.items():
+        lib = ctypes.CDLL(lib_path(name))
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        libs[name] = lib
+    _LIBS.update(libs)
+    return _LIBS
+
+
+def check_tensor(x, name: str, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the kernels' contract, checked on either device."""
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}"
+                         f"{'' if x.is_contiguous() else ' (non-contiguous)'}")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error code."""
+    """Raise if a launcher of ``lib`` returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({lib.cuda_error_string(err).decode()})")

@@ -9,10 +9,16 @@ the record-film append and the work-queue regeneration stay outside
 SHADOW_ENV -> PRIMARY or DEAD.
 
 ``transition_step16_cuda`` takes and returns the tensors of the
-reference's ``transition_step16_pallas`` (shade_row form), vectors as
-(3, B) planes.  CUDA tensors launch the kernel; CPU tensors run the plain
-twin ``transition_step16_plain``, a transcription of the same kernel body
-in the same operation order.  Every lane draws the same number of
+reference's ``transition_step16_pallas``, vectors as (3, B) planes, with
+the hit's attribute row in one of two forms: ``shade_rowT``, 15 decoded
+f32 planes (kernel ``transition16``), or the raw form, the (T, 8) int32
+attribute table and each lane's row index ``attr``, whose f16 normals are
+decoded in the kernel (``transition16_attr_raw``, the reference's
+``attr_raw``; its pair row and parity are one 32-byte row here).  CUDA
+tensors launch a kernel, counted in
+``transition_step16_cuda.launches[name]``; CPU tensors run the plain twin
+``transition_step16_plain``, a transcription of the same kernel body in
+the same operation order.  Every lane draws the same number of
 uniforms in the same order (1 alpha + 3 BSDF + 1 RR), so the RNG stream
 is the reference's.
 """
@@ -94,8 +100,7 @@ _INPUTS = (
     ("radianceT", torch.float32, 3),
     ("rng", torch.int64, 0), ("depth", torch.int32, 0),
     ("max_rough", torch.float32, 0), ("prev_pdf", torch.float32, 0),
-    ("lane_cap", torch.int32, 0),
-    ("shade_rowT", torch.float32, 15), ("mdataT", torch.float32, 22),
+    ("lane_cap", torch.int32, 0), ("mdataT", torch.float32, 22),
     ("sky_colT", torch.float32, 3), ("sky_pdf", torch.float32, 0),
     ("env_dirT", torch.float32, 3), ("env_liT", torch.float32, 3),
     ("env_pdf", torch.float32, 0),
@@ -120,10 +125,29 @@ class _TransitionArgs(ctypes.Structure):
     """Mirror of ``TransitionArgs`` in ``csrc/transition16.cu``."""
 
     _fields_ = ([(n, ctypes.c_void_p) for n, _, _ in _INPUTS]
+                + [(n, ctypes.c_void_p) for n in ("shade_rowT", "attr_table", "attr")]
                 + [("firefly_max", ctypes.c_void_p)]
                 + [("o_" + n, ctypes.c_void_p) for n in TransitionOut._fields]
                 + [(n, ctypes.c_int) for n in
                    ("b", "use_rr", "max_bounces", "firefly", "nan_canary")])
+
+
+# Kernel name by attribute form (raw or not); its C entry is name + "_launch".
+KERNELS = {False: "transition16", True: "transition16_attr_raw"}
+
+
+def f16_decode(h: torch.Tensor) -> torch.Tensor:
+    """f16 halfwords (integer tensor, values 0..65535) -> float32 in
+    integer steps, the reference's ``ops/pallas_transition.py::_f16_decode``:
+    exact for every pattern, NaN payloads included."""
+    h = h.to(torch.int64)
+    s, e, m = (h >> 15) & 1, (h >> 10) & 0x1F, h & 0x3FF
+    bits = torch.where(e == 31, (s << 31) | (0xFF << 23) | (m << 13),
+                       (s << 31) | ((e + 112) << 23) | (m << 13))
+    # int64 -> int32 keeps the low 32 bits (two's complement).
+    v = bits.to(torch.int32).view(torch.float32)
+    m_f = m.to(torch.float32) * 2.0 ** -24                      # exact
+    return torch.where(e == 0, torch.where(s != 0, -m_f, m_f), v)
 
 
 # ---------------------------------------------------------------------------
@@ -136,13 +160,15 @@ def transition_step16_plain(*, mode, trav_done, ptr, pend, sp, t, u, v, tri, fou
                             trav_oT, trav_dT, path_oT, path_dT,
                             hit_t, hit_baryT, hit_tri,
                             pendingT, throughputT, radianceT,
-                            rng, depth, max_rough, prev_pdf, lane_cap,
-                            shade_rowT, mdataT,
+                            rng, depth, max_rough, prev_pdf, lane_cap, mdataT,
                             sky_colT, sky_pdf, env_dirT, env_liT, env_pdf,
                             use_rr: bool, max_bounces: int,
+                            shade_rowT=None, attr_table=None, attr=None,
                             firefly: bool = False, firefly_max=None,
                             nan_canary: bool = False) -> TransitionOut:
-    """The transition kernel's body in plain PyTorch (see module doc)."""
+    """The transition kernels' body in plain PyTorch (see module doc);
+    the attribute row comes as ``shade_rowT`` or as ``attr_table`` and
+    ``attr``, whose lane rows are gathered and decoded here."""
     _w = torch.where
 
     def p3(x):
@@ -173,7 +199,11 @@ def transition_step16_plain(*, mode, trav_done, ptr, pend, sp, t, u, v, tri, fou
     b0 = _w(a, u_in, hit_bary[0])
     b1 = _w(a, v_in, hit_bary[1])
     sel_t = _w(a, t_in, hit_t)
-    sr = [shade_rowT[k] for k in range(9)]
+    if attr_table is not None:
+        words = attr_table[attr.long()]                          # (B, 8) int32
+        sr = [f16_decode((words[:, k // 2] >> (16 * (k % 2))) & 0xFFFF) for k in range(9)]
+    else:
+        sr = [shade_rowT[k] for k in range(9)]
     w0 = 1.0 - b0 - b1
     normal = vnormalize((sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
                          sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
@@ -310,11 +340,13 @@ def transition_step16_plain(*, mode, trav_done, ptr, pend, sp, t, u, v, tri, fou
 
 
 def transition_step16_cuda(*, use_rr: bool, max_bounces: int,
+                           shade_rowT=None, attr_table=None, attr=None,
                            firefly: bool = False, firefly_max=None,
                            nan_canary: bool = False, **inputs) -> TransitionOut:
     """One transition on pre-gathered inputs (the keyword tensors of
-    ``transition_step16_plain``), checked against the kernel's contract on
-    either device; CUDA tensors launch the kernel."""
+    ``transition_step16_plain``; exactly one of ``shade_rowT`` or
+    ``attr_table`` with ``attr``), checked against the kernel's contract
+    on either device; CUDA tensors launch a kernel."""
     mode = inputs["mode"]
     dev = mode.device
     if dev.type not in ("cpu", "cuda"):
@@ -326,10 +358,22 @@ def transition_step16_cuda(*, use_rr: bool, max_bounces: int,
     for name, dtype, rows in _INPUTS:
         x = inputs[name]
         shape = (b,) if rows == 0 else (rows, b)
-        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
-                or not x.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous {dtype} {shape} on {dev}, "
-                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        cuda_build.check_tensor(x, name, dtype, shape, dev)
+    raw = attr_table is not None
+    if raw == (shade_rowT is not None) or raw != (attr is not None):
+        raise ValueError("pass exactly one attribute form: shade_rowT, or attr_table "
+                         "with attr")
+    if raw:
+        cuda_build.check_tensor(attr_table, "attr_table", torch.int32,
+                                (attr_table.shape[0], 8), dev)
+        cuda_build.check_tensor(attr, "attr", torch.int32, (b,), dev)
+        if attr_table.data_ptr() % 16:
+            raise ValueError("attr_table: the kernel loads rows as 16-byte vectors; "
+                             "pass a 16-byte-aligned table")
+        form = dict(attr_table=attr_table, attr=attr)
+    else:
+        cuda_build.check_tensor(shade_rowT, "shade_rowT", torch.float32, (15, b), dev)
+        form = dict(shade_rowT=shade_rowT)
     if firefly:
         if firefly_max is None or firefly_max.device != dev \
                 or firefly_max.dtype != torch.float32 or firefly_max.numel() != 1:
@@ -338,21 +382,46 @@ def transition_step16_cuda(*, use_rr: bool, max_bounces: int,
     if dev.type == "cpu":
         return transition_step16_plain(use_rr=use_rr, max_bounces=max_bounces,
                                        firefly=firefly, firefly_max=firefly_max,
-                                       nan_canary=nan_canary, **inputs)
+                                       nan_canary=nan_canary, **form, **inputs)
     out = TransitionOut(**{
         n: torch.empty((b,) if rows == 0 else (rows, b), dtype=dtype, device=dev)
         for n, (dtype, rows) in _OUT_SPEC.items()})
     args = _TransitionArgs(
         *(inputs[n].data_ptr() for n, _, _ in _INPUTS),
+        *(form[n].data_ptr() if n in form else 0
+          for n in ("shade_rowT", "attr_table", "attr")),
         firefly_max.data_ptr() if firefly else 0,
         *(getattr(out, n).data_ptr() for n in TransitionOut._fields),
         b, int(use_rr), int(max_bounces), int(firefly), int(nan_canary))
-    lib = cuda_build.load()
+    lib = cuda_build.load()["transition16"]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.transition16_launch(ctypes.byref(args), stream)
-    cuda_build.check(lib, err, "transition16")
-    transition_step16_cuda.launches += 1
+    name = KERNELS[raw]
+    err = getattr(lib, name + "_launch")(ctypes.byref(args), stream)
+    cuda_build.check(lib, err, name)
+    transition_step16_cuda.launches[name] += 1
     return out
 
 
-transition_step16_cuda.launches = 0
+# Launch count of each kernel entry.
+transition_step16_cuda.launches = dict.fromkeys(KERNELS.values(), 0)
+
+
+def decode_check_cuda(halfwords: torch.Tensor, states: torch.Tensor):
+    """The kernels' f16 decode of ``halfwords`` ((n,) int32, 0..65535) and
+    their uint32 -> uniform float of ``states`` ((m,) int64 holding
+    uint32), computed on the card by the check entry of
+    ``csrc/transition16.cu``: ``(floats (n,), uniforms (m,))``."""
+    dev = halfwords.device
+    cuda_build.check_tensor(halfwords, "halfwords", torch.int32, halfwords.shape, dev)
+    cuda_build.check_tensor(states, "states", torch.int64, states.shape, dev)
+    if dev.type != "cuda" or halfwords.dim() != 1 or states.dim() != 1:
+        raise ValueError("decode_check_cuda takes 1-D CUDA tensors")
+    half_out = torch.empty(halfwords.shape, dtype=torch.float32, device=dev)
+    u_out = torch.empty(states.shape, dtype=torch.float32, device=dev)
+    lib = cuda_build.load()["transition16"]
+    err = lib.transition16_decode_check(
+        halfwords.data_ptr(), half_out.data_ptr(), halfwords.shape[0],
+        states.data_ptr(), u_out.data_ptr(), states.shape[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, err, "transition16_decode_check")
+    return half_out, u_out

@@ -5,17 +5,22 @@ the reference).
 an inner row slab-tests its 16 quantized child boxes, descends to the
 nearest hit child and pushes the rest as (row, remaining-mask) on the
 lane's register stack (a single survivor is pushed as a direct pointer,
-mask 0); a leaf row runs Möller-Trumbore on its up to 16 f16 triangles and
-keeps the closest hit; then the lane pops.  With ``has_instances`` an
-instance row (two-level tables) takes the lane into the instance's space:
-the ray goes through the row's world-to-local 3x4 (unnormalized
-direction, so ``t`` stays in world units, ``tlas.hlsl:131-135``), the lane
-jumps to the BLAS root and records the stack height; popping below that
-height returns it to world space.  It is the independent plain twin of
-the CUDA arrival kernels (``ops/cuda_arrival.py``).
+mask 0); a leaf row runs Möller-Trumbore on its up to 16 f16 triangles (8
+on the 48-float rows of leaf8 tables) and keeps the closest hit; then the
+lane pops.  With ``has_instances`` an instance row (two-level tables)
+takes the lane into the instance's space: the ray goes through the row's
+world-to-local 3x4 (unnormalized direction, so ``t`` stays in world
+units, ``tlas.hlsl:131-135``), the lane jumps to the BLAS root and
+records the stack height; popping below that height returns it to world
+space.  It is the independent plain twin of the CUDA arrival kernels
+(``ops/cuda_arrival.py``).
 
 ``prestep16`` runs the first two inner levels of fresh segments from the
-root row and the host slot table, without row gathers.
+root row and the host slot table, without row gathers.  It reads only
+words below 48 of the rows, so it serves both row widths.
+
+``closest_hit`` and ``occluded`` trace whole rays to the end with the
+arrival wrapper (the kernel on CUDA tensors, the twin on the CPU).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from unity_webgpu_pathtracer_torch.accel.wide16 import LEAF8, OFF_IDX, OFF_IDX8, ROW, WIDTH
 from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
 
 DONE = -1
@@ -32,6 +38,9 @@ FULL = 0xFFFF
 # (ops/intersect.py of the reference).
 DET_EPS = 1e-7
 T_MIN = 1e-4
+# Arrivals between two host reads of the loop test in ``closest_hit`` and
+# ``occluded``.
+CHECK_EVERY = 8
 
 
 class Wide16State(NamedTuple):
@@ -54,8 +63,8 @@ class Wide16State(NamedTuple):
     local_inv: torch.Tensor
 
 
-def init_state16(b: int, t_max: float, ptr0: int = 0, depth: int = 20,
-                 device="cpu") -> Wide16State:
+def init_state16(b: int, t_max: float, ptr0: int = 0, depth: int = 20, *,
+                 device) -> Wide16State:
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     z3 = torch.zeros((3, b), **f32)
@@ -83,10 +92,12 @@ def _perm_q(device) -> torch.Tensor:
     return 4 * (s % 4) + s // 4
 
 
-def _perm_h(device) -> torch.Tensor:
-    """accel.wide16.PERM_H_POS (slot -> leaf halfword position)."""
-    s = torch.arange(16, device=device)
-    return torch.where(s < 8, 2 * s, 2 * (s - 8) + 1)
+def _perm_h(slots: int, device) -> torch.Tensor:
+    """accel.wide16.PERM_H_POS (16 slots) or PERM_H8_POS (8): slot -> leaf
+    halfword position."""
+    s = torch.arange(slots, device=device)
+    half = slots // 2
+    return torch.where(s < half, 2 * s, 2 * (s - half) + 1)
 
 
 def _scales(eword: torch.Tensor) -> torch.Tensor:
@@ -138,13 +149,13 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                    active: torch.Tensor | None = None,
                    has_instances: bool = False) -> Wide16State:
     """One arrival for every lane; ``o``/``d``/``inv`` are the world ray,
-    (B, 3)."""
+    (B, 3).  ``nodes`` is (N, 96) or leaf8 (N, 48)."""
     nodes_i = nodes.view(torch.int32)
     live = s.ptr >= 0
     if active is not None:
         live = live & active
     idx = torch.where(live, s.ptr, torch.zeros_like(s.ptr)).long()
-    row = nodes[idx]                                             # (B, 96)
+    row = nodes[idx]                                             # (B, 96 or 48)
     row_i = nodes_i[idx]
     meta = row_i[:, 3]
     is_leaf = live & (meta > 0)
@@ -178,9 +189,11 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     sp = s.sp + push.to(torch.int32)
 
     # ---- leaf: f16 anchored triangles, Möller-Trumbore ----
-    halves = row[:, 4:76].contiguous().view(torch.float16).to(torch.float32)  # (B, 144)
-    perm_h = _perm_h(nodes.device)
-    comp = [halves[:, 16 * c:16 * c + 16][:, perm_h] for c in range(9)]
+    slots, off_idx = (WIDTH, OFF_IDX) if nodes.shape[1] == ROW else (LEAF8, OFF_IDX8)
+    halves = (row[:, 4:4 + 9 * slots // 2].contiguous().view(torch.float16)
+              .to(torch.float32))                                # (B, 9 * slots)
+    perm_h = _perm_h(slots, nodes.device)
+    comp = [halves[:, slots * c:slots * c + slots][:, perm_h] for c in range(9)]
     e2x, e2y, e2z, e1x, e1y, e1z = comp[:6]
     v0x = comp[6] + anchor[:, 0:1]
     v0y = comp[7] + anchor[:, 1:2]
@@ -200,7 +213,7 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     vv = finv * (dx * qx + dy * qy + dz * qz)
     tt = finv * (e2x * qx + e2y * qy + e2z * qz)
     valid = (
-        is_leaf[:, None] & (iota < meta[:, None])
+        is_leaf[:, None] & (iota[:, :slots] < meta[:, None])
         & (torch.abs(a) > DET_EPS)
         & (uu >= 0.0) & (uu <= 1.0)
         & (vv >= 0.0) & (uu + vv <= 1.0)
@@ -213,7 +226,8 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     t_new = torch.where(improved, t_cand, s.t)
     u_new = torch.where(improved, uu.gather(1, best)[:, 0], s.u)
     v_new = torch.where(improved, vv.gather(1, best)[:, 0], s.v)
-    tri_new = torch.where(improved, row_i[:, 76:92].gather(1, best)[:, 0], s.tri)
+    tri_new = torch.where(improved, row_i[:, off_idx:off_idx + slots].gather(1, best)[:, 0],
+                          s.tri)
     found_new = s.found | improved
 
     # ---- pop ----
@@ -324,3 +338,41 @@ def prestep16(nodes: torch.Tensor, top: torch.Tensor, o: torch.Tensor,
         ptr = torch.where(l2 & found2, gchild, ptr)
 
     return s._replace(ptr=ptr, sp=sp, stack_row=stack_row, stack_mask=stack_mask)
+
+
+def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
+              t_max, depth: int, has_instances: bool, any_hit: bool) -> Wide16State:
+    """Arrivals until every lane is done (or, with ``any_hit``, has found a
+    hit), the test read on the host every ``CHECK_EVERY`` arrivals; the
+    arrivals past a lane's end leave it unchanged."""
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
+
+    b, dev = origins.shape[0], origins.device
+    oT, dT = origins.T.contiguous(), directions.T.contiguous()
+    invT = safe_rcp(dT)
+    t = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(b).contiguous()
+    s = init_state16(b, 0.0, depth=depth, device=dev)._replace(t=t)
+    while True:
+        for _ in range(CHECK_EVERY):
+            active = ~s.found if any_hit else None
+            s = arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+        live = s.ptr >= 0
+        if any_hit:
+            live = live & ~s.found
+        if not bool(live.any()):
+            return s
+
+
+def closest_hit(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
+                depth: int, has_instances: bool = False):
+    """Closest hit of (B, 3) rays against a wide16 table with ``depth``
+    stack planes: ``(t, bary (B, 2), attribute row (-1 miss), instance)``
+    (the reference's ``traverse_wide16.closest_hit``)."""
+    s = _traverse(nodes, origins, directions, FAR_PLANE, depth, has_instances, False)
+    return s.t, torch.stack([s.u, s.v], dim=-1), s.tri, s.hit_inst
+
+
+def occluded(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
+             t_max: torch.Tensor, depth: int, has_instances: bool = False) -> torch.Tensor:
+    """Whether each ray hits anything before its ``t_max`` (B,)."""
+    return _traverse(nodes, origins, directions, t_max, depth, has_instances, True).found

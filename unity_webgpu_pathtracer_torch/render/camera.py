@@ -45,9 +45,10 @@ def perspective_inverse(fov_y_deg: float, aspect: float) -> np.ndarray:
 
 
 def make_camera_params(eye, target, fov_y_deg, width, height, up=(0, 1, 0),
-                       device="cpu", **kw) -> RenderParams:
-    """RenderParams for a look-at pinhole camera; ``kw`` sets the other
-    uniforms (environment intensity, seed_root, ...)."""
+                       device=None, **kw) -> RenderParams:
+    """RenderParams on ``device`` (None: the CUDA device; ``"cpu"`` for
+    the CPU) for a look-at pinhole camera; ``kw`` sets the other uniforms
+    (environment intensity, seed_root, ...)."""
     return params_from_numpy(
         dict(cam_to_world=look_at(eye, target, up),
              cam_inv_proj=perspective_inverse(fov_y_deg, width / height), **kw),

@@ -17,7 +17,7 @@ class Film(NamedTuple):
     sample_count: int      # samples accumulated per pixel
 
 
-def new_film(height: int, width: int, device="cpu") -> Film:
+def new_film(height: int, width: int, device) -> Film:
     return Film(torch.zeros((height, width, 3), dtype=torch.float32, device=device), 0)
 
 

@@ -14,7 +14,10 @@ scene runs kernel K2 (``ops/cuda_transition.py``) on pre-gathered inputs
 (the constant environment, the basic sky, no sky, instanced scenes) runs
 the general transition (``_transition``), plain PyTorch like the
 reference's XLA one.  Both end in the same record-film append and
-work-queue regeneration.
+work-queue regeneration.  The hit's attribute row is read from the paired
+f16 rows (``attr_compact=2``) or the oct-normal rows (``attr_compact=3``);
+with ``attr_in_kernel`` on mode 2, K2 receives the raw rows and decodes
+them itself.
 
 Dead lanes pull (pixel, sample) work items off a pixel-major queue.  Each
 path's radiance is appended once, keyed by pixel, to a pass-lifetime
@@ -62,6 +65,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     EPSILON,
     FAR_PLANE,
     PI,
+    normalize,
     safe_rcp,
     vdot,
     vluminance,
@@ -143,9 +147,9 @@ def _set_trav(s: FusedState, mask: torch.Tensor, o, d) -> None:
 def _kernel_transition_supported(scene, config: RenderConfig) -> bool:
     """The reference's ``_pallas_transition_supported`` on what the port
     admits: the HDRI with its NEE, on a flat scene.  (Its other conditions,
-    wide16, paired-f16 rows, no lights, textures or normal maps, the record
-    film and at most 65536 materials, hold for every scene and config the
-    port builds.)"""
+    wide16, attribute rows of mode 2 or 3, no lights, textures or normal
+    maps, the record film and at most 65536 materials, hold for every
+    scene and config the port builds.)"""
     return (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
             and scene.inst_w2l.shape[0] == 0)
 
@@ -203,14 +207,39 @@ def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedS
     s.rays = s.rays + take.sum()
 
 
-def _shade_rows(scene, s: FusedState, a: torch.Tensor, hit_valid: torch.Tensor,
-                shadow_done: torch.Tensor):
-    """The attribute row of each lane's hit as (15, B) f32 planes (3 vertex
-    normals, 3 uvs) and its u16 material index.  Lanes that consume no
-    attributes this transition read row 0."""
+def _attr_index(s: FusedState, a: torch.Tensor, hit_valid: torch.Tensor,
+                shadow_done: torch.Tensor) -> torch.Tensor:
+    """The attribute row of each lane's hit (B,) int64: the fresh hit for
+    lanes whose primary segment just ended, the saved one for shadow
+    lanes; lanes that consume no attributes this transition read row 0."""
     need_mat = (a & hit_valid) | ((s.mode == MODE_SHADOW_ENV) & shadow_done)
     sel_tri = torch.where(a, s.trav.tri, s.hit_tri)
-    attr = torch.where(need_mat, torch.clamp_min(sel_tri, 0), torch.zeros_like(sel_tri)).long()
+    return torch.where(need_mat, torch.clamp_min(sel_tri, 0), torch.zeros_like(sel_tri)).long()
+
+
+def _oct_decode(u: torch.Tensor) -> torch.Tensor:
+    """16-bit octahedral words (int32 view of uint32, (B,)) -> unnormalized
+    (B, 3) vectors (the reference's ``render/fused.py::_oct_decode``)."""
+    k = torch.tensor(2.0 / 65535.0, dtype=torch.float32)   # f32, as the reference's
+    x = (u & 0xFFFF).to(torch.float32) * k - 1.0
+    y = ((u >> 16) & 0xFFFF).to(torch.float32) * k - 1.0
+    z = 1.0 - torch.abs(x) - torch.abs(y)
+    t_f = torch.clamp_min(-z, 0.0)
+    x = x - torch.where(x >= 0, t_f, -t_f)
+    y = y - torch.where(y >= 0, t_f, -t_f)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def _shade_rows(scene, config: RenderConfig, attr: torch.Tensor):
+    """Rows ``attr`` of the attribute table as (15, B) f32 planes (3 vertex
+    normals, 3 uvs; mode 3 stores no uv, so those planes are 0 there, and
+    its oct normals are normalized per vertex as in the reference) and
+    their u16 material index."""
+    if config.attr_compact == 3:
+        rows = scene.attr_shade_o[attr]                          # (B, 4) int32
+        normals = [normalize(_oct_decode(rows[:, v])) for v in range(3)]
+        zeros = torch.zeros((attr.shape[0], 6), dtype=torch.float32, device=attr.device)
+        return torch.cat(normals + [zeros], dim=1).T.contiguous(), rows[:, 3]
     rows = scene.attr_shade_c[attr]                              # (B, 8) int32
     shade_rowT = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
     return shade_rowT, (rows[:, 7] >> 16) & 0xFFFF
@@ -232,7 +261,15 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
                             torch.ones_like(sky_pdf))
     sky_color = sky_raw * intensity[:, None]
     env_li = env_col * params.environment_intensity
-    shade_rowT, mat_idx = _shade_rows(scene, s, a, hit_valid, trav_done | tr.found)
+    attr = _attr_index(s, a, hit_valid, trav_done | tr.found)
+    if config.attr_in_kernel and config.attr_compact == 2:
+        # Raw rows into the kernel; only the material index (the high
+        # half of word 7) is decoded here, as in the reference.
+        form = dict(attr_table=scene.attr_shade_c, attr=attr.to(torch.int32))
+        mat_idx = (scene.attr_shade_c[attr, 7] >> 16) & 0xFFFF
+    else:
+        shade_rowT, mat_idx = _shade_rows(scene, config, attr)
+        form = dict(shade_rowT=shade_rowT)
     mdataT = scene.materials[mat_idx.long(), 0:22].T.contiguous()
 
     k = transition_step16_cuda(
@@ -242,8 +279,7 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
         hit_t=s.hit_t, hit_baryT=s.hit_uv_bary, hit_tri=s.hit_tri,
         pendingT=s.pending, throughputT=s.throughput, radianceT=s.radiance,
         rng=rng_state, depth=s.depth, max_rough=s.max_roughness,
-        prev_pdf=s.prev_pdf, lane_cap=s.lane_cap,
-        shade_rowT=shade_rowT, mdataT=mdataT,
+        prev_pdf=s.prev_pdf, lane_cap=s.lane_cap, **form, mdataT=mdataT,
         sky_colT=sky_color.T.contiguous(), sky_pdf=sky_pdf,
         env_dirT=env_dir.T.contiguous(), env_liT=env_li.T.contiguous(),
         env_pdf=env_pdf,
@@ -311,7 +347,7 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     b0 = torch.where(a, tr.u, s.hit_uv_bary[0])
     b1 = torch.where(a, tr.v, s.hit_uv_bary[1])
     sel_t = torch.where(a, tr.t, s.hit_t)
-    sr, mat_idx = _shade_rows(scene, s, a, hit_valid, shadow_done)
+    sr, mat_idx = _shade_rows(scene, config, _attr_index(s, a, hit_valid, shadow_done))
     w0 = 1.0 - b0 - b1
     normal = vnormalize((sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
                          sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
@@ -470,12 +506,16 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
     super_iterations)``: the first four as in the reference (device
     tensors), the last a host int.  Raises ``ValueError`` when the
     configuration samples the HDRI of a scene that has none (its 1x1
-    placeholder table)."""
+    placeholder table), or reads oct attribute rows (``attr_compact=3``)
+    that the scene does not have."""
     if (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
             and tuple(scene.env.image.shape[:2]) == (1, 1)):
         raise ValueError("sky_mode 0 with has_environment_texture samples the scene's HDRI, "
                          "and this scene has none (Scene.set_environment); for the constant "
                          "environment set has_environment_texture=False")
+    if config.attr_compact == 3 and scene.attr_shade_o.shape[0] == 0:
+        raise ValueError("attr_compact=3 reads the oct attribute rows, and this SceneData "
+                         "has none (build it with Scene.build, or pass attr_shade_o)")
     npix = config.pixel_count()
     spp = config.samples_per_pass
     budget = npix * spp

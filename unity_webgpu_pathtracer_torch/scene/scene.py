@@ -6,10 +6,12 @@ table.  A scene with instances (``Scene.add_instance``) builds one BLAS per
 mesh in mesh space (cached on the ``Scene``) and a TLAS over the instance
 boxes, joined in one table (``accel/wide16.py::build_tlas_wide16``);
 moving an instance re-emits only the TLAS rows (``rebuild_tlas_rows``).
+``leaf8`` builds every table with 48-float rows and 8-triangle leaves.
 
 ``SceneData`` holds what the fused integrator reads: the wide16 node table
-and its root slot table, the stack depth, the paired-f16 attribute rows,
-the material records, the instance transforms and the environment tables.
+and its root slot table, the stack depth, the attribute rows (paired f16,
+``attr_compact=2``, and oct-encoded normals, ``attr_compact=3``), the
+material records, the instance transforms and the environment tables.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.accel import wide16 as w16
+from unity_webgpu_pathtracer_torch.device import resolve_device
 from unity_webgpu_pathtracer_torch.scene import material as umaterial
 from unity_webgpu_pathtracer_torch.scene.envmap import EnvMap, build_envmap, empty_envmap
 from unity_webgpu_pathtracer_torch.scene.mesh import FlatTriangles, Mesh, concat_flat, flatten_mesh
@@ -42,13 +45,50 @@ def _pack_attr_shade_c(normals9: np.ndarray, uvs6: np.ndarray,
     return np.ascontiguousarray(h).view(np.uint32)   # (T_pad, 8)
 
 
+def _oct_encode_u32(normals: np.ndarray) -> np.ndarray:
+    """(N, 3) normals -> one u32 each: 16-bit octahedral ``x | y << 16``;
+    zero vectors map to the +z pole."""
+    n = np.asarray(normals, np.float32)
+    denom = np.maximum(np.abs(n).sum(axis=1, keepdims=True), 1e-20)
+    p = n[:, 0:2] / denom
+    sign = np.where(p >= 0.0, 1.0, -1.0).astype(np.float32)
+    folded = (1.0 - np.abs(p[:, ::-1])) * sign
+    p = np.where((n[:, 2] < 0.0)[:, None], folded, p)
+    q = np.clip(np.round((p * 0.5 + 0.5) * 65535.0), 0, 65535).astype(np.uint32)
+    return q[:, 0] | (q[:, 1] << np.uint32(16))
+
+
+def _pack_attr_shade_o(normals9: np.ndarray, material: np.ndarray) -> np.ndarray:
+    """16-byte per-triangle rows for ``attr_compact=3``: three oct-encoded
+    vertex normals and the material index, 4 uint32 words, padded to a
+    multiple of 4 triangles.  No uv: the mode serves untextured scenes."""
+    t = normals9.shape[0]
+    out = np.zeros((((t + 3) // 4) * 4, 4), np.uint32)
+    n = np.asarray(normals9, np.float32).reshape(t, 3, 3)
+    for v in range(3):
+        out[:t, v] = _oct_encode_u32(n[:, v])
+    m = material.astype(np.int64)
+    if m.size and (m.max() > 0xFFFF or m.min() < 0):
+        raise ValueError("compact attribute rows hold at most 65536 materials")
+    out[:t, 3] = m.astype(np.uint32)
+    return np.ascontiguousarray(out)   # (T_pad, 4)
+
+
+def _attr_tables(flat: FlatTriangles) -> dict:
+    m = flat.count
+    return dict(attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
+                                                flat.uvs.reshape(m, 6), flat.material),
+                attr_shade_o=_pack_attr_shade_o(flat.normals.reshape(m, 9), flat.material))
+
+
 class SceneData(NamedTuple):
     """Device tables of the fused integrator."""
 
-    wide16_nodes: torch.Tensor   # (N16, 96) float32 (ints bitcast)
+    wide16_nodes: torch.Tensor   # (N16, 96), or leaf8 (N16, 48), float32 (ints bitcast)
     wide16_top: torch.Tensor     # (16, 119) root slot table, or (1, 119) placeholder
     stack_depth: int             # register-stack planes (tree depth + 1; +4 instanced)
     attr_shade_c: torch.Tensor   # (T_pad, 8) int32 view of the uint32 rows
+    attr_shade_o: torch.Tensor   # (T_pad4, 4) int32 view of the oct rows; (0, 4) absent
     materials: torch.Tensor      # (NM, 32) float32
     env: EnvMap
     inst_l2w: torch.Tensor       # (I, 12) float32 row-major 3x4; (0, 12) flat
@@ -70,7 +110,8 @@ class Scene:
     env_image: np.ndarray | None = None
     # (mesh id, 4x4 transform, material index or None) per instance.
     instances: list = dataclasses.field(default_factory=list)
-    # Per-mesh BLASes of the last instanced build and its TLAS layout.
+    # Per-mesh BLASes of the last instanced build (with its leaf8 flag)
+    # and its TLAS layout.
     _blas16_cache: tuple | None = dataclasses.field(default=None, repr=False)
     _tlas16_layout: w16.TlasLayout | None = dataclasses.field(default=None, repr=False)
 
@@ -103,38 +144,38 @@ class Scene:
             raise ValueError("scene has no meshes")
         return concat_flat([flatten_mesh(m, xf) for m, xf in self.meshes])
 
-    def build_arrays(self) -> dict:
+    def build_arrays(self, leaf8: bool | None = None) -> dict:
         """Host build of the device tables as numpy arrays (the layout of
-        ``scene_from_numpy``'s input)."""
+        ``scene_from_numpy``'s input); ``leaf8`` as in
+        ``accel/wide16.py::build_scene_wide16``."""
+        leaf8 = w16.resolve_leaf8(leaf8)
         if self.instances:
-            return self._build_instanced_arrays()
+            return self._build_instanced_arrays(leaf8)
         flat = self.flatten()
-        w = w16.build_scene_wide16(flat.positions, flat.tri_records())
+        w = w16.build_scene_wide16(flat.positions, flat.tri_records(), leaf8)
         top = w16.derive_top16(w.nodes)
         # Leaf rows index attributes by BVH reference position.
         flat = flat.permuted(w.order)
-        m = flat.count
         return dict(
             wide16_nodes=w.nodes,
             wide16_top=top if top is not None else np.zeros((1, w16.TOP_COLS), np.float32),
             stack_levels=np.zeros((w.depth + 1,), np.int32),
-            attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
-                                            flat.uvs.reshape(m, 6), flat.material),
+            **_attr_tables(flat),
             materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
             env=_env_arrays(self.env_image),
         )
 
-    def _build_instanced_arrays(self) -> dict:
+    def _build_instanced_arrays(self, leaf8: bool) -> dict:
         """Two-level build: cached per-mesh BLASes in mesh space and the
         TLAS over the instances (the reference's
         ``_build_instanced_quant("wide16")``).  Attributes stay in mesh
         space; shading takes normals to world space per hit."""
-        if self._blas16_cache is None:
+        if self._blas16_cache is None or self._blas16_cache[4] != leaf8:
             blas, bounds, parts, attr_bases = [], [], [], []
             attr_base = 0
             for mesh, _transform in self.meshes:
                 flat = flatten_mesh(mesh, None)
-                w = w16.build_scene_wide16(flat.positions, flat.tri_records())
+                w = w16.build_scene_wide16(flat.positions, flat.tri_records(), leaf8)
                 blas.append(w)
                 p = flat.positions.reshape(-1, 3)
                 bounds.append((p.min(0), p.max(0)))
@@ -142,10 +183,9 @@ class Scene:
                 parts.append(flat.permuted(w.order))
                 attr_bases.append(attr_base)
                 attr_base += int(w.order.shape[0])
-            self._blas16_cache = (blas, bounds, parts, attr_bases)
-        blas, bounds, parts, attr_bases = self._blas16_cache
+            self._blas16_cache = (blas, bounds, parts, attr_bases, leaf8)
+        blas, bounds, parts, attr_bases, _leaf8 = self._blas16_cache
         flat = concat_flat(parts)
-        m = flat.count
         w, l2w, w2l, self._tlas16_layout = w16.build_tlas_wide16(
             blas, bounds, self.instances, attr_bases)
         offsets = np.zeros((len(self.instances), 4), np.int32)
@@ -157,30 +197,34 @@ class Scene:
             wide16_top=np.zeros((1, w16.TOP_COLS), np.float32),
             # +4 planes: a TLAS-only refresh may deepen the tree a little.
             stack_levels=np.zeros((w.depth + 4,), np.int32),
-            attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
-                                            flat.uvs.reshape(m, 6), flat.material),
+            **_attr_tables(flat),
             materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
             env=_env_arrays(self.env_image),
             inst_l2w=l2w, inst_w2l=w2l, inst_offsets=offsets,
         )
 
-    def build(self, traversal: str = "wide16", device="cpu") -> SceneData:
-        """Build the wide16 tables and move them to ``device``."""
+    def build(self, traversal: str = "wide16", device=None,
+              leaf8: bool | None = None) -> SceneData:
+        """Build the wide16 tables and move them to ``device`` (None: the
+        CUDA device; ``"cpu"`` for the CPU).  ``leaf8`` selects 48-float
+        rows with 8-triangle leaves (``accel/wide16.py::resolve_leaf8``)."""
         if traversal != "wide16":
             raise ValueError(f"the PyTorch port builds only 'wide16', not {traversal!r}")
-        return scene_from_numpy(self.build_arrays(), device)
+        device = resolve_device(device)
+        return scene_from_numpy(self.build_arrays(leaf8), device)
 
 
 def rebuild_tlas_rows(scene: Scene):
     """Transform-only refresh of an instanced scene's last build: only the
-    fixed-capacity TLAS rows are re-emitted.  Returns ``(rows (cap, 96),
-    inst_l2w, inst_w2l)``; rows ``[0, cap)`` of the node table take
-    ``rows``."""
+    fixed-capacity TLAS rows are re-emitted, as wide as the built table's.
+    Returns ``(rows (cap, 96 or 48), inst_l2w, inst_w2l)``; rows
+    ``[0, cap)`` of the node table take ``rows``."""
     cache, layout = scene._blas16_cache, scene._tlas16_layout
     if cache is None or layout is None:
         raise ValueError("no cached instanced wide16 build; build the scene first")
     rows, depth, l2w, w2l = w16.emit_tlas_rows16(
-        list(scene.instances), cache[1], layout.blas_root, layout.tlas_cap)
+        list(scene.instances), cache[1], layout.blas_root, layout.tlas_cap,
+        cache[0][0].nodes.shape[1])
     # The stack was sized at build time with 3 planes to spare.
     if depth > layout.tlas_depth0 + 3:
         raise ValueError(f"the TLAS deepened past the traversal stack (depth {depth} > "
@@ -188,14 +232,17 @@ def rebuild_tlas_rows(scene: Scene):
     return rows, l2w, w2l
 
 
-def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
-    """``SceneData`` from numpy arrays keyed by the reference's
-    ``SceneData`` field names: ``wide16_nodes``, ``wide16_top``,
-    ``stack_levels`` (only its length is read), ``attr_shade_c``,
-    ``materials``, ``env`` (a dict of the ``EnvMap`` fields) and, for
-    instanced scenes, ``inst_l2w``, ``inst_w2l`` and ``inst_offsets``
-    (empty when absent).  Tests feed it ``np.asarray`` of the JAX fields,
-    so both packages trace the same tables."""
+def scene_from_numpy(arrays: dict, device=None) -> SceneData:
+    """``SceneData`` on ``device`` (None: the CUDA device) from numpy
+    arrays keyed by the reference's ``SceneData`` field names:
+    ``wide16_nodes``, ``wide16_top``, ``stack_levels`` (only its length is
+    read), ``attr_shade_c``, ``materials``, ``env`` (a dict of the
+    ``EnvMap`` fields) and, optional, ``attr_shade_o`` and, for instanced
+    scenes, ``inst_l2w``, ``inst_w2l`` and ``inst_offsets`` (empty when
+    absent).  Tests feed it ``np.asarray`` of the JAX fields, so both
+    packages trace the same tables."""
+    device = resolve_device(device)
+
     def t(a, dtype=None):
         a = np.asarray(a)
         a = np.array(a if dtype is None else a.view(dtype), order="C")
@@ -207,6 +254,7 @@ def scene_from_numpy(arrays: dict, device="cpu") -> SceneData:
         wide16_top=t(arrays["wide16_top"]),
         stack_depth=int(np.asarray(arrays["stack_levels"]).shape[0]),
         attr_shade_c=t(arrays["attr_shade_c"], np.int32),
+        attr_shade_o=t(arrays.get("attr_shade_o", np.zeros((0, 4), np.uint32)), np.int32),
         materials=t(arrays["materials"]),
         env=env,
         inst_l2w=t(arrays.get("inst_l2w", np.zeros((0, 12), np.float32))),
@@ -225,6 +273,7 @@ def scene_to_numpy(scene: SceneData) -> dict:
         wide16_top=n(scene.wide16_top),
         stack_levels=np.zeros((scene.stack_depth,), np.int32),
         attr_shade_c=n(scene.attr_shade_c).view(np.uint32),
+        attr_shade_o=n(scene.attr_shade_o).view(np.uint32),
         materials=n(scene.materials),
         env={f: n(getattr(scene.env, f)) for f in EnvMap._fields},
         inst_l2w=n(scene.inst_l2w), inst_w2l=n(scene.inst_w2l),
