@@ -47,15 +47,29 @@ Phases, each printing one or more lines:
     as path A is;
 12. K1's instanced leaf8 kernel against its twin on the instanced grid
     with leaf8 BLAS rows, then one pass of 2 spp of that scene through
-    ``Renderer``, held against phase 4's film.
+    ``Renderer``, held against phase 4's film;
+13. the probes of ``experiments/`` (``unity_webgpu_pathtracer_torch/
+    experiments``, this slice's path): each module's ``run`` at its
+    probe's sizes, every probe kernel held against its plain version (the
+    counts set to 0 before and read after: every probe kernel must have
+    launched), then K1's probe modes (the kernel diet and the bf16 leaf
+    decode) on states of phase 2's pass captured at its 27th arrival (the
+    third of super-iteration 4), its 1,200th (the last of super-iteration
+    150, about halfway, when most lanes have ended their segment) and its
+    1,203rd (the third of super-iteration 151), with the production
+    kernel's time, distinct rows and bound on each.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
 least time an H100 could take for the same work, the larger of the bytes
 it must move (each input read once, each output written once; for K1 the
-distinct node rows the live lanes load) over 3.35 TB/s and its f32
-operations over 67 TFLOP/s.  No single PyTorch call computes an arrival
-or a transition, so ``library_ms`` is null.
+distinct node rows the live lanes load) over 3.35 TB/s and its
+operations at the card's peak for their type: f32 at 67 TFLOP/s, packed
+bf16 (the bf16 lobe chain) at 133.8 TFLOP/s.  No single PyTorch call computes an arrival
+or a transition, so ``library_ms`` is null for K1 and K2; for a probe it
+is the one PyTorch call that computes the same function where there is
+one (``table[idx]`` for the gathers, ``torch.sum``, ``torch.sin`` and the
+others); a probe measured at several sizes reports its last (largest).
 
 Every failure raises (non-zero exit).  The last two lines are the
 kernels' JSON summary line and the device line; without a CUDA device it
@@ -75,15 +89,9 @@ POOL = 98_304
 TE = 8
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 TILE = 32        # film tile statistic of phases 7, 11 and 12
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s without
-# tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-# f32 operations per lane, counted from csrc/*.cu: K1's 16 slab tests of
-# an inner row (36 each), one Moller-Trumbore test per leaf triangle, the
-# world-to-local transform of an instance row; K2's body (two BSDF
-# evaluations, one sample, the material and frame; roughly).
-K1_OPS_INNER, K1_OPS_TRI, K1_OPS_INST = 576, 55, 30
+# f32 operations per lane of K2, counted from csrc/transition16.cu: its
+# body (two BSDF evaluations, one sample, the material and frame; roughly).
+# K1's are in experiments/_common.py (arrival_work).
 K2_OPS_LANE = 1000
 
 
@@ -210,33 +218,6 @@ def film_vs_flat(img, flat_img, what: str) -> tuple[float, float]:
     return mean_rel, tile_stat
 
 
-def time_ms(fn, reps: int = 100) -> float:
-    """Device time of one call of ``fn``: the call is captured once in a
-    CUDA graph and the graph replayed ``reps`` times between two CUDA
-    events, so the host's per-call Python work (checks, allocation,
-    ctypes; slower than the kernels themselves) is not what is timed."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def compare(out, ref, what: str) -> float:
     """Integer fields equal, float fields within FLOAT_TOL; returns the
     largest absolute float deviation."""
@@ -255,34 +236,6 @@ def compare(out, ref, what: str) -> float:
             bad = int((a != b).sum())
             raise AssertionError(f"{what}.{name}: {bad} lanes differ")
     return worst
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time (ms) for ``nbytes`` of traffic and ``ops`` f32
-    operations on an H100, and which of the two binds."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def arrival_work(nodes, oT, dT, invT, s, active, has_instances: bool):
-    """(bytes, f32 operations, distinct rows) of one arrival on this state:
-    each distinct row the live lanes load, the ray planes, and the state
-    planes read and written once."""
-    import torch
-
-    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import _FLAT_FIELDS, _INST_FIELDS
-
-    live = (s.ptr >= 0) if active is None else (s.ptr >= 0) & active
-    ptrs = s.ptr[live].long()
-    rows = int(torch.unique(ptrs).numel())
-    meta = nodes.view(torch.int32)[ptrs, 3]
-    slots = 16 if nodes.shape[1] == 96 else 8
-    ops = (K1_OPS_INNER * int((meta == 0).sum()) + K1_OPS_INST * int((meta < 0).sum())
-           + K1_OPS_TRI * int(meta[meta > 0].clamp(max=slots).sum()))
-    fields = _FLAT_FIELDS + (_INST_FIELDS if has_instances else ())
-    state = sum(getattr(s, f).nbytes for f in fields)
-    rays = sum(x.nbytes for x in (oT, dT, invT)) + (0 if active is None else active.nbytes)
-    return rows * nodes.shape[1] * 4 + rays + 2 * state, ops, rows
 
 
 def transition_work(kw, out) -> tuple[int, int]:
@@ -311,6 +264,7 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.accel import wide16 as w16
     from unity_webgpu_pathtracer_torch.api import Renderer
     from unity_webgpu_pathtracer_torch.config import RenderConfig
+    from unity_webgpu_pathtracer_torch.experiments._common import arrival_work, bound, time_ms
     from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
     from unity_webgpu_pathtracer_torch.models.examples import tlas_scene
@@ -366,7 +320,7 @@ def main() -> int:
                                                               has_instances))
         plain = time_ms(lambda: arrival_step16(nodes, oT.T, dT.T, invT.T, s, active,
                                                has_instances))
-        nbytes, ops, rows = arrival_work(nodes, oT, dT, invT, s, active, has_instances)
+        nbytes, ops, rows = arrival_work(nodes, s.ptr, oT, dT, invT, s, active, has_instances)
         live = int(((s.ptr >= 0) & active).sum())
         b = record(name, K1_SRC, K1_TPU, err, ms, plain, nbytes, ops)
         log(f"{label} K1 {name}: B={s.ptr.shape[0]} live={live} distinct rows={rows} "
@@ -653,8 +607,107 @@ def main() -> int:
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}; card: {card}")
     del r, isd, img, flat_img
 
+    # ---- 13. the probes of experiments/ ----
+    from unity_webgpu_pathtracer_torch.experiments import (round2_probe, round14_kernel_diet,
+                                                           round16_bf16leaf_probe,
+                                                           round18_bf16_shade_probe,
+                                                           round18_mosaic_probe,
+                                                           round18_vmem_tree_probe,
+                                                           round20_tile3d_probe)
+    from unity_webgpu_pathtracer_torch.ops import cuda_probes
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import DIET_MODES
+
+    probe_counts = (cuda_probes.LAUNCHES, cuda_arrival.arrival_probe_cuda.launches)
+    for counter in probe_counts:
+        for k in counter:
+            counter[k] = 0
+    t0 = time.perf_counter()
+    rows = []
+    for mod in (round2_probe, round14_kernel_diet, round16_bf16leaf_probe,
+                round18_bf16_shade_probe, round18_vmem_tree_probe, round18_mosaic_probe,
+                round20_tile3d_probe):
+        got_rows = mod.run(dev)
+        rows += got_rows
+        for r in got_rows:
+            lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+            log(f"phase 13 {mod.__name__.rsplit('.', 1)[1]} {r['name']}: {r['ms']:.4f} ms "
+                f"({r['ns_per']:.4f} ns/{r['per']}), plain {r['plain_ms']:.4f} ms{lib}; bound "
+                f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
+                f"{r['ops'] / 1e6:.2f} Mflop f32"
+                + (f" + {r['bf16_ops'] / 1e6:.2f} Mflop bf16" if r["bf16_ops"] else "")
+                + f"); max_abs_err {r['max_abs_err']:g} ({r['tol']})"
+                + (f"; ulps {r['ulps']}, exact {r['exact']}" if "ulps" in r else ""))
+    got = {k: v for counter in probe_counts for k, v in counter.items()}
+    if not all(v > 0 for v in got.values()):
+        raise AssertionError(f"phase 13: probe kernels never launched: "
+                             f"{[k for k, v in got.items() if v == 0]}")
+    log(f"phase 13 probes: {len(rows)} measurements in {time.perf_counter() - t0:.1f} s, "
+        f"launches {got}")
+    for mode, (dt, share) in round14_kernel_diet.savings(
+            [r for r in rows if r["kernel"].startswith("arrival16_diet")]).items():
+        log(f"phase 13 synthetic diet: {mode} saves {dt:.4f} ms ({share * 100:.1f}%)")
+    replaces = {  # kernel name prefix -> the Pallas probe it replaces
+        "ring_gather": "round2_probe.py:125", "table_sum": "round2_probe.py:177",
+        "schlick_chain": "round2_probe.py:271", "arrival16_diet": "round14_kernel_diet.py:260",
+        "arrival16_f16leaf": "round16_bf16leaf_probe.py:75",
+        "arrival16_bf16leaf": "round16_bf16leaf_probe.py:75",
+        "lobe_chain": "round18_bf16_shade_probe.py:78",
+        "cluster_gather": "round18_vmem_tree_probe.py:63",
+        "intrinsic": "round18_mosaic_probe.py:35", "sum_scalar": "round18_mosaic_probe.py:111",
+        "step_chain": "round20_tile3d_probe.py:58"}
+    probe_order = []
+    for r in rows:
+        name = r["kernel"]
+        if name not in probe_order:
+            probe_order.append(name)
+        prev = kernels.get(name, {}).get("max_abs_err", 0.0)
+        where = next(v for k, v in replaces.items() if name.startswith(k))
+        src = "arrival16.cu" if name.startswith("arrival16") else "probes.cu"
+        kernels[name] = {"name": name, "route": "cuda",
+                         "source": f"unity_webgpu_pathtracer_torch/csrc/{src}",
+                         "replaces": f"experiments/{where}", "launches": got[name],
+                         "max_abs_err": max(prev, r["max_abs_err"]), "ms": r["ms"],
+                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    # K1's probe modes on real states, early and deep in phase 2's pass.
+    scene, cam = million_triangle_scene(1_000_000)
+    sd = scene.build("wide16", device=dev)
+    for call in (3 * TE + 3, 1200, 150 * TE + 3):
+        nodes, oT, dT, invT, s, active = capture_inputs(fused, sd, cfg, params, k1_call=call,
+                                                        k2_call=None)[0]
+        out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
+        err = compare(out, arrival_step16(nodes, oT.T, dT.T, invT.T, s, active), "arrival16")
+        k1_ms = time_ms(lambda: cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active))
+        state = (nodes, s.ptr, oT, dT, invT, s, active)
+        mrows = round14_kernel_diet.modes_on_state(state, f"arrival {call}",
+                                                   DIET_MODES + ("f16leaf", "bf16leaf"))
+        bad = [r["name"] for r in mrows if not r["ok"]]
+        if bad:
+            raise AssertionError(f"phase 13: probe modes disagree with their twins: {bad}")
+        for r in mrows:
+            kernels[r["kernel"]]["max_abs_err"] = max(kernels[r["kernel"]]["max_abs_err"],
+                                                      r["max_abs_err"])
+        live = int(((s.ptr >= 0) & active).sum())
+        meta = nodes.view(torch.int32)[s.ptr[(s.ptr >= 0) & active].long(), 3]
+        log(f"phase 13 K1 state at arrival {call}: B={s.ptr.shape[0]} live={live} (inner "
+            f"{int((meta == 0).sum())}, leaf {int((meta > 0).sum())}), distinct rows "
+            f"{mrows[0]['distinct_rows']}; arrival16 {k1_ms:.4f} ms (max_abs_err {err:g}); bound "
+            f"{mrows[0]['bound_ms']:.4f} ms ({mrows[0]['bound_by']}, {mrows[0]['bytes'] / 1e6:.2f} "
+            f"MB, {mrows[0]['ops'] / 1e6:.2f} Mflop)")
+        for r in mrows:
+            log(f"phase 13 K1 arrival {call} {r['mode']}: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']:g}")
+        for mode, (dt, share) in round14_kernel_diet.savings(mrows).items():
+            log(f"phase 13 K1 arrival {call}: {mode} saves {dt:.4f} ms ({share * 100:.1f}%)")
+        dt, share = round14_kernel_diet.savings(mrows, "f16leaf")["bf16leaf"]
+        log(f"phase 13 K1 arrival {call}: bf16 leaf decode saves {dt:.4f} ms "
+            f"({share * 100:.1f}%); card: {card}")
+        del nodes, oT, dT, invT, s, active, out, state
+    del sd
+
     order = ("arrival16", "arrival16_inst", "arrival16_leaf8", "arrival16_inst_leaf8",
-             "transition16", "transition16_attr_raw")
+             "transition16", "transition16_attr_raw", *probe_order)
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ import torch
 
 from unity_webgpu_pathtracer_torch.config import RenderConfig
 from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
-from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
+from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_probes, cuda_transition
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
 from unity_webgpu_pathtracer_torch.render import fused
 from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
@@ -77,6 +77,11 @@ def test_entries_match_sources():
     assert set(cuda_arrival.arrival_step16_cuda.launches) == set(cuda_arrival.KERNELS.values())
     assert set(cuda_transition.transition_step16_cuda.launches) == set(
         cuda_transition.KERNELS.values())
+    # The probes: K1's probe modes behind one entry, the others in probes.cu.
+    assert "arrival16_probe_launch" in cuda_build.ENTRIES["arrival16"]
+    assert set(cuda_arrival.arrival_probe_cuda.launches) == set(
+        cuda_arrival.PROBE_KERNELS.values())
+    assert set(cuda_probes.LAUNCHES) == set(cuda_probes.KERNELS)
 
 
 @gpu
@@ -238,3 +243,68 @@ def test_wrappers_reject_bad_inputs(cuda, scene64k):
     with pytest.raises(ValueError):
         cuda_arrival.arrival_step16_cuda(sd.wide16_nodes, planes, planes, planes,
                                          s._replace(t=s.t.double()))
+
+
+@gpu
+@pytest.mark.parametrize("mode", cuda_arrival.PROBE_KERNELS)
+def test_probe_modes_match_twin(cuda, scene64k, monkeypatch, mode):
+    """K1's probe modes against the twin: on the kernel diet's synthetic
+    rows (each lane on its own row) and on a state captured from a pass."""
+    from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import synthetic_inputs
+
+    sd, params = scene64k
+    captured = {}
+
+    def k1(nodes, oT, dT, invT, s, active=None, has_instances=False):
+        captured.setdefault("k1", (nodes, s.ptr, oT, dT, invT, s, active))
+        return cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+
+    monkeypatch.setattr(fused, "arrival_step16_cuda", k1)
+    fused.fused_pass_with_stats(sd, _config(), params, 0)
+    before = cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]]
+    for nodes, rows, oT, dT, invT, s, active in (synthetic_inputs(cuda, b=8192),
+                                                  captured["k1"]):
+        out = cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
+        ref = cuda_arrival.arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
+        for name in cuda_arrival._FLAT_FIELDS:
+            _assert_same(getattr(out, name), getattr(ref, name), f"{mode}.{name}")
+    assert cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]] == before + 2
+
+
+@gpu
+def test_probe_kernels_match_plain(cuda):
+    """Every kernel of csrc/probes.cu against its plain version at a small
+    size: gathers, integers and the step chain exact; the float chains and
+    transcendentals within rtol 1e-5 / atol 1e-6 (bf16: 99% of lanes
+    within rtol 2^-6), the sum within rtol 1e-5."""
+    from unity_webgpu_pathtracer_torch.experiments import round2_probe, round18_mosaic_probe
+
+    tab = round2_probe.table(4000, cuda_probes.RING_W, cuda)
+    idx = torch.from_numpy(round2_probe.hashed_idx(1000, 4000)).to(cuda)
+    assert torch.equal(cuda_probes.ring_gather(tab, idx), cuda_probes.ring_gather_plain(tab, idx))
+    for n, on_chip in ((1024, True), (20000, False)):
+        tab = round2_probe.table(n, cuda_probes.TABLE_W, cuda)
+        idx = torch.from_numpy(round2_probe.hashed_idx(4096, n)).to(cuda)
+        assert torch.equal(cuda_probes.table_sum(tab, idx, on_chip),
+                           cuda_probes.table_sum_plain(tab, idx))
+    x = torch.linspace(0.1, 0.9, 8192, device=cuda)
+    _assert_same(cuda_probes.schlick_chain(x), cuda_probes.schlick_chain_plain(x), "schlick")
+    xl = torch.rand(4096, device=cuda) * 0.9 + 0.05
+    _assert_same(cuda_probes.lobe_chain(xl, torch.float32),
+                 cuda_probes.lobe_chain_plain(xl, torch.float32), "lobe f32")
+    got = cuda_probes.lobe_chain(xl, torch.bfloat16)
+    want = cuda_probes.lobe_chain_plain(xl, torch.bfloat16)
+    assert torch.isclose(got, want, rtol=2.0 ** -6, atol=0.0).float().mean() >= 0.99
+    table = torch.rand((cuda_probes.TREE_ROWS, cuda_probes.TREE_COLS), device=cuda).bfloat16()
+    rows = torch.randint(0, cuda_probes.TREE_ROWS, (5000,), dtype=torch.int32, device=cuda)
+    assert torch.equal(cuda_probes.cluster_gather(table, rows),
+                       cuda_probes.cluster_gather_plain(table, rows))
+    t = round18_mosaic_probe.inputs(cuda, 3000)
+    for op in cuda_probes.INTRINSICS:
+        args = round18_mosaic_probe.operands(op, t)
+        _assert_same(cuda_probes.intrinsic(op, *args), cuda_probes.intrinsic_plain(op, *args), op)
+    torch.testing.assert_close(cuda_probes.sum_scalar(t["f"]), t["f"].sum().reshape(1),
+                               rtol=1e-5, atol=0.0)
+    x = torch.arange(4096, dtype=torch.float32, device=cuda).reshape(4, 8, 128)
+    assert torch.equal(cuda_probes.step_chain(x), cuda_probes.step_chain_plain(x))
+    torch.cuda.synchronize()

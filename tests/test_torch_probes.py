@@ -1,0 +1,381 @@
+"""The probes' plain versions (what their wrappers run on CPU tensors)
+against the reference's Pallas probes in ``experiments/``, on the CPU.
+
+* K1's probe modes (``arrival_probe_cuda``): every mode of
+  ``round14_kernel_diet.make_kernel`` through ``pl.pallas_call(...,
+  interpret=True)``, and ``round16_bf16leaf_probe``'s patched production
+  kernel (``arrival_step16_pallas`` with ``pa._f16_bits_to_f32`` set to the
+  probe's ``_bf16_style_decode``).  Integers equal; floats within rtol
+  1e-5 on >= 99.5% of elements (XLA:CPU contracts FMAs, PyTorch does not).
+* ``round18_bf16_shade_probe.kernel``, ``round18_vmem_tree_probe.kernel``
+  and ``round20_tile3d_probe.k1d`` in interpret mode.
+* The kernels of ``round2_probe.py`` and ``round18_mosaic_probe.py`` are
+  nested inside functions; each is held against its jnp expression,
+  reproduced here with the probe's file:line.
+
+Importing a probe switches JAX's compilation cache settings
+(``jax.config.update`` at its top); the ``probes`` fixture restores them.
+"""
+
+import functools
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from unity_webgpu_pathtracer_torch.experiments import round2_probe as port_round2
+from unity_webgpu_pathtracer_torch.experiments import round18_mosaic_probe as port_mosaic
+from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
+from unity_webgpu_pathtracer_torch.ops.cuda_arrival import DIET_MODES, arrival_probe_cuda
+from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import FULL, Wide16State
+from unity_webgpu_pathtracer_tpu.ops import pallas_arrival as pa
+from unity_webgpu_pathtracer_tpu.ops import traverse_wide16 as jtw
+
+torch.set_num_threads(2)
+
+EXPERIMENTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "experiments")
+_CACHE_KEYS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")
+B, DEPTH = 1024, 11
+INT_FIELDS = ("ptr", "pend", "sp", "tri", "found", "stack_row", "stack_mask")
+
+
+@pytest.fixture(scope="module")
+def probes():
+    """The probe modules with a Pallas kernel at module level, imported
+    from their files; JAX's cache settings restored afterwards."""
+    saved = {k: getattr(jax.config, k) for k in _CACHE_KEYS}
+    mods = {}
+    try:
+        for name in ("round14_kernel_diet", "round16_bf16leaf_probe", "round18_bf16_shade_probe",
+                     "round18_vmem_tree_probe", "round20_tile3d_probe"):
+            spec = importlib.util.spec_from_file_location(
+                f"_probe_{name}", os.path.join(EXPERIMENTS, f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mods[name] = mod
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    return mods
+
+
+def _fix_exp31(words: np.ndarray) -> None:
+    """Clear bit 14 of every halfword whose exponent field is 31, in place.
+    The reference's decode (``pallas_arrival.py:62-82``) is exact only on
+    builder-contract values: on an exponent-31 halfword it gives a 2^16-ish
+    number where the hardware gives inf or NaN."""
+    h = words.view(np.uint16)
+    h[(h & 0x7C00) == 0x7C00] &= np.uint16(0xBFFF)
+
+
+def _k1_inputs(seed=3):
+    """Rows mixing inner rows (word 3 = 0: quantized boxes that rays hit),
+    leaf rows (word 3 = 1-16: f16 triangles near the anchor) and rows of
+    random bits (word 3 random: leaves of 16 or neither), so every section
+    runs; a state with dead lanes, fresh and partial pend masks and
+    half-full stacks."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(B, 96)).astype(np.float32)
+    ri = rows.view(np.int32)
+    kind = rng.integers(0, 3, B)
+    inner, leaf = kind == 0, kind == 1
+    ni, nl = int(inner.sum()), int(leaf.sum())
+    ri[leaf, 4:76] = (rng.normal(size=(nl, 144)) * 0.5).astype(np.float16).view(np.int32)
+    ri[leaf, 3] = rng.integers(1, 17, nl)
+    ri[leaf, 76:92] = rng.integers(0, 10**6, (nl, 16))
+    _fix_exp31(ri[:, 4:76])
+    ri[inner, 3] = 0
+    e = rng.integers(121, 126, (ni, 3))
+    ri[inner, 4] = e[:, 0] | (e[:, 1] << 8) | (e[:, 2] << 16)
+    ri[inner, 32:48] = rng.integers(-1, B, (ni, 16))
+    o = rng.normal(size=(3, B)).astype(np.float32)
+    d = rng.normal(size=(3, B)).astype(np.float32)
+    inv = (1.0 / d).astype(np.float32)
+    ptr = rng.integers(0, B, B).astype(np.int32)
+    ptr[rng.random(B) < 0.1] = -1
+    active = rng.random(B) < 0.95
+    state = dict(
+        ptr=ptr, pend=np.where(rng.random(B) < 0.5, FULL, rng.integers(0, 1 << 16, B)),
+        sp=rng.integers(0, DEPTH - 2, B),
+        stack_row=rng.integers(0, B, (DEPTH, B)),
+        stack_mask=np.where(rng.random((DEPTH, B)) < 0.3, 0, rng.integers(1, 1 << 16, (DEPTH, B))),
+        t=np.where(rng.random(B) < 0.5, 1e5, rng.uniform(0.5, 30.0, B)),
+        u=rng.uniform(size=B), v=rng.uniform(size=B), tri=rng.integers(0, 10**6, B),
+        found=rng.random(B) < 0.2)
+    state = {k: v.astype(np.float32 if k in "tuv" else (bool if k == "found" else np.int32))
+             for k, v in state.items()}
+    return rows, o, d, inv, state, active
+
+
+def _torch_state(st) -> Wide16State:
+    z3 = torch.zeros((3, B))
+    neg = torch.full((B,), -1, dtype=torch.int32)
+    return Wide16State(**{k: torch.from_numpy(v.copy()) for k, v in st.items()},
+                       inst=neg, hit_inst=neg.clone(), sp_enter=torch.zeros_like(neg),
+                       local_o=z3, local_d=z3.clone(), local_inv=z3.clone())
+
+
+def _port_probe(rows, o, d, inv, st, active, rowidx, mode) -> dict:
+    out = arrival_probe_cuda(torch.from_numpy(rows), torch.from_numpy(rowidx),
+                             torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(inv),
+                             _torch_state(st), torch.from_numpy(active), mode)
+    return {k: getattr(out, k).numpy() for k in st}
+
+
+def _assert_k1(got: dict, want: dict, what: str, int_share: float = 1.0) -> None:
+    for k in INT_FIELDS:
+        same = got[k] == np.asarray(want[k]).astype(got[k].dtype)
+        assert same.mean() >= int_share, f"{what}.{k}: {same.mean()}"
+    for k in ("t", "u", "v"):
+        close = np.isclose(got[k], np.asarray(want[k]), rtol=1e-5, atol=0.0, equal_nan=True)
+        assert close.mean() >= 0.995, f"{what}.{k}: {close.mean()}"
+
+
+def _diet_pallas(mod, mode, rows, o, d, inv, st, active):
+    """make_kernel(mode) as round14_kernel_diet.py:235-261 calls it, one
+    block of B lanes, on the rows the arrival wrapper would gather."""
+    live = (st["ptr"] >= 0) & active
+    rows_t = rows[np.where(live, np.arange(B), 0)].T.copy()
+
+    def col():
+        return pl.BlockSpec((B,), lambda i: (i,), memory_space=pltpu.VMEM)
+
+    def plane(r):
+        return pl.BlockSpec((r, B), lambda i: (0, i), memory_space=pltpu.VMEM)
+
+    def cshape(dt=jnp.int32):
+        return jax.ShapeDtypeStruct((B,), dt)
+
+    out_shapes = [cshape(), cshape(), cshape(), cshape(jnp.float32), cshape(jnp.float32),
+                  cshape(jnp.float32), cshape(), cshape(),
+                  jax.ShapeDtypeStruct((DEPTH, B), jnp.int32),
+                  jax.ShapeDtypeStruct((DEPTH, B), jnp.int32)]
+    call = pl.pallas_call(mod.make_kernel(mode), grid=(1,),
+                          in_specs=[plane(96), plane(3), plane(3), plane(3), col()]
+                          + [col()] * 8 + [plane(DEPTH)] * 2,
+                          out_specs=[col()] * 8 + [plane(DEPTH)] * 2,
+                          out_shape=out_shapes, interpret=True)
+    outs = call(rows_t, o, d, inv, live.astype(np.int32), st["ptr"], st["pend"], st["sp"],
+                st["t"], st["u"], st["v"], st["tri"], st["found"].astype(np.int32),
+                st["stack_row"], st["stack_mask"])
+    names = ("ptr", "pend", "sp", "t", "u", "v", "tri", "found", "stack_row", "stack_mask")
+    return dict(zip(names, (np.asarray(x) for x in outs)))
+
+
+@pytest.mark.parametrize("mode", DIET_MODES)
+def test_kernel_diet_modes_match_pallas(probes, mode):
+    """Each stub of the kernel diet computes what the diet's stub does,
+    on every lane (inner, leaf, other and dead ones)."""
+    rows, o, d, inv, st, active = _k1_inputs()
+    want = _diet_pallas(probes["round14_kernel_diet"], mode, rows, o, d, inv, st, active)
+    got = _port_probe(rows, o, d, inv, st, active, np.arange(B, dtype=np.int32), mode)
+    _assert_k1(got, want, mode)
+    assert got["found"].sum() > st["found"].sum()        # some lane hit a triangle
+    if mode != "no_stack":
+        assert (got["sp"] > st["sp"]).any()              # some lane pushed
+
+
+def _pallas_step(rows, o, d, inv, st, active) -> dict:
+    js = jtw.init_state16(B, jnp.float32(1e5), depth=DEPTH)._replace(
+        **{k: jnp.asarray(v) for k, v in st.items()})
+    out = pa.arrival_step16_pallas(jnp.asarray(rows), jnp.asarray(o), jnp.asarray(d),
+                                   jnp.asarray(inv), js, jnp.asarray(active), interpret=True)
+    return {k: np.asarray(getattr(out, k)) for k in st}
+
+
+def test_bf16leaf_matches_patched_production_kernel(probes, monkeypatch):
+    """``f16leaf`` is the production kernel on the row plane (here the
+    state's ptr), ``bf16leaf`` the same with round16_bf16leaf_probe.py's
+    decode patched in (:45-51).  Integers equal (bf16leaf: on >= 99.5% of
+    lanes), floats as above."""
+    rows, o, d, inv, st, active = _k1_inputs(seed=5)
+    plain = _pallas_step(rows, o, d, inv, st, active)
+    _assert_k1(_port_probe(rows, o, d, inv, st, active, st["ptr"], "f16leaf"), plain, "f16leaf")
+    monkeypatch.setattr(pa, "_f16_bits_to_f32", probes["round16_bf16leaf_probe"]._bf16_style_decode)
+    patched = _pallas_step(rows, o, d, inv, st, active)
+    assert any(not np.array_equal(patched[k], plain[k]) for k in st), "the patch did not take"
+    # bf16-decoded f16 bits make near-equal triangles: an FMA can flip the
+    # closest of two (one lane in 1,024 here), as in test_torch_arrival.py.
+    _assert_k1(_port_probe(rows, o, d, inv, st, active, st["ptr"], "bf16leaf"), patched,
+               "bf16leaf", int_share=0.995)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lobe_chain_matches_pallas(probes, monkeypatch, dtype):
+    """round18_bf16_shade_probe.kernel (:62-72) in interpret mode, with 8
+    repeats of the chain in place of its 64 (``R``, read when the kernel
+    is traced; XLA's compile time grows steeply with the unrolled chain).
+    XLA contracts FMAs and rounds bf16 chains elsewhere than PyTorch, and
+    the chain's divisions grow those steps: f32 within rtol 1e-3 on >=
+    99.5% of lanes, bf16 within rtol 2^-7 on >= 99%."""
+    mod = probes["round18_bf16_shade_probe"]
+    monkeypatch.setattr(mod, "R", 8)
+    x = np.random.default_rng(0).uniform(0.05, 0.95, 2048).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    want = np.asarray(pl.pallas_call(
+        functools.partial(mod.kernel, jdt), out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)(x))
+    got = cp.lobe_chain_plain(torch.from_numpy(x), getattr(torch, dtype), repeats=8).numpy()
+    rtol, share = (1e-3, 0.995) if dtype == "float32" else (2.0 ** -7, 0.99)
+    assert np.isfinite(got).all()
+    assert np.isclose(got, want, rtol=rtol, atol=0.0).mean() >= share
+
+
+def test_cluster_gather_matches_pallas(probes):
+    """round18_vmem_tree_probe.kernel (:47-53): the one-hot product of a
+    bf16 table is exact, as is the port's widening gather."""
+    mod = probes["round18_vmem_tree_probe"]
+    b = 2 * mod.BLK
+    idx = np.random.default_rng(0).integers(0, mod.ROWS, b).astype(np.int32)
+    table = np.random.default_rng(1).uniform(size=(mod.ROWS, mod.COLS)).astype(np.float32)
+    jt = jnp.asarray(table).astype(jnp.bfloat16)
+    want = pl.pallas_call(
+        mod.kernel, grid=(b // mod.BLK,),
+        in_specs=[pl.BlockSpec((mod.BLK,), lambda i: (i,), memory_space=pltpu.VMEM),
+                  pl.BlockSpec((mod.ROWS, mod.COLS), lambda i: (0, 0), memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec((mod.BLK, mod.COLS), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((b, mod.COLS), jnp.float32), interpret=True)(idx, jt)
+    got = cp.cluster_gather(torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_step_chain_matches_pallas(probes):
+    """round20_tile3d_probe.k1d (:39-46) on (B,) blocks of 1024: within
+    rtol 1e-5 (XLA fuses multiply-adds: up to ~60 ulps over 32 steps)."""
+    mod = probes["round20_tile3d_probe"]
+    x = np.arange(4096, dtype=np.float32)
+    spec = pl.BlockSpec((1024,), lambda i: (i,))
+    want = pl.pallas_call(mod.k1d, out_shape=jax.ShapeDtypeStruct(x.shape, jnp.float32),
+                          grid=(4,), in_specs=[spec], out_specs=spec, interpret=True)(x)
+    got = cp.step_chain(torch.from_numpy(x).reshape(4, 8, 128)).reshape(-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=0.0)
+
+
+def test_ring_gather_matches_probe():
+    """round2_probe.py:80-81 (inputs) and :83-116 (a 16-slot ring: copy k
+    lands in slot k % 16; out is the ring's column sum)."""
+    n, w, chunk = 300, cp.RING_W, 1024
+    jtable = jnp.arange(n * w, dtype=jnp.float32).reshape(n, w) % 7.0
+    jidx = (jnp.arange(chunk, dtype=jnp.int32) * np.int32(-1640531527)) % n
+    table = port_round2.table(n, w, "cpu")
+    idx = torch.from_numpy(port_round2.hashed_idx(chunk, n))
+    np.testing.assert_array_equal(table.numpy(), np.asarray(jtable))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    ring = np.zeros((cp.RING_SLOTS, w), np.float32)
+    for k in range(chunk):
+        ring[k % cp.RING_SLOTS] = np.asarray(jtable)[int(jidx[k])]
+    want = np.asarray(jnp.sum(jnp.asarray(ring), axis=0, keepdims=True))
+    np.testing.assert_array_equal(cp.ring_gather(table, idx).numpy(), want)
+
+
+@pytest.mark.parametrize("on_chip", [True, False])
+def test_table_sum_matches_probe(on_chip):
+    """round2_probe.py:166-174: sum_k table[idx[k]][0] by fori_loop; exact
+    (the table holds integers 0-6)."""
+    n, chunk = 1024 if on_chip else 4000, 4096
+    jtable = jnp.arange(n * cp.TABLE_W, dtype=jnp.float32).reshape(n, cp.TABLE_W) % 7.0
+    jidx = (jnp.arange(chunk, dtype=jnp.int32) * np.int32(-1640531527)) % n
+    want = jax.lax.fori_loop(0, chunk, lambda k, acc: acc + jtable[jidx[k]][0], jnp.float32(0.0))
+    got = cp.table_sum(port_round2.table(n, cp.TABLE_W, "cpu"),
+                       torch.from_numpy(port_round2.hashed_idx(chunk, n)), on_chip)
+    assert float(got[0, 0]) == float(want)
+
+
+def test_schlick_chain_matches_probe():
+    """round2_probe.py:257-268 (the kernel body), op by op in jnp on the
+    probe's (2048, 128) lanes: equal within rtol 1e-5 on >= 99.5%."""
+    x = np.linspace(0.1, 0.9, 262144).astype(np.float32).reshape(2048, 128)
+    v = jnp.asarray(x)
+    acc = jnp.zeros_like(v)
+    for _ in range(40):
+        w = 1.0 - v
+        w2 = w * w
+        f = w2 * w2 * w
+        g = jnp.sqrt(jnp.abs(v * 0.9 + 0.05))
+        acc = acc + f * g + v * (1.0 - f)
+        v = jnp.abs(acc * 0.3 + 0.1) % 0.9 + 0.05
+    got = cp.schlick_chain(torch.from_numpy(x)).numpy()
+    assert np.isclose(got, np.asarray(acc), rtol=1e-5, atol=1e-6).mean() >= 0.995
+
+
+def _pcg_ref(s):
+    """round18_mosaic_probe.py:69-73."""
+    old = s + jnp.uint32(747796405) + jnp.uint32(2891336453)
+    shift = (old >> jnp.uint32(28)) + jnp.uint32(4)
+    word = ((old >> shift) ^ old) * jnp.uint32(277803737)
+    return (word >> jnp.uint32(22)) ^ word
+
+
+_JNP = {"sin": jnp.sin, "cos": jnp.cos, "log": jnp.log, "exp": jnp.exp, "sqrt": jnp.sqrt,
+        "arccos": jnp.arccos, "arctan": jnp.arctan, "arctan2": jnp.arctan2, "power": jnp.power,
+        "cumsum_i32": jnp.cumsum, "pcg_uint32": _pcg_ref,
+        # :82
+        "u32_to_f32": lambda s: s.astype(jnp.float32) * jnp.float32(1.0 / 4294967295.0)}
+
+
+@pytest.mark.parametrize("op", cp.INTRINSICS)
+def test_intrinsics_match_probe(op):
+    """round18_mosaic_probe.py:61-105 at its tolerances: the PCG step and
+    cumsum exact, u32 -> f32 exact, the transcendentals within rtol 1e-5,
+    atol 1e-6."""
+    t = port_mosaic.inputs("cpu", 1024)
+    args = port_mosaic.operands(op, t)
+    jargs = [jnp.asarray(a.numpy().view(np.uint32)) if a is t["u32"] else jnp.asarray(a.numpy())
+             for a in args]
+    want = np.asarray(_JNP[op](*jargs))
+    got = cp.intrinsic(op, *args).numpy()
+    if op == "pcg_uint32":
+        got = got.view(np.uint32)
+    if op in ("pcg_uint32", "u32_to_f32", "cumsum_i32"):
+        np.testing.assert_array_equal(got, want.astype(got.dtype))
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_sum_scalar_matches_probe():
+    """round18_mosaic_probe.py:117: within rtol 1e-5 of jnp.sum."""
+    f = port_mosaic.inputs("cpu", 1024)["f"]
+    want = float(jnp.sum(jnp.asarray(f.numpy())))
+    assert abs(float(cp.sum_scalar(f)[0]) - want) <= 1e-5 * abs(want)
+
+
+def test_k1_work_and_bound():
+    """``_common.arrival_work``, which every K1 bound of ``chip_smoke.py``
+    uses: the distinct rows the live lanes read (each once), the ray
+    planes once each, the state read and written; 576 operations per inner
+    row, 55 per leaf triangle (at most 16), 30 per instance row on
+    two-level tables only.  ``bound`` adds f32 and packed bf16 operations,
+    the latter at twice the f32 rate."""
+    from unity_webgpu_pathtracer_torch.experiments import _common
+
+    rows, o, d, inv, st, active = _k1_inputs()
+    rows.view(np.int32)[:8, 3] = -1                       # instance rows
+    st = dict(st, ptr=np.where(np.arange(B) < 8, np.arange(B), st["ptr"]).astype(np.int32))
+    s = _torch_state(st)
+    planes = [torch.from_numpy(x) for x in (o, d, inv)]
+    live = (st["ptr"] >= 0) & active
+    meta = rows.view(np.int32)[st["ptr"][live], 3]
+    tris = np.minimum(meta[meta > 0], 16).sum()
+    state = sum(getattr(s, f).nbytes for f in ("ptr", "pend", "sp", "stack_row", "stack_mask",
+                                               "t", "u", "v", "tri", "found"))
+    distinct = len(np.unique(st["ptr"][live]))
+    for inst in (False, True):
+        nbytes, ops, n = _common.arrival_work(torch.from_numpy(rows), s.ptr, *planes, s,
+                                              torch.from_numpy(active), inst)
+        inst_state = 2 * (3 * 4 * B + 3 * 12 * B) if inst else 0
+        assert n == distinct
+        assert nbytes == distinct * 384 + 3 * 12 * B + B + 2 * state + inst_state
+        assert ops == 576 * (meta == 0).sum() + 55 * tris + (30 * (meta < 0).sum() if inst else 0)
+    f32_ms, by = _common.bound(0.0, 67e9)
+    assert (by, round(f32_ms, 9)) == ("operations", 1.0)
+    assert round(_common.bound(0.0, 67e9, 133.8e9)[0], 9) == 2.0
+    bytes_ms, by = _common.bound(3.35e10, 67e9, 133.8e9)
+    assert (by, round(bytes_ms, 9)) == ("bytes", 10.0)

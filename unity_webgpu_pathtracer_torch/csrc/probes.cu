@@ -1,0 +1,520 @@
+// Hopper counterparts of the Pallas measurement probes in experiments/:
+// each asks the H100 what one of them asked the TPU.  The K1 probes
+// (round14_kernel_diet.py, round16_bf16leaf_probe.py) are probe modes of
+// the arrival kernel in arrival16.cu.  Each kernel below names the probe
+// it replaces, what bounds it on this card, and what its design does about
+// that.  Built with -fmad=false (ops/cuda_build.py), so every float kernel
+// rounds op for op like its plain PyTorch version (ops/cuda_probes.py).
+//
+// Entries (each returns a CUDA error code):
+//   ring_gather_launch      P1 experiments/round2_probe.py:125
+//   table_sum_launch        P2 experiments/round2_probe.py:177
+//   schlick_chain_launch    P3 experiments/round2_probe.py:271
+//   lobe_chain_launch       P6 experiments/round18_bf16_shade_probe.py:78
+//   cluster_gather_launch   P7 experiments/round18_vmem_tree_probe.py:63
+//   intrinsic_launch        P8 experiments/round18_mosaic_probe.py:35
+//   sum_scalar_launch       P9 experiments/round18_mosaic_probe.py:111
+//   step_chain_launch       P10 experiments/round20_tile3d_probe.py:58
+//
+// Constants shared with Python (the intrinsic op numbers) come as -D
+// macros (ops/cuda_build.py).
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// jnp.minimum / jnp.maximum: NaN-propagating.
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+// Sum of a block's values into out[0]: warp shuffles, then warp 0 over
+// the warps' partial sums.
+__device__ __forceinline__ void block_sum_to(float acc, float* out) {
+  __shared__ float partial[32];
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float v = threadIdx.x < (blockDim.x >> 5) ? partial[threadIdx.x] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (threadIdx.x == 0) out[0] = v;
+  }
+}
+
+// ---------------------------------------------------------------- P1
+// Per-row async gather into a 16-slot ring (round2_probe.py dma_gather):
+// one issuing thread keeps 16 row copies in flight, each one TMA bulk copy
+// (cp.async.bulk global -> shared, 512 bytes) completing on its slot's
+// mbarrier: Hopper's make_async_copy and DMA semaphore.  The copy into a
+// slot is reissued as soon as the slot's previous copy has landed, as on
+// the TPU, so out is the ring's column sum: the last 16 rows gathered.
+// Bound: bytes (each gathered row once), but one thread issuing one copy
+// at a time makes it latency-bound in practice, which is the question.
+constexpr int RING_W = 128, RING_SLOTS = 16;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      " .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__global__ void ring_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                                   int chunk, float* __restrict__ out) {
+  __shared__ alignas(128) float ring[RING_SLOTS][RING_W];
+  __shared__ alignas(8) uint64_t bars[RING_SLOTS];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < RING_SLOTS; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[s]))
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    auto issue = [&](int k) {
+      const int s = k % RING_SLOTS;
+      const uint32_t bar = smem_addr(&bars[s]);
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                   "r"(RING_W * 4)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"(smem_addr(ring[s])),
+          "l"(table + (size_t)idx[k] * RING_W), "r"(RING_W * 4), "r"(bar)
+          : "memory");
+    };
+    for (int k = 0; k < RING_SLOTS && k < chunk; ++k) issue(k);
+    for (int k = 0; k < chunk; ++k) {
+      mbar_wait(smem_addr(&bars[k % RING_SLOTS]), (k / RING_SLOTS) & 1);
+      if (k + RING_SLOTS < chunk) issue(k + RING_SLOTS);
+    }
+  }
+  __syncthreads();
+  // Every thread waits on each slot's last copy, so the async writes are
+  // visible to it; those phases have completed, so the waits return at once.
+  const int used = chunk < RING_SLOTS ? chunk : RING_SLOTS;
+  for (int s = 0; s < used; ++s) mbar_wait(smem_addr(&bars[s]), ((chunk - 1 - s) / RING_SLOTS) & 1);
+  if (threadIdx.x < RING_W) {
+    float acc = 0.0f;
+    for (int s = 0; s < used; ++s) acc += ring[s][threadIdx.x];
+    out[threadIdx.x] = acc;
+  }
+}
+
+extern "C" int ring_gather_launch(const float* table, const int* idx, int chunk, float* out,
+                                  void* stream) {
+  ring_gather_kernel<<<1, RING_W, 0, (cudaStream_t)stream>>>(table, idx, chunk, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P2
+// Dynamic row reads from a table held on chip (round2_probe.py
+// vmem_gather): out = sum_k table[idx[k], 0].  One block of 1,024 threads
+// stages the (N, 48) table into its dynamic shared memory (at most 227 KB;
+// the TPU's 2-24 MB tables run as the same reads from device memory, held
+// by the 50 MB L2), then spreads the reads over its threads and reduces.
+// Bound: bytes of the rows read and the index; the staging is the design's
+// own cost.
+constexpr int P2_W = 48;
+
+template <bool ON_CHIP>
+__global__ void table_sum_kernel(const float* __restrict__ table, int n_rows,
+                                 const int* __restrict__ idx, int n_idx, float* __restrict__ out) {
+  extern __shared__ float4 staged[];
+  const float* tab = table;
+  if (ON_CHIP) {
+    const float4* src = reinterpret_cast<const float4*>(table);
+    for (int k = threadIdx.x; k < n_rows * P2_W / 4; k += blockDim.x) staged[k] = src[k];
+    __syncthreads();
+    tab = reinterpret_cast<const float*>(staged);
+  }
+  float acc = 0.0f;
+  for (int k = threadIdx.x; k < n_idx; k += blockDim.x) acc += tab[(size_t)idx[k] * P2_W];
+  block_sum_to(acc, out);
+}
+
+extern "C" int table_sum_launch(const float* table, int n_rows, const int* idx, int n_idx,
+                                float* out, int on_chip, void* stream) {
+  const int threads = 1024;
+  if (on_chip) {
+    // Raised outside a graph capture: the first call at each size comes
+    // before any capture of it.
+    static int allowed = 0;
+    const int bytes = n_rows * P2_W * 4;
+    if (bytes > allowed) {
+      cudaError_t e = cudaFuncSetAttribute(table_sum_kernel<true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (e != cudaSuccess) return (int)e;
+      allowed = bytes;
+    }
+    table_sum_kernel<true><<<1, threads, bytes, (cudaStream_t)stream>>>(table, n_rows, idx,
+                                                                         n_idx, out);
+  } else {
+    table_sum_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(table, n_rows, idx, n_idx,
+                                                                      out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P3
+// A Schlick-like chain (round2_probe.py shade_pallas): 40 blocks of a pow
+// chain, sqrt, abs and remainder per element, one thread per element,
+// unrolled.  jnp.remainder of a non-negative value is fmodf.  Bound:
+// f32 operations (17 per block).
+__global__ void schlick_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = x[i], acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 40; ++k) {
+    const float w = 1.0f - v;
+    const float w2 = w * w;
+    const float f = w2 * w2 * w;
+    const float g = sqrtf(fabsf(v * 0.9f + 0.05f));
+    acc = acc + f * g + v * (1.0f - f);
+    v = fmodf(fabsf(acc * 0.3f + 0.1f), 0.9f) + 0.05f;
+  }
+  out[i] = acc;
+}
+
+extern "C" int schlick_chain_launch(const float* x, float* out, int n, void* stream) {
+  const int threads = 256;
+  if (n > 0)
+    schlick_chain_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(x, out,
+                                                                                           n);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P6
+// A Disney lobe chain (round18_bf16_shade_probe.py): 64 repeats of the
+// schlick + GTR2 + Smith + Fresnel mix, accumulated in f32, in f32 or in
+// bf16.  The bf16 form packs two lanes a thread in __nv_bfloat162 and runs
+// add, sub, mul, min and max as one packed bf16x2 instruction each (the
+// .rn forms, which are never contracted into an fma); division and sqrt go
+// through f32 and round back, as PyTorch's bf16 ops do.  The TPU's three
+// layouts ((B,), (8, B/8), (16, B/16)) are the same bytes on the card, so
+// one flat kernel serves all three.  Bound: operations.  f32: 68 per
+// repeat.  bf16: 61 packed bf16x2 operations per lane and repeat at the
+// card's non-tensor bf16 rate (twice the f32 rate), and 13 at the f32 rate
+// (4 divisions, 2 square roots, their 6 roundings back to bf16, the sum).
+__device__ __forceinline__ uint32_t u32_of(__nv_bfloat162 a) {
+  return *reinterpret_cast<uint32_t*>(&a);
+}
+__device__ __forceinline__ __nv_bfloat162 b2_of(uint32_t u) {
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+#define BF16X2_OP(fn, ptx)                                                   \
+  __device__ __forceinline__ __nv_bfloat162 fn(__nv_bfloat162 a, __nv_bfloat162 b) { \
+    uint32_t r;                                                              \
+    asm(ptx " %0, %1, %2;" : "=r"(r) : "r"(u32_of(a)), "r"(u32_of(b)));       \
+    return b2_of(r);                                                         \
+  }
+BF16X2_OP(vadd, "add.rn.bf16x2")
+BF16X2_OP(vsub, "sub.rn.bf16x2")
+BF16X2_OP(vmul, "mul.rn.bf16x2")
+BF16X2_OP(vmin, "min.bf16x2")
+BF16X2_OP(vmax, "max.bf16x2")
+#undef BF16X2_OP
+__device__ __forceinline__ __nv_bfloat162 vdiv(__nv_bfloat162 a, __nv_bfloat162 b) {
+  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+  return __floats2bfloat162_rn(fa.x / fb.x, fa.y / fb.y);
+}
+__device__ __forceinline__ __nv_bfloat162 vsqrt(__nv_bfloat162 a) {
+  const float2 fa = __bfloat1622float2(a);
+  return __floats2bfloat162_rn(sqrtf(fa.x), sqrtf(fa.y));
+}
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float vsub(float a, float b) { return a - b; }
+__device__ __forceinline__ float vmul(float a, float b) { return a * b; }
+__device__ __forceinline__ float vdiv(float a, float b) { return a / b; }
+__device__ __forceinline__ float vmin(float a, float b) { return jmin(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) { return jmax(a, b); }
+__device__ __forceinline__ float vsqrt(float a) { return sqrtf(a); }
+
+template <typename T>
+__device__ __forceinline__ T cst(float v);
+template <>
+__device__ __forceinline__ float cst<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat162 cst<__nv_bfloat162>(float v) {
+  return __float2bfloat162_rn(v);
+}
+
+// round18_bf16_shade_probe.py::_chain, in its expression order.
+template <typename T>
+__device__ __forceinline__ void lobe_chain(T& x, T& y, T& z) {
+  const T one = cst<T>(1.0f), zero = cst<T>(0.0f);
+  const T m = vmin(vmax(vsub(one, x), zero), one);
+  const T m2 = vmul(m, m);
+  const T fh = vmul(vmul(m2, m2), m);
+  const T a = vadd(vmul(x, cst<T>(0.3f)), cst<T>(0.001f));
+  const T b = vadd(vmul(y, cst<T>(0.7f)), cst<T>(0.001f));
+  const T c = vadd(vadd(vmul(a, a), vmul(b, b)), vmul(z, z));
+  const T d = vdiv(one, vmul(vmul(vmul(vmul(cst<T>(3.14159265f), a), b), c), c));
+  const T g1 = vdiv(vmul(cst<T>(2.0f), z),
+                    vadd(z, vsqrt(vmax(vsub(vadd(vmul(a, a), vmul(z, z)),
+                                            vmul(vmul(vmul(a, a), z), z)),
+                                       zero))));
+  const T eta = cst<T>(1.5f);
+  const T s2 = vmul(vmul(eta, eta), vsub(one, vmul(x, x)));
+  const T ct = vsqrt(vmax(vsub(one, s2), zero));
+  const T rs = vdiv(vsub(vmul(eta, ct), x), vadd(vadd(vmul(eta, ct), x), cst<T>(1e-6f)));
+  const T rp = vdiv(vsub(vmul(eta, x), ct), vadd(vadd(vmul(eta, x), ct), cst<T>(1e-6f)));
+  const T fres = vmul(cst<T>(0.5f), vadd(vmul(rs, rs), vmul(rp, rp)));
+  const T f = vmul(vmul(d, g1), vadd(fres, vmul(vsub(one, fres), fh)));
+  x = vadd(vmul(f, cst<T>(0.25f)), vmul(x, cst<T>(0.125f)));
+  y = vadd(vmul(y, f), cst<T>(0.01f));
+  z = vadd(z, vmul(f, cst<T>(1e-3f)));
+}
+
+constexpr int LOBE_REPEATS = 64;
+
+__global__ void lobe_chain_f32_kernel(const float* __restrict__ xin, float* __restrict__ out,
+                                      int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float xi = xin[i];
+  float x = xi, y = xi * 0.5f, z = xi * 0.25f + 0.1f, acc = 0.0f;
+  for (int r = 0; r < LOBE_REPEATS; ++r) {
+    lobe_chain(x, y, z);
+    acc = acc + x;
+  }
+  out[i] = acc;
+}
+
+__global__ void lobe_chain_bf16_kernel(const float2* __restrict__ xin, float2* __restrict__ out,
+                                       int n2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n2) return;
+  const float2 xi = xin[i];
+  __nv_bfloat162 x = __floats2bfloat162_rn(xi.x, xi.y);
+  __nv_bfloat162 y = __floats2bfloat162_rn(xi.x * 0.5f, xi.y * 0.5f);
+  __nv_bfloat162 z = __floats2bfloat162_rn(xi.x * 0.25f + 0.1f, xi.y * 0.25f + 0.1f);
+  float2 acc = make_float2(0.0f, 0.0f);
+  for (int r = 0; r < LOBE_REPEATS; ++r) {
+    lobe_chain(x, y, z);
+    const float2 fx = __bfloat1622float2(x);
+    acc.x = acc.x + fx.x;
+    acc.y = acc.y + fx.y;
+  }
+  out[i] = acc;
+}
+
+extern "C" int lobe_chain_launch(const float* x, float* out, int n, int bf16, void* stream) {
+  const int threads = 256;
+  if (bf16) {
+    if (n % 2) return (int)cudaErrorInvalidValue;
+    const int n2 = n / 2;
+    if (n2 > 0)
+      lobe_chain_bf16_kernel<<<(n2 + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+          reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(out), n2);
+  } else if (n > 0) {
+    lobe_chain_f32_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        x, out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P7
+// The upper tree held on chip (round18_vmem_tree_probe.py): out[k] =
+// float(table[idx[k]]) for a (4096, 96) bf16 table.  The TPU priced a
+// one-hot MXU product from VMEM; on Hopper a cluster of 4 blocks holds the
+// table in its distributed shared memory, 1,024 rows (192 KB) in each
+// block, and a thread reads 16 bytes (8 bf16) of a lane's row from the
+// owning block (cluster.map_shared_rank), widens them and writes 32 bytes.
+// Neighbouring threads take neighbouring 16-byte pieces of a row, so the
+// output is written coalesced.  4,096 rows of 96 f32 would need 8 blocks,
+// the portable cluster maximum.  Bound: bytes (the output, the index and
+// the distinct rows); every cluster also stages the whole table (768 KB)
+// from device memory or L2, the design's own cost, so the grid is 16
+// clusters.
+constexpr int VT_ROWS = 4096, VT_COLS = 96, VT_CLUSTER = 4;
+constexpr int VT_LOCAL = VT_ROWS / VT_CLUSTER, VT_PIECES = VT_COLS / 8;
+constexpr int VT_SMEM = VT_LOCAL * VT_PIECES * 16;   // 196,608 bytes
+constexpr int VT_CLUSTERS = 16;
+
+__global__ void __cluster_dims__(VT_CLUSTER, 1, 1)
+    cluster_gather_kernel(const uint4* __restrict__ table, const int* __restrict__ idx, int n,
+                          float* __restrict__ out) {
+  extern __shared__ uint4 part[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint4* src = table + (size_t)cluster.block_rank() * VT_LOCAL * VT_PIECES;
+  for (int k = threadIdx.x; k < VT_LOCAL * VT_PIECES; k += blockDim.x) part[k] = src[k];
+  cluster.sync();
+  const int total = n * VT_PIECES;
+  for (int it = blockIdx.x * blockDim.x + threadIdx.x; it < total; it += gridDim.x * blockDim.x) {
+    const int lane = it / VT_PIECES, piece = it % VT_PIECES;
+    const int r = idx[lane];
+    const uint4* owner = cluster.map_shared_rank(part, r / VT_LOCAL);
+    const uint4 q = owner[(r % VT_LOCAL) * VT_PIECES + piece];
+    // bf16 -> f32 is the halfword moved to the top; element 0 is the low half.
+    float4* dst = reinterpret_cast<float4*>(out + (size_t)lane * VT_COLS + piece * 8);
+    dst[0] = make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xFFFF0000u),
+                         __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xFFFF0000u));
+    dst[1] = make_float4(__uint_as_float(q.z << 16), __uint_as_float(q.z & 0xFFFF0000u),
+                         __uint_as_float(q.w << 16), __uint_as_float(q.w & 0xFFFF0000u));
+  }
+  cluster.sync();   // no block leaves while another still reads its rows
+}
+
+extern "C" int cluster_gather_launch(const void* table, const int* idx, int n, float* out,
+                                     void* stream) {
+  static bool allowed = false;   // set once, before any graph capture
+  if (!allowed) {
+    cudaError_t e = cudaFuncSetAttribute(cluster_gather_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, VT_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    allowed = true;
+  }
+  cluster_gather_kernel<<<VT_CLUSTERS * VT_CLUSTER, 512, VT_SMEM, (cudaStream_t)stream>>>(
+      reinterpret_cast<const uint4*>(table), idx, n, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P8
+// The ops the TPU probe asked Mosaic for (round18_mosaic_probe.py), with
+// CUDA's accurate library functions (never fast math): a uint32 PCG step,
+// uint32 -> f32 times 1/4294967295, sin, cos, log, exp, sqrt, acos, atan,
+// atan2, pow, one op per launch (the argument); cumsum over int32 as one
+// block's scan (warp shuffles, then the warps' totals), carried across
+// 1,024-element pieces.  Bound: bytes (one op per element).
+__global__ void intrinsic_kernel(int op, const void* __restrict__ a, const void* __restrict__ b,
+                                 void* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  float* fo = static_cast<float*>(out);
+  switch (op) {
+    case UWPT_OP_PCG_UINT32: {
+      const uint32_t s = static_cast<const uint32_t*>(a)[i];
+      const uint32_t old = s + 747796405u + 2891336453u;
+      const uint32_t shift = (old >> 28) + 4u;
+      const uint32_t word = ((old >> shift) ^ old) * 277803737u;
+      static_cast<uint32_t*>(out)[i] = (word >> 22) ^ word;
+      break;
+    }
+    case UWPT_OP_U32_TO_F32:
+      fo[i] = __uint2float_rn(static_cast<const uint32_t*>(a)[i]) * (float)(1.0 / 4294967295.0);
+      break;
+    case UWPT_OP_SIN: fo[i] = sinf(fa[i]); break;
+    case UWPT_OP_COS: fo[i] = cosf(fa[i]); break;
+    case UWPT_OP_LOG: fo[i] = logf(fa[i]); break;
+    case UWPT_OP_EXP: fo[i] = expf(fa[i]); break;
+    case UWPT_OP_SQRT: fo[i] = sqrtf(fa[i]); break;
+    case UWPT_OP_ARCCOS: fo[i] = acosf(fa[i]); break;
+    case UWPT_OP_ARCTAN: fo[i] = atanf(fa[i]); break;
+    case UWPT_OP_ARCTAN2: fo[i] = atan2f(fa[i], fb[i]); break;
+    case UWPT_OP_POWER: fo[i] = powf(fa[i], fb[i]); break;
+    default: break;
+  }
+}
+
+__global__ void cumsum_kernel(const int* __restrict__ x, int* __restrict__ out, int n) {
+  __shared__ int warp_sum[32];
+  __shared__ int carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (int base = 0; base < n; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    int v = i < n ? x[i] : 0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += up;
+    }
+    if (lane == 31) warp_sum[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      int w = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += up;
+      }
+      warp_sum[lane] = w;   // inclusive prefix of the warps' totals
+    }
+    __syncthreads();
+    const int c = carry;
+    if (i < n) out[i] = c + v + (warp > 0 ? warp_sum[warp - 1] : 0);
+    __syncthreads();
+    if (threadIdx.x == blockDim.x - 1) carry = c + warp_sum[(blockDim.x >> 5) - 1];
+    __syncthreads();
+  }
+}
+
+extern "C" int intrinsic_launch(int op, const void* a, const void* b, void* out, int n,
+                                void* stream) {
+  if (op == UWPT_OP_CUMSUM_I32) {
+    cumsum_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(static_cast<const int*>(a),
+                                                        static_cast<int*>(out), n);
+  } else if (n > 0) {
+    const int threads = 256;
+    intrinsic_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(op, a, b,
+                                                                                       out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P9
+// (B,) f32 summed to one scalar (round18_mosaic_probe.py sum_k): one block,
+// each thread a strided partial sum, then warp shuffles.  Bound: bytes.
+__global__ void sum_scalar_kernel(const float* __restrict__ x, int n, float* __restrict__ out) {
+  float acc = 0.0f;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) acc += x[k];
+  block_sum_to(acc, out);
+}
+
+extern "C" int sum_scalar_launch(const float* x, int n, float* out, void* stream) {
+  sum_scalar_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(x, n, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- P10
+// 32 steps of x = x * 1.000001 + 0.000001 (round20_tile3d_probe.py k1d).
+// The TPU compared three operand layouts of the same (B,) lanes; on the
+// card they are the same bytes, so one kernel serves them: one thread per
+// 4 elements, loaded and stored 16 bytes at a time, the steps unrolled;
+// -fmad=false keeps each step a multiply and an add like the plain loop.
+// Bound: bytes.
+__global__ void step_chain_kernel(const float4* __restrict__ x, float4* __restrict__ out, int n4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 v = x[i];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    v.x = v.x * 1.000001f + 0.000001f;
+    v.y = v.y * 1.000001f + 0.000001f;
+    v.z = v.z * 1.000001f + 0.000001f;
+    v.w = v.w * 1.000001f + 0.000001f;
+  }
+  out[i] = v;
+}
+
+extern "C" int step_chain_launch(const float* x, float* out, int n, void* stream) {
+  if (n % 4) return (int)cudaErrorInvalidValue;
+  const int threads = 256, n4 = n / 4;
+  if (n4 > 0)
+    step_chain_kernel<<<(n4 + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), n4);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

@@ -1,0 +1,118 @@
+"""Do the card's ops agree with the plain versions?
+(``experiments/round18_mosaic_probe.py``).
+
+Each op the TPU probe asked Mosaic for, as one kernel launch over B =
+1,024 lanes held against its plain PyTorch version at the original's
+tolerances (PASS or MISMATCH, and the largest error in ulps): a uint32 PCG
+step and cumsum over int32 (exact), uint32 -> f32 times 1/4294967295
+(atol 1e-6, as the original; exactness is printed), sin, cos, log, exp,
+sqrt, arccos, arctan, arctan2, power (rtol 1e-5, atol 1e-6), and the sum
+of the (B,) plane to one scalar (rtol 1e-5).  Each is also timed at B =
+98,304, since at 1,024 the time is only the launch, beside the one
+PyTorch call that computes it where there is one.
+
+    python -m unity_webgpu_pathtracer_torch.experiments.round18_mosaic_probe
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device, max_err, row,
+                                                              time_ms)
+from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
+
+B, B_TIMED = 1024, 98_304
+EXACT = ("pcg_uint32", "cumsum_i32")
+LIBRARY = {"sin": torch.sin, "cos": torch.cos, "log": torch.log, "exp": torch.exp,
+           "sqrt": torch.sqrt, "arccos": torch.acos, "arctan": torch.atan,
+           "arctan2": torch.atan2, "power": torch.pow,
+           "cumsum_i32": lambda a: torch.cumsum(a, 0, dtype=torch.int32)}
+
+
+def inputs(dev, b: int) -> dict[str, torch.Tensor]:
+    """The original's operands: uint32 states (random below 2^31 times
+    2654435761, wrapped; as int32 bits), f uniform in [0.01, 0.99), int32
+    in [0, 100)."""
+    u = np.random.default_rng(0).integers(0, 2**31 - 1, b).astype(np.uint64)
+    u32 = ((u * 2654435761) % 2**32).astype(np.uint32).view(np.int32)
+    f = np.random.default_rng(1).uniform(0.01, 0.99, b).astype(np.float32)
+    i32 = np.random.default_rng(2).integers(0, 100, b).astype(np.int32)
+    t = {k: torch.from_numpy(v).to(dev) for k, v in (("u32", u32), ("f", f), ("i32", i32))}
+    t["f2"] = t["f"] * 2 - 1
+    return t
+
+
+def operands(op: str, t: dict) -> tuple:
+    if op in ("pcg_uint32", "u32_to_f32"):
+        return (t["u32"],)
+    if op == "cumsum_i32":
+        return (t["i32"],)
+    if op == "arctan2":
+        return (t["f"], t["f2"])
+    if op == "power":
+        return (t["f"], t["f"])
+    return (t["f"],)
+
+
+def max_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest distance in f32 ulps over lanes finite in both (0 for
+    integers that are equal)."""
+    if not got.dtype.is_floating_point:
+        return 0 if torch.equal(got, want) else -1
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    a = got[fin].view(torch.int32).to(torch.int64)
+    b = want[fin].view(torch.int32).to(torch.int64)
+    # Map the sign-magnitude bits onto a line so that ulps subtract.
+    a = torch.where(a < 0, -2**31 - a, a)
+    b = torch.where(b < 0, -2**31 - b, b)
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def run(device=None) -> list[dict]:
+    dev = cuda_device(device)
+    small, big = inputs(dev, B), inputs(dev, B_TIMED)
+    out = []
+    for op in cp.INTRINSICS:
+        args = operands(op, small)
+        got, want = cp.intrinsic(op, *args), cp.intrinsic_plain(op, *args)
+        if op in EXACT:
+            ok, tol = bool(torch.equal(got, want)), "exact"
+        else:
+            rtol = 0.0 if op == "u32_to_f32" else 1e-5
+            ok, tol = bool(torch.allclose(got, want, rtol=rtol, atol=1e-6)), \
+                f"rtol {rtol:g}, atol 1e-6"
+        args = operands(op, big)
+        lib = LIBRARY.get(op)
+        ms = time_ms(lambda: cp.intrinsic(op, *args))
+        res = cp.intrinsic_plain(op, *args)
+        out.append(row(f"{op} B={B}: {'PASS' if ok else 'MISMATCH'}", f"intrinsic_{op}", ms,
+                       time_ms(lambda: cp.intrinsic_plain(op, *args)), ms * 1e6 / B_TIMED,
+                       "lane", sum(a.nbytes for a in args) + res.nbytes, B_TIMED,
+                       max_err(got, want), ok, tol,
+                       library_ms=None if lib is None else time_ms(lambda: lib(*args)),
+                       ulps=max_ulps(got, want), exact=bool(torch.equal(got, want))))
+    f = small["f"]
+    got, want = cp.sum_scalar(f), f.sum().reshape(1)
+    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=0.0))
+    fb = big["f"]
+    ms = time_ms(lambda: cp.sum_scalar(fb))
+    plain = time_ms(lambda: fb.sum())
+    out.append(row(f"sum_to_scalar B={B}: {'PASS' if ok else 'MISMATCH'}", "sum_scalar", ms,
+                   plain, ms * 1e6 / B_TIMED, "lane", fb.nbytes + 4, B_TIMED,
+                   max_err(got, want), ok, "rtol 1e-5", library_ms=plain,
+                   ulps=max_ulps(got, want), exact=bool(torch.equal(got, want))))
+    return check(out)
+
+
+def main() -> None:
+    print("device:", torch.cuda.get_device_name(cuda_device()))
+    for r in run():
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        print(f"{r['name']} exact={r['exact']} max ulps={r['ulps']} ({r['tol']}); at "
+              f"B={B_TIMED} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}")
+
+
+if __name__ == "__main__":
+    main()

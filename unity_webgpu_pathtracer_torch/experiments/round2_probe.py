@@ -1,0 +1,117 @@
+"""Row gathers and a shading-like chain on the H100 (``experiments/round2_probe.py``).
+
+Three kernels of the original, each against its plain version and
+``table[idx]`` (the XLA gather the TPU probe timed beside them):
+
+* ``dma_gather`` (P1): a 16-slot ring of per-row TMA bulk copies from
+  tables of 8 / 87 / 232 MB, 1,024 and 8,192 rows a call;
+* ``vmem_gather`` (P2): 4,096 dynamic row reads from a (N, 48) table held
+  in one block's shared memory.  One block holds at most 227 KB, so the
+  tables on chip are 24, 48, 96 and 192 KB; the original's 2-24 MB run as
+  the same reads from device memory (held by the 50 MB L2);
+* ``shade`` (P3): 40 blocks of a Schlick-like chain over (2048, 128).
+
+    python -m unity_webgpu_pathtracer_torch.experiments.round2_probe
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device, max_err, row,
+                                                              time_ms)
+from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
+
+DMA_MB, DMA_CHUNKS = (8, 87, 232), (1024, 8192)
+VMEM_MB = (2, 8, 12, 16, 24)
+SMEM_KB = (24, 48, 96, 192)
+VMEM_CHUNK = 4096
+SHADE_B = 262144
+SCHLICK_OPS = 17      # f32 operations per block and element (sqrt, fmod as one)
+
+
+def table(n: int, w: int, device) -> torch.Tensor:
+    """``jnp.arange(n * w, dtype=float32).reshape(n, w) % 7.0``: the index
+    rounded to f32, then its remainder (integers 0-6)."""
+    i = torch.arange(n * w, dtype=torch.int64, device=device).to(torch.float32)
+    return torch.fmod(i, 7.0).reshape(n, w)
+
+
+def hashed_idx(chunk: int, n: int) -> np.ndarray:
+    """``(jnp.arange(chunk, dtype=int32) * int32(-1640531527)) % n``: the
+    product wraps in int32, the remainder is floored."""
+    prod = (np.arange(chunk, dtype=np.int64) * -1640531527).astype(np.int32)
+    return np.mod(prod.astype(np.int64), n).astype(np.int32)
+
+
+def dma_gather(dev) -> list[dict]:
+    rows = []
+    for mb in DMA_MB:
+        n = int(mb * 1e6 / (cp.RING_W * 4))
+        tab = table(n, cp.RING_W, dev)
+        for chunk in DMA_CHUNKS:
+            idx = torch.from_numpy(hashed_idx(chunk, n)).to(dev)
+            li = idx.long()   # the library call times the gather alone
+            got, want = cp.ring_gather(tab, idx), cp.ring_gather_plain(tab, idx)
+            err = max_err(got, want)
+            ms = time_ms(lambda: cp.ring_gather(tab, idx))
+            nbytes = chunk * (cp.RING_W * 4 + 4) + cp.RING_W * 4
+            rows.append(row(f"dma_gather table={mb}MB chunk={chunk}", "ring_gather", ms,
+                            time_ms(lambda: cp.ring_gather_plain(tab, idx)),
+                            ms * 1e6 / chunk, "row", nbytes, 0.0, err,
+                            bool(torch.equal(got, want)), "exact",
+                            library_ms=time_ms(lambda: tab[li])))
+        del tab
+    return rows
+
+
+def vmem_gather(dev) -> list[dict]:
+    rows = []
+    sizes = [(kb * 1024 // (cp.TABLE_W * 4), f"{kb}KB on chip", True) for kb in SMEM_KB]
+    sizes += [(int(mb * 1e6 / (cp.TABLE_W * 4)), f"{mb}MB in device memory", False)
+              for mb in VMEM_MB]
+    for n, label, on_chip in sizes:
+        tab = table(n, cp.TABLE_W, dev)
+        idx = torch.from_numpy(hashed_idx(VMEM_CHUNK, n)).to(dev)
+        li = idx.long()
+        got, want = cp.table_sum(tab, idx, on_chip), cp.table_sum_plain(tab, idx)
+        ms = time_ms(lambda: cp.table_sum(tab, idx, on_chip))
+        distinct = int(torch.unique(idx).numel())
+        rows.append(row(f"vmem_gather table={label} chunk={VMEM_CHUNK}",
+                        "table_sum_smem" if on_chip else "table_sum_global", ms,
+                        time_ms(lambda: cp.table_sum_plain(tab, idx)), ms * 1e6 / VMEM_CHUNK,
+                        "row", distinct * 4 + VMEM_CHUNK * 4 + 4, VMEM_CHUNK,
+                        max_err(got, want), bool(torch.equal(got, want)), "exact",
+                        library_ms=time_ms(lambda: tab[li])))
+    return rows
+
+
+def shade(dev) -> list[dict]:
+    x = torch.from_numpy(np.linspace(0.1, 0.9, SHADE_B).astype(np.float32)
+                         .reshape(SHADE_B // 128, 128)).to(dev)
+    got, want = cp.schlick_chain(x), cp.schlick_chain_plain(x)
+    ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+    ms = time_ms(lambda: cp.schlick_chain(x))
+    return [row(f"shade 40-block chain B={SHADE_B}", "schlick_chain", ms,
+                time_ms(lambda: cp.schlick_chain_plain(x)), ms * 1e6 / SHADE_B, "lane",
+                2 * x.nbytes, SCHLICK_OPS * cp.SCHLICK_BLOCKS * SHADE_B, max_err(got, want),
+                bool(ok), "rtol 1e-5, atol 1e-6")]
+
+
+def run(device=None) -> list[dict]:
+    dev = cuda_device(device)
+    return check(dma_gather(dev) + vmem_gather(dev) + shade(dev))
+
+
+def main() -> None:
+    print("device:", torch.cuda.get_device_name(cuda_device()))
+    for r in run():
+        lib = "" if r["library_ms"] is None else f", table[idx] {r['library_ms']:.4f} ms"
+        print(f"{r['name']}: {r['ms']:.4f} ms ({r['ns_per']:.2f} ns/{r['per']}); plain "
+              f"{r['plain_ms']:.4f} ms{lib}; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+              f"max abs err {r['max_abs_err']:g} ({r['tol']})")
+
+
+if __name__ == "__main__":
+    main()

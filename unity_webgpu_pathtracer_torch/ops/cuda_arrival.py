@@ -11,6 +11,15 @@ whose instance rows the flat kernels cannot read): ``arrival16`` and
 launches in ``arrival_step16_cuda.launches[name]``.  Tensors on the CPU
 run the plain twin ``traverse_wide16.arrival_step16`` with the same row
 gather, so the signatures match.
+
+``arrival_probe_cuda`` runs a probe mode (``PROBE_MODES``) on flat
+96-float rows, each lane on the row its ``rows`` plane names: the kernel
+diet's six (``arrival16_diet_kernel``, plain version
+``experiments/round14_kernel_diet.diet_step16``), and ``f16leaf`` and
+``bf16leaf`` (the production kernel on the row plane, with the f16 or a
+bf16 leaf decode; plain version the twin).  It counts launches in
+``arrival_probe_cuda.launches`` by the names in ``PROBE_KERNELS``.  The
+render path never calls it.
 """
 
 from __future__ import annotations
@@ -26,6 +35,18 @@ from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import Wide16State, arriv
 # Kernel name by (row width, has_instances); its C entry is name + "_launch".
 KERNELS = {(96, False): "arrival16", (96, True): "arrival16_inst",
            (48, False): "arrival16_leaf8", (48, True): "arrival16_inst_leaf8"}
+
+# Probe modes: the six of the reference's
+# experiments/round14_kernel_diet.py::make_kernel, and the production step
+# with the f16 or a bf16 leaf decode (experiments/round16_bf16leaf_probe.py).
+DIET_MODES = ("full", "no_leaf", "no_inner", "no_stack", "leaf_bf16", "leaf_noint")
+PROBE_MODES = DIET_MODES + ("f16leaf", "bf16leaf")
+# Probe kernel name by mode; the C entry ``arrival16_probe_launch`` takes
+# the mode's number (``cuda_build`` passes them as UWPT_PROBE_* macros;
+# 0 is the production code).
+PROBE_KERNELS = {m: f"arrival16_{m}" if m.endswith("16leaf") else f"arrival16_diet_{m}"
+                 for m in PROBE_MODES}
+PROBE_NUMBERS = {m: k + 1 for k, m in enumerate(PROBE_MODES)}
 
 # Wide16State fields of each argument struct, in struct order.
 _FLAT_FIELDS = ("ptr", "pend", "sp", "stack_row", "stack_mask", "t", "u", "v", "tri",
@@ -49,13 +70,8 @@ class _InstArgs(ctypes.Structure):
                 + [("o_" + n, ctypes.c_void_p) for n in _INST_FIELDS])
 
 
-def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
-                        invT: torch.Tensor, s: Wide16State,
-                        active: torch.Tensor | None = None,
-                        has_instances: bool = False) -> Wide16State:
-    """One arrival for every lane; ``oT``/``dT``/``invT`` are (3, B).
-    ``has_instances`` must be set exactly for two-level tables.  The
-    inputs are checked against the kernel's contract on either device."""
+def _check(nodes, oT, dT, invT, s, active, has_instances) -> None:
+    """The kernels' contract, checked on either device."""
     dev = nodes.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
@@ -75,24 +91,41 @@ def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
     cuda_build.check_tensor(s.stack_mask, "stack_mask", torch.int32, (depth, b), dev)
     if active is not None:
         cuda_build.check_tensor(active, "active", torch.bool, (b,), dev)
-    fields = _FLAT_FIELDS
     if has_instances:
         for name in ("inst", "hit_inst", "sp_enter"):
             cuda_build.check_tensor(getattr(s, name), name, torch.int32, (b,), dev)
         for name in ("local_o", "local_d", "local_inv"):
             cuda_build.check_tensor(getattr(s, name), name, torch.float32, (3, b), dev)
-        fields = _FLAT_FIELDS + _INST_FIELDS
-    if dev.type == "cpu":
-        return arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances)
 
-    # The flat kernel passes the instance registers through untouched.
+
+def _args(nodes, oT, dT, invT, s, active, fields):
+    """The output state (fields not in ``fields`` pass through) and the
+    ``ArrivalArgs`` struct of one launch."""
     out = s._replace(**{n: torch.empty_like(getattr(s, n)) for n in fields})
     args = _ArrivalArgs(
         nodes.data_ptr(), oT.data_ptr(), dT.data_ptr(), invT.data_ptr(),
         0 if active is None else active.data_ptr(),
         *(getattr(s, n).data_ptr() for n in _FLAT_FIELDS),
         *(getattr(out, n).data_ptr() for n in _FLAT_FIELDS),
-        b, depth)
+        s.ptr.shape[0], s.stack_row.shape[0])
+    return out, args
+
+
+def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
+                        invT: torch.Tensor, s: Wide16State,
+                        active: torch.Tensor | None = None,
+                        has_instances: bool = False) -> Wide16State:
+    """One arrival for every lane; ``oT``/``dT``/``invT`` are (3, B).
+    ``has_instances`` must be set exactly for two-level tables.  The
+    inputs are checked against the kernel's contract on either device."""
+    _check(nodes, oT, dT, invT, s, active, has_instances)
+    if nodes.device.type == "cpu":
+        return arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances)
+
+    # The flat kernel passes the instance registers through untouched.
+    out, args = _args(nodes, oT, dT, invT, s, active,
+                      _FLAT_FIELDS + (_INST_FIELDS if has_instances else ()))
+    dev = nodes.device
     lib = cuda_build.load()["arrival16"]
     stream = torch.cuda.current_stream(dev).cuda_stream
     name = KERNELS[(nodes.shape[1], has_instances)]
@@ -108,5 +141,39 @@ def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
     return out
 
 
+def arrival_probe_cuda(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tensor,
+                       dT: torch.Tensor, invT: torch.Tensor, s: Wide16State,
+                       active: torch.Tensor | None = None, mode: str = "full") -> Wide16State:
+    """One arrival of probe ``mode`` on flat (N, 96) rows, lane i on row
+    ``rows[i]`` (int32 (B,)); otherwise as ``arrival_step16_cuda``."""
+    if mode not in PROBE_KERNELS or nodes.dim() != 2 or nodes.shape[1] != 96:
+        raise ValueError(f"probe mode {mode!r} on {tuple(nodes.shape)}: expected one of "
+                         f"{tuple(PROBE_KERNELS)} on (N, 96) rows")
+    _check(nodes, oT, dT, invT, s, active, False)
+    cuda_build.check_tensor(rows, "rows", torch.int32, s.ptr.shape, nodes.device)
+    if nodes.device.type == "cpu":
+        return arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
+    out, args = _args(nodes, oT, dT, invT, s, active, _FLAT_FIELDS)
+    lib = cuda_build.load()["arrival16"]
+    err = lib.arrival16_probe_launch(PROBE_NUMBERS[mode], ctypes.byref(args), rows.data_ptr(),
+                                     torch.cuda.current_stream(nodes.device).cuda_stream)
+    cuda_build.check(lib, err, PROBE_KERNELS[mode])
+    arrival_probe_cuda.launches[PROBE_KERNELS[mode]] += 1
+    return out
+
+
+def arrival_probe_plain(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tensor,
+                        dT: torch.Tensor, invT: torch.Tensor, s: Wide16State,
+                        active: torch.Tensor | None = None, mode: str = "full") -> Wide16State:
+    """The plain version of ``arrival_probe_cuda``."""
+    if mode in DIET_MODES:
+        from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import diet_step16
+
+        return diet_step16(nodes, rows, oT.T, dT.T, invT.T, s, active, mode)
+    return arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, rows=rows,
+                          bf16_leaf=mode == "bf16leaf")
+
+
 # Launch count of each kernel entry.
 arrival_step16_cuda.launches = dict.fromkeys(KERNELS.values(), 0)
+arrival_probe_cuda.launches = dict.fromkeys(PROBE_KERNELS.values(), 0)

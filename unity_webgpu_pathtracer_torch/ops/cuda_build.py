@@ -36,11 +36,22 @@ ENTRIES = {
         "arrival16_leaf8_launch": [_P, _P],
         "arrival16_inst_launch": [_P, _P, _P],           # args, instance args, stream
         "arrival16_inst_leaf8_launch": [_P, _P, _P],
+        "arrival16_probe_launch": [_I, _P, _P, _P],      # mode, args, row plane, stream
     },
     "transition16": {
         "transition16_launch": [_P, _P],                 # args struct, stream
         "transition16_attr_raw_launch": [_P, _P],
         "transition16_decode_check": [_P, _P, _I, _P, _P, _I, _P],
+    },
+    "probes": {                                          # the experiments/ probes
+        "ring_gather_launch": [_P, _P, _I, _P, _P],      # table, idx, chunk, out, stream
+        "table_sum_launch": [_P, _I, _P, _I, _P, _I, _P],
+        "schlick_chain_launch": [_P, _P, _I, _P],
+        "lobe_chain_launch": [_P, _P, _I, _I, _P],
+        "cluster_gather_launch": [_P, _P, _I, _P, _P],
+        "intrinsic_launch": [_I, _P, _P, _P, _I, _P],    # op, a, b, out, n, stream
+        "sum_scalar_launch": [_P, _I, _P, _P],
+        "step_chain_launch": [_P, _P, _I, _P],
     },
 }
 SOURCES = tuple(f"{name}.cu" for name in ENTRIES)
@@ -56,12 +67,16 @@ BUILD_INFO = {"seconds": 0.0, "log": ""}
 
 
 def _defines() -> list[str]:
+    from unity_webgpu_pathtracer_torch.ops import cuda_arrival as ca
+    from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
     from unity_webgpu_pathtracer_torch.ops import cuda_transition as ct
     from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw
     from unity_webgpu_pathtracer_torch.utils.math import EPSILON, FAR_PLANE
 
     ints = dict(MODE_PRIMARY=ct.MODE_PRIMARY, MODE_SHADOW_ENV=ct.MODE_SHADOW_ENV,
-                MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL)
+                MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
+                **{f"PROBE_{m.upper()}": k for m, k in ca.PROBE_NUMBERS.items()},
+                **{f"OP_{op.upper()}": k for k, op in enumerate(cp.INTRINSICS)})
     floats = dict(FAR_PLANE=FAR_PLANE, DET_EPS=tw.DET_EPS, T_MIN=tw.T_MIN,
                   SURF_EPSILON=EPSILON)
     return ([f"-DUWPT_{k}={v}" for k, v in ints.items()]
@@ -130,7 +145,7 @@ def _build(stale: dict[str, str], flags: list[str]) -> None:
 
 def load() -> dict[str, ctypes.CDLL]:
     """The kernel libraries by source name (``"arrival16"``,
-    ``"transition16"``), built first where a source changed."""
+    ``"transition16"``, ``"probes"``), built first where a source changed."""
     if _LIBS:
         return _LIBS
     flags = NVCC_FLAGS + _defines()

@@ -1,0 +1,278 @@
+"""The measurement probes of ``csrc/probes.cu`` and their plain versions.
+
+Each wrapper replaces one Pallas probe of the reference's ``experiments/``
+(file:line in ``csrc/probes.cu``).  It checks its tensors against the
+kernel's contract on either device (``cuda_build.check_tensor``); tensors
+on the CPU run the plain PyTorch version beside it, tensors on a CUDA
+device launch the kernel (or raise: there is no fallback), and each launch
+adds one to ``LAUNCHES[name]``.  The K1 probes (the kernel diet and the
+bf16 leaf decode) are ``cuda_arrival.arrival_probe_cuda``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from unity_webgpu_pathtracer_torch.ops import cuda_build
+
+# Ops of ``intrinsic`` (round18_mosaic_probe.py), in the numbers the kernel
+# takes (``cuda_build`` passes them as UWPT_OP_* macros).
+INTRINSICS = ("pcg_uint32", "u32_to_f32", "sin", "cos", "log", "exp", "sqrt", "arccos",
+              "arctan", "arctan2", "power", "cumsum_i32")
+RING_W, RING_SLOTS = 128, 16          # P1: row floats, ring slots
+TABLE_W = 48                          # P2: row floats
+SMEM_BYTES = 232_448                  # P2: the most shared memory one block can use
+TREE_ROWS, TREE_COLS = 4096, 96       # P7: the table held on chip
+SCHLICK_BLOCKS, LOBE_REPEATS, STEPS = 40, 64, 32
+
+KERNELS = ("ring_gather", "table_sum_smem", "table_sum_global", "schlick_chain",
+           "lobe_chain_f32", "lobe_chain_bf16", "cluster_gather",
+           *(f"intrinsic_{op}" for op in INTRINSICS), "sum_scalar", "step_chain")
+# Launch count of each kernel.
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+_M32 = 0xFFFFFFFF
+
+
+def _launch(name: str, entry: str, x: torch.Tensor, *args) -> None:
+    lib = cuda_build.load()["probes"]
+    err = getattr(lib, entry)(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, err, name)
+    LAUNCHES[name] += 1
+
+
+def _device(x: torch.Tensor) -> torch.device:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return x.device
+
+
+# ---- P1: ring gather (round2_probe.py:125) ----
+
+def ring_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table[idx[-RING_SLOTS:].long()].sum(0, keepdim=True)
+
+
+def ring_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(1, 128): the sum of the rows ``table[idx[k]]`` of the last 16 k,
+    gathered one row copy at a time through a 16-slot ring."""
+    dev = _device(table)
+    cuda_build.check_tensor(table, "table", torch.float32, (table.shape[0], RING_W), dev)
+    cuda_build.check_tensor(idx, "idx", torch.int32, (idx.shape[0],), dev)
+    if dev.type == "cpu":
+        return ring_gather_plain(table, idx)
+    out = torch.empty((1, RING_W), dtype=torch.float32, device=dev)
+    _launch("ring_gather", "ring_gather_launch", table, table.data_ptr(), idx.data_ptr(),
+            idx.shape[0], out.data_ptr())
+    return out
+
+
+# ---- P2: row reads from a table on chip (round2_probe.py:177) ----
+
+def table_sum_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table[idx.long(), 0].sum().reshape(1, 1)
+
+
+def table_sum(table: torch.Tensor, idx: torch.Tensor, on_chip: bool) -> torch.Tensor:
+    """(1, 1): the sum of ``table[idx[k], 0]``, the (N, 48) table staged in
+    one block's shared memory (``on_chip``) or read from device memory."""
+    dev = _device(table)
+    cuda_build.check_tensor(table, "table", torch.float32, (table.shape[0], TABLE_W), dev)
+    cuda_build.check_tensor(idx, "idx", torch.int32, (idx.shape[0],), dev)
+    if on_chip and table.nbytes > SMEM_BYTES - 1024:
+        raise ValueError(f"a {table.nbytes}-byte table does not fit one block's shared memory")
+    if dev.type == "cpu":
+        return table_sum_plain(table, idx)
+    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
+    name = "table_sum_smem" if on_chip else "table_sum_global"
+    _launch(name, "table_sum_launch", table, table.data_ptr(), table.shape[0], idx.data_ptr(),
+            idx.shape[0], out.data_ptr(), int(on_chip))
+    return out
+
+
+# ---- P3: Schlick-like chain (round2_probe.py:271) ----
+
+def schlick_chain_plain(x: torch.Tensor) -> torch.Tensor:
+    v, acc = x, torch.zeros_like(x)
+    for _ in range(SCHLICK_BLOCKS):
+        w = 1.0 - v
+        w2 = w * w
+        f = w2 * w2 * w
+        g = torch.sqrt(torch.abs(v * 0.9 + 0.05))
+        acc = acc + f * g + v * (1.0 - f)
+        v = torch.fmod(torch.abs(acc * 0.3 + 0.1), 0.9) + 0.05
+    return acc
+
+
+def schlick_chain(x: torch.Tensor) -> torch.Tensor:
+    dev = _device(x)
+    cuda_build.check_tensor(x, "x", torch.float32, x.shape, dev)
+    if dev.type == "cpu":
+        return schlick_chain_plain(x)
+    out = torch.empty_like(x)
+    _launch("schlick_chain", "schlick_chain_launch", x, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
+# ---- P6: Disney lobe chain, f32 or bf16 (round18_bf16_shade_probe.py:78) ----
+
+def _lobe_step(x, y, z, c):
+    """round18_bf16_shade_probe.py::_chain; ``c`` makes a constant of the
+    working type."""
+    one, zero = c(1.0), c(0.0)
+    m = torch.minimum(torch.maximum(one - x, zero), one)
+    m2 = m * m
+    fh = m2 * m2 * m
+    a = x * c(0.3) + c(0.001)
+    b = y * c(0.7) + c(0.001)
+    cc = a * a + b * b + z * z
+    d = one / (c(3.14159265) * a * b * cc * cc)
+    g1 = (c(2.0) * z) / (z + torch.sqrt(torch.maximum(a * a + z * z - a * a * z * z, zero)))
+    eta = c(1.5)
+    s2 = eta * eta * (one - x * x)
+    ct = torch.sqrt(torch.maximum(one - s2, zero))
+    rs = (eta * ct - x) / (eta * ct + x + c(1e-6))
+    rp = (eta * x - ct) / (eta * x + ct + c(1e-6))
+    fres = c(0.5) * (rs * rs + rp * rp)
+    f = d * g1 * (fres + (one - fres) * fh)
+    return f * c(0.25) + x * c(0.125), y * f + c(0.01), z + f * c(1e-3)
+
+
+def lobe_chain_plain(xin: torch.Tensor, dtype: torch.dtype,
+                     repeats: int = LOBE_REPEATS) -> torch.Tensor:
+    def c(v):   # a CPU scalar of the working type (no copy to the card)
+        return torch.tensor(v, dtype=dtype)
+
+    x, y, z = xin.to(dtype), (xin * 0.5).to(dtype), (xin * 0.25 + 0.1).to(dtype)
+    acc = torch.zeros_like(xin)
+    for _ in range(repeats):
+        x, y, z = _lobe_step(x, y, z, c)
+        acc = acc + x.to(torch.float32)
+    return acc
+
+
+def lobe_chain(xin: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """64 repeats of the lobe chain computed in ``dtype`` (float32 or
+    bfloat16, two lanes a thread), accumulated in f32."""
+    dev = _device(xin)
+    cuda_build.check_tensor(xin, "x", torch.float32, xin.shape, dev)
+    if dtype not in (torch.float32, torch.bfloat16) or (dtype == torch.bfloat16
+                                                         and xin.numel() % 2):
+        raise ValueError(f"lobe_chain: float32, or bfloat16 on an even count; got {dtype}, "
+                         f"{xin.numel()}")
+    if dev.type == "cpu":
+        return lobe_chain_plain(xin, dtype)
+    out = torch.empty_like(xin)
+    bf16 = dtype == torch.bfloat16
+    _launch("lobe_chain_bf16" if bf16 else "lobe_chain_f32", "lobe_chain_launch", xin,
+            xin.data_ptr(), out.data_ptr(), xin.numel(), int(bf16))
+    return out
+
+
+# ---- P7: table held on chip, cluster gather (round18_vmem_tree_probe.py:63) ----
+
+def cluster_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return table.float()[idx.long()]
+
+
+def cluster_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, 96) f32 rows ``table[idx]`` of a (4096, 96) bf16 table held in
+    a 4-block cluster's shared memory."""
+    dev = _device(table)
+    cuda_build.check_tensor(table, "table", torch.bfloat16, (TREE_ROWS, TREE_COLS), dev)
+    cuda_build.check_tensor(idx, "idx", torch.int32, (idx.shape[0],), dev)
+    if dev.type == "cpu":
+        return cluster_gather_plain(table, idx)
+    out = torch.empty((idx.shape[0], TREE_COLS), dtype=torch.float32, device=dev)
+    _launch("cluster_gather", "cluster_gather_launch", table, table.data_ptr(), idx.data_ptr(),
+            idx.shape[0], out.data_ptr())
+    return out
+
+
+# ---- P8: intrinsics (round18_mosaic_probe.py:35) ----
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns as their uint32 values, in int64."""
+    return x.to(torch.int64) & _M32
+
+
+def _i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """uint32 values in int64 as int32 bit patterns."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+_INV_U32 = torch.tensor(1.0 / 4294967295.0, dtype=torch.float32).item()
+_UNARY = {"sin": torch.sin, "cos": torch.cos, "log": torch.log, "exp": torch.exp,
+          "sqrt": torch.sqrt, "arccos": torch.acos, "arctan": torch.atan}
+
+
+def intrinsic_plain(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    if op == "pcg_uint32":
+        old = (_u32(a) + 747796405 + 2891336453) & _M32
+        shift = (old >> 28) + 4
+        word = (((old >> shift) ^ old) * 277803737) & _M32
+        return _i32_bits((word >> 22) ^ word)
+    if op == "u32_to_f32":
+        return _u32(a).to(torch.float32) * _INV_U32
+    if op == "cumsum_i32":
+        return torch.cumsum(a, 0, dtype=torch.int32)
+    if op == "arctan2":
+        return torch.atan2(a, b)
+    if op == "power":
+        return torch.pow(a, b)
+    return _UNARY[op](a)
+
+
+def intrinsic(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """One op of ``INTRINSICS`` over (B,): uint32 operands and the PCG
+    result travel as int32 bit patterns; ``cumsum_i32`` takes int32;
+    ``arctan2`` (a = y, b = x) and ``power`` take two f32 operands."""
+    if op not in INTRINSICS:
+        raise ValueError(f"unknown op {op!r}")
+    dev = _device(a)
+    n = a.shape[0]
+    dtype = torch.int32 if op in ("pcg_uint32", "u32_to_f32", "cumsum_i32") else torch.float32
+    cuda_build.check_tensor(a, "a", dtype, (n,), dev)
+    if op in ("arctan2", "power"):
+        cuda_build.check_tensor(b, "b", torch.float32, (n,), dev)
+    if dev.type == "cpu":
+        return intrinsic_plain(op, a, b)
+    out = torch.empty((n,), dtype=torch.float32 if op == "u32_to_f32" else dtype, device=dev)
+    _launch(f"intrinsic_{op}", "intrinsic_launch", a, INTRINSICS.index(op), a.data_ptr(),
+            0 if b is None else b.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+# ---- P9: sum to one scalar (round18_mosaic_probe.py:111) ----
+
+def sum_scalar(x: torch.Tensor) -> torch.Tensor:
+    """(1,) f32: the sum of the (B,) plane (plain version ``torch.sum``)."""
+    dev = _device(x)
+    cuda_build.check_tensor(x, "x", torch.float32, (x.shape[0],), dev)
+    if dev.type == "cpu":
+        return x.sum().reshape(1)
+    out = torch.empty((1,), dtype=torch.float32, device=dev)
+    _launch("sum_scalar", "sum_scalar_launch", x, x.data_ptr(), x.shape[0], out.data_ptr())
+    return out
+
+
+# ---- P10: 32 steps of x * 1.000001 + 0.000001 (round20_tile3d_probe.py:58) ----
+
+def step_chain_plain(x: torch.Tensor) -> torch.Tensor:
+    for _ in range(STEPS):
+        x = x * 1.000001 + 0.000001
+    return x
+
+
+def step_chain(x: torch.Tensor) -> torch.Tensor:
+    """Any layout of the lanes (the kernel sees the bytes); the count must
+    be a multiple of 4."""
+    dev = _device(x)
+    cuda_build.check_tensor(x, "x", torch.float32, x.shape, dev)
+    if x.numel() % 4:
+        raise ValueError(f"step_chain: {x.numel()} lanes, not a multiple of 4")
+    if dev.type == "cpu":
+        return step_chain_plain(x)
+    out = torch.empty_like(x)
+    _launch("step_chain", "step_chain_launch", x, x.data_ptr(), out.data_ptr(), x.numel())
+    return out

@@ -137,6 +137,13 @@ def _pick(hit: torch.Tensor, t_near: torch.Tensor, ptrs: torch.Tensor):
     return first, hit.any(dim=1), child_ptr, remaining, one_left, direct_ptr
 
 
+def _bf16_halves(words: torch.Tensor) -> torch.Tensor:
+    """(B, W) int32 words as (B, 2W) f32, each halfword (low first) the
+    top half of an f32: a bf16 decode of the bits."""
+    return torch.stack([(words << 16).view(torch.float32),
+                        (words & -65536).view(torch.float32)], -1).flatten(1)
+
+
 def _push(stack_row, stack_mask, level, do_push, entry_row, entry_mask):
     levels = torch.arange(stack_row.shape[0], device=level.device)[:, None]
     at = (levels == level[None, :]) & do_push[None, :]
@@ -147,16 +154,21 @@ def _push(stack_row, stack_mask, level, do_push, entry_row, entry_mask):
 def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                    inv: torch.Tensor, s: Wide16State,
                    active: torch.Tensor | None = None,
-                   has_instances: bool = False) -> Wide16State:
+                   has_instances: bool = False, *, rows: torch.Tensor | None = None,
+                   bf16_leaf: bool = False) -> Wide16State:
     """One arrival for every lane; ``o``/``d``/``inv`` are the world ray,
-    (B, 3).  ``nodes`` is (N, 96) or leaf8 (N, 48)."""
+    (B, 3).  ``nodes`` is (N, 96) or leaf8 (N, 48).  The bf16 leaf probe
+    alone sets ``rows``, the (B,) row each live lane reads in place of
+    ``s.ptr``, and ``bf16_leaf``, which decodes the leaf halfwords as the
+    top half of an f32 instead of as f16."""
     nodes_i = nodes.view(torch.int32)
     live = s.ptr >= 0
     if active is not None:
         live = live & active
     idx = torch.where(live, s.ptr, torch.zeros_like(s.ptr)).long()
-    row = nodes[idx]                                             # (B, 96 or 48)
-    row_i = nodes_i[idx]
+    at = idx if rows is None else torch.where(live, rows, torch.zeros_like(rows)).long()
+    row = nodes[at]                                              # (B, 96 or 48)
+    row_i = nodes_i[at]
     meta = row_i[:, 3]
     is_leaf = live & (meta > 0)
     is_inner = live & (meta == 0)
@@ -190,8 +202,11 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
 
     # ---- leaf: f16 anchored triangles, Möller-Trumbore ----
     slots, off_idx = (WIDTH, OFF_IDX) if nodes.shape[1] == ROW else (LEAF8, OFF_IDX8)
-    halves = (row[:, 4:4 + 9 * slots // 2].contiguous().view(torch.float16)
-              .to(torch.float32))                                # (B, 9 * slots)
+    if bf16_leaf:
+        halves = _bf16_halves(row_i[:, 4:4 + 9 * slots // 2])
+    else:
+        halves = (row[:, 4:4 + 9 * slots // 2].contiguous().view(torch.float16)
+                  .to(torch.float32))                            # (B, 9 * slots)
     perm_h = _perm_h(slots, nodes.device)
     comp = [halves[:, slots * c:slots * c + slots][:, perm_h] for c in range(9)]
     e2x, e2y, e2z, e1x, e1y, e1z = comp[:6]
