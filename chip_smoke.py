@@ -11,53 +11,63 @@ Phases, each printing one or more lines:
    (one nvcc per source, all at once);
 2. kernel K1 (wide16 arrival) against its plain twin, on the card, on a
    lane state captured from a real 1920x1080 pass over the 1M-triangle
-   benchmark scene (pool 98,304);
+   benchmark scene (pool 98,304): the one-arrival kernel on the state of
+   the pass's 27th arrival, and the multi-arrival kernel (the one the
+   render paths launch: te arrivals, the state updated in place) on the
+   start state of super-iteration 4, max abs error 0 on every field;
 3. kernel K2 (transition) against its twin on a pre-transition state of
    the same pass;
 4. the main path through ``Renderer``: that scene (tables from the
    committed ``.bvh_cache``), 1920x1080, 5 bounces, HDRI NEE,
-   ``transition_every=8``, two passes, with the kernels' launch counts;
+   ``transition_every=8``, two passes, with the kernels' launch counts
+   (K1 once per super-iteration); then one pass at a time with the
+   one-arrival loop and with the multi-arrival kernel in turns (one-step,
+   new, new, one-step) through a local hook, for s/pass and Mrays/s;
 5. the whole slice with kernels against the slice with twins on the
    card, and against the twins on the CPU, on seven small cases: a
    2,000-triangle scene (K2 path; on leaf8 rows with ``attr_in_kernel``;
    with ``attr_compact=3``), ``tlas_scene(n=4)`` at 48x48 (instanced path;
    on leaf8 BLAS rows) and the Cornell box at 32x32 (no sky, general
    transition; with ``attr_compact=3``);
-6. K1's instanced kernel against its twin on a lane state captured from
-   a 1920x1080 pass over the instanced copy of the benchmark grid (one
-   5,040-triangle sphere BLAS, 196 sphere instances and the ground as one
-   more, 987,842 instanced triangles, same HDRI and camera);
+6. K1's instanced kernels against their twins on lane states captured
+   from a 1920x1080 pass over the instanced copy of the benchmark grid
+   (one 5,040-triangle sphere BLAS, 196 sphere instances and the ground
+   as one more, 987,842 instanced triangles, same HDRI and camera);
 7. path A through ``Renderer``: that instanced scene at 1920x1080, 5
    bounces, HDRI, pool 98,304, te=8, two passes of 2 spp, held against
    the flat film of phase 4 (global mean within 3%; 32x32-pixel tiles,
-   mean |difference| / (flat + 0.05) below 5%);
+   mean |difference| / (flat + 0.05) below 5%); then the turns;
 8. path B, the Cornell box at the reference bench's configuration
-   (256x256, 64 spp per pass, 4 bounces, no sky, pool 131,072): K1
-   against its twin on a lane state captured from that pass, then two
-   passes through ``Renderer``;
-9. K1 on leaf8 rows (``arrival16_leaf8``) against its twin on a lane
-   state captured from a 1080p pass over the benchmark scene built as a
-   leaf8 table (natively, at first use: the build seconds are printed);
+   (256x256, 64 spp per pass, 4 bounces, no sky, pool 131,072, te=4):
+   K1's kernels against their twins on the start state of super-iteration
+   4 of that pass, then two passes through ``Renderer``;
+9. K1 on leaf8 rows (``arrival16_leaf8``, ``arrival16_leaf8_run``)
+   against its twins on lane states captured from a 1080p pass over the
+   benchmark scene built as a leaf8 table (natively, at first use: the
+   build seconds are printed);
 10. K2's raw-row form (``transition16_attr_raw``) against its twin, and
     against the ``shade_rowT`` kernel, on a pre-transition state of the
     same pass; the kernels' f16 decode over all 65,536 halfwords and their
     uint32 -> uniform conversion at the uint32 edges;
 11. path C through ``Renderer``: the leaf8 benchmark scene with
     ``attr_in_kernel``, as phase 4 otherwise, held against phase 4's film
-    as path A is;
-12. K1's instanced leaf8 kernel against its twin on the instanced grid
-    with leaf8 BLAS rows, then one pass of 2 spp of that scene through
-    ``Renderer``, held against phase 4's film;
+    as path A is; then the turns;
+12. K1's instanced leaf8 kernels against their twins on the instanced
+    grid with leaf8 BLAS rows, then one pass of 2 spp of that scene
+    through ``Renderer``, held against phase 4's film; then the turns;
 13. the probes of ``experiments/`` (``unity_webgpu_pathtracer_torch/
     experiments``, this slice's path): each module's ``run`` at its
     probe's sizes, every probe kernel held against its plain version (the
     counts set to 0 before and read after: every probe kernel must have
     launched), then K1's probe modes (the kernel diet and the bf16 leaf
-    decode) on states of phase 2's pass captured at its 27th arrival (the
-    third of super-iteration 4), its 1,200th (the last of super-iteration
-    150, about halfway, when most lanes have ended their segment) and its
-    1,203rd (the third of super-iteration 151), with the production
-    kernel's time, distinct rows and bound on each.
+    decode) on states of phase 2's pass at its 27th arrival (the third of
+    super-iteration 4), its 1,200th (the last of super-iteration 150,
+    about halfway, when most lanes have ended their segment) and its
+    1,203rd (the third of super-iteration 151), each reached from the
+    captured start state of its super-iteration by the one-arrival kernel,
+    with the production kernel's time, distinct rows and bound on each;
+    and the multi-arrival kernel on the start states of super-iterations
+    4, 150 and 151.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -65,8 +75,16 @@ least time an H100 could take for the same work, the larger of the bytes
 it must move (each input read once, each output written once; for K1 the
 distinct node rows the live lanes load) over 3.35 TB/s and its
 operations at the card's peak for their type: f32 at 67 TFLOP/s, packed
-bf16 (the bf16 lobe chain) at 133.8 TFLOP/s.  No single PyTorch call computes an arrival
-or a transition, so ``library_ms`` is null for K1 and K2; for a probe it
+bf16 (the bf16 lobe chain) at 133.8 TFLOP/s.  The multi-arrival kernels
+update their state in place, so a CUDA graph replays a restore of the
+captured state (``copy_`` from a clone) and the launch, and the graph of
+the restore alone is subtracted; their bound is
+``experiments/_common.py::arrivals_work`` (the state of the lanes that
+step, read and written once a launch; the rows of every arrival; 8 bytes
+a stack push or a pop from memory).  The launches of the one-arrival
+kernels are those of the one-step turns, which are their path now.  No
+single PyTorch call computes an arrival or a transition, so
+``library_ms`` is null for K1 and K2; for a probe it
 is the one PyTorch call that computes the same function where there is
 one (``table[idx]`` for the gathers, ``torch.sum``, ``torch.sin`` and the
 others); a probe measured at several sizes reports its last (largest).
@@ -106,51 +124,20 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-class _Captured(Exception):
-    pass
+def one_step_loop(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
+                  has_instances=False):
+    """The arrivals of a super-iteration as the pass ran them before the
+    multi-arrival kernel: one launch of the one-arrival kernel each, a new
+    state each time (the hook of the turns; not a knob of the package)."""
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
 
-
-def capture_inputs(fused, sd, cfg, params, k1_call: int, k2_call: int | None):
-    """Clone the inputs of the ``k1_call``-th arrival and the ``k2_call``-th
-    transition of a real pass (the arrival alone when ``k2_call`` is
-    None), then stop the pass."""
-    import torch
-
-    got = {}
-    arrive, trans = fused.arrival_step16_cuda, fused.transition_step16_cuda
-    n = {"k1": 0, "k2": 0}
-
-    def clone(x):
-        return x.clone() if isinstance(x, torch.Tensor) else x
-
-    def k1(nodes, oT, dT, invT, s, active=None, has_instances=False):
-        n["k1"] += 1
-        if n["k1"] == k1_call:
-            got["k1"] = (nodes, oT.clone(), dT.clone(), invT.clone(),
-                         s._replace(**{f: clone(getattr(s, f)) for f in s._fields}),
-                         clone(active))
-            if k2_call is None:
-                raise _Captured
-        return arrive(nodes, oT, dT, invT, s, active, has_instances)
-
-    def k2(**kw):
-        n["k2"] += 1
-        if n["k2"] == k2_call:
-            got["k2"] = {k: clone(v) for k, v in kw.items()}
-            raise _Captured
-        return trans(**kw)
-
-    fused.arrival_step16_cuda, fused.transition_step16_cuda = k1, k2
-    try:
-        fused.fused_pass_with_stats(sd, cfg, params, 0)
-    except _Captured:
-        pass
-    finally:
-        fused.arrival_step16_cuda, fused.transition_step16_cuda = arrive, trans
-    want = {"k1"} if k2_call is None else {"k1", "k2"}
-    if set(got) != want:
-        raise RuntimeError(f"pass ended before the capture: {sorted(got)}")
-    return got["k1"], got.get("k2")
+    for _ in range(steps):
+        active = live
+        if stop_on_found is not None:
+            active = ~(stop_on_found & s.found) if active is None \
+                else active & ~(stop_on_found & s.found)
+        s = arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+    return s
 
 
 def instanced_bench_scene():
@@ -264,12 +251,17 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.accel import wide16 as w16
     from unity_webgpu_pathtracer_torch.api import Renderer
     from unity_webgpu_pathtracer_torch.config import RenderConfig
-    from unity_webgpu_pathtracer_torch.experiments._common import arrival_work, bound, time_ms
+    from unity_webgpu_pathtracer_torch.experiments._common import (K1Launch, arrival_state,
+                                                                   arrival_work, arrivals_work,
+                                                                   bound, capture_inputs,
+                                                                   clone_state, ptxas_registers,
+                                                                   running, time_in_place_ms,
+                                                                   time_ms)
     from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
     from unity_webgpu_pathtracer_torch.models.examples import tlas_scene
     from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
-    from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
+    from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16, arrival_steps16
     from unity_webgpu_pathtracer_torch.render import fused
     from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
     from unity_webgpu_pathtracer_torch.utils import rng as urng
@@ -277,15 +269,16 @@ def main() -> int:
     dev = torch.device("cuda")
     card = gpu_line()
     arrivals_n = cuda_arrival.arrival_step16_cuda.launches
+    runs_n = cuda_arrival.arrival_steps16_cuda.launches
     transitions_n = cuda_transition.transition_step16_cuda.launches
 
     def reset_counts():
-        for counter in (arrivals_n, transitions_n):
+        for counter in (arrivals_n, runs_n, transitions_n):
             for k in counter:
                 counter[k] = 0
 
     def counts() -> dict:
-        return {**arrivals_n, **transitions_n}
+        return {**arrivals_n, **runs_n, **transitions_n}
 
     def expect_only(got: dict, want: dict, what: str) -> None:
         """Exactly the kernels in ``want`` launched, that many times."""
@@ -326,6 +319,86 @@ def main() -> int:
         log(f"{label} K1 {name}: B={s.ptr.shape[0]} live={live} distinct rows={rows} "
             f"max_abs_err={err:g} (tol {FLOAT_TOL}); {ms:.4f} ms vs plain {plain:.4f} ms; {b}")
 
+    def check_run(name, cap: K1Launch, label, record_it=True):
+        """The multi-arrival kernel against its plain version on a captured
+        super-iteration start state, max abs error 0 on every field; its
+        time per launch (a graph of restore + launch, minus a graph of the
+        restore alone), the one-arrival kernel's on the same arrivals, the
+        plain version's, and the bound of ``arrivals_work``."""
+        nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
+        out, ref = clone_state(s0), clone_state(s0)
+        cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, out, steps, live, stop, hi)
+        arrival_steps16(nodes, oT.T, dT.T, invT.T, ref, steps, live, stop, hi)
+        torch.cuda.synchronize()
+        err = compare(out, ref, name)
+        if err != 0.0:
+            raise AssertionError(f"{name}: max abs error {err:g}, expected 0")
+        fields = cuda_arrival._FLAT_FIELDS + (cuda_arrival._INST_FIELDS if hi else ())
+        work = clone_state(s0)
+
+        def restore():
+            for f in fields:
+                getattr(work, f).copy_(getattr(s0, f))
+
+        ms, t_run, t_restore = time_in_place_ms(
+            lambda: cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, work, steps, live,
+                                                      stop, hi), restore)
+        plain_ms = time_in_place_ms(
+            lambda: arrival_steps16(nodes, oT.T, dT.T, invT.T, work, steps, live, stop, hi),
+            restore)[0]
+        one, st = [], s0   # the one-arrival kernel on each of the same arrivals
+        for _ in range(steps):
+            act = running(cap, st)
+            one.append(time_ms(lambda st=st, act=act: cuda_arrival.arrival_step16_cuda(
+                nodes, oT, dT, invT, st, act, hi)))
+            st = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, st, act, hi)
+        nbytes, ops, rows, n = arrivals_work(nodes, oT, dT, invT, s0, steps, live, stop, hi)
+        b_ms, b_by = bound(nbytes, ops)
+        if record_it:
+            record(name, K1_SRC, K1_TPU, err, ms, plain_ms, nbytes, ops)
+        log(f"{label} K1 {name} ({steps} arrivals, in place): B={s0.ptr.shape[0]} lanes "
+            f"stepping={n['lanes']} distinct rows={rows} pushes={n['pushes']} pops from "
+            f"memory={n['pops']} max_abs_err={err:g} (every field, stack planes included); "
+            f"{ms:.4f} ms per launch (graph of restore + launch {t_run:.4f} ms, restore alone "
+            f"{t_restore:.4f} ms); one-arrival kernel {steps} x {one[0]:.4f} = "
+            f"{steps * one[0]:.4f} ms on the start state, {sum(one):.4f} ms summed over the "
+            f"{steps} arrivals; plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+            f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
+        return err
+
+    def turns(r, label, one_name, run_name, te):
+        """One pass at a time from a reset film (the same work each time)
+        with the one-arrival loop and with the multi-arrival kernel, in
+        turns (one-step, new, new, one-step); returns the one-arrival
+        kernel's launches over its two passes."""
+        arrive = fused.arrival_steps16_cuda
+        secs, one_launches = {"one-step": [], "new": []}, 0
+        for mode in ("one-step", "new", "new", "one-step"):
+            r.reset()
+            torch.cuda.synchronize()
+            reset_counts()
+            if mode == "one-step":
+                fused.arrival_steps16_cuda = one_step_loop
+            try:
+                t0 = time.perf_counter()
+                r.render(passes=1)   # ends in a synchronize
+                dt = time.perf_counter() - t0
+            finally:
+                fused.arrival_steps16_cuda = arrive
+            st = r.stats()
+            got = {k: v for k, v in counts().items() if k.startswith("arrival16")}
+            want = ({one_name: te * st["super_iterations"]} if mode == "one-step"
+                    else {run_name: st["super_iterations"]})
+            expect_only(got, want, f"{label} {mode} turn")
+            one_launches += got[one_name]
+            secs[mode].append(dt)
+            log(f"{label} turn {mode}: {dt:.3f} s/pass, {st['rays'] / dt / 1e6:.3f} Mrays/s, "
+                f"rays {st['rays']}, arrivals {st['arrivals']}, super-iterations "
+                f"{st['super_iterations']}, K1 launches {want}")
+        log(f"{label} turns: one-step {[round(x, 3) for x in secs['one-step']]} s/pass, "
+            f"multi-arrival {[round(x, 3) for x in secs['new']]} s/pass; card: {card}")
+        return one_launches
+
     # ---- 1. build ----
     t0 = time.perf_counter()
     cuda_build.load()
@@ -333,6 +406,7 @@ def main() -> int:
             if "registers" in ln]
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc, all sources at once, "
         f"{cuda_build.BUILD_INFO['seconds']:.2f} s); ptxas: {regs}; card: {card}")
+    log(f"phase 1 K1 registers: {ptxas_registers(cuda_build.BUILD_INFO['log'])}")
 
     # ---- 2./3. kernels against twins on a real 1080p state ----
     w, h = 1920, 1080
@@ -344,8 +418,9 @@ def main() -> int:
                        transition_every=TE, pool_size=POOL)
     log(f"scene: {sd.wide16_nodes.shape[0]} rows, depth {sd.stack_depth}, "
         f"bvh cache {w16.CACHE_STATS}, set-up {time.perf_counter() - t0:.1f} s")
-    k1_in, k2_in = capture_inputs(fused, sd, cfg, params, k1_call=3 * TE + 3, k2_call=4)
-    check_arrival("arrival16", k1_in, False, "phase 2")
+    (cap,), k2_in = capture_inputs(sd, cfg, params, k1_calls=(4,), k2_call=4)
+    check_arrival("arrival16", arrival_state(cap, 3), False, "phase 2")
+    check_run("arrival16_run", cap, "phase 2")
 
     out = cuda_transition.transition_step16_cuda(**k2_in)
     ref = cuda_transition.transition_step16_plain(**k2_in)
@@ -358,7 +433,7 @@ def main() -> int:
     log(f"phase 3 K2 transition16: B={k2_in['mode'].shape[0]} died={int(out.died.sum())} "
         f"max_abs_err={k2_err:g} (tol {FLOAT_TOL}); {k2_ms:.4f} ms vs plain "
         f"{k2_plain:.4f} ms; {b}")
-    del k1_in, k2_in, out, ref, sd
+    del cap, k2_in, out, ref, sd
 
     # ---- 4. the main path through Renderer ----
     scene, cam = million_triangle_scene(1_000_000)
@@ -373,18 +448,19 @@ def main() -> int:
     reset_counts()
     _s, iters_4, rays_4, arr_4 = run_passes(r, 2, "phase 4")
     got = counts()
-    expect_only(got, {"arrival16": TE * iters_4, "transition16": iters_4}, "phase 4")
-    kernels["arrival16"]["launches"] = got["arrival16"]
+    expect_only(got, {"arrival16_run": iters_4, "transition16": iters_4}, "phase 4")
+    kernels["arrival16_run"]["launches"] = got["arrival16_run"]
     kernels["transition16"]["launches"] = got["transition16"]
-    flat_img = r.film.accum
+    flat_img = r.film.accum.clone()
     check_film(flat_img, (h, w, 3), "phase 4")
     log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches {got}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    kernels["arrival16"]["launches"] = turns(r, "phase 4", "arrival16", "arrival16_run", TE)
     del r
 
     # ---- 5. slice with kernels vs slice with twins (CUDA) and CPU twins ----
-    def twin_arrival(n, o, d, i, s, a=None, has_instances=False):
-        return arrival_step16(n, o.T, d.T, i.T, s, a, has_instances)
+    def twin_arrivals(n, o, d, i, s, steps, live=None, stop=None, has_instances=False):
+        return arrival_steps16(n, o.T, d.T, i.T, s, steps, live, stop, has_instances)
 
     scene, cam = million_triangle_scene(2000)
     tscene, tcam, tover = tlas_scene(n=4)
@@ -396,31 +472,31 @@ def main() -> int:
     box = dict(width=32, height=32, samples_per_pass=4, max_bounces=4, transition_every=4,
                pool_size=1024, sky_mode=2)
     cases = (  # (name, scene, camera, config, leaf8, kernels the case must launch)
-        ("bench2k", scene, cam, RenderConfig(**bench), False, ("arrival16", "transition16")),
+        ("bench2k", scene, cam, RenderConfig(**bench), False, ("arrival16_run", "transition16")),
         ("bench2k leaf8 attr_in_kernel", scene, cam, RenderConfig(**bench, attr_in_kernel=True),
-         True, ("arrival16_leaf8", "transition16_attr_raw")),
+         True, ("arrival16_leaf8_run", "transition16_attr_raw")),
         ("bench2k attr_compact=3", scene, cam, RenderConfig(**bench, attr_compact=3), False,
-         ("arrival16", "transition16")),
-        ("tlas", tscene, tcam, RenderConfig(**tlas), False, ("arrival16_inst",)),
-        ("tlas leaf8", tscene, tcam, RenderConfig(**tlas), True, ("arrival16_inst_leaf8",)),
-        ("cornell", cscene, ccam, RenderConfig(**box), False, ("arrival16",)),
+         ("arrival16_run", "transition16")),
+        ("tlas", tscene, tcam, RenderConfig(**tlas), False, ("arrival16_inst_run",)),
+        ("tlas leaf8", tscene, tcam, RenderConfig(**tlas), True, ("arrival16_inst_leaf8_run",)),
+        ("cornell", cscene, ccam, RenderConfig(**box), False, ("arrival16_run",)),
         ("cornell attr_compact=3", cscene, ccam, RenderConfig(**box, attr_compact=3), False,
-         ("arrival16",)),
+         ("arrival16_run",)),
     )
     for case, sc, cm, small, leaf8, used in cases:
         films = {}
         for name, device in (("kernels", dev), ("twins", dev), ("cpu", torch.device("cpu"))):
             sd = sc.build("wide16", device=device, leaf8=leaf8)
             pr = make_camera_params(width=small.width, height=small.height, device=device, **cm)
-            arrive, trans = fused.arrival_step16_cuda, fused.transition_step16_cuda
+            arrive, trans = fused.arrival_steps16_cuda, fused.transition_step16_cuda
             if name == "twins":
-                fused.arrival_step16_cuda = twin_arrival
+                fused.arrival_steps16_cuda = twin_arrivals
                 fused.transition_step16_cuda = cuda_transition.transition_step16_plain
             reset_counts()
             try:
                 film, _occ, rays, arr, _it = fused.fused_pass_with_stats(sd, small, pr, 0)
             finally:
-                fused.arrival_step16_cuda, fused.transition_step16_cuda = arrive, trans
+                fused.arrival_steps16_cuda, fused.transition_step16_cuda = arrive, trans
             if name == "kernels":
                 launched = {k for k, v in counts().items() if v > 0}
                 if launched != set(used):
@@ -450,12 +526,14 @@ def main() -> int:
     iparams = make_camera_params(width=w, height=h, device=dev, **icam)
     log(f"phase 6 scene: {len(iscene.instances)} instances, {isd.wide16_nodes.shape[0]} rows, "
         f"depth {isd.stack_depth}, set-up {time.perf_counter() - t0:.1f} s")
-    k1_in, _ = capture_inputs(fused, isd, icfg, iparams, k1_call=3 * TE + 3, k2_call=None)
+    (cap,), _ = capture_inputs(isd, icfg, iparams, k1_calls=(4,), k2_call=None)
+    k1_in = arrival_state(cap, 3)
     check_arrival("arrival16_inst", k1_in, True, "phase 6")
     s = k1_in[4]
     log(f"phase 6 lanes inside a BLAS: "
         f"{int(((s.inst >= 0) & (s.ptr >= 0) & k1_in[5]).sum())}")
-    del k1_in, s
+    check_run("arrival16_inst_run", cap, "phase 6")
+    del k1_in, s, cap
 
     # ---- 7. path A: the instanced scene through Renderer ----
     r = Renderer(isd, icfg, iparams)
@@ -464,14 +542,16 @@ def main() -> int:
     reset_counts()
     _s, iters_a, _rays, _arr = run_passes(r, 2, "phase 7")
     got = counts()
-    expect_only(got, {"arrival16_inst": TE * iters_a}, "phase 7")
-    kernels["arrival16_inst"]["launches"] = got["arrival16_inst"]
+    expect_only(got, {"arrival16_inst_run": iters_a}, "phase 7")
+    kernels["arrival16_inst_run"]["launches"] = got["arrival16_inst_run"]
     img = r.film.accum
     check_film(img, (h, w, 3), "phase 7")
     mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 7")
     log(f"phase 7 path A: film mean {float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, "
         f"rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    kernels["arrival16_inst"]["launches"] = turns(r, "phase 7", "arrival16_inst",
+                                                  "arrival16_inst_run", TE)
     del r, isd, img
 
     # ---- 8. path B: the Cornell box at the bench's configuration ----
@@ -482,9 +562,8 @@ def main() -> int:
     cparams = make_camera_params(width=256, height=256, device=dev, **ccam)
     # The first arrival of a super-iteration: the box's shallow tree ends
     # most traversals within two arrivals.
-    cte = ccfg.transition_every
-    k1_in, _ = capture_inputs(fused, csd, ccfg, cparams, k1_call=3 * cte + 1, k2_call=None)
-    nodes, oT, dT, invT, s, active = k1_in
+    (cap,), _ = capture_inputs(csd, ccfg, cparams, k1_calls=(4,), k2_call=None)
+    nodes, oT, dT, invT, s, active = arrival_state(cap, 1)
     out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
     ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active)
     torch.cuda.synchronize()
@@ -496,14 +575,15 @@ def main() -> int:
     log(f"phase 8 K1 arrival16 (Cornell): B={s.ptr.shape[0]} live={live} "
         f"max_abs_err={k1c_err:g} (tol {FLOAT_TOL}); {k1c_ms:.4f} ms vs plain "
         f"{k1c_plain:.4f} ms")
-    del out, ref, s, nodes, k1_in
+    check_run("arrival16_run", cap, "phase 8 (Cornell)", record_it=False)
+    del out, ref, s, nodes, cap
     r = Renderer(csd, ccfg, cparams)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     secs_b, iters_b, _rays, _arr = run_passes(r, 2, "phase 8")
     got = counts()
-    expect_only(got, {"arrival16": ccfg.transition_every * iters_b}, "phase 8")
+    expect_only(got, {"arrival16_run": iters_b}, "phase 8")
     img = r.film.accum
     check_film(img, (256, 256, 3), "phase 8")
     log(f"phase 8 path B: {r.sample_count} spp in {secs_b:.3f} s, film mean "
@@ -522,9 +602,10 @@ def main() -> int:
     log(f"phase 9 leaf8 scene: {lsd.wide16_nodes.shape[0]} rows of "
         f"{lsd.wide16_nodes.shape[1]} floats ({lsd.wide16_nodes.nbytes / 2**20:.1f} MiB), depth "
         f"{lsd.stack_depth}, table {built} in {time.perf_counter() - t0:.1f} s")
-    k1_in, k2_in = capture_inputs(fused, lsd, lcfg, params, k1_call=3 * TE + 3, k2_call=4)
-    check_arrival("arrival16_leaf8", k1_in, False, "phase 9")
-    del k1_in
+    (cap,), k2_in = capture_inputs(lsd, lcfg, params, k1_calls=(4,), k2_call=4)
+    check_arrival("arrival16_leaf8", arrival_state(cap, 3), False, "phase 9")
+    check_run("arrival16_leaf8_run", cap, "phase 9")
+    del cap
 
     out = cuda_transition.transition_step16_cuda(**k2_in)
     ref = cuda_transition.transition_step16_plain(**k2_in)
@@ -572,9 +653,9 @@ def main() -> int:
     reset_counts()
     _s, iters_c, rays_c, arr_c = run_passes(r, 2, "phase 11")
     got = counts()
-    expect_only(got, {"arrival16_leaf8": TE * iters_c, "transition16_attr_raw": iters_c},
+    expect_only(got, {"arrival16_leaf8_run": iters_c, "transition16_attr_raw": iters_c},
                 "phase 11")
-    kernels["arrival16_leaf8"]["launches"] = got["arrival16_leaf8"]
+    kernels["arrival16_leaf8_run"]["launches"] = got["arrival16_leaf8_run"]
     kernels["transition16_attr_raw"]["launches"] = got["transition16_attr_raw"]
     img = r.film.accum
     check_film(img, (h, w, 3), "phase 11")
@@ -584,6 +665,8 @@ def main() -> int:
         f"{float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    kernels["arrival16_leaf8"]["launches"] = turns(r, "phase 11", "arrival16_leaf8",
+                                                   "arrival16_leaf8_run", TE)
     del r, lsd, img
 
     # ---- 12. K1's instanced leaf8 kernel, and one pass of that scene ----
@@ -591,20 +674,23 @@ def main() -> int:
     isd = iscene.build("wide16", device=dev, leaf8=True)
     log(f"phase 12 scene: {isd.wide16_nodes.shape[0]} rows of {isd.wide16_nodes.shape[1]} "
         f"floats, depth {isd.stack_depth}, set-up {time.perf_counter() - t0:.1f} s")
-    k1_in, _ = capture_inputs(fused, isd, icfg, iparams, k1_call=3 * TE + 3, k2_call=None)
-    check_arrival("arrival16_inst_leaf8", k1_in, True, "phase 12")
-    del k1_in
+    (cap,), _ = capture_inputs(isd, icfg, iparams, k1_calls=(4,), k2_call=None)
+    check_arrival("arrival16_inst_leaf8", arrival_state(cap, 3), True, "phase 12")
+    check_run("arrival16_inst_leaf8_run", cap, "phase 12")
+    del cap
     r = Renderer(isd, icfg, iparams)
     reset_counts()
     _s, iters_d, _rays, _arr = run_passes(r, 1, "phase 12")
     got = counts()
-    expect_only(got, {"arrival16_inst_leaf8": TE * iters_d}, "phase 12")
-    kernels["arrival16_inst_leaf8"]["launches"] = got["arrival16_inst_leaf8"]
+    expect_only(got, {"arrival16_inst_leaf8_run": iters_d}, "phase 12")
+    kernels["arrival16_inst_leaf8_run"]["launches"] = got["arrival16_inst_leaf8_run"]
     img = r.film.accum
     check_film(img, (h, w, 3), "phase 12")
     mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 12")
     log(f"phase 12 instanced leaf8: film mean {float(img.mean()):.6f} (rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}; card: {card}")
+    kernels["arrival16_inst_leaf8"]["launches"] = turns(r, "phase 12", "arrival16_inst_leaf8",
+                                                        "arrival16_inst_leaf8_run", TE)
     del r, isd, img, flat_img
 
     # ---- 13. the probes of experiments/ ----
@@ -670,12 +756,16 @@ def main() -> int:
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
-    # K1's probe modes on real states, early and deep in phase 2's pass.
+    # K1's probe modes on real states, early and deep in phase 2's pass: the
+    # starts of super-iterations 4, 150 and 151, and arrivals 27 (the third
+    # of 4), 1,200 (the last of 150) and 1,203 (the third of 151).
     scene, cam = million_triangle_scene(1_000_000)
     sd = scene.build("wide16", device=dev)
-    for call in (3 * TE + 3, 1200, 150 * TE + 3):
-        nodes, oT, dT, invT, s, active = capture_inputs(fused, sd, cfg, params, k1_call=call,
-                                                        k2_call=None)[0]
+    caps, _ = capture_inputs(sd, cfg, params, k1_calls=(4, 150, 151), k2_call=None)
+    for cap, si in zip(caps, (4, 150, 151)):
+        check_run("arrival16_run", cap, f"phase 13 super-iteration {si}", record_it=False)
+    for call, cap, k in ((3 * TE + 3, caps[0], 3), (1200, caps[1], TE), (150 * TE + 3, caps[2], 3)):
+        nodes, oT, dT, invT, s, active = arrival_state(cap, k)
         out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
         err = compare(out, arrival_step16(nodes, oT.T, dT.T, invT.T, s, active), "arrival16")
         k1_ms = time_ms(lambda: cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active))
@@ -704,10 +794,11 @@ def main() -> int:
         log(f"phase 13 K1 arrival {call}: bf16 leaf decode saves {dt:.4f} ms "
             f"({share * 100:.1f}%); card: {card}")
         del nodes, oT, dT, invT, s, active, out, state
-    del sd
+    del sd, caps
 
-    order = ("arrival16", "arrival16_inst", "arrival16_leaf8", "arrival16_inst_leaf8",
-             "transition16", "transition16_attr_raw", *probe_order)
+    order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
+             "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",
+             "arrival16_inst_leaf8", "transition16", "transition16_attr_raw", *probe_order)
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

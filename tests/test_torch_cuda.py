@@ -25,7 +25,7 @@ import torch
 from unity_webgpu_pathtracer_torch.config import RenderConfig
 from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
 from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_probes, cuda_transition
-from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
+from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16, arrival_steps16
 from unity_webgpu_pathtracer_torch.render import fused
 from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
 
@@ -60,6 +60,21 @@ def _assert_same(got, want, name):
         assert torch.equal(got, want), name
 
 
+def _clone(s):
+    return s._replace(**{f: getattr(s, f).clone() for f in s._fields})
+
+
+def _assert_exact(got, want, name):
+    """Every field equal: integers exactly, floats with max abs error 0."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda m: f"{name}.{f}: {m}")
+        else:
+            assert torch.equal(a, b), f"{name}.{f}"
+
+
 def test_entries_match_sources():
     """The C entries of each source are exactly those ``cuda_build`` binds,
     with as many arguments, and every kernel the wrappers name has one."""
@@ -72,9 +87,14 @@ def test_entries_match_sources():
             assert len(args.split(",")) == len(entries[entry]), entry
         assert 'extern "C" const char* cuda_error_string' in text
     launches = {f"{k}_launch" for k in (*cuda_arrival.KERNELS.values(),
+                                         *cuda_arrival.RUN_KERNELS.values(),
                                          *cuda_transition.KERNELS.values())}
     assert launches <= {e for entries in cuda_build.ENTRIES.values() for e in entries}
     assert set(cuda_arrival.arrival_step16_cuda.launches) == set(cuda_arrival.KERNELS.values())
+    assert set(cuda_arrival.arrival_steps16_cuda.launches) == set(
+        cuda_arrival.RUN_KERNELS.values())
+    assert {f"{k}_run" for k in cuda_arrival.KERNELS.values()} == set(
+        cuda_arrival.RUN_KERNELS.values())
     assert set(cuda_transition.transition_step16_cuda.launches) == set(
         cuda_transition.KERNELS.values())
     # The probes: K1's probe modes behind one entry, the others in probes.cu.
@@ -163,6 +183,56 @@ def test_instanced_kernel_matches_twin(cuda, leaf8):
 
 
 @gpu
+@pytest.mark.parametrize("leaf8", [False, True])
+@pytest.mark.parametrize("instanced", [False, True])
+def test_run_kernels_match_plain(cuda, leaf8, instanced):
+    """Each multi-arrival entry against its plain version, launch after
+    launch until every lane has ended, max abs error 0 on every field (the
+    stack planes too): 8 arrivals a launch, a live mask, and half of the
+    lanes stopping at their first hit."""
+    from unity_webgpu_pathtracer_torch.accel import wide16
+    from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import init_state16
+    from unity_webgpu_pathtracer_torch.utils.math import safe_rcp
+
+    rng = np.random.default_rng(12)
+    if instanced:
+        nodes, depth = _instanced_table(leaf8)
+        aim = rng.uniform(-3.0, 3.0, (8192, 3)) * np.float32([1.0, 0.3, 0.3])
+    else:
+        c = rng.uniform(-5.0, 5.0, (3000, 1, 3))
+        tris = (c + rng.uniform(-0.4, 0.4, (3000, 3, 3))).astype(np.float32)
+        recs = np.concatenate([tris[:, 2] - tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 0]],
+                              axis=1).astype(np.float32)
+        w = wide16.build_scene_wide16(tris, recs, leaf8)
+        nodes, depth = w.nodes, w.depth
+        aim = rng.uniform(-5.0, 5.0, (8192, 3))
+    b = 8192
+    o = rng.uniform(-6.0, 6.0, (b, 3)).astype(np.float32)
+    d = rng.normal(size=(b, 3)).astype(np.float32)
+    d[: 3 * b // 4] = (aim - o)[: 3 * b // 4]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tn = torch.from_numpy(nodes).to(cuda)
+    oT = torch.from_numpy(o.T.copy()).to(cuda)
+    dT = torch.from_numpy(d.T.copy()).to(cuda)
+    invT = safe_rcp(dT)
+    live = torch.from_numpy(rng.random(b) < 0.9).to(cuda)
+    stop = torch.from_numpy(rng.random(b) < 0.5).to(cuda)
+    s = init_state16(b, 1e5, depth=depth + 4, device=cuda)
+    kernel = cuda_arrival.RUN_KERNELS[(nodes.shape[1], instanced)]
+    before = cuda_arrival.arrival_steps16_cuda.launches[kernel]
+    launches = 0
+    while bool(((s.ptr >= 0) & live & ~(stop & s.found)).any()):
+        ref = arrival_steps16(tn, oT.T, dT.T, invT.T, _clone(s), 8, live, stop, instanced)
+        out = cuda_arrival.arrival_steps16_cuda(tn, oT, dT, invT, s, 8, live, stop, instanced)
+        assert out is s
+        _assert_exact(out, ref, kernel)
+        launches += 1
+    torch.cuda.synchronize()
+    assert cuda_arrival.arrival_steps16_cuda.launches[kernel] - before == launches > 1
+    assert bool(s.found.any()) and (not instanced or bool((s.hit_inst >= 0).any()))
+
+
+@gpu
 @pytest.mark.parametrize("flags", ["main_path", "firefly_and_canary", "leaf8_attr_raw",
                                    "oct_rows"])
 def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
@@ -185,11 +255,13 @@ def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
         cfg = _config()
     calls = {"k1": 0, "k2": 0}
 
-    def k1(nodes, oT, dT, invT, s, active=None, has_instances=False):
-        out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
-        ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active, has_instances)
-        for name in out._fields:
-            _assert_same(getattr(out, name), getattr(ref, name), f"arrival.{name}")
+    def k1(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
+           has_instances=False):
+        ref = arrival_steps16(nodes, oT.T, dT.T, invT.T, _clone(s), steps, live,
+                              stop_on_found, has_instances)
+        out = cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, s, steps, live,
+                                                stop_on_found, has_instances)
+        _assert_exact(out, ref, "arrivals")
         calls["k1"] += 1
         return out
 
@@ -201,10 +273,10 @@ def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
         calls["k2"] += 1
         return out
 
-    monkeypatch.setattr(fused, "arrival_step16_cuda", k1)
+    monkeypatch.setattr(fused, "arrival_steps16_cuda", k1)
     monkeypatch.setattr(fused, "transition_step16_cuda", k2)
     film, _occ, _rays, _arr, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
-    assert calls == {"k1": 4 * iters, "k2": iters}
+    assert calls == {"k1": iters, "k2": iters}
     assert torch.isfinite(film).all()
 
 
@@ -212,15 +284,15 @@ def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
 def test_pass_with_kernels_equals_pass_with_twins(cuda, scene64k, monkeypatch):
     sd, params = scene64k
     cfg = _config()
-    k1_before = cuda_arrival.arrival_step16_cuda.launches["arrival16"]
+    k1_before = cuda_arrival.arrival_steps16_cuda.launches["arrival16_run"]
     k2_before = cuda_transition.transition_step16_cuda.launches["transition16"]
     film_k, _occ, rays_k, arr_k, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
-    assert cuda_arrival.arrival_step16_cuda.launches["arrival16"] - k1_before == 4 * iters
+    assert cuda_arrival.arrival_steps16_cuda.launches["arrival16_run"] - k1_before == iters
     assert cuda_transition.transition_step16_cuda.launches["transition16"] - k2_before == iters
 
-    monkeypatch.setattr(fused, "arrival_step16_cuda",
-                        lambda n, o, d, i, s, a=None, has_instances=False:
-                        arrival_step16(n, o.T, d.T, i.T, s, a, has_instances))
+    monkeypatch.setattr(fused, "arrival_steps16_cuda",
+                        lambda n, o, d, i, s, k, lv=None, st=None, has_instances=False:
+                        arrival_steps16(n, o.T, d.T, i.T, s, k, lv, st, has_instances))
     monkeypatch.setattr(fused, "transition_step16_cuda",
                         cuda_transition.transition_step16_plain)
     film_p, _occ, rays_p, arr_p, _ = fused.fused_pass_with_stats(sd, cfg, params, 0)
@@ -243,6 +315,11 @@ def test_wrappers_reject_bad_inputs(cuda, scene64k):
     with pytest.raises(ValueError):
         cuda_arrival.arrival_step16_cuda(sd.wide16_nodes, planes, planes, planes,
                                          s._replace(t=s.t.double()))
+    with pytest.raises(ValueError):
+        cuda_arrival.arrival_steps16_cuda(sd.wide16_nodes, planes, planes, planes,
+                                          s._replace(v=s.u), 8)
+    with pytest.raises(ValueError):
+        cuda_arrival.arrival_steps16_cuda(sd.wide16_nodes, planes, planes, planes, s, 0)
 
 
 @gpu
@@ -255,11 +332,15 @@ def test_probe_modes_match_twin(cuda, scene64k, monkeypatch, mode):
     sd, params = scene64k
     captured = {}
 
-    def k1(nodes, oT, dT, invT, s, active=None, has_instances=False):
-        captured.setdefault("k1", (nodes, s.ptr, oT, dT, invT, s, active))
-        return cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+    def k1(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
+           has_instances=False):
+        if "k1" not in captured:   # the first arrival's inputs, before the update
+            active = live & ~(stop_on_found & s.found)
+            captured["k1"] = (nodes, s.ptr.clone(), oT, dT, invT, _clone(s), active)
+        return cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, s, steps, live,
+                                                 stop_on_found, has_instances)
 
-    monkeypatch.setattr(fused, "arrival_step16_cuda", k1)
+    monkeypatch.setattr(fused, "arrival_steps16_cuda", k1)
     fused.fused_pass_with_stats(sd, _config(), params, 0)
     before = cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]]
     for nodes, rows, oT, dT, invT, s, active in (synthetic_inputs(cuda, b=8192),

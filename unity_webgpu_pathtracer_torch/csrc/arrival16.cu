@@ -1,25 +1,48 @@
 // wide16 BVH arrival step, one thread per lane, in four instantiations:
 // arrival16_launch (flat tables), arrival16_inst_launch (two-level tables
 // with TLAS instance rows), and the same two on leaf8 tables,
-// arrival16_leaf8_launch and arrival16_inst_leaf8_launch; and the probe
-// modes of the measurement probes behind arrival16_probe_launch (at the end).
+// arrival16_leaf8_launch and arrival16_inst_leaf8_launch; the same four
+// running several arrivals per launch on state updated in place
+// (arrival16_run_launch, arrival16_inst_run_launch,
+// arrival16_leaf8_run_launch, arrival16_inst_leaf8_run_launch); and the
+// probe modes of the measurement probes behind arrival16_probe_launch (at
+// the end).
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py::_arrival_kernel
 // (reached from arrival_step16_pallas): has_inst off and on, leaf_slots
 // 16 (96-float rows) and 8 (48-float leaf8 rows).
 //
-// What bounds it on an H100: memory latency.  Each live lane reads its own
-// node row (384 bytes, 192 on leaf8 tables) at a data-dependent address (a
-// gather with little coalescing across the warp), plus its register stack,
-// which is copied in and out as (D, B) planes.  The arithmetic (16 slab
-// tests or up to 16 Moller-Trumbore tests) is small next to the row fetch.
+// One arrival (arrival16_kernel): each live lane reads its own node row
+// (384 bytes, 192 on leaf8 tables) at a data-dependent address, and every
+// lane reads and writes its whole state, the (D, B) stack planes included,
+// out of place.  That copy is most of its bytes: with 2% of the lanes live
+// it still takes 81% of a full pool's time.  Lanes that do not run are
+// copied through unchanged.
 //
-// First design: one thread per lane, the row loaded inside the kernel
-// (the TPU version had XLA gather it first), the decode done from integer
-// views of the same words, the stack planes kept lane-contiguous so the
-// copy is coalesced, and lanes that do not run copied through unchanged.
-// Compiled with -fmad=false so it rounds op for op like the plain twin
-// (ops/traverse_wide16.py::arrival_step16).
+// Several arrivals (arrival16_run_kernel): what bounds it on an H100 is
+// the latency of each arrival's row load, which depends on the previous
+// arrival's result.  The design removes the bytes around it: the lane
+// state and rays are loaded into registers once per launch, the stack is
+// updated in place (a push writes one entry, a pop reads one, and a pop
+// that follows a push takes the entry from a register), lanes that do not
+// step return before they touch their state, and a lane that steps
+// writes its registers back once.  A lane leaves the loop when its
+// traversal ends or, with stop_on_found, at its first hit.
+//
+// Both kernels run one per-arrival body (arrive), so they round alike,
+// compiled with -fmad=false so it rounds op for op like the plain twin
+// (ops/traverse_wide16.py::arrival_step16).  The body reads the row as
+// 16-byte vectors through the read-only path: the header (anchor, meta)
+// first, then the word groups of the section the row kind selects, where
+// that section uses them (the leaf's in 4-word chunks); the table keeps
+// the reference's byte order.  Both kernels are compiled for 3 resident
+// blocks of 256 threads per SM (at most 80 registers, a few hundred bytes
+// spilled): 98,304 lanes then fit the card in one wave.  Measured on the
+// H100 (unity_webgpu_pathtracer_torch/experiments/k1_variants.py rebuilds
+// this source with other values of UWPT_K1_PRELOAD and UWPT_K1_MIN_BLOCKS,
+// which ops/cuda_arrival.py sets):
+// loading words 0-47 before the branch, or 2 blocks (122 registers, two
+// waves), or 4 (64 registers, more spills) are all slower.
 //
 // leaf8 tables (ROWF = 48): rows are 48 floats; inner and instance rows
 // are unchanged (they use only words below 48), and a leaf holds up to 8
@@ -62,7 +85,7 @@
 #include <cuda_runtime.h>
 
 struct ArrivalArgs {
-  const float* nodes;           // (N, ROWF)
+  const float* nodes;           // (N, ROWF), 16-byte aligned
   const float* o;               // (3, B) planes
   const float* d;
   const float* inv;
@@ -94,6 +117,7 @@ struct ArrivalArgs {
 };
 
 // Instance registers of two-level tables (Wide16State's instance fields).
+// The multi-arrival kernel is passed the same planes as input and output.
 struct InstArgs {
   const int* inst;              // (B,) -1 = world space
   const int* hit_inst;
@@ -109,6 +133,30 @@ struct InstArgs {
   float* o_local_inv;
 };
 
+// Several arrivals on a state updated in place.
+struct RunArgs {
+  const float* nodes;                  // (N, ROWF), 16-byte aligned
+  const float* o;                      // (3, B) planes
+  const float* d;
+  const float* inv;
+  const unsigned char* live;           // (B,) bool, or null (every lane)
+  const unsigned char* stop_on_found;  // (B,) bool, or null (no lane)
+  // state, read and written in place (Wide16State field order)
+  int* ptr;
+  int* pend;
+  int* sp;
+  int* stack_row;                      // (D, B)
+  int* stack_mask;                     // (D, B)
+  float* t;
+  float* u;
+  float* v;
+  int* tri;
+  unsigned char* found;
+  int b;
+  int depth;
+  int steps;                           // arrivals per lane, >= 1
+};
+
 // jnp.minimum / jnp.maximum: NaN-propagating.
 __device__ __forceinline__ float jmin(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fminf(a, b));
@@ -117,12 +165,339 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
-template <bool HAS_INST, int ROWF, int MODE = UWPT_PROBE_PROD>
-__global__ void arrival16_kernel(ArrivalArgs a, InstArgs n, const int* rowidx) {
+// Component k of a vector; k is a constant once the loops are unrolled.
+__device__ __forceinline__ int lane4(const int4& v, int k) {
+  return k == 0 ? v.x : (k == 1 ? v.y : (k == 2 ? v.z : v.w));
+}
+
+// utils/math.py::safe_rcp: exact zeros nudged to 1e-30.
+__device__ __forceinline__ float local_rcp(float x) { return 1.0f / (x == 0.0f ? 1.0e-30f : x); }
+
+// A lane's scalar registers (Wide16State's (B,) fields).
+struct Lane {
+  int ptr, pend, sp;
+  float t, u, v;
+  int tri;
+  bool found;
+  int inst, hit_inst, sp_enter;   // HAS_INST only
+};
+
+// The rays of one arrival, read from their (3, B) planes where the body
+// uses them; an instance entry's local ray is kept for the caller to store.
+struct PlaneRay {
+  const float *o, *d, *inv, *lo, *ld, *li;
+  int i, b;
+  bool entered;
+  float lo3[3], ld3[3];
+  __device__ float org(bool local, int c) const { return (local ? lo : o)[c * b + i]; }
+  __device__ float dir(bool local, int c) const { return (local ? ld : d)[c * b + i]; }
+  __device__ float rcp(bool local, int c) const { return (local ? li : inv)[c * b + i]; }
+  __device__ void enter(const float (&o3)[3], const float (&d3)[3]) {
+    entered = true;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo3[c] = o3[c];
+      ld3[c] = d3[c];
+    }
+  }
+};
+
+// The rays held in registers across the arrivals of one launch.
+struct RegRay {
+  float o[3], d[3], inv[3], lo[3], ld[3], li[3];
+  bool entered;
+  __device__ float org(bool local, int c) const { return local ? lo[c] : o[c]; }
+  __device__ float dir(bool local, int c) const { return local ? ld[c] : d[c]; }
+  __device__ float rcp(bool local, int c) const { return local ? li[c] : inv[c]; }
+  __device__ void enter(const float (&o3)[3], const float (&d3)[3]) {
+    entered = true;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lo[c] = o3[c];
+      ld[c] = d3[c];
+      li[c] = local_rcp(d3[c]);
+    }
+  }
+};
+
+// One arrival out of place: a push is kept for the caller's copy of the
+// planes, a pop reads the input planes.
+struct PlaneStack {
+  const int *row, *mask;
+  int i, b;
+  bool pushed;
+  int level, entry_row, entry_mask;
+  __device__ void push(int lev, int r, int m) {
+    pushed = true;
+    level = lev;
+    entry_row = r;
+    entry_mask = m;
+  }
+  __device__ void pop(int lev, int& r, int& m) const {
+    r = row[(size_t)lev * b + i];
+    m = mask[(size_t)lev * b + i];
+  }
+};
+
+// The stack planes updated in place: a push writes its level, a pop reads
+// one; the entry of the last push stays in registers, so a pop right after
+// it loads nothing.  (A push past the planes' depth is lost, as in the
+// one-arrival kernel.)
+struct RegStack {
+  int *row, *mask;
+  int i, b, depth;
+  bool cached;
+  int top_row, top_mask;
+  __device__ void push(int lev, int r, int m) {
+    cached = lev < depth;
+    if (cached) {
+      row[(size_t)lev * b + i] = r;
+      mask[(size_t)lev * b + i] = m;
+      top_row = r;
+      top_mask = m;
+    }
+  }
+  __device__ void pop(int lev, int& r, int& m) {
+    if (cached) {
+      r = top_row;
+      m = top_mask;
+    } else {
+      r = row[(size_t)lev * b + i];
+      m = mask[(size_t)lev * b + i];
+    }
+    cached = false;
+  }
+};
+
+// Word group k (words 4k..4k+3) of a row: from the PRE loaded up front,
+// or loaded now.  k is a constant once the loops are unrolled.
+template <int PRE>
+__device__ __forceinline__ int4 row4(const int4 (&w)[12], const int4* r4, int k) {
+  return k < PRE ? w[k] : __ldg(r4 + k);
+}
+
+// One arrival of a live lane on its row: updates the lane's registers, and
+// pushes or pops through the stack policy.
+template <bool HAS_INST, int ROWF, int MODE, class Ray, class Stack>
+__device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack& S) {
   static_assert(ROWF == 96 || ROWF == 48, "wide16 rows are 96 or 48 floats");
   constexpr int SLOTS = ROWF == 96 ? 16 : 8;   // triangles per leaf
   constexpr int HALF = SLOTS / 2;              // f16 words per component
   constexpr int OFF_IDX = 4 + 9 * HALF;        // attribute indices: 76 or 40
+  // The word groups (4 words each) loaded before the branch on the row
+  // kind; the rest are loaded where they are used.
+  constexpr int PRE = UWPT_K1_PRELOAD;
+  static_assert(PRE >= 1 && PRE <= 12, "UWPT_K1_PRELOAD is 1 to 12");
+  const int4* r4 = reinterpret_cast<const int4*>(row);
+  int4 w[12];   // the first PRE word groups (words 0-47 at most)
+#pragma unroll
+  for (int k = 0; k < 12; ++k) w[k] = k < PRE ? __ldg(r4 + k) : make_int4(0, 0, 0, 0);
+  const int meta = w[0].w;
+  const int ptr = L.ptr, pend = L.pend, sp = L.sp;
+  const float t0 = L.t;
+  // The ray this row is tested with: instance-local inside a BLAS.
+  const int inst0 = L.inst;
+  const bool in_blas = HAS_INST && inst0 >= 0;
+  const float o0 = R.org(in_blas, 0), o1 = R.org(in_blas, 1), o2 = R.org(in_blas, 2);
+  const float ax = __int_as_float(w[0].x), ay = __int_as_float(w[0].y),
+              az = __int_as_float(w[0].z);
+  bool need_pop = false, push = false;
+  int entry_row = 0, entry_mask = 0;
+
+  if (meta == 0) {
+    // ---- inner: 16 quantized child boxes, slab test ----
+    const float i0 = R.rcp(in_blas, 0), i1 = R.rcp(in_blas, 1), i2 = R.rcp(in_blas, 2);
+    const int eword = row4<PRE>(w, r4, 1).x;
+    const float s0 = __int_as_float((eword & 0xFF) << 23);
+    const float s1 = __int_as_float(((eword >> 8) & 0xFF) << 23);
+    const float s2 = __int_as_float(((eword >> 16) & 0xFF) << 23);
+    int4 box[6], ptrs[4];   // the byte planes, words 8-31; the child pointers, 32-47
+#pragma unroll
+    for (int k = 0; k < 6; ++k) box[k] = row4<PRE>(w, r4, 2 + k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ptrs[k] = row4<PRE>(w, r4, 8 + k);
+    int hitbits = 0;
+    int first = 0, first_ptr = 0;
+    float best = __int_as_float(0x7f800000);  // +inf
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      // SPLIT byte order: byte j of word w holds slot 4j + w; the six
+      // byte planes are words 8-31 (groups 2-7), the child pointers 32-47.
+      const int wi = s & 3, sh = 8 * (s >> 2);
+      const float qlx = (float)((lane4(box[0], wi) >> sh) & 0xFF);
+      const float qly = (float)((lane4(box[1], wi) >> sh) & 0xFF);
+      const float qlz = (float)((lane4(box[2], wi) >> sh) & 0xFF);
+      const float qhx = (float)((lane4(box[3], wi) >> sh) & 0xFF);
+      const float qhy = (float)((lane4(box[4], wi) >> sh) & 0xFF);
+      const float qhz = (float)((lane4(box[5], wi) >> sh) & 0xFF);
+      const int child = lane4(ptrs[s >> 2], s & 3);
+      float t_near = 0.0f, t_far = t0;
+      {
+        const float lo = ax + qlx * s0, hi = ax + qhx * s0;
+        const float tl = (lo - o0) * i0, th = (hi - o0) * i0;
+        t_near = jmax(t_near, jmin(tl, th));
+        t_far = jmin(t_far, jmax(tl, th));
+      }
+      {
+        const float lo = ay + qly * s1, hi = ay + qhy * s1;
+        const float tl = (lo - o1) * i1, th = (hi - o1) * i1;
+        t_near = jmax(t_near, jmin(tl, th));
+        t_far = jmin(t_far, jmax(tl, th));
+      }
+      {
+        const float lo = az + qlz * s2, hi = az + qhz * s2;
+        const float tl = (lo - o2) * i2, th = (hi - o2) * i2;
+        t_near = jmax(t_near, jmin(tl, th));
+        t_far = jmin(t_far, jmax(tl, th));
+      }
+      const bool hit = (t_near <= t_far) && (child >= 0) && ((pend >> s) & 1);
+      if (hit) {
+        hitbits |= 1 << s;
+        if (t_near < best) {  // strict: the first minimum, as argmin
+          best = t_near;
+          first = s;
+          first_ptr = child;
+        }
+      }
+    }
+    if (hitbits != 0) {
+      const int rem = hitbits & ~(1 << first);
+      L.ptr = first_ptr;
+      L.pend = UWPT_TRAV_FULL;
+      if (rem != 0) {
+        push = true;
+        if (__popc(rem) == 1) {
+          int single = 0;
+#pragma unroll
+          for (int s = 0; s < 16; ++s)
+            if (rem == (1 << s)) single = lane4(ptrs[s >> 2], s & 3);
+          entry_row = single;
+          entry_mask = 0;
+        } else {
+          entry_row = ptr;
+          entry_mask = rem;
+        }
+      }
+    } else {
+      need_pop = true;
+    }
+  } else if (meta > 0) {
+    // ---- leaf: up to SLOTS anchor-relative f16 triangles ----
+    // SPLIT halfword order: word w of a component holds slot w (low half)
+    // and w + HALF (high).  The words are read in 4-word chunks g: chunk g
+    // holds slots 4g..4g+3 and HALF+4g..HALF+4g+3, so the slots are not
+    // visited in order, and a tie keeps the lower slot (argmin's first
+    // minimum).  tt is never NaN (the validity test sends NaN to FAR_PLANE).
+    need_pop = true;
+    const float d0 = R.dir(in_blas, 0), d1 = R.dir(in_blas, 1), d2 = R.dir(in_blas, 2);
+    float best_t = __int_as_float(0x7f800000), best_u = 0.0f, best_v = 0.0f;
+    int best_s = SLOTS, best_tri = 0;
+    const int cnt = meta < SLOTS ? meta : SLOTS;
+#pragma unroll
+    for (int g = 0; g < HALF / 4; ++g) {
+      if (4 * g >= cnt) continue;
+      int4 comp[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) comp[k] = row4<PRE>(w, r4, 1 + (HALF / 4) * k + g);
+      const int4 idx_lo = row4<PRE>(w, r4, (OFF_IDX + 4 * g) / 4);
+      const int4 idx_hi = HALF + 4 * g < cnt
+                              ? row4<PRE>(w, r4, (OFF_IDX + HALF + 4 * g) / 4)
+                              : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s = 4 * g + j + HALF * h;
+          if (s >= cnt) continue;
+          float c[9];
+#pragma unroll
+          for (int k = 0; k < 9; ++k) {
+            const unsigned short hw =
+                (unsigned short)((((unsigned int)lane4(comp[k], j)) >> (16 * h)) & 0xFFFFu);
+            c[k] = MODE == UWPT_PROBE_BF16LEAF ? __uint_as_float((unsigned int)hw << 16)
+                                               : __half2float(__ushort_as_half(hw));
+          }
+          const float e2x = c[0], e2y = c[1], e2z = c[2];
+          const float e1x = c[3], e1y = c[4], e1z = c[5];
+          const float v0x = c[6] + ax, v0y = c[7] + ay, v0z = c[8] + az;
+          const float rx = d1 * e2z - d2 * e2y;
+          const float ry = d2 * e2x - d0 * e2z;
+          const float rz = d0 * e2y - d1 * e2x;
+          const float det = e1x * rx + e1y * ry + e1z * rz;
+          const float finv = 1.0f / (fabsf(det) < UWPT_DET_EPS ? 1.0f : det);
+          const float sx = o0 - v0x, sy = o1 - v0y, sz = o2 - v0z;
+          const float uu = finv * (sx * rx + sy * ry + sz * rz);
+          const float qx = sy * e1z - sz * e1y;
+          const float qy = sz * e1x - sx * e1z;
+          const float qz = sx * e1y - sy * e1x;
+          const float vv = finv * (d0 * qx + d1 * qy + d2 * qz);
+          float tt = finv * (e2x * qx + e2y * qy + e2z * qz);
+          const bool valid = fabsf(det) > UWPT_DET_EPS && uu >= 0.0f && uu <= 1.0f &&
+                             vv >= 0.0f && uu + vv <= 1.0f && tt > UWPT_T_MIN && tt < t0;
+          if (!valid) tt = UWPT_FAR_PLANE;
+          if (tt < best_t || (tt == best_t && s < best_s)) {
+            best_t = tt;
+            best_u = uu;
+            best_v = vv;
+            best_s = s;
+            best_tri = lane4(h == 0 ? idx_lo : idx_hi, j);
+          }
+        }
+      }
+    }
+    if (best_t < t0) {
+      L.t = best_t;
+      L.u = best_u;
+      L.v = best_v;
+      L.tri = best_tri;
+      L.found = true;
+      if (HAS_INST) L.hit_inst = inst0;   // the instance of the best hit (pre-update)
+    }
+  } else if (HAS_INST) {
+    // ---- instance row: enter instance space, jump to the BLAS root ----
+    // (flat tables have no meta < 0 rows.)  The 3x4 is words 4-15
+    // (groups 1-3), the BLAS root word 16.
+    const float ow0 = R.org(false, 0), ow1 = R.org(false, 1), ow2 = R.org(false, 2);
+    const float dw0 = R.dir(false, 0), dw1 = R.dir(false, 1), dw2 = R.dir(false, 2);
+    float lo3[3], ld3[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int4 m = row4<PRE>(w, r4, 1 + c);
+      const float m0 = __int_as_float(m.x), m1 = __int_as_float(m.y),
+                  m2 = __int_as_float(m.z), m3 = __int_as_float(m.w);
+      lo3[c] = ((m0 * ow0 + m1 * ow1) + m2 * ow2) + m3;
+      ld3[c] = (m0 * dw0 + m1 * dw1) + m2 * dw2;
+    }
+    R.enter(lo3, ld3);
+    L.inst = -meta - 1;
+    L.sp_enter = sp;   // no push on an instance row
+    L.ptr = row4<PRE>(w, r4, 4).x;
+    L.pend = UWPT_TRAV_FULL;
+  }
+
+  if (need_pop) {
+    if (sp > 0) {
+      int top_row, top_mask;
+      S.pop(sp - 1, top_row, top_mask);
+      L.ptr = top_row;
+      L.pend = top_mask == 0 ? UWPT_TRAV_FULL : top_mask;
+      L.sp = sp - 1;
+      // Popping below the entry height returns the lane to world space.
+      if (HAS_INST && inst0 >= 0 && sp - 1 < L.sp_enter) L.inst = -1;
+    } else {
+      L.ptr = UWPT_TRAV_DONE;
+      L.pend = UWPT_TRAV_FULL;
+      if (HAS_INST) L.inst = -1;
+    }
+  } else if (push) {
+    S.push(sp, entry_row, entry_mask);
+    L.sp = sp + 1;
+  }
+}
+
+template <bool HAS_INST, int ROWF, int MODE = UWPT_PROBE_PROD>
+__global__ void __launch_bounds__(256, UWPT_K1_MIN_BLOCKS)
+    arrival16_kernel(ArrivalArgs a, InstArgs n, const int* rowidx) {
   static_assert(MODE == UWPT_PROBE_PROD || (!HAS_INST && ROWF == 96 &&
                                             (MODE == UWPT_PROBE_F16LEAF ||
                                              MODE == UWPT_PROBE_BF16LEAF)),
@@ -130,218 +505,115 @@ __global__ void arrival16_kernel(ArrivalArgs a, InstArgs n, const int* rowidx) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.b) return;
   const int B = a.b;
-  const int ptr = a.ptr[i];
-  const int pend = a.pend[i];
-  const int sp = a.sp[i];
-  const float t0 = a.t[i];
-  float u = a.u[i], v = a.v[i];
-  int tri = a.tri[i];
-  bool found = a.found[i] != 0;
-  const bool live = ptr >= 0 && (a.active == nullptr || a.active[i] != 0);
-
-  // Instance registers (HAS_INST only).
-  const int inst0 = HAS_INST ? n.inst[i] : -1;
-  int inst = inst0;
-  int hit_inst = HAS_INST ? n.hit_inst[i] : -1;
-  int sp_enter = HAS_INST ? n.sp_enter[i] : 0;
-  bool enter = false;
-  float lo3[3] = {0.0f, 0.0f, 0.0f}, ld3[3] = {0.0f, 0.0f, 0.0f};
-
-  int new_ptr = ptr, new_pend = pend, new_sp = sp;
-  float t = t0;
-  bool push = false;
-  int entry_row = 0, entry_mask = 0;
-
+  Lane L;
+  L.ptr = a.ptr[i];
+  L.pend = a.pend[i];
+  L.sp = a.sp[i];
+  L.t = a.t[i];
+  L.u = a.u[i];
+  L.v = a.v[i];
+  L.tri = a.tri[i];
+  L.found = a.found[i] != 0;
+  L.inst = HAS_INST ? n.inst[i] : -1;
+  L.hit_inst = HAS_INST ? n.hit_inst[i] : -1;
+  L.sp_enter = HAS_INST ? n.sp_enter[i] : 0;
+  PlaneRay R = {a.o, a.d, a.inv, n.local_o, n.local_d, n.local_inv, i, B, false, {}, {}};
+  PlaneStack S = {a.stack_row, a.stack_mask, i, B, false, 0, 0, 0};
+  const bool live = L.ptr >= 0 && (a.active == nullptr || a.active[i] != 0);
   if (live) {
-    const float* row = a.nodes + (size_t)(MODE == UWPT_PROBE_PROD ? ptr : rowidx[i]) * ROWF;
-    const int* rowi = reinterpret_cast<const int*>(row);
-    const int meta = rowi[3];
-    // The ray this row is tested with: instance-local inside a BLAS.
-    const bool in_blas = HAS_INST && inst0 >= 0;
-    const float* ro = in_blas ? n.local_o : a.o;
-    const float* rd = in_blas ? n.local_d : a.d;
-    const float* ri = in_blas ? n.local_inv : a.inv;
-    const float o0 = ro[i], o1 = ro[B + i], o2 = ro[2 * B + i];
-    const float ax = row[0], ay = row[1], az = row[2];
-    bool found_child = false;
-    bool need_pop = false;
-
-    if (meta == 0) {
-      // ---- inner: 16 quantized child boxes, slab test ----
-      const float i0 = ri[i], i1 = ri[B + i], i2 = ri[2 * B + i];
-      const int eword = rowi[4];
-      const float s0 = __int_as_float((eword & 0xFF) << 23);
-      const float s1 = __int_as_float(((eword >> 8) & 0xFF) << 23);
-      const float s2 = __int_as_float(((eword >> 16) & 0xFF) << 23);
-      int hitbits = 0;
-      int first = 0;
-      float best = __int_as_float(0x7f800000);  // +inf
-      for (int s = 0; s < 16; ++s) {
-        // SPLIT byte order: byte j of word w holds slot 4j + w.
-        const int w = s & 3, sh = 8 * (s >> 2);
-        const float qlx = (float)((rowi[8 + w] >> sh) & 0xFF);
-        const float qly = (float)((rowi[12 + w] >> sh) & 0xFF);
-        const float qlz = (float)((rowi[16 + w] >> sh) & 0xFF);
-        const float qhx = (float)((rowi[20 + w] >> sh) & 0xFF);
-        const float qhy = (float)((rowi[24 + w] >> sh) & 0xFF);
-        const float qhz = (float)((rowi[28 + w] >> sh) & 0xFF);
-        float t_near = 0.0f, t_far = t0;
-        {
-          const float lo = ax + qlx * s0, hi = ax + qhx * s0;
-          const float tl = (lo - o0) * i0, th = (hi - o0) * i0;
-          t_near = jmax(t_near, jmin(tl, th));
-          t_far = jmin(t_far, jmax(tl, th));
-        }
-        {
-          const float lo = ay + qly * s1, hi = ay + qhy * s1;
-          const float tl = (lo - o1) * i1, th = (hi - o1) * i1;
-          t_near = jmax(t_near, jmin(tl, th));
-          t_far = jmin(t_far, jmax(tl, th));
-        }
-        {
-          const float lo = az + qlz * s2, hi = az + qhz * s2;
-          const float tl = (lo - o2) * i2, th = (hi - o2) * i2;
-          t_near = jmax(t_near, jmin(tl, th));
-          t_far = jmin(t_far, jmax(tl, th));
-        }
-        const bool hit = (t_near <= t_far) && (rowi[32 + s] >= 0) && ((pend >> s) & 1);
-        if (hit) {
-          hitbits |= 1 << s;
-          if (t_near < best) {  // strict: the first minimum, as argmin
-            best = t_near;
-            first = s;
-          }
-        }
-      }
-      found_child = hitbits != 0;
-      need_pop = !found_child;
-      if (found_child) {
-        const int rem = hitbits & ~(1 << first);
-        new_ptr = rowi[32 + first];
-        new_pend = UWPT_TRAV_FULL;
-        if (rem != 0) {
-          push = true;
-          if (__popc(rem) == 1) {
-            entry_row = rowi[32 + (__ffs(rem) - 1)];
-            entry_mask = 0;
-          } else {
-            entry_row = ptr;
-            entry_mask = rem;
-          }
-        }
-      }
-    } else if (meta > 0) {
-      // ---- leaf: up to SLOTS anchor-relative f16 triangles ----
-      need_pop = true;
-      const float d0 = rd[i], d1 = rd[B + i], d2 = rd[2 * B + i];
-      float best_t = 0.0f, best_u = 0.0f, best_v = 0.0f;
-      int best_tri = 0;
-      const int cnt = meta < SLOTS ? meta : SLOTS;
-      for (int s = 0; s < cnt; ++s) {
-        // SPLIT halfword order: word w holds slot w (low) and w + HALF (high).
-        const int w = s % HALF, sh = (s / HALF) * 16;
-        float c[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          const unsigned short h =
-              (unsigned short)((((unsigned int)rowi[4 + HALF * k + w]) >> sh) & 0xFFFFu);
-          c[k] = MODE == UWPT_PROBE_BF16LEAF ? __uint_as_float((unsigned int)h << 16)
-                                             : __half2float(__ushort_as_half(h));
-        }
-        const float e2x = c[0], e2y = c[1], e2z = c[2];
-        const float e1x = c[3], e1y = c[4], e1z = c[5];
-        const float v0x = c[6] + ax, v0y = c[7] + ay, v0z = c[8] + az;
-        const float rx = d1 * e2z - d2 * e2y;
-        const float ry = d2 * e2x - d0 * e2z;
-        const float rz = d0 * e2y - d1 * e2x;
-        const float det = e1x * rx + e1y * ry + e1z * rz;
-        const float finv = 1.0f / (fabsf(det) < UWPT_DET_EPS ? 1.0f : det);
-        const float sx = o0 - v0x, sy = o1 - v0y, sz = o2 - v0z;
-        const float uu = finv * (sx * rx + sy * ry + sz * rz);
-        const float qx = sy * e1z - sz * e1y;
-        const float qy = sz * e1x - sx * e1z;
-        const float qz = sx * e1y - sy * e1x;
-        const float vv = finv * (d0 * qx + d1 * qy + d2 * qz);
-        float tt = finv * (e2x * qx + e2y * qy + e2z * qz);
-        const bool valid = fabsf(det) > UWPT_DET_EPS && uu >= 0.0f && uu <= 1.0f &&
-                           vv >= 0.0f && uu + vv <= 1.0f && tt > UWPT_T_MIN && tt < t0;
-        if (!valid) tt = UWPT_FAR_PLANE;
-        if (s == 0 || tt < best_t) {  // first minimum, as argmin
-          best_t = tt;
-          best_u = uu;
-          best_v = vv;
-          best_tri = rowi[OFF_IDX + s];
-        }
-      }
-      if (best_t < t0) {
-        t = best_t;
-        u = best_u;
-        v = best_v;
-        tri = best_tri;
-        found = true;
-        hit_inst = inst0;   // the instance of the best hit (pre-update)
-      }
-    } else if (HAS_INST) {
-      // ---- instance row: enter instance space, jump to the BLAS root ----
-      // (flat tables have no meta < 0 rows.)
-      const float ow0 = a.o[i], ow1 = a.o[B + i], ow2 = a.o[2 * B + i];
-      const float dw0 = a.d[i], dw1 = a.d[B + i], dw2 = a.d[2 * B + i];
-      for (int c = 0; c < 3; ++c) {
-        const float* m = row + 4 + 4 * c;
-        lo3[c] = ((m[0] * ow0 + m[1] * ow1) + m[2] * ow2) + m[3];
-        ld3[c] = (m[0] * dw0 + m[1] * dw1) + m[2] * dw2;
-      }
-      enter = true;
-      inst = -meta - 1;
-      sp_enter = sp;   // no push on an instance row
-      new_ptr = rowi[16];
-      new_pend = UWPT_TRAV_FULL;
-    }
-
-    if (need_pop) {
-      if (sp > 0) {
-        const int top_row = a.stack_row[(size_t)(sp - 1) * B + i];
-        const int top_mask = a.stack_mask[(size_t)(sp - 1) * B + i];
-        new_ptr = top_row;
-        new_pend = top_mask == 0 ? UWPT_TRAV_FULL : top_mask;
-        new_sp = sp - 1;
-        // Popping below the entry height returns the lane to world space.
-        if (HAS_INST && inst0 >= 0 && new_sp < sp_enter) inst = -1;
-      } else {
-        new_ptr = UWPT_TRAV_DONE;
-        new_pend = UWPT_TRAV_FULL;
-        if (HAS_INST) inst = -1;
-      }
-    } else if (push) {
-      new_sp = sp + 1;
-    }
+    const int r = MODE == UWPT_PROBE_PROD ? L.ptr : rowidx[i];
+    arrive<HAS_INST, ROWF, MODE>(L, a.nodes + (size_t)r * ROWF, R, S);
   }
 
   for (int lev = 0; lev < a.depth; ++lev) {
     const size_t k = (size_t)lev * B + i;
-    const bool at = push && lev == sp;
-    a.o_stack_row[k] = at ? entry_row : a.stack_row[k];
-    a.o_stack_mask[k] = at ? entry_mask : a.stack_mask[k];
+    const bool at = S.pushed && lev == S.level;
+    a.o_stack_row[k] = at ? S.entry_row : a.stack_row[k];
+    a.o_stack_mask[k] = at ? S.entry_mask : a.stack_mask[k];
   }
-  a.o_ptr[i] = new_ptr;
-  a.o_pend[i] = new_pend;
-  a.o_sp[i] = new_sp;
-  a.o_t[i] = t;
-  a.o_u[i] = u;
-  a.o_v[i] = v;
-  a.o_tri[i] = tri;
-  a.o_found[i] = found ? 1 : 0;
+  a.o_ptr[i] = L.ptr;
+  a.o_pend[i] = L.pend;
+  a.o_sp[i] = L.sp;
+  a.o_t[i] = L.t;
+  a.o_u[i] = L.u;
+  a.o_v[i] = L.v;
+  a.o_tri[i] = L.tri;
+  a.o_found[i] = L.found ? 1 : 0;
   if (HAS_INST) {
-    n.o_inst[i] = inst;
-    n.o_hit_inst[i] = hit_inst;
-    n.o_sp_enter[i] = sp_enter;
+    n.o_inst[i] = L.inst;
+    n.o_hit_inst[i] = L.hit_inst;
+    n.o_sp_enter[i] = L.sp_enter;
     for (int c = 0; c < 3; ++c) {
       const size_t k = (size_t)c * B + i;
-      const float ld = ld3[c];
-      n.o_local_o[k] = enter ? lo3[c] : n.local_o[k];
-      n.o_local_d[k] = enter ? ld : n.local_d[k];
-      // utils/math.py::safe_rcp: exact zeros nudged to 1e-30.
-      n.o_local_inv[k] = enter ? 1.0f / (ld == 0.0f ? 1.0e-30f : ld) : n.local_inv[k];
+      n.o_local_o[k] = R.entered ? R.lo3[c] : n.local_o[k];
+      n.o_local_d[k] = R.entered ? R.ld3[c] : n.local_d[k];
+      n.o_local_inv[k] = R.entered ? local_rcp(R.ld3[c]) : n.local_inv[k];
+    }
+  }
+}
+
+// Up to a.steps arrivals per lane, on the state in place.  Lane i runs
+// arrival k while ptr >= 0, live[i] and not (stop_on_found[i] and found):
+// the one-arrival kernel applied a.steps times with that active mask.
+template <bool HAS_INST, int ROWF>
+__global__ void __launch_bounds__(256, UWPT_K1_MIN_BLOCKS)
+    arrival16_run_kernel(RunArgs a, InstArgs n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.b) return;
+  const int B = a.b;
+  Lane L;
+  L.ptr = a.ptr[i];
+  if (L.ptr < 0 || (a.live != nullptr && a.live[i] == 0)) return;
+  L.found = a.found[i] != 0;
+  const bool stop = a.stop_on_found != nullptr && a.stop_on_found[i] != 0;
+  if (stop && L.found) return;
+  L.pend = a.pend[i];
+  L.sp = a.sp[i];
+  L.t = a.t[i];
+  L.u = a.u[i];
+  L.v = a.v[i];
+  L.tri = a.tri[i];
+  L.inst = HAS_INST ? n.inst[i] : -1;
+  L.hit_inst = HAS_INST ? n.hit_inst[i] : -1;
+  L.sp_enter = HAS_INST ? n.sp_enter[i] : 0;
+  RegRay R;
+  R.entered = false;
+  // The local ray is read only by a lane already inside a BLAS; an
+  // instance entry sets it otherwise.
+  const bool local = HAS_INST && L.inst >= 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    R.o[c] = a.o[c * B + i];
+    R.d[c] = a.d[c * B + i];
+    R.inv[c] = a.inv[c * B + i];
+    R.lo[c] = local ? n.local_o[c * B + i] : 0.0f;
+    R.ld[c] = local ? n.local_d[c * B + i] : 0.0f;
+    R.li[c] = local ? n.local_inv[c * B + i] : 0.0f;
+  }
+  RegStack S = {a.stack_row, a.stack_mask, i, B, a.depth, false, 0, 0};
+  for (int k = 0; k < a.steps; ++k) {
+    arrive<HAS_INST, ROWF, UWPT_PROBE_PROD>(L, a.nodes + (size_t)L.ptr * ROWF, R, S);
+    if (L.ptr < 0 || (stop && L.found)) break;
+  }
+  a.ptr[i] = L.ptr;
+  a.pend[i] = L.pend;
+  a.sp[i] = L.sp;
+  a.t[i] = L.t;
+  a.u[i] = L.u;
+  a.v[i] = L.v;
+  a.tri[i] = L.tri;
+  a.found[i] = L.found ? 1 : 0;
+  if (HAS_INST) {
+    n.o_inst[i] = L.inst;
+    n.o_hit_inst[i] = L.hit_inst;
+    n.o_sp_enter[i] = L.sp_enter;
+    if (R.entered) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        n.o_local_o[c * B + i] = R.lo[c];
+        n.o_local_d[c * B + i] = R.ld[c];
+        n.o_local_inv[c * B + i] = R.li[c];
+      }
     }
   }
 }
@@ -354,6 +626,18 @@ static int launch(const ArrivalArgs* args, const InstArgs* inst, void* stream,
   if (blocks > 0) {
     arrival16_kernel<HAS_INST, ROWF, MODE>
         <<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst, rowidx);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool HAS_INST, int ROWF>
+static int launch_run(const RunArgs* args, const InstArgs* inst, void* stream) {
+  const int threads = 256;
+  const int blocks = (args->b + threads - 1) / threads;
+  if (args->steps < 1) return (int)cudaErrorInvalidValue;
+  if (blocks > 0) {
+    arrival16_run_kernel<HAS_INST, ROWF>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst);
   }
   return (int)cudaGetLastError();
 }
@@ -376,6 +660,26 @@ extern "C" int arrival16_leaf8_launch(const ArrivalArgs* args, void* stream) {
 extern "C" int arrival16_inst_leaf8_launch(const ArrivalArgs* args, const InstArgs* inst,
                                            void* stream) {
   return launch<true, 48>(args, inst, stream);
+}
+
+extern "C" int arrival16_run_launch(const RunArgs* args, void* stream) {
+  const InstArgs none = {};
+  return launch_run<false, 96>(args, &none, stream);
+}
+
+extern "C" int arrival16_inst_run_launch(const RunArgs* args, const InstArgs* inst,
+                                         void* stream) {
+  return launch_run<true, 96>(args, inst, stream);
+}
+
+extern "C" int arrival16_leaf8_run_launch(const RunArgs* args, void* stream) {
+  const InstArgs none = {};
+  return launch_run<false, 48>(args, &none, stream);
+}
+
+extern "C" int arrival16_inst_leaf8_run_launch(const RunArgs* args, const InstArgs* inst,
+                                               void* stream) {
+  return launch_run<true, 48>(args, inst, stream);
 }
 
 // A load that nvcc keeps although its value is unused (probe stubs).

@@ -1,6 +1,11 @@
-"""Timing, bounds and result rows shared by the probes."""
+"""Timing, bounds and result rows shared by the probes, and the capture of
+K1's inputs from a real pass (``capture_inputs``, ``arrival_state``) that
+``chip_smoke.py`` and ``k1_variants`` use."""
 
 from __future__ import annotations
+
+import re
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +57,40 @@ def time_ms(fn, reps: int = 100) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_in_place_ms(fn, restore, reps: int = 100) -> tuple[float, float, float]:
+    """Device time of ``fn``, which updates its inputs in place: a graph of
+    ``restore(); fn()`` (``restore`` copies the inputs back from a saved
+    clone) minus a graph of ``restore()`` alone.  Returns (ms, ms of the
+    pair, ms of the restore)."""
+    def both():
+        restore()
+        fn()
+
+    t_restore = time_ms(restore, reps)
+    t_both = time_ms(both, reps)
+    return t_both - t_restore, t_both, t_restore
+
+
+def ptxas_registers(log_text: str) -> dict:
+    """K1's kernels in an ``nvcc -Xptxas -v`` log: mangled name (up to its
+    template arguments) -> "N regs, S B spill"."""
+    out, cur = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)Ev", ln)
+        if m:
+            cur = m.group(1) if "arrival16" in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            out[cur] = f"{m.group(1)} B spill"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur] = f"{m.group(1)} regs, " + out.get(cur, "0 B spill")
+    return out
+
+
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) for ``nbytes`` of traffic, ``ops`` f32
     operations and ``bf16_ops`` packed bf16 operations on an H100 (the two
@@ -71,15 +110,74 @@ def arrival_work(nodes, rows, oT, dT, invT, s, active, has_instances: bool = Fal
     r = rows[live].long()
     distinct = int(torch.unique(r).numel())
     meta = nodes.view(torch.int32)[r, 3]
-    slots = 16 if nodes.shape[1] == 96 else 8
-    ops = (K1_OPS_INNER * int((meta == 0).sum())
-           + K1_OPS_TRI * int(meta[meta > 0].clamp(max=slots).sum())
-           + (K1_OPS_INST * int((meta < 0).sum()) if has_instances else 0))
+    ops = _k1_ops(meta, 16 if nodes.shape[1] == 96 else 8, has_instances)
     rays = sum(x.nbytes for x in {x.data_ptr(): x for x in (oT, dT, invT)}.values())
     fields = _FLAT_FIELDS + (_INST_FIELDS if has_instances else ())
     state = sum(getattr(s, f).nbytes for f in fields)
     return (distinct * nodes.shape[1] * 4 + rays + (0 if active is None else active.nbytes)
             + 2 * state, ops, distinct)
+
+
+def _k1_ops(meta: torch.Tensor, slots: int, has_instances: bool) -> int:
+    return (K1_OPS_INNER * int((meta == 0).sum())
+            + K1_OPS_TRI * int(meta[meta > 0].clamp(max=slots).sum())
+            + (K1_OPS_INST * int((meta < 0).sum()) if has_instances else 0))
+
+
+def arrivals_work(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=None,
+                  has_instances: bool = False):
+    """(bytes, f32 operations, distinct rows, counts) of one multi-arrival
+    launch (``cuda_arrival.arrival_steps16_cuda``) on state ``s``, found by
+    running the one-arrival plain version on its own outputs (``s`` is left
+    as it is).  Bytes: ``ptr`` and the ``live``/``stop_on_found`` masks of
+    every lane; for each lane that steps, its scalar state read once and
+    written once and its world ray planes read once (the instance-local
+    planes read if it starts inside a BLAS, written if it enters one); each
+    distinct row the lanes load over the ``steps`` arrivals; 8 bytes per
+    stack push and per pop that reads memory (a pop right after a push
+    takes its entry from registers).  Operations: K1's, summed over the
+    arrivals.  ``counts``: lanes that step, pushes, pops from memory."""
+    from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
+
+    nodes_i = nodes.view(torch.int32)
+    slots = 16 if nodes.shape[1] == 96 else 8
+
+    def stepping(st):
+        act = st.ptr >= 0
+        if live is not None:
+            act = act & live
+        if stop_on_found is not None:
+            act = act & ~(stop_on_found & st.found)
+        return act
+
+    start = stepping(s)
+    cached = torch.zeros_like(start)
+    entered = torch.zeros_like(start)
+    rows, ops, pushes, pops = [], 0, 0, 0
+    cur = s
+    for _ in range(steps):
+        act = stepping(cur)
+        r = cur.ptr[act].long()
+        rows.append(r)
+        meta = nodes_i[r, 3]
+        ops += _k1_ops(meta, slots, has_instances)
+        nxt = arrival_step16(nodes, oT.T, dT.T, invT.T, cur, act, has_instances)
+        pushed = act & (nxt.sp > cur.sp)
+        popped = act & (nxt.sp < cur.sp)
+        pushes += int(pushed.sum())
+        pops += int((popped & ~cached).sum())
+        cached = pushed | (cached & ~popped)
+        if has_instances:
+            entered[act] |= meta < 0
+        cur = nxt
+    distinct = int(torch.unique(torch.cat(rows)).numel())
+    n = int(start.sum())
+    scalar = sum(getattr(s, f).element_size() for f in _FLAT_FIELDS if getattr(s, f).dim() == 1)
+    nbytes = (s.ptr.nbytes + sum(m.nbytes for m in (live, stop_on_found) if m is not None)
+              + n * (2 * scalar - 4 + 36) + distinct * nodes.shape[1] * 4 + 8 * (pushes + pops))
+    if has_instances:
+        nbytes += n * 2 * 12 + 36 * int((start & (s.inst >= 0)).sum() + entered.sum())
+    return nbytes, ops, distinct, dict(lanes=n, pushes=pushes, pops=pops)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -110,3 +208,88 @@ def check(rows: list[dict]) -> list[dict]:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
     return rows
+
+
+class _Captured(Exception):
+    pass
+
+
+class K1Launch(NamedTuple):
+    """The inputs of one multi-arrival launch (a super-iteration's start)."""
+    nodes: object
+    oT: object
+    dT: object
+    invT: object
+    s: object
+    steps: int
+    live: object
+    stop: object
+    has_instances: bool
+
+
+def clone_state(s):
+    return s._replace(**{f: getattr(s, f).clone() for f in s._fields})
+
+
+def capture_inputs(sd, cfg, params, k1_calls: tuple, k2_call: int | None = None):
+    """Clone the inputs of the multi-arrival launches numbered ``k1_calls``
+    (the lane state at the start of those super-iterations, before the
+    update in place) and of the ``k2_call``-th transition of a real pass
+    (the arrivals alone when ``k2_call`` is None), then stop the pass;
+    returns the K1Launch list in call order and the transition's inputs."""
+    from unity_webgpu_pathtracer_torch.render import fused
+
+    got = {"k1": []}
+    arrive, trans = fused.arrival_steps16_cuda, fused.transition_step16_cuda
+    n = {"k1": 0, "k2": 0}
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def k1(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None, has_instances=False):
+        n["k1"] += 1
+        if n["k1"] in k1_calls:
+            got["k1"].append(K1Launch(nodes, oT.clone(), dT.clone(), invT.clone(),
+                                      clone_state(s), steps, clone(live), clone(stop_on_found),
+                                      has_instances))
+            if k2_call is None and n["k1"] == max(k1_calls):
+                raise _Captured
+        return arrive(nodes, oT, dT, invT, s, steps, live, stop_on_found, has_instances)
+
+    def k2(**kw):
+        n["k2"] += 1
+        if n["k2"] == k2_call:
+            got["k2"] = {k: clone(v) for k, v in kw.items()}
+            raise _Captured
+        return trans(**kw)
+
+    fused.arrival_steps16_cuda, fused.transition_step16_cuda = k1, k2
+    try:
+        fused.fused_pass_with_stats(sd, cfg, params, 0)
+    except _Captured:
+        pass
+    finally:
+        fused.arrival_steps16_cuda, fused.transition_step16_cuda = arrive, trans
+    if len(got["k1"]) != len(k1_calls) or (k2_call is not None and "k2" not in got):
+        raise RuntimeError(f"pass ended before the capture: {len(got['k1'])} launches, "
+                           f"transition {'k2' in got}")
+    return got["k1"], got.get("k2")
+
+
+def running(cap, s):
+    """The lanes that run the next arrival: ``live`` and not (``stop`` and
+    ``found``), as the pass computes them before each arrival."""
+    return cap.live & ~(cap.stop & s.found)
+
+
+def arrival_state(cap: K1Launch, k: int):
+    """The one-arrival inputs ``(nodes, oT, dT, invT, state, active)`` of the
+    k-th arrival (from 1) of a captured super-iteration: its start state
+    after k - 1 launches of the one-arrival kernel."""
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
+
+    s = cap.s
+    for _ in range(k - 1):
+        s = arrival_step16_cuda(cap.nodes, cap.oT, cap.dT, cap.invT, s, running(cap, s),
+                                cap.has_instances)
+    return cap.nodes, cap.oT, cap.dT, cap.invT, s, running(cap, s)

@@ -1,7 +1,8 @@
 """wide16 arrival step: the CUDA kernels of ``csrc/arrival16.cu`` and
-their plain twin.
+their plain twins.
 
-``arrival_step16_cuda`` takes the ray as (3, B) planes, as the reference's
+``arrival_step16_cuda`` runs one arrival out of place; it takes the ray as
+(3, B) planes, as the reference's
 ``ops/pallas_arrival.py::arrival_step16_pallas`` does.  Tensors on a CUDA
 device launch a kernel (the row ``nodes[ptr]`` is loaded inside it),
 picked by the table's row width and ``has_instances`` (two-level tables,
@@ -11,6 +12,12 @@ whose instance rows the flat kernels cannot read): ``arrival16`` and
 launches in ``arrival_step16_cuda.launches[name]``.  Tensors on the CPU
 run the plain twin ``traverse_wide16.arrival_step16`` with the same row
 gather, so the signatures match.
+
+``arrival_steps16_cuda`` runs ``steps`` arrivals in one launch and updates
+the state's tensors in place (the render paths call it once per
+super-iteration): the same four instantiations, ``arrival16_run`` and the
+others in ``RUN_KERNELS``, counted in ``arrival_steps16_cuda.launches``;
+on CPU tensors it runs the plain version ``traverse_wide16.arrival_steps16``.
 
 ``arrival_probe_cuda`` runs a probe mode (``PROBE_MODES``) on flat
 96-float rows, each lane on the row its ``rows`` plane names: the kernel
@@ -29,12 +36,25 @@ import ctypes
 import torch
 
 from unity_webgpu_pathtracer_torch.ops import cuda_build
-from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import Wide16State, arrival_step16
+from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import (
+    Wide16State,
+    arrival_step16,
+    arrival_steps16,
+)
 
 
 # Kernel name by (row width, has_instances); its C entry is name + "_launch".
 KERNELS = {(96, False): "arrival16", (96, True): "arrival16_inst",
            (48, False): "arrival16_leaf8", (48, True): "arrival16_inst_leaf8"}
+# The multi-arrival kernel of each: name + "_run".
+RUN_KERNELS = {k: f"{v}_run" for k, v in KERNELS.items()}
+# Build constants of both K1 kernels (UWPT_K1_* in csrc/arrival16.cu): the
+# row's 16-byte word groups the per-arrival body loads before it branches
+# on the row kind (the rest where they are used), and the blocks of 256
+# threads each kernel must fit on an SM (at most 80 registers a thread).
+# experiments/k1_variants.py builds and times other values.
+K1_PRELOAD = 1
+K1_MIN_BLOCKS = 3
 
 # Probe modes: the six of the reference's
 # experiments/round14_kernel_diet.py::make_kernel, and the production step
@@ -63,6 +83,15 @@ class _ArrivalArgs(ctypes.Structure):
                 + [("b", ctypes.c_int), ("depth", ctypes.c_int)])
 
 
+class _RunArgs(ctypes.Structure):
+    """Mirror of ``RunArgs`` in ``csrc/arrival16.cu``."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("nodes", "o", "d", "inv", "live",
+                                                 "stop_on_found")]
+                + [(n, ctypes.c_void_p) for n in _FLAT_FIELDS]
+                + [("b", ctypes.c_int), ("depth", ctypes.c_int), ("steps", ctypes.c_int)])
+
+
 class _InstArgs(ctypes.Structure):
     """Mirror of ``InstArgs`` in ``csrc/arrival16.cu``."""
 
@@ -80,6 +109,9 @@ def _check(nodes, oT, dT, invT, s, active, has_instances) -> None:
     if nodes.dim() != 2 or nodes.shape[1] not in (96, 48):
         raise ValueError(f"nodes: expected (N, 96) or leaf8 (N, 48), got {tuple(nodes.shape)}")
     cuda_build.check_tensor(nodes, "nodes", torch.float32, nodes.shape, dev)
+    if nodes.data_ptr() % 16:
+        raise ValueError("nodes: the kernels load rows as 16-byte vectors; pass a "
+                         "16-byte-aligned table")
     for name, x in (("oT", oT), ("dT", dT), ("invT", invT)):
         cuda_build.check_tensor(x, name, torch.float32, (3, b), dev)
     for name in ("ptr", "pend", "sp", "tri"):
@@ -141,6 +173,68 @@ def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
     return out
 
 
+def _check_in_place(s: Wide16State, fields, inputs) -> None:
+    """Raise unless every updated state field has a storage of its own,
+    shared with no other field and no input: an update in place through
+    one would change the other."""
+    owner = {}
+    for name in fields:
+        key = getattr(s, name).untyped_storage().data_ptr()
+        if key in owner:
+            raise ValueError(f"{name} shares its storage with {owner[key]}; the arrivals "
+                             "update the state in place, so each field needs its own")
+        owner[key] = name
+    for name, x in inputs.items():
+        if x is not None and x.untyped_storage().data_ptr() in owner:
+            raise ValueError(f"{name} shares its storage with the state field "
+                             f"{owner[x.untyped_storage().data_ptr()]}")
+
+
+def arrival_steps16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
+                         invT: torch.Tensor, s: Wide16State, steps: int,
+                         live: torch.Tensor | None = None,
+                         stop_on_found: torch.Tensor | None = None,
+                         has_instances: bool = False) -> Wide16State:
+    """``steps`` arrivals, updating ``s``'s tensors in place; returns ``s``.
+    Arrival k runs on the lanes with ``ptr >= 0``, ``live`` and not
+    (``stop_on_found`` and ``found``), ``found`` as it stands before it:
+    ``stop_on_found`` stops a shadow lane at its first hit (None: no
+    lane; ``live`` None: every lane).  Each field ``steps`` updates must
+    be contiguous with a storage of its own (``has_instances`` adds the
+    instance registers).  On CUDA tensors one kernel launch, on CPU
+    tensors the plain version."""
+    _check(nodes, oT, dT, invT, s, live, has_instances)
+    if stop_on_found is not None:
+        cuda_build.check_tensor(stop_on_found, "stop_on_found", torch.bool, s.ptr.shape,
+                                nodes.device)
+    if steps < 1:
+        raise ValueError(f"steps: expected at least 1, got {steps}")
+    fields = _FLAT_FIELDS + (_INST_FIELDS if has_instances else ())
+    _check_in_place(s, fields, dict(nodes=nodes, oT=oT, dT=dT, invT=invT, live=live,
+                                    stop_on_found=stop_on_found))
+    if nodes.device.type == "cpu":
+        return arrival_steps16(nodes, oT.T, dT.T, invT.T, s, steps, live, stop_on_found,
+                               has_instances)
+
+    args = _RunArgs(nodes.data_ptr(), oT.data_ptr(), dT.data_ptr(), invT.data_ptr(),
+                    0 if live is None else live.data_ptr(),
+                    0 if stop_on_found is None else stop_on_found.data_ptr(),
+                    *(getattr(s, n).data_ptr() for n in _FLAT_FIELDS),
+                    s.ptr.shape[0], s.stack_row.shape[0], steps)
+    lib = cuda_build.load()["arrival16"]
+    stream = torch.cuda.current_stream(nodes.device).cuda_stream
+    name = RUN_KERNELS[(nodes.shape[1], has_instances)]
+    launch = getattr(lib, name + "_launch")
+    if has_instances:
+        planes = [getattr(s, n).data_ptr() for n in _INST_FIELDS]
+        err = launch(ctypes.byref(args), ctypes.byref(_InstArgs(*planes, *planes)), stream)
+    else:
+        err = launch(ctypes.byref(args), stream)
+    cuda_build.check(lib, err, name)
+    arrival_steps16_cuda.launches[name] += 1
+    return s
+
+
 def arrival_probe_cuda(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tensor,
                        dT: torch.Tensor, invT: torch.Tensor, s: Wide16State,
                        active: torch.Tensor | None = None, mode: str = "full") -> Wide16State:
@@ -176,4 +270,5 @@ def arrival_probe_plain(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tenso
 
 # Launch count of each kernel entry.
 arrival_step16_cuda.launches = dict.fromkeys(KERNELS.values(), 0)
+arrival_steps16_cuda.launches = dict.fromkeys(RUN_KERNELS.values(), 0)
 arrival_probe_cuda.launches = dict.fromkeys(PROBE_KERNELS.values(), 0)

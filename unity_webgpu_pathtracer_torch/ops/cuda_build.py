@@ -36,6 +36,10 @@ ENTRIES = {
         "arrival16_leaf8_launch": [_P, _P],
         "arrival16_inst_launch": [_P, _P, _P],           # args, instance args, stream
         "arrival16_inst_leaf8_launch": [_P, _P, _P],
+        "arrival16_run_launch": [_P, _P],                # run args struct, stream
+        "arrival16_leaf8_run_launch": [_P, _P],
+        "arrival16_inst_run_launch": [_P, _P, _P],       # run args, instance args, stream
+        "arrival16_inst_leaf8_run_launch": [_P, _P, _P],
         "arrival16_probe_launch": [_I, _P, _P, _P],      # mode, args, row plane, stream
     },
     "transition16": {
@@ -75,6 +79,7 @@ def _defines() -> list[str]:
 
     ints = dict(MODE_PRIMARY=ct.MODE_PRIMARY, MODE_SHADOW_ENV=ct.MODE_SHADOW_ENV,
                 MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
+                K1_PRELOAD=ca.K1_PRELOAD, K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS,
                 **{f"PROBE_{m.upper()}": k for m, k in ca.PROBE_NUMBERS.items()},
                 **{f"OP_{op.upper()}": k for k, op in enumerate(cp.INTRINSICS)})
     floats = dict(FAR_PLANE=FAR_PLANE, DET_EPS=tw.DET_EPS, T_MIN=tw.T_MIN,

@@ -13,14 +13,17 @@ world-to-local 3x4 (unnormalized direction, so ``t`` stays in world
 units, ``tlas.hlsl:131-135``), the lane jumps to the BLAS root and
 records the stack height; popping below that height returns it to world
 space.  It is the independent plain twin of the CUDA arrival kernels
-(``ops/cuda_arrival.py``).
+(``ops/cuda_arrival.py``).  ``arrival_steps16`` applies it a number of
+times, each arrival on the lanes still running, and writes the result
+into the state's tensors: the plain version of the multi-arrival kernels.
 
 ``prestep16`` runs the first two inner levels of fresh segments from the
 root row and the host slot table, without row gathers.  It reads only
 words below 48 of the rows, so it serves both row widths.
 
 ``closest_hit`` and ``occluded`` trace whole rays to the end with the
-arrival wrapper (the kernel on CUDA tensors, the twin on the CPU).
+multi-arrival wrapper (the kernel on CUDA tensors, the plain version on
+the CPU).
 """
 
 from __future__ import annotations
@@ -297,6 +300,28 @@ def arrival_step16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
     )
 
 
+def arrival_steps16(nodes: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                    inv: torch.Tensor, s: Wide16State, steps: int,
+                    live: torch.Tensor | None = None,
+                    stop_on_found: torch.Tensor | None = None,
+                    has_instances: bool = False) -> Wide16State:
+    """``steps`` calls of ``arrival_step16``, each with ``active = live &
+    ~(stop_on_found & found)`` taken from the state before it (``live``
+    None: every lane; ``stop_on_found`` None: no lane stops), written into
+    ``s``'s tensors, which are returned.  ``o``/``d``/``inv`` are (B, 3)."""
+    cur = s
+    for _ in range(steps):
+        active = live
+        if stop_on_found is not None:
+            running = ~(stop_on_found & cur.found)
+            active = running if active is None else active & running
+        cur = arrival_step16(nodes, o, d, inv, cur, active, has_instances)
+    for name in s._fields:
+        if getattr(cur, name) is not getattr(s, name):
+            getattr(s, name).copy_(getattr(cur, name))
+    return s
+
+
 def prestep16(nodes: torch.Tensor, top: torch.Tensor, o: torch.Tensor,
               d: torch.Tensor, inv: torch.Tensor, s: Wide16State,
               mask: torch.Tensor) -> Wide16State:
@@ -358,19 +383,18 @@ def prestep16(nodes: torch.Tensor, top: torch.Tensor, o: torch.Tensor,
 def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
               t_max, depth: int, has_instances: bool, any_hit: bool) -> Wide16State:
     """Arrivals until every lane is done (or, with ``any_hit``, has found a
-    hit), the test read on the host every ``CHECK_EVERY`` arrivals; the
-    arrivals past a lane's end leave it unchanged."""
-    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
+    hit), ``CHECK_EVERY`` to a launch, the test read on the host after
+    each; the arrivals past a lane's end leave it unchanged."""
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
 
     b, dev = origins.shape[0], origins.device
     oT, dT = origins.T.contiguous(), directions.T.contiguous()
     invT = safe_rcp(dT)
-    t = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(b).contiguous()
-    s = init_state16(b, 0.0, depth=depth, device=dev)._replace(t=t)
+    s = init_state16(b, 0.0, depth=depth, device=dev)
+    s.t.copy_(torch.as_tensor(t_max, dtype=torch.float32, device=dev))
+    stop = torch.ones((b,), dtype=torch.bool, device=dev) if any_hit else None
     while True:
-        for _ in range(CHECK_EVERY):
-            active = ~s.found if any_hit else None
-            s = arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
+        arrival_steps16_cuda(nodes, oT, dT, invT, s, CHECK_EVERY, None, stop, has_instances)
         live = s.ptr >= 0
         if any_hit:
             live = live & ~s.found

@@ -3,9 +3,10 @@
 
 One pass is a loop of super-iterations over a pool of B lanes.  Each
 super-iteration runs ``transition_every`` arrivals (kernel K1,
-``ops/cuda_arrival.py``; its instanced variant on two-level tables), one
-transition, and the gather-free prestep on fresh lanes, in the
-reference's order: the RNG stream depends on it.
+``ops/cuda_arrival.py``, one launch that updates the traversal state in
+place; its instanced variant on two-level tables), one transition, and
+the gather-free prestep on fresh lanes, in the reference's order: the
+RNG stream depends on it.
 
 The transition is routed per pass as the reference routes it
 (``_pallas_transition_supported``): the HDRI configuration on a flat
@@ -42,7 +43,7 @@ from unity_webgpu_pathtracer_torch.config import (
     RenderParams,
 )
 from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw16
-from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
+from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
 from unity_webgpu_pathtracer_torch.ops.cuda_transition import (
     MODE_DEAD,
     MODE_PRIMARY,
@@ -536,14 +537,11 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         inv = safe_rcp(s.trav_d)
         live = s.mode != MODE_DEAD
         shadowing = s.mode == MODE_SHADOW_ENV
-        trav = s.trav
-        for _ in range(te):
-            trav = arrival_step16_cuda(nodes, s.trav_o, s.trav_d, inv, trav,
-                                       live & ~(shadowing & trav.found),
-                                       has_instances=has_instances)
-        stepping = live & (s.trav.ptr >= 0)
-        trav_done = trav.ptr < 0
-        s.trav = trav
+        stepping = live & (s.trav.ptr >= 0)   # before the arrivals update ptr in place
+        # te arrivals; a shadow lane stops at its first hit.
+        s.trav = arrival_steps16_cuda(nodes, s.trav_o, s.trav_d, inv, s.trav, te, live,
+                                      shadowing, has_instances)
+        trav_done = s.trav.ptr < 0
         s.arrivals = s.arrivals + te * stepping.sum()
         s.busy = s.busy + live.sum()
         s.ticks = s.ticks + b
