@@ -81,8 +81,9 @@ captured state (``copy_`` from a clone) and the launch, and the graph of
 the restore alone is subtracted; their bound is
 ``experiments/_common.py::arrivals_work`` (the state of the lanes that
 step, read and written once a launch; the rows of every arrival; 8 bytes
-a stack push or a pop from memory).  The launches of the one-arrival
-kernels are those of the one-step turns, which are their path now.  No
+a stack push or a pop from memory).  No render path launches the
+one-arrival kernels any more: their ``launches`` are 0, and their
+launches in the one-step turns stand in ``turn_launches``.  No
 single PyTorch call computes an arrival or a transition, so
 ``library_ms`` is null for K1 and K2; for a probe it
 is the one PyTorch call that computes the same function where there is
@@ -122,40 +123,6 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def one_step_loop(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
-                  has_instances=False):
-    """The arrivals of a super-iteration as the pass ran them before the
-    multi-arrival kernel: one launch of the one-arrival kernel each, a new
-    state each time (the hook of the turns; not a knob of the package)."""
-    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
-
-    for _ in range(steps):
-        active = live
-        if stop_on_found is not None:
-            active = ~(stop_on_found & s.found) if active is None \
-                else active & ~(stop_on_found & s.found)
-        s = arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
-    return s
-
-
-def instanced_bench_scene():
-    """``million_triangle_scene(1_000_000)`` as a two-level scene: the
-    sphere mesh once as a BLAS, one instance per grid cell with the cell's
-    transform and material, the ground quad as one more instance; same
-    materials, HDRI and camera."""
-    from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
-    from unity_webgpu_pathtracer_torch.scene.scene import Scene
-
-    flat, cam = million_triangle_scene(1_000_000)
-    scene = Scene(materials=list(flat.materials), env_image=flat.env_image)
-    (sphere, _), (ground, ground_xf) = flat.meshes[0], flat.meshes[-1]
-    sphere_id, ground_id = scene.add_mesh(sphere), scene.add_mesh(ground)
-    for mesh, xf in flat.meshes[:-1]:
-        scene.add_instance(sphere_id, xf, mesh.material_index)
-    scene.add_instance(ground_id, ground_xf, ground.material_index)
-    return scene, cam
 
 
 def run_passes(r, passes: int, label: str) -> tuple[float, int, int, int]:
@@ -254,10 +221,11 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.experiments._common import (K1Launch, arrival_state,
                                                                    arrival_work, arrivals_work,
                                                                    bound, capture_inputs,
-                                                                   clone_state, ptxas_registers,
-                                                                   running, time_in_place_ms,
-                                                                   time_ms)
-    from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
+                                                                   clone_state, one_step_loop,
+                                                                   ptxas_registers, running,
+                                                                   time_in_place_ms, time_ms)
+    from unity_webgpu_pathtracer_torch.models.benchmark import (
+        instanced_million_triangle_scene, million_triangle_scene)
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
     from unity_webgpu_pathtracer_torch.models.examples import tlas_scene
     from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
@@ -348,7 +316,7 @@ def main() -> int:
             restore)[0]
         one, st = [], s0   # the one-arrival kernel on each of the same arrivals
         for _ in range(steps):
-            act = running(cap, st)
+            act = running(live, stop, st)
             one.append(time_ms(lambda st=st, act=act: cuda_arrival.arrival_step16_cuda(
                 nodes, oT, dT, invT, st, act, hi)))
             st = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, st, act, hi)
@@ -369,8 +337,8 @@ def main() -> int:
     def turns(r, label, one_name, run_name, te):
         """One pass at a time from a reset film (the same work each time)
         with the one-arrival loop and with the multi-arrival kernel, in
-        turns (one-step, new, new, one-step); returns the one-arrival
-        kernel's launches over its two passes."""
+        turns (one-step, new, new, one-step); records the one-arrival
+        kernel's launches over its two passes as its ``turn_launches``."""
         arrive = fused.arrival_steps16_cuda
         secs, one_launches = {"one-step": [], "new": []}, 0
         for mode in ("one-step", "new", "new", "one-step"):
@@ -397,7 +365,7 @@ def main() -> int:
                 f"{st['super_iterations']}, K1 launches {want}")
         log(f"{label} turns: one-step {[round(x, 3) for x in secs['one-step']]} s/pass, "
             f"multi-arrival {[round(x, 3) for x in secs['new']]} s/pass; card: {card}")
-        return one_launches
+        kernels[one_name]["turn_launches"] = one_launches
 
     # ---- 1. build ----
     t0 = time.perf_counter()
@@ -455,7 +423,7 @@ def main() -> int:
     check_film(flat_img, (h, w, 3), "phase 4")
     log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches {got}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-    kernels["arrival16"]["launches"] = turns(r, "phase 4", "arrival16", "arrival16_run", TE)
+    turns(r, "phase 4", "arrival16", "arrival16_run", TE)
     del r
 
     # ---- 5. slice with kernels vs slice with twins (CUDA) and CPU twins ----
@@ -519,7 +487,7 @@ def main() -> int:
 
     # ---- 6. K1's instanced kernel against its twin on a real 1080p state ----
     t0 = time.perf_counter()
-    iscene, icam = instanced_bench_scene()
+    iscene, icam = instanced_million_triangle_scene()
     isd = iscene.build("wide16", device=dev)
     icfg = RenderConfig(width=w, height=h, samples_per_pass=SPP_INST, max_bounces=5,
                         transition_every=TE, pool_size=POOL)
@@ -550,8 +518,7 @@ def main() -> int:
     log(f"phase 7 path A: film mean {float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, "
         f"rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-    kernels["arrival16_inst"]["launches"] = turns(r, "phase 7", "arrival16_inst",
-                                                  "arrival16_inst_run", TE)
+    turns(r, "phase 7", "arrival16_inst", "arrival16_inst_run", TE)
     del r, isd, img
 
     # ---- 8. path B: the Cornell box at the bench's configuration ----
@@ -665,8 +632,7 @@ def main() -> int:
         f"{float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-    kernels["arrival16_leaf8"]["launches"] = turns(r, "phase 11", "arrival16_leaf8",
-                                                   "arrival16_leaf8_run", TE)
+    turns(r, "phase 11", "arrival16_leaf8", "arrival16_leaf8_run", TE)
     del r, lsd, img
 
     # ---- 12. K1's instanced leaf8 kernel, and one pass of that scene ----
@@ -689,8 +655,7 @@ def main() -> int:
     mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 12")
     log(f"phase 12 instanced leaf8: film mean {float(img.mean()):.6f} (rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}; card: {card}")
-    kernels["arrival16_inst_leaf8"]["launches"] = turns(r, "phase 12", "arrival16_inst_leaf8",
-                                                        "arrival16_inst_leaf8_run", TE)
+    turns(r, "phase 12", "arrival16_inst_leaf8", "arrival16_inst_leaf8_run", TE)
     del r, isd, img, flat_img
 
     # ---- 13. the probes of experiments/ ----

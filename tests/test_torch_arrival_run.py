@@ -32,13 +32,12 @@ from tests.test_torch_arrival import _rays, _recs, _torch_state, _tris
 from tests.test_torch_leaf8 import _instanced_rays, _two_instances
 from tests.test_torch_tlas import _two_instance_fixture
 from unity_webgpu_pathtracer_torch.config import RenderConfig
+from unity_webgpu_pathtracer_torch.experiments import _common
+from unity_webgpu_pathtracer_torch.experiments._common import one_step_loop
 from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
 from unity_webgpu_pathtracer_torch.models.examples import tlas_scene
 from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as ttw
-from unity_webgpu_pathtracer_torch.ops.cuda_arrival import (
-    arrival_step16_cuda,
-    arrival_steps16_cuda,
-)
+from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
 from unity_webgpu_pathtracer_torch.render import fused as tfused
 from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
 from unity_webgpu_pathtracer_torch.utils.math import safe_rcp
@@ -98,18 +97,6 @@ def _clone(s):
     return s._replace(**{f: getattr(s, f).clone() for f in s._fields})
 
 
-def _one_step_loop(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
-                   has_instances=False):
-    """The one-arrival loop the fused pass ran before the multi-arrival
-    wrapper (a new state per arrival, nothing in place)."""
-    for _ in range(steps):
-        active = live
-        if stop_on_found is not None:
-            active = active & ~(stop_on_found & s.found)
-        s = arrival_step16_cuda(nodes, oT, dT, invT, s, active, has_instances)
-    return s
-
-
 def _assert_bit_equal(got, want, what):
     for f in got._fields:
         a, b = getattr(got, f), getattr(want, f)
@@ -160,9 +147,24 @@ def test_steps_equal_one_step_wrapper(tables, kind):
     ref = _clone(s)
     for _ in range(2):
         arrival_steps16_cuda(tn, to, td, tinv, s, 8, live, stop, has_inst)
-        ref = _one_step_loop(tn, to, td, tinv, ref, 8, live, stop, has_inst)
+        ref = one_step_loop(tn, to, td, tinv, ref, 8, live, stop, has_inst)
         _assert_bit_equal(s, ref, kind)
     assert bool(s.found.any()) and bool((s.sp > 0).any())
+
+
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+@pytest.mark.parametrize("masks", ["none", "stop_only"])
+def test_steps_equal_one_step_loop_without_live(tables, kind, masks):
+    """``live`` None (every lane) with and without ``stop_on_found``, as
+    ``closest_hit`` and ``occluded`` call the wrapper: the wrapper and
+    ``_common.one_step_loop`` bit for bit."""
+    tn, to, td, tinv, depth, has_inst = _inputs(tables[kind])
+    stop = None if masks == "none" else torch.from_numpy(_masks()[1])
+    s = ttw.init_state16(B, FAR_PLANE, depth=depth, device="cpu")
+    ref = one_step_loop(tn, to, td, tinv, _clone(s), 8, None, stop, has_inst)
+    arrival_steps16_cuda(tn, to, td, tinv, s, 8, None, stop, has_inst)
+    _assert_bit_equal(s, ref, f"{kind} {masks}")
+    assert bool(s.found.any())
 
 
 @pytest.mark.parametrize("kind", ["flat", "instanced"])
@@ -171,9 +173,9 @@ def test_update_in_place(tables, kind):
     of the stack planes only the levels pushed at change."""
     tn, to, td, tinv, depth, has_inst = _inputs(tables[kind])
     live, stop = (torch.from_numpy(m) for m in _masks())
-    s = _one_step_loop(tn, to, td, tinv, ttw.init_state16(B, FAR_PLANE, depth=depth,
-                                                          device="cpu"),
-                       3, live, stop, has_inst)
+    s = one_step_loop(tn, to, td, tinv, ttw.init_state16(B, FAR_PLANE, depth=depth,
+                                                         device="cpu"),
+                      3, live, stop, has_inst)
     before = _clone(s)
     tensors = {f: getattr(s, f) for f in s._fields}
     # The levels each lane pushes, arrival by arrival (plain one-arrival steps).
@@ -240,7 +242,7 @@ def test_fused_pass_same_as_one_step_loop(monkeypatch, case):
     sd = scene.build("wide16", device="cpu")
     params = make_camera_params(width=cfg.width, height=cfg.height, device="cpu", **cam)
     film, occ, rays, arrivals, iters = tfused.fused_pass_with_stats(sd, cfg, params, 0)
-    monkeypatch.setattr(tfused, "arrival_steps16_cuda", _one_step_loop)
+    monkeypatch.setattr(tfused, "arrival_steps16_cuda", one_step_loop)
     film1, occ1, rays1, arrivals1, iters1 = tfused.fused_pass_with_stats(sd, cfg, params, 0)
     assert (int(rays), int(arrivals), iters) == (int(rays1), int(arrivals1), iters1)
     assert int(rays) > 0 and iters > 1
@@ -255,13 +257,11 @@ def test_arrivals_work(tables, kind):
     the pops that read memory (not those right after a push), counted
     here lane by lane from the one-arrival steps; its bytes and
     operations from those counts; the state is left as it was."""
-    from unity_webgpu_pathtracer_torch.experiments import _common
-
     tn, to, td, tinv, depth, has_inst = _inputs(tables[kind])
     live, stop = (torch.from_numpy(m) for m in _masks())
-    s = _one_step_loop(tn, to, td, tinv, ttw.init_state16(B, FAR_PLANE, depth=depth,
-                                                          device="cpu"),
-                       3, live, stop, has_inst)
+    s = one_step_loop(tn, to, td, tinv, ttw.init_state16(B, FAR_PLANE, depth=depth,
+                                                         device="cpu"),
+                      3, live, stop, has_inst)
     before = _clone(s)
     nbytes, ops, distinct, n = _common.arrivals_work(tn, to, td, tinv, s, 8, live, stop,
                                                      has_inst)

@@ -33,17 +33,16 @@
 // compiled with -fmad=false so it rounds op for op like the plain twin
 // (ops/traverse_wide16.py::arrival_step16).  The body reads the row as
 // 16-byte vectors through the read-only path: the header (anchor, meta)
-// first, then the word groups of the section the row kind selects, where
-// that section uses them (the leaf's in 4-word chunks); the table keeps
-// the reference's byte order.  Both kernels are compiled for 3 resident
-// blocks of 256 threads per SM (at most 80 registers, a few hundred bytes
-// spilled): 98,304 lanes then fit the card in one wave.  Measured on the
-// H100 (unity_webgpu_pathtracer_torch/experiments/k1_variants.py rebuilds
-// this source with other values of UWPT_K1_PRELOAD and UWPT_K1_MIN_BLOCKS,
-// which ops/cuda_arrival.py sets):
-// loading words 0-47 before the branch, or 2 blocks (122 registers, two
-// waves), or 4 (64 registers, more spills) are all slower.
-//
+// first, then each word group of the section the row kind selects where
+// that section uses it (the leaf's in 4-word chunks); the table keeps the
+// reference's byte order.  Both kernels are compiled for UWPT_K1_MIN_BLOCKS
+// resident blocks of 256 threads per SM (ops/cuda_arrival.py); at 3, at
+// most 80 registers and a few hundred bytes spilled, and 98,304 lanes fit
+// the card in one wave.  Measured on the H100: loading words 0-31 or 0-47
+// before the branch on the row kind was slower than loading each group
+// where it is used; the blocks per SM are compared by
+// unity_webgpu_pathtracer_torch/experiments/k1_variants.py.
+
 // leaf8 tables (ROWF = 48): rows are 48 floats; inner and instance rows
 // are unchanged (they use only words below 48), and a leaf holds up to 8
 // triangles, 9 comps x 8 f16 at words 4:40 (word w = slot w low, slot
@@ -269,13 +268,6 @@ struct RegStack {
   }
 };
 
-// Word group k (words 4k..4k+3) of a row: from the PRE loaded up front,
-// or loaded now.  k is a constant once the loops are unrolled.
-template <int PRE>
-__device__ __forceinline__ int4 row4(const int4 (&w)[12], const int4* r4, int k) {
-  return k < PRE ? w[k] : __ldg(r4 + k);
-}
-
 // One arrival of a live lane on its row: updates the lane's registers, and
 // pushes or pops through the stack policy.
 template <bool HAS_INST, int ROWF, int MODE, class Ray, class Stack>
@@ -284,38 +276,33 @@ __device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack&
   constexpr int SLOTS = ROWF == 96 ? 16 : 8;   // triangles per leaf
   constexpr int HALF = SLOTS / 2;              // f16 words per component
   constexpr int OFF_IDX = 4 + 9 * HALF;        // attribute indices: 76 or 40
-  // The word groups (4 words each) loaded before the branch on the row
-  // kind; the rest are loaded where they are used.
-  constexpr int PRE = UWPT_K1_PRELOAD;
-  static_assert(PRE >= 1 && PRE <= 12, "UWPT_K1_PRELOAD is 1 to 12");
+  // Word group k (words 4k..4k+3) is __ldg(r4 + k), loaded where it is used.
   const int4* r4 = reinterpret_cast<const int4*>(row);
-  int4 w[12];   // the first PRE word groups (words 0-47 at most)
-#pragma unroll
-  for (int k = 0; k < 12; ++k) w[k] = k < PRE ? __ldg(r4 + k) : make_int4(0, 0, 0, 0);
-  const int meta = w[0].w;
+  const int4 head = __ldg(r4);   // anchor, meta
+  const int meta = head.w;
   const int ptr = L.ptr, pend = L.pend, sp = L.sp;
   const float t0 = L.t;
   // The ray this row is tested with: instance-local inside a BLAS.
   const int inst0 = L.inst;
   const bool in_blas = HAS_INST && inst0 >= 0;
   const float o0 = R.org(in_blas, 0), o1 = R.org(in_blas, 1), o2 = R.org(in_blas, 2);
-  const float ax = __int_as_float(w[0].x), ay = __int_as_float(w[0].y),
-              az = __int_as_float(w[0].z);
+  const float ax = __int_as_float(head.x), ay = __int_as_float(head.y),
+              az = __int_as_float(head.z);
   bool need_pop = false, push = false;
   int entry_row = 0, entry_mask = 0;
 
   if (meta == 0) {
     // ---- inner: 16 quantized child boxes, slab test ----
     const float i0 = R.rcp(in_blas, 0), i1 = R.rcp(in_blas, 1), i2 = R.rcp(in_blas, 2);
-    const int eword = row4<PRE>(w, r4, 1).x;
+    const int eword = __ldg(r4 + 1).x;
     const float s0 = __int_as_float((eword & 0xFF) << 23);
     const float s1 = __int_as_float(((eword >> 8) & 0xFF) << 23);
     const float s2 = __int_as_float(((eword >> 16) & 0xFF) << 23);
     int4 box[6], ptrs[4];   // the byte planes, words 8-31; the child pointers, 32-47
 #pragma unroll
-    for (int k = 0; k < 6; ++k) box[k] = row4<PRE>(w, r4, 2 + k);
+    for (int k = 0; k < 6; ++k) box[k] = __ldg(r4 + 2 + k);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) ptrs[k] = row4<PRE>(w, r4, 8 + k);
+    for (int k = 0; k < 4; ++k) ptrs[k] = __ldg(r4 + 8 + k);
     int hitbits = 0;
     int first = 0, first_ptr = 0;
     float best = __int_as_float(0x7f800000);  // +inf
@@ -398,10 +385,10 @@ __device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack&
       if (4 * g >= cnt) continue;
       int4 comp[9];
 #pragma unroll
-      for (int k = 0; k < 9; ++k) comp[k] = row4<PRE>(w, r4, 1 + (HALF / 4) * k + g);
-      const int4 idx_lo = row4<PRE>(w, r4, (OFF_IDX + 4 * g) / 4);
+      for (int k = 0; k < 9; ++k) comp[k] = __ldg(r4 + 1 + (HALF / 4) * k + g);
+      const int4 idx_lo = __ldg(r4 + (OFF_IDX + 4 * g) / 4);
       const int4 idx_hi = HALF + 4 * g < cnt
-                              ? row4<PRE>(w, r4, (OFF_IDX + HALF + 4 * g) / 4)
+                              ? __ldg(r4 + (OFF_IDX + HALF + 4 * g) / 4)
                               : make_int4(0, 0, 0, 0);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -462,7 +449,7 @@ __device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack&
     float lo3[3], ld3[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const int4 m = row4<PRE>(w, r4, 1 + c);
+      const int4 m = __ldg(r4 + 1 + c);
       const float m0 = __int_as_float(m.x), m1 = __int_as_float(m.y),
                   m2 = __int_as_float(m.z), m3 = __int_as_float(m.w);
       lo3[c] = ((m0 * ow0 + m1 * ow1) + m2 * ow2) + m3;
@@ -471,7 +458,7 @@ __device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack&
     R.enter(lo3, ld3);
     L.inst = -meta - 1;
     L.sp_enter = sp;   // no push on an instance row
-    L.ptr = row4<PRE>(w, r4, 4).x;
+    L.ptr = __ldg(r4 + 4).x;
     L.pend = UWPT_TRAV_FULL;
   }
 

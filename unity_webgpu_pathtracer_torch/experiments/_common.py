@@ -1,6 +1,7 @@
-"""Timing, bounds and result rows shared by the probes, and the capture of
+"""Timing, bounds and result rows shared by the probes; the capture of
 K1's inputs from a real pass (``capture_inputs``, ``arrival_state``) that
-``chip_smoke.py`` and ``k1_variants`` use."""
+``chip_smoke.py`` and ``k1_variants`` use; and the one-arrival loop
+(``one_step_loop``) that the multi-arrival kernel replaced."""
 
 from __future__ import annotations
 
@@ -143,12 +144,8 @@ def arrivals_work(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=N
     slots = 16 if nodes.shape[1] == 96 else 8
 
     def stepping(st):
-        act = st.ptr >= 0
-        if live is not None:
-            act = act & live
-        if stop_on_found is not None:
-            act = act & ~(stop_on_found & st.found)
-        return act
+        act = running(live, stop_on_found, st)
+        return st.ptr >= 0 if act is None else (st.ptr >= 0) & act
 
     start = stepping(s)
     cached = torch.zeros_like(start)
@@ -276,20 +273,36 @@ def capture_inputs(sd, cfg, params, k1_calls: tuple, k2_call: int | None = None)
     return got["k1"], got.get("k2")
 
 
-def running(cap, s):
-    """The lanes that run the next arrival: ``live`` and not (``stop`` and
-    ``found``), as the pass computes them before each arrival."""
-    return cap.live & ~(cap.stop & s.found)
+def running(live, stop_on_found, s):
+    """The ``active`` mask of the next arrival: ``live`` and not
+    (``stop_on_found`` and ``found``), ``found`` as it stands in ``s``, as
+    the pass computes it before each arrival (``live`` None: every lane;
+    ``stop_on_found`` None: no lane stops; both None: None)."""
+    if stop_on_found is None:
+        return live
+    go = ~(stop_on_found & s.found)
+    return go if live is None else live & go
+
+
+def one_step_loop(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
+                  has_instances=False):
+    """``steps`` arrivals as the pass ran them before the multi-arrival
+    kernel: one ``arrival_step16_cuda`` each (a launch of the one-arrival
+    kernel on CUDA tensors), a new state each time, ``s`` untouched.  It
+    takes ``arrival_steps16_cuda``'s arguments, so a caller can put it in
+    that function's place."""
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
+
+    for _ in range(steps):
+        s = arrival_step16_cuda(nodes, oT, dT, invT, s, running(live, stop_on_found, s),
+                                has_instances)
+    return s
 
 
 def arrival_state(cap: K1Launch, k: int):
     """The one-arrival inputs ``(nodes, oT, dT, invT, state, active)`` of the
     k-th arrival (from 1) of a captured super-iteration: its start state
     after k - 1 launches of the one-arrival kernel."""
-    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
-
-    s = cap.s
-    for _ in range(k - 1):
-        s = arrival_step16_cuda(cap.nodes, cap.oT, cap.dT, cap.invT, s, running(cap, s),
-                                cap.has_instances)
-    return cap.nodes, cap.oT, cap.dT, cap.invT, s, running(cap, s)
+    s = one_step_loop(cap.nodes, cap.oT, cap.dT, cap.invT, cap.s, k - 1, cap.live, cap.stop,
+                      cap.has_instances)
+    return cap.nodes, cap.oT, cap.dT, cap.invT, s, running(cap.live, cap.stop, s)

@@ -1,16 +1,16 @@
-"""Compile-time variants of K1's multi-arrival kernel on the H100.
+"""K1's multi-arrival kernel built for 2, 3 and 4 blocks per SM, on every
+render path's states, on the H100.
 
-``csrc/arrival16.cu`` is built once per variant, each with other values
-of its two build constants (``ops/cuda_arrival.py``): ``K1_MIN_BLOCKS``
-(``lbN``: both K1 kernels must fit N blocks of 256 threads on an SM, so
-at most 65,536 / (256 N) registers a thread; the package builds 3) and
-``K1_PRELOAD`` (``preN``: the row's 16-byte word groups 0..N-1 the
-per-arrival body loads before it branches on the row kind; the package
-builds 1).  Each variant's ``arrival16_run`` and one-arrival ``arrival16``
-are timed on the main path's 1080p states (the starts of
-super-iterations 4 and 151; pool 98,304, te = 8) and held to the plain
-version exactly.  It picks nothing: the package's values are the variant
-it keeps.
+``csrc/arrival16.cu`` is built once per value of its one build constant,
+``K1_MIN_BLOCKS`` (``lbN``: both K1 kernels must fit N blocks of 256
+threads on an SM, so at most 65,536 / (256 N) registers a thread; the
+package builds ``cuda_arrival.K1_MIN_BLOCKS``).  Each build's multi-arrival
+entry is launched through ``cuda_arrival.launch_steps`` on the start state
+of a super-iteration captured from each path ``chip_smoke.py`` drives
+(main path early and deep, path B's Cornell box with its larger pool,
+path A's instanced grid, path C's leaf8 table, instanced leaf8), held to
+the plain version exactly and timed as a graph of restore + launch minus
+the restore.  It picks nothing: it prints the times beside the registers.
 
     python -m unity_webgpu_pathtracer_torch.experiments.k1_variants
 """
@@ -23,108 +23,106 @@ import subprocess
 
 import torch
 
-from unity_webgpu_pathtracer_torch.experiments._common import (arrival_state, capture_inputs,
-                                                               clone_state, cuda_device,
-                                                               ptxas_registers,
-                                                               time_in_place_ms, time_ms)
+from unity_webgpu_pathtracer_torch.experiments._common import (capture_inputs, clone_state,
+                                                               cuda_device, ptxas_registers,
+                                                               time_in_place_ms)
 from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_steps16
 
-SUPER_ITERATIONS = (4, 151)
+BLOCKS = (2, 3, 4)
 
 
-def _flags(pre: int, blocks: int) -> list[str]:
-    return [f"-DUWPT_K1_PRELOAD={pre}", f"-DUWPT_K1_MIN_BLOCKS={blocks}"]
-
-
-# name -> extra nvcc flags; "pre12 lb2" is the first build of the
-# multi-arrival kernel (words 0-47 loaded before the branch, 122 registers).
-VARIANTS = {f"pre{pre} lb{blocks}": _flags(pre, blocks)
-            for pre in (1, 8, 12) for blocks in (2, 3, 4)}
-
-
-def build() -> dict[str, tuple[ctypes.CDLL, dict]]:
-    """Every variant's library (one nvcc each, all at once) and its
-    registers; under ``_build/k1_variants``."""
-    cuda_build.load()
+def build() -> dict[int, tuple[ctypes.CDLL, dict]]:
+    """blocks per SM -> (library, K1's registers), one nvcc each, all at
+    once, under ``_build/k1_variants``."""
     flags = cuda_build.NVCC_FLAGS + [f for f in cuda_build._defines()
-                                     if not f.startswith(("-DUWPT_K1_PRELOAD=",
-                                                          "-DUWPT_K1_MIN_BLOCKS="))]
+                                     if not f.startswith("-DUWPT_K1_MIN_BLOCKS=")]
     src = os.path.join(cuda_build.SRC_DIR, "arrival16.cu")
     out_dir = os.path.join(cuda_build.BUILD_DIR, "k1_variants")
     os.makedirs(out_dir, exist_ok=True)
     jobs = {}
-    for name, extra in VARIANTS.items():
-        so = os.path.join(out_dir, "libarrival16_" + name.replace(" ", "_") + ".so")
-        jobs[name] = (so, subprocess.Popen([cuda_build._nvcc(), *flags, *extra, "-o", so, src],
-                                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                           text=True))
+    for blocks in BLOCKS:
+        so = os.path.join(out_dir, f"libarrival16_lb{blocks}.so")
+        jobs[blocks] = (so, subprocess.Popen(
+            [cuda_build._nvcc(), *flags, f"-DUWPT_K1_MIN_BLOCKS={blocks}", "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     libs = {}
-    for name, (so, proc) in jobs.items():
+    for blocks, (so, proc) in jobs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name!r}:\n{err}")
+            raise RuntimeError(f"nvcc failed for {blocks} blocks per SM:\n{err}")
         lib = ctypes.CDLL(so)
         for entry, argtypes in cuda_build.ENTRIES["arrival16"].items():
             getattr(lib, entry).restype = ctypes.c_int
             getattr(lib, entry).argtypes = argtypes
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib.cuda_error_string.argtypes = [ctypes.c_int]
-        libs[name] = (lib, ptxas_registers(out + err))
+        regs = ptxas_registers(out + err)
+        libs[blocks] = (lib, {k: v for k, v in regs.items() if "run_kernel" in k})
     return libs
 
 
-def states(dev):
-    """The main path's multi-arrival inputs at the starts of
-    ``SUPER_ITERATIONS`` (``chip_smoke.py``'s configuration)."""
+def states(dev) -> list[tuple[str, object]]:
+    """(label, K1Launch) at super-iteration starts of each path, in
+    ``chip_smoke.py``'s configurations."""
     from unity_webgpu_pathtracer_torch.config import RenderConfig
-    from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
+    from unity_webgpu_pathtracer_torch.models.benchmark import (
+        instanced_million_triangle_scene, million_triangle_scene)
+    from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
     from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
 
+    hd = dict(width=1920, height=1080, max_bounces=5, transition_every=8, pool_size=98_304)
     scene, cam = million_triangle_scene(1_000_000)
-    sd = scene.build("wide16", device=dev)
-    cfg = RenderConfig(width=1920, height=1080, samples_per_pass=4, max_bounces=5,
-                       transition_every=8, pool_size=98_304)
     params = make_camera_params(width=1920, height=1080, device=dev, **cam)
-    return capture_inputs(sd, cfg, params, SUPER_ITERATIONS)[0]
+    iscene, icam = instanced_million_triangle_scene()
+    iparams = make_camera_params(width=1920, height=1080, device=dev, **icam)
+    cscene, ccam = cornell_box()
+    cparams = make_camera_params(width=256, height=256, device=dev, **ccam)
+    out = []
+    for label, sc, pr, cfg, leaf8, calls in (
+            ("main", scene, params, RenderConfig(samples_per_pass=4, **hd), False, (4, 151)),
+            ("Cornell", cscene, cparams,
+             RenderConfig(width=256, height=256, samples_per_pass=64, max_bounces=4,
+                          sky_mode=2, pool_size=1 << 17), False, (4,)),
+            ("instanced", iscene, iparams, RenderConfig(samples_per_pass=2, **hd), False, (4,)),
+            ("leaf8", scene, params, RenderConfig(samples_per_pass=4, attr_in_kernel=True, **hd),
+             True, (4,)),
+            ("instanced leaf8", iscene, iparams, RenderConfig(samples_per_pass=2, **hd), True,
+             (4,))):
+        sd = sc.build("wide16", device=dev, leaf8=leaf8)
+        caps, _ = capture_inputs(sd, cfg, pr, calls)
+        out += [(f"{label} SI {si}", cap) for si, cap in zip(calls, caps)]
+    return out
 
 
 def run(device=None) -> list[dict]:
     dev = cuda_device(device)
     libs = build()
-    caps = states(dev)
-    refs = [arrival_steps16(c.nodes, c.oT.T, c.dT.T, c.invT.T, clone_state(c.s), c.steps,
-                            c.live, c.stop, c.has_instances) for c in caps]
     rows = []
-    built = cuda_build.load()["arrival16"]
-    try:
-        for name, (lib, regs) in libs.items():
-            cuda_build._LIBS["arrival16"] = lib
-            for si, cap, ref in zip(SUPER_ITERATIONS, caps, refs):
-                nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
-                work = clone_state(s0)
-                cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, work, steps, live, stop,
-                                                  hi)
-                exact = all(torch.equal(getattr(work, f), getattr(ref, f)) for f in s0._fields)
+    for label, cap in states(dev):
+        nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
+        ref = arrival_steps16(nodes, oT.T, dT.T, invT.T, clone_state(s0), steps, live, stop, hi)
+        fields = cuda_arrival._FLAT_FIELDS + (cuda_arrival._INST_FIELDS if hi else ())
+        for blocks, (lib, regs) in libs.items():
+            work = clone_state(s0)
+            name = cuda_arrival.launch_steps(lib, nodes, oT, dT, invT, work, steps, live, stop,
+                                             hi)
+            exact = all(torch.equal(getattr(work, f), getattr(ref, f)) for f in s0._fields)
 
-                def restore(work=work, s0=s0):
-                    for f in cuda_arrival._FLAT_FIELDS:
-                        getattr(work, f).copy_(getattr(s0, f))
+            def restore(work=work):
+                for f in fields:
+                    getattr(work, f).copy_(getattr(s0, f))
 
-                ms = time_in_place_ms(
-                    lambda cap=cap, work=work: cuda_arrival.arrival_steps16_cuda(
-                        cap.nodes, cap.oT, cap.dT, cap.invT, work, cap.steps, cap.live,
-                        cap.stop, cap.has_instances), restore)[0]
-                one = arrival_state(cap, 1)
-                one_ms = time_ms(lambda one=one: cuda_arrival.arrival_step16_cuda(*one, hi))
-                rows.append(dict(variant=name, state=f"super-iteration {si}", run_ms=ms,
-                                 one_ms=one_ms, exact=exact,
-                                 regs={k: v for k, v in regs.items() if "diet" not in k}))
-    finally:
-        cuda_build._LIBS["arrival16"] = built
-    bad = [(r["variant"], r["state"]) for r in rows if not r["exact"]]
+            ms = time_in_place_ms(
+                lambda lib=lib, work=work: cuda_arrival.launch_steps(
+                    lib, nodes, oT, dT, invT, work, steps, live, stop, hi), restore)[0]
+            mangled = next(k for k in regs if k.endswith(f"Lb{int(hi)}ELi{nodes.shape[1]}E"))
+            rows.append(dict(blocks=blocks, state=label, kernel=name, lanes=s0.ptr.shape[0],
+                             steps=steps, ms=ms, exact=exact, regs=regs[mangled]))
+        del ref
+    bad = [(r["blocks"], r["state"]) for r in rows if not r["exact"]]
     if bad:
-        raise AssertionError(f"variants differ from the plain version: {bad}")
+        raise AssertionError(f"builds differ from the plain version: {bad}")
     return rows
 
 
@@ -132,9 +130,8 @@ def main() -> None:
     dev = cuda_device()
     print(f"device={torch.cuda.get_device_name(dev)}")
     for r in run(dev):
-        print(f"{r['variant']:9s} {r['state']:18s}: arrival16_run {r['run_ms']:.4f} ms/launch, "
-              f"arrival16 {r['one_ms']:.4f} ms/arrival (x8 {8 * r['one_ms']:.4f}); "
-              f"exact {r['exact']}; {r['regs']}")
+        print(f"lb{r['blocks']} {r['state']:20s} {r['kernel']:24s} B={r['lanes']} "
+              f"te={r['steps']}: {r['ms']:.4f} ms/launch; exact {r['exact']}; {r['regs']}")
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The benchmark scene (``models/benchmark.py`` of the reference).
 
 ``million_triangle_scene``: a grid of smooth spheres over a ground plane
-(~1M triangles at the default size) under a procedural HDRI.
+(~1M triangles at the default size) under a procedural HDRI;
+``instanced_million_triangle_scene``: the same scene as a two-level one.
 """
 
 from __future__ import annotations
@@ -79,4 +80,19 @@ def million_triangle_scene(target_tris: int = 1_000_000) -> tuple[Scene, dict]:
         target=(0.0, 0.0, 0.0),
         fov_y_deg=45.0,
     )
+    return scene, cam
+
+
+def instanced_million_triangle_scene() -> tuple[Scene, dict]:
+    """``million_triangle_scene(1_000_000)`` as a two-level scene: the
+    sphere mesh once as a BLAS, one instance per grid cell with the cell's
+    transform and material, the ground quad as one more instance; same
+    materials, HDRI and camera."""
+    flat, cam = million_triangle_scene(1_000_000)
+    scene = Scene(materials=list(flat.materials), env_image=flat.env_image)
+    (sphere, _), (ground, ground_xf) = flat.meshes[0], flat.meshes[-1]
+    sphere_id, ground_id = scene.add_mesh(sphere), scene.add_mesh(ground)
+    for mesh, xf in flat.meshes[:-1]:
+        scene.add_instance(sphere_id, xf, mesh.material_index)
+    scene.add_instance(ground_id, ground_xf, ground.material_index)
     return scene, cam

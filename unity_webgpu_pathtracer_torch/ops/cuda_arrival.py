@@ -48,12 +48,9 @@ KERNELS = {(96, False): "arrival16", (96, True): "arrival16_inst",
            (48, False): "arrival16_leaf8", (48, True): "arrival16_inst_leaf8"}
 # The multi-arrival kernel of each: name + "_run".
 RUN_KERNELS = {k: f"{v}_run" for k, v in KERNELS.items()}
-# Build constants of both K1 kernels (UWPT_K1_* in csrc/arrival16.cu): the
-# row's 16-byte word groups the per-arrival body loads before it branches
-# on the row kind (the rest where they are used), and the blocks of 256
-# threads each kernel must fit on an SM (at most 80 registers a thread).
-# experiments/k1_variants.py builds and times other values.
-K1_PRELOAD = 1
+# Blocks of 256 threads both K1 kernels must fit on an SM
+# (UWPT_K1_MIN_BLOCKS in csrc/arrival16.cu; 3: at most 80 registers a
+# thread).  experiments/k1_variants.py builds and times other values.
 K1_MIN_BLOCKS = 3
 
 # Probe modes: the six of the reference's
@@ -216,12 +213,22 @@ def arrival_steps16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor
         return arrival_steps16(nodes, oT.T, dT.T, invT.T, s, steps, live, stop_on_found,
                                has_instances)
 
+    lib = cuda_build.load()["arrival16"]
+    name = launch_steps(lib, nodes, oT, dT, invT, s, steps, live, stop_on_found, has_instances)
+    arrival_steps16_cuda.launches[name] += 1
+    return s
+
+
+def launch_steps(lib: ctypes.CDLL, nodes, oT, dT, invT, s: Wide16State, steps: int, live,
+                 stop_on_found, has_instances: bool) -> str:
+    """Launch the multi-arrival entry of ``lib`` (a build of
+    ``csrc/arrival16.cu``) on CUDA tensors that ``arrival_steps16_cuda``
+    has checked; returns the kernel's name.  Counts nothing."""
     args = _RunArgs(nodes.data_ptr(), oT.data_ptr(), dT.data_ptr(), invT.data_ptr(),
                     0 if live is None else live.data_ptr(),
                     0 if stop_on_found is None else stop_on_found.data_ptr(),
                     *(getattr(s, n).data_ptr() for n in _FLAT_FIELDS),
                     s.ptr.shape[0], s.stack_row.shape[0], steps)
-    lib = cuda_build.load()["arrival16"]
     stream = torch.cuda.current_stream(nodes.device).cuda_stream
     name = RUN_KERNELS[(nodes.shape[1], has_instances)]
     launch = getattr(lib, name + "_launch")
@@ -231,8 +238,7 @@ def arrival_steps16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor
     else:
         err = launch(ctypes.byref(args), stream)
     cuda_build.check(lib, err, name)
-    arrival_steps16_cuda.launches[name] += 1
-    return s
+    return name
 
 
 def arrival_probe_cuda(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tensor,

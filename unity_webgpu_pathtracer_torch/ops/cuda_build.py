@@ -79,7 +79,7 @@ def _defines() -> list[str]:
 
     ints = dict(MODE_PRIMARY=ct.MODE_PRIMARY, MODE_SHADOW_ENV=ct.MODE_SHADOW_ENV,
                 MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
-                K1_PRELOAD=ca.K1_PRELOAD, K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS,
+                K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS,
                 **{f"PROBE_{m.upper()}": k for m, k in ca.PROBE_NUMBERS.items()},
                 **{f"OP_{op.upper()}": k for k, op in enumerate(cp.INTRINSICS)})
     floats = dict(FAR_PLANE=FAR_PLANE, DET_EPS=tw.DET_EPS, T_MIN=tw.T_MIN,
