@@ -15,18 +15,26 @@ Phases, each printing one or more lines:
    the pass's 27th arrival, and the multi-arrival kernel (the one the
    render paths launch: te arrivals, the state updated in place) on the
    start state of super-iteration 4, max abs error 0 on every field;
-3. kernel K2 (transition) against its twin on a pre-transition state of
-   the same pass;
+3. kernel K2 (``transition16``: the env sample, the attribute and
+   material fetch and the transition, in place) against its plain version
+   on the states before the transitions of super-iterations 4, 150 and 151
+   of the same pass, max abs error 0 on every field the pass reads; its
+   time beside the transition span's (``experiments/k2_span.py``: the
+   transition without its record append and regeneration, device and
+   host), registers and bound;
 4. the main path through ``Renderer``: that scene (tables from the
    committed ``.bvh_cache``), 1920x1080, 5 bounces, HDRI NEE,
    ``transition_every=8``, two passes, with the kernels' launch counts
-   (K1 once per super-iteration); then one pass at a time with the
+   (K1 and K2 once per super-iteration) and the kernel launches per
+   super-iteration that ``torch.profiler`` counts over three of them;
+   then one pass at a time with the
    one-arrival loop and with the multi-arrival kernel in turns (one-step,
    new, new, one-step) through a local hook, for s/pass and Mrays/s;
 5. the whole slice with kernels against the slice with twins on the
    card, and against the twins on the CPU, on seven small cases: a
    2,000-triangle scene (K2 path; on leaf8 rows with ``attr_in_kernel``;
-   with ``attr_compact=3``), ``tlas_scene(n=4)`` at 48x48 (instanced path;
+   with ``attr_compact=3``, K2's oct entry ``transition16_oct``),
+   ``tlas_scene(n=4)`` at 48x48 (instanced path;
    on leaf8 BLAS rows) and the Cornell box at 32x32 (no sky, general
    transition; with ``attr_compact=3``);
 6. K1's instanced kernels against their twins on lane states captured
@@ -45,13 +53,15 @@ Phases, each printing one or more lines:
    against its twins on lane states captured from a 1080p pass over the
    benchmark scene built as a leaf8 table (natively, at first use: the
    build seconds are printed);
-10. K2's raw-row form (``transition16_attr_raw``) against its twin, and
-    against the ``shade_rowT`` kernel, on a pre-transition state of the
-    same pass; the kernels' f16 decode over all 65,536 halfwords and their
-    uint32 -> uniform conversion at the uint32 edges;
+10. K2 against its plain version on a pre-transition state of the same
+    pass (path C's ``attr_in_kernel``: the same ``transition16``), and
+    ``transition16_oct`` on a state of that pass with ``attr_compact=3``;
+    the kernels' f16 decode over all 65,536 halfwords and their uint32 ->
+    uniform conversion at the uint32 edges;
 11. path C through ``Renderer``: the leaf8 benchmark scene with
-    ``attr_in_kernel``, as phase 4 otherwise, held against phase 4's film
-    as path A is; then the turns;
+    ``attr_in_kernel``, as phase 4 otherwise (K2 ``transition16`` once per
+    super-iteration), held against phase 4's film as path A is, with its
+    kernel launches per super-iteration; then the turns;
 12. K1's instanced leaf8 kernels against their twins on the instanced
     grid with leaf8 BLAS rows, then one pass of 2 spp of that scene
     through ``Renderer``, held against phase 4's film; then the turns;
@@ -81,7 +91,11 @@ captured state (``copy_`` from a clone) and the launch, and the graph of
 the restore alone is subtracted; their bound is
 ``experiments/_common.py::arrivals_work`` (the state of the lanes that
 step, read and written once a launch; the rows of every arrival; 8 bytes
-a stack push or a pop from memory).  No render path launches the
+a stack push or a pop from memory), and so does K2, whose bound is
+``experiments/_common.py::transition_work`` (the state each lane's case
+reads, the field elements that change, each distinct attribute, material
+and env row once; operations counted from its source).  No render path
+launches the
 one-arrival kernels any more: their ``launches`` are 0, and their
 launches in the one-step turns stand in ``turn_launches``.  No
 single PyTorch call computes an arrival or a transition, so
@@ -97,6 +111,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -108,10 +123,7 @@ POOL = 98_304
 TE = 8
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 TILE = 32        # film tile statistic of phases 7, 11 and 12
-# f32 operations per lane of K2, counted from csrc/transition16.cu: its
-# body (two BSDF evaluations, one sample, the material and frame; roughly).
-# K1's are in experiments/_common.py (arrival_work).
-K2_OPS_LANE = 1000
+K2_AT = (4, 150, 151)   # super-iterations whose transition state phase 3 captures
 
 
 def log(msg: str) -> None:
@@ -192,19 +204,6 @@ def compare(out, ref, what: str) -> float:
     return worst
 
 
-def transition_work(kw, out) -> tuple[int, int]:
-    """(bytes, f32 operations) of one transition: every input plane read
-    and every output plane written once; in the raw form, the index plane
-    and each distinct 32-byte attribute row."""
-    import torch
-
-    planes = sum(v.nbytes for k, v in kw.items()
-                 if isinstance(v, torch.Tensor) and k != "attr_table")
-    if "attr_table" in kw:
-        planes += int(torch.unique(kw["attr"]).numel()) * 32
-    return planes + sum(x.nbytes for x in out), K2_OPS_LANE * kw["mode"].shape[0]
-
-
 def main() -> int:
     import torch
 
@@ -218,12 +217,15 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.accel import wide16 as w16
     from unity_webgpu_pathtracer_torch.api import Renderer
     from unity_webgpu_pathtracer_torch.config import RenderConfig
-    from unity_webgpu_pathtracer_torch.experiments._common import (K1Launch, arrival_state,
-                                                                   arrival_work, arrivals_work,
-                                                                   bound, capture_inputs,
-                                                                   clone_state, one_step_loop,
+    from unity_webgpu_pathtracer_torch.experiments import k2_span
+    from unity_webgpu_pathtracer_torch.experiments._common import (K1Launch, K2Launch,
+                                                                   arrival_state, arrival_work,
+                                                                   arrivals_work, bound,
+                                                                   capture_inputs, clone_state,
+                                                                   one_step_loop,
                                                                    ptxas_registers, running,
-                                                                   time_in_place_ms, time_ms)
+                                                                   time_in_place_ms, time_ms,
+                                                                   transition_work)
     from unity_webgpu_pathtracer_torch.models.benchmark import (
         instanced_million_triangle_scene, million_triangle_scene)
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
@@ -238,7 +240,7 @@ def main() -> int:
     card = gpu_line()
     arrivals_n = cuda_arrival.arrival_step16_cuda.launches
     runs_n = cuda_arrival.arrival_steps16_cuda.launches
-    transitions_n = cuda_transition.transition_step16_cuda.launches
+    transitions_n = cuda_transition.transition16_cuda.launches
 
     def reset_counts():
         for counter in (arrivals_n, runs_n, transitions_n):
@@ -334,6 +336,52 @@ def main() -> int:
             f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
         return err
 
+    def check_transition(name, k2: K2Launch, label, record_it=True):
+        """K2 against its plain version on a captured pre-transition state,
+        max abs error 0 on every state field, on died, and on rad_out where
+        a lane died; its time (a graph of restore + launch, minus a graph
+        of the restore alone), the plain version's, and the bound of
+        ``transition_work``."""
+        sc, kcfg, kpr, st0 = k2
+        out, ref = clone_state(st0), clone_state(st0)
+        died, rad = cuda_transition.transition16_cuda(sc, kcfg, kpr, out)
+        died_r, rad_r = cuda_transition.transition16_plain(sc, kcfg, kpr, ref)
+        torch.cuda.synchronize()
+        err = compare(out, ref, name)
+        if not torch.equal(died, died_r):
+            raise AssertionError(f"{name}.died: {int((died != died_r).sum())} lanes differ")
+        torch.testing.assert_close(rad[:, died], rad_r[:, died], rtol=0, atol=0, equal_nan=True,
+                                   msg=lambda m: f"{name}.rad_out: {m}")
+        if err != 0.0:
+            raise AssertionError(f"{name}: max abs error {err:g}, expected 0")
+        work = clone_state(st0)
+
+        def restore():
+            for f in work._fields:
+                getattr(work, f).copy_(getattr(st0, f))
+
+        ms, t_run, t_restore = time_in_place_ms(
+            lambda: cuda_transition.transition16_cuda(sc, kcfg, kpr, work), restore)
+        plain_ms = time_in_place_ms(
+            lambda: cuda_transition.transition16_plain(sc, kcfg, kpr, work), restore)[0]
+        nbytes, ops, n = transition_work(k2, ref, died_r)
+        b_ms, b_by = bound(nbytes, ops)
+        if record_it:
+            record(name, K2_SRC, K2_TPU, err, ms, plain_ms, nbytes, ops)
+        log(f"{label} K2 {name} (in place): B={st0.mode.shape[0]} lanes {n} died="
+            f"{int(died.sum())} max_abs_err={err:g} (every field; rad_out where died); "
+            f"{ms:.4f} ms per launch (graph of restore + launch {t_run:.4f} ms, restore alone "
+            f"{t_restore:.4f} ms); plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+            f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
+
+    def launches_per_si(sd_, cfg_, params_, label):
+        c = k2_span.launches_per_si(sd_, cfg_, params_)
+        if c["kernels"] <= 0:
+            raise AssertionError(f"{label}: torch.profiler saw no device kernel: {c}")
+        log(f"{label} kernel launches per super-iteration (torch.profiler, super-iterations "
+            f"{k2_span.PROFILE_SI[0]}-{k2_span.PROFILE_SI[1] - 1}): {c['kernels_per_si']:.1f} "
+            f"kernels, {c['memcpy_memset_per_si']:.1f} memcpy/memset; {c}; card: {card}")
+
     def turns(r, label, one_name, run_name, te):
         """One pass at a time from a reset film (the same work each time)
         with the one-arrival loop and with the multi-arrival kernel, in
@@ -374,7 +422,8 @@ def main() -> int:
             if "registers" in ln]
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (nvcc, all sources at once, "
         f"{cuda_build.BUILD_INFO['seconds']:.2f} s); ptxas: {regs}; card: {card}")
-    log(f"phase 1 K1 registers: {ptxas_registers(cuda_build.BUILD_INFO['log'])}")
+    log(f"phase 1 K1 registers: {ptxas_registers(cuda_build.BUILD_INFO['log'])}; K2 "
+        f"registers: {ptxas_registers(cuda_build.BUILD_INFO['log'], 'transition16')}")
 
     # ---- 2./3. kernels against twins on a real 1080p state ----
     w, h = 1920, 1080
@@ -386,22 +435,20 @@ def main() -> int:
                        transition_every=TE, pool_size=POOL)
     log(f"scene: {sd.wide16_nodes.shape[0]} rows, depth {sd.stack_depth}, "
         f"bvh cache {w16.CACHE_STATS}, set-up {time.perf_counter() - t0:.1f} s")
-    (cap,), k2_in = capture_inputs(sd, cfg, params, k1_calls=(4,), k2_call=4)
+    (cap,), k2caps = capture_inputs(sd, cfg, params, k1_calls=(4,), k2_calls=K2_AT)
     check_arrival("arrival16", arrival_state(cap, 3), False, "phase 2")
     check_run("arrival16_run", cap, "phase 2")
-
-    out = cuda_transition.transition_step16_cuda(**k2_in)
-    ref = cuda_transition.transition_step16_plain(**k2_in)
-    torch.cuda.synchronize()
-    k2_err = compare(out, ref, "transition16")
-    k2_ms = time_ms(lambda: cuda_transition.transition_step16_cuda(**k2_in))
-    k2_plain = time_ms(lambda: cuda_transition.transition_step16_plain(**k2_in))
-    b = record("transition16", K2_SRC, K2_TPU, k2_err, k2_ms, k2_plain,
-               *transition_work(k2_in, out))
-    log(f"phase 3 K2 transition16: B={k2_in['mode'].shape[0]} died={int(out.died.sum())} "
-        f"max_abs_err={k2_err:g} (tol {FLOAT_TOL}); {k2_ms:.4f} ms vs plain "
-        f"{k2_plain:.4f} ms; {b}")
-    del cap, k2_in, out, ref, sd
+    for si, k2 in zip(K2_AT, k2caps):
+        check_transition("transition16", k2, f"phase 3 super-iteration {si}",
+                         record_it=si == K2_AT[0])
+    span, restore = k2_span._span_fns(k2_span.capture_spans(sd, cfg, params, at=(4,))[0])
+    restore()
+    sp_ms, sp_both, sp_restore = time_in_place_ms(span, restore)
+    log(f"phase 3 transition span at super-iteration 4 (the transition without its record "
+        f"append and regeneration, experiments/k2_span.py): device {sp_ms:.4f} ms (graph of "
+        f"restore + span {sp_both:.4f}, restore {sp_restore:.4f}); host wall eager "
+        f"{k2_span.host_ms(span, restore):.4f} ms; card: {card}")
+    del cap, k2caps, span, restore, sd
 
     # ---- 4. the main path through Renderer ----
     scene, cam = million_triangle_scene(1_000_000)
@@ -423,6 +470,7 @@ def main() -> int:
     check_film(flat_img, (h, w, 3), "phase 4")
     log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches {got}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    launches_per_si(r.scene, cfg, r.params, "phase 4 main path")
     turns(r, "phase 4", "arrival16", "arrival16_run", TE)
     del r
 
@@ -442,9 +490,9 @@ def main() -> int:
     cases = (  # (name, scene, camera, config, leaf8, kernels the case must launch)
         ("bench2k", scene, cam, RenderConfig(**bench), False, ("arrival16_run", "transition16")),
         ("bench2k leaf8 attr_in_kernel", scene, cam, RenderConfig(**bench, attr_in_kernel=True),
-         True, ("arrival16_leaf8_run", "transition16_attr_raw")),
+         True, ("arrival16_leaf8_run", "transition16")),
         ("bench2k attr_compact=3", scene, cam, RenderConfig(**bench, attr_compact=3), False,
-         ("arrival16_run", "transition16")),
+         ("arrival16_run", "transition16_oct")),
         ("tlas", tscene, tcam, RenderConfig(**tlas), False, ("arrival16_inst_run",)),
         ("tlas leaf8", tscene, tcam, RenderConfig(**tlas), True, ("arrival16_inst_leaf8_run",)),
         ("cornell", cscene, ccam, RenderConfig(**box), False, ("arrival16_run",)),
@@ -456,19 +504,21 @@ def main() -> int:
         for name, device in (("kernels", dev), ("twins", dev), ("cpu", torch.device("cpu"))):
             sd = sc.build("wide16", device=device, leaf8=leaf8)
             pr = make_camera_params(width=small.width, height=small.height, device=device, **cm)
-            arrive, trans = fused.arrival_steps16_cuda, fused.transition_step16_cuda
+            arrive, trans = fused.arrival_steps16_cuda, fused.transition16_cuda
             if name == "twins":
                 fused.arrival_steps16_cuda = twin_arrivals
-                fused.transition_step16_cuda = cuda_transition.transition_step16_plain
+                fused.transition16_cuda = cuda_transition.transition16_plain
             reset_counts()
             try:
                 film, _occ, rays, arr, _it = fused.fused_pass_with_stats(sd, small, pr, 0)
             finally:
-                fused.arrival_steps16_cuda, fused.transition_step16_cuda = arrive, trans
+                fused.arrival_steps16_cuda, fused.transition16_cuda = arrive, trans
             if name == "kernels":
                 launched = {k for k, v in counts().items() if v > 0}
                 if launched != set(used):
                     raise AssertionError(f"{case}: kernels launched {launched}, expected {used}")
+                if "transition16_oct" in used:
+                    oct_launches = counts()["transition16_oct"]
             films[name] = (film.cpu().numpy(), int(rays), int(arr))
 
         # Same card: counters equal.  Against the CPU (other sin/cos/log
@@ -494,7 +544,7 @@ def main() -> int:
     iparams = make_camera_params(width=w, height=h, device=dev, **icam)
     log(f"phase 6 scene: {len(iscene.instances)} instances, {isd.wide16_nodes.shape[0]} rows, "
         f"depth {isd.stack_depth}, set-up {time.perf_counter() - t0:.1f} s")
-    (cap,), _ = capture_inputs(isd, icfg, iparams, k1_calls=(4,), k2_call=None)
+    (cap,), _ = capture_inputs(isd, icfg, iparams, k1_calls=(4,))
     k1_in = arrival_state(cap, 3)
     check_arrival("arrival16_inst", k1_in, True, "phase 6")
     s = k1_in[4]
@@ -529,7 +579,7 @@ def main() -> int:
     cparams = make_camera_params(width=256, height=256, device=dev, **ccam)
     # The first arrival of a super-iteration: the box's shallow tree ends
     # most traversals within two arrivals.
-    (cap,), _ = capture_inputs(csd, ccfg, cparams, k1_calls=(4,), k2_call=None)
+    (cap,), _ = capture_inputs(csd, ccfg, cparams, k1_calls=(4,))
     nodes, oT, dT, invT, s, active = arrival_state(cap, 1)
     out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
     ref = arrival_step16(nodes, oT.T, dT.T, invT.T, s, active)
@@ -569,35 +619,17 @@ def main() -> int:
     log(f"phase 9 leaf8 scene: {lsd.wide16_nodes.shape[0]} rows of "
         f"{lsd.wide16_nodes.shape[1]} floats ({lsd.wide16_nodes.nbytes / 2**20:.1f} MiB), depth "
         f"{lsd.stack_depth}, table {built} in {time.perf_counter() - t0:.1f} s")
-    (cap,), k2_in = capture_inputs(lsd, lcfg, params, k1_calls=(4,), k2_call=4)
+    (cap,), (k2,) = capture_inputs(lsd, lcfg, params, k1_calls=(4,), k2_calls=(4,))
     check_arrival("arrival16_leaf8", arrival_state(cap, 3), False, "phase 9")
     check_run("arrival16_leaf8_run", cap, "phase 9")
     del cap
 
-    out = cuda_transition.transition_step16_cuda(**k2_in)
-    ref = cuda_transition.transition_step16_plain(**k2_in)
-    torch.cuda.synchronize()
-    raw_err = compare(out, ref, "transition16_attr_raw")
-    rows = k2_in["attr_table"][k2_in["attr"].long()]
-    decoded = {k: v for k, v in k2_in.items() if k not in ("attr_table", "attr")}
-    decoded["shade_rowT"] = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
-    out_c = cuda_transition.transition_step16_cuda(**decoded)
-    torch.cuda.synchronize()
-    for name in out._fields:
-        a, b = getattr(out, name), getattr(out_c, name)
-        if a.dtype == torch.float32:
-            a, b = a.view(torch.int32), b.view(torch.int32)
-        if not torch.equal(a, b):
-            raise AssertionError(f"transition16_attr_raw vs transition16: {name} differs")
-    raw_ms = time_ms(lambda: cuda_transition.transition_step16_cuda(**k2_in))
-    raw_plain = time_ms(lambda: cuda_transition.transition_step16_plain(**k2_in))
-    rows_ms = time_ms(lambda: cuda_transition.transition_step16_cuda(**decoded))
-    b = record("transition16_attr_raw", K2_SRC, K2_TPU, raw_err, raw_ms, raw_plain,
-               *transition_work(k2_in, out))
-    log(f"phase 10 K2 transition16_attr_raw: B={k2_in['mode'].shape[0]} "
-        f"died={int(out.died.sum())} max_abs_err={raw_err:g} (tol {FLOAT_TOL}); bit-identical "
-        f"to transition16 on the same rows; {raw_ms:.4f} ms vs plain {raw_plain:.4f} ms, "
-        f"transition16 on the same state {rows_ms:.4f} ms; {b}")
+    check_transition("transition16", k2, "phase 10 (path C, attr_in_kernel)", record_it=False)
+    ocfg = dataclasses.replace(lcfg, attr_compact=3, attr_in_kernel=False)
+    _, (k2o,) = capture_inputs(lsd, ocfg, params, k1_calls=(), k2_calls=(4,))
+    check_transition("transition16_oct", k2o, "phase 10 (attr_compact=3)")
+    kernels["transition16_oct"]["launches"] = oct_launches
+    del k2, k2o
     halves = torch.arange(65536, dtype=torch.int32, device=dev)
     k = np.arange(-4, 5)
     u32 = np.concatenate([[0, 1, 2, 0xFFFFFFFE, 0xFFFFFFFF], 2**31 + k, 2**24 + k, 2**32 - 2**7 + k,
@@ -611,7 +643,6 @@ def main() -> int:
     log(f"phase 10 decode check: f16 decode bit-exact against numpy over 65536 halfwords; "
         f"uint32 -> uniform bit-exact against PyTorch's int64 -> f32 on {u32.size} states "
         f"(0, 2^31+-4, 2^24+-4, 2^32-2^7+-4, 0xFFFFFFFF, random)")
-    del k2_in, out, ref, out_c, rows, decoded
 
     # ---- 11. path C: the leaf8 scene with attr_in_kernel through Renderer ----
     r = Renderer(lsd, lcfg, params)
@@ -620,10 +651,8 @@ def main() -> int:
     reset_counts()
     _s, iters_c, rays_c, arr_c = run_passes(r, 2, "phase 11")
     got = counts()
-    expect_only(got, {"arrival16_leaf8_run": iters_c, "transition16_attr_raw": iters_c},
-                "phase 11")
+    expect_only(got, {"arrival16_leaf8_run": iters_c, "transition16": iters_c}, "phase 11")
     kernels["arrival16_leaf8_run"]["launches"] = got["arrival16_leaf8_run"]
-    kernels["transition16_attr_raw"]["launches"] = got["transition16_attr_raw"]
     img = r.film.accum
     check_film(img, (h, w, 3), "phase 11")
     mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 11")
@@ -632,6 +661,7 @@ def main() -> int:
         f"{float(img.mean()):.6f} (flat {float(flat_img.mean()):.6f}, rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    launches_per_si(lsd, lcfg, params, "phase 11 path C")
     turns(r, "phase 11", "arrival16_leaf8", "arrival16_leaf8_run", TE)
     del r, lsd, img
 
@@ -640,7 +670,7 @@ def main() -> int:
     isd = iscene.build("wide16", device=dev, leaf8=True)
     log(f"phase 12 scene: {isd.wide16_nodes.shape[0]} rows of {isd.wide16_nodes.shape[1]} "
         f"floats, depth {isd.stack_depth}, set-up {time.perf_counter() - t0:.1f} s")
-    (cap,), _ = capture_inputs(isd, icfg, iparams, k1_calls=(4,), k2_call=None)
+    (cap,), _ = capture_inputs(isd, icfg, iparams, k1_calls=(4,))
     check_arrival("arrival16_inst_leaf8", arrival_state(cap, 3), True, "phase 12")
     check_run("arrival16_inst_leaf8_run", cap, "phase 12")
     del cap
@@ -726,7 +756,7 @@ def main() -> int:
     # of 4), 1,200 (the last of 150) and 1,203 (the third of 151).
     scene, cam = million_triangle_scene(1_000_000)
     sd = scene.build("wide16", device=dev)
-    caps, _ = capture_inputs(sd, cfg, params, k1_calls=(4, 150, 151), k2_call=None)
+    caps, _ = capture_inputs(sd, cfg, params, k1_calls=(4, 150, 151))
     for cap, si in zip(caps, (4, 150, 151)):
         check_run("arrival16_run", cap, f"phase 13 super-iteration {si}", record_it=False)
     for call, cap, k in ((3 * TE + 3, caps[0], 3), (1200, caps[1], TE), (150 * TE + 3, caps[2], 3)):
@@ -763,7 +793,7 @@ def main() -> int:
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",
-             "arrival16_inst_leaf8", "transition16", "transition16_attr_raw", *probe_order)
+             "arrival16_inst_leaf8", "transition16", "transition16_oct", *probe_order)
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,14 @@ itself) and the oct-normal rows of ``attr_compact=3``.
 - The f16 decode (``cuda_transition.f16_decode``, the kernel's integer
   decode) bit for bit against numpy's f16 -> f32 and the reference's
   ``_f16_decode`` over all 65,536 patterns.
-- K2's twin in the raw form against the reference's
+- K2's per-lane body (``transition_step16_plain``) in the raw form
+  against the reference's
   ``transition_step16_pallas(pairT=..., parity=..., interpret=True)`` on
   inputs captured from a real reference pass with ``attr_in_kernel``:
   integers exact, floats as in ``tests/test_torch_transition.py``
   (rtol 1e-5 / atol 1e-6 on >= 99.5% of elements, all within rtol 1e-3 /
-  atol 1e-5).  The twin's raw and ``shade_rowT`` forms agree bit for bit.
-- ``_pack_attr_shade_o`` byte-identical; ``_oct_decode`` within one ulp.
+  atol 1e-5).  The body's raw and ``shade_rowT`` forms agree bit for bit.
+- ``_pack_attr_shade_o`` byte-identical; ``oct_decode`` within one ulp.
 - Fused passes with ``attr_compact=3`` through K2 (the HDRI on the
   2,000-triangle bench scene) and through the general transition (the
   Cornell box, no sky) against the reference's fused pass: the
@@ -133,7 +134,7 @@ def _port_inputs(kw) -> dict:
 
 def _run_twin(kw, **form):
     static = {k: kw[k] for k in ("use_rr", "max_bounces", "firefly", "nan_canary")}
-    return tct.transition_step16_cuda(**_port_inputs(kw), **form, **static,
+    return tct.transition_step16_plain(**_port_inputs(kw), **form, **static,
                                       firefly_max=torch.tensor(float(kw["firefly_max"])))
 
 
@@ -200,7 +201,7 @@ def test_oct_decode_within_one_ulp():
     rng = np.random.default_rng(6)
     u = rng.integers(0, 1 << 32, 20000, dtype=np.uint64).astype(np.uint32)
     u[:6] = [0, 0xFFFFFFFF, 0x80008000, 0x7FFF7FFF, 0xFFFF0000, 0x0000FFFF]
-    got = tfused._oct_decode(torch.from_numpy(u.view(np.int32))).numpy()
+    got = tct.oct_decode(torch.from_numpy(u.view(np.int32))).numpy()
     want = np.asarray(jfused._oct_decode(jnp.asarray(u)))
     ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
     assert ((ulps <= 1) | (np.abs(got - want) <= 1e-7)).all(), ulps.max()

@@ -95,7 +95,7 @@ def test_entries_match_sources():
         cuda_arrival.RUN_KERNELS.values())
     assert {f"{k}_run" for k in cuda_arrival.KERNELS.values()} == set(
         cuda_arrival.RUN_KERNELS.values())
-    assert set(cuda_transition.transition_step16_cuda.launches) == set(
+    assert set(cuda_transition.transition16_cuda.launches) == set(
         cuda_transition.KERNELS.values())
     # The probes: K1's probe modes behind one entry, the others in probes.cu.
     assert "arrival16_probe_launch" in cuda_build.ENTRIES["arrival16"]
@@ -236,10 +236,12 @@ def test_run_kernels_match_plain(cuda, leaf8, instanced):
 @pytest.mark.parametrize("flags", ["main_path", "firefly_and_canary", "leaf8_attr_raw",
                                    "oct_rows"])
 def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
-    """Every K1 and K2 call of a real pass, against the twin on the same
-    inputs (the pass goes on with the kernel's outputs); also with K2's
-    firefly clamp, at a threshold that clamps lanes, and NaN canary on;
-    on leaf8 rows with K2 fed the raw attribute rows; and with oct rows."""
+    """Every K1 and K2 call of a real pass, against the plain version on the
+    same inputs, max abs error 0 on every state field, on died and on
+    rad_out where a lane died (the pass goes on with the kernel's state);
+    also with K2's firefly clamp, at a threshold that clamps lanes, and NaN
+    canary on; on leaf8 rows with ``attr_in_kernel``; and with oct rows
+    (``transition16_oct``)."""
     sd, params = scene64k
     if flags == "firefly_and_canary":
         cfg = _config(use_firefly_filter=True, debug_nan_canary=True)
@@ -265,16 +267,18 @@ def test_kernels_match_twins_along_a_pass(cuda, scene64k, monkeypatch, flags):
         calls["k1"] += 1
         return out
 
-    def k2(**kw):
-        out = cuda_transition.transition_step16_cuda(**kw)
-        ref = cuda_transition.transition_step16_plain(**kw)
-        for name in out._fields:
-            _assert_same(getattr(out, name), getattr(ref, name), f"transition.{name}")
+    def k2(scene, config, prm, st):
+        ref = _clone(st)
+        died_r, rad_r = cuda_transition.transition16_plain(scene, config, prm, ref)
+        died, rad = cuda_transition.transition16_cuda(scene, config, prm, st)
+        _assert_exact(st, ref, "transition")
+        assert torch.equal(died, died_r)
+        torch.testing.assert_close(rad[:, died], rad_r[:, died], rtol=0, atol=0, equal_nan=True)
         calls["k2"] += 1
-        return out
+        return died, rad
 
     monkeypatch.setattr(fused, "arrival_steps16_cuda", k1)
-    monkeypatch.setattr(fused, "transition_step16_cuda", k2)
+    monkeypatch.setattr(fused, "transition16_cuda", k2)
     film, _occ, _rays, _arr, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
     assert calls == {"k1": iters, "k2": iters}
     assert torch.isfinite(film).all()
@@ -285,21 +289,37 @@ def test_pass_with_kernels_equals_pass_with_twins(cuda, scene64k, monkeypatch):
     sd, params = scene64k
     cfg = _config()
     k1_before = cuda_arrival.arrival_steps16_cuda.launches["arrival16_run"]
-    k2_before = cuda_transition.transition_step16_cuda.launches["transition16"]
+    k2_before = cuda_transition.transition16_cuda.launches["transition16"]
     film_k, _occ, rays_k, arr_k, iters = fused.fused_pass_with_stats(sd, cfg, params, 0)
     assert cuda_arrival.arrival_steps16_cuda.launches["arrival16_run"] - k1_before == iters
-    assert cuda_transition.transition_step16_cuda.launches["transition16"] - k2_before == iters
+    assert cuda_transition.transition16_cuda.launches["transition16"] - k2_before == iters
 
     monkeypatch.setattr(fused, "arrival_steps16_cuda",
                         lambda n, o, d, i, s, k, lv=None, st=None, has_instances=False:
                         arrival_steps16(n, o.T, d.T, i.T, s, k, lv, st, has_instances))
-    monkeypatch.setattr(fused, "transition_step16_cuda",
-                        cuda_transition.transition_step16_plain)
+    monkeypatch.setattr(fused, "transition16_cuda", cuda_transition.transition16_plain)
     film_p, _occ, rays_p, arr_p, _ = fused.fused_pass_with_stats(sd, cfg, params, 0)
     assert int(rays_k) == int(rays_p) and int(arr_k) == int(arr_p)
     a, b = film_k.cpu().numpy(), film_p.cpu().numpy()
     assert np.isclose(a, b, rtol=1e-4, atol=1e-6).all(-1).mean() >= 0.99
     assert abs(a.mean() - b.mean()) <= 0.01 * abs(b.mean())
+
+
+@gpu
+def test_kernel_route_runs_no_torch_env_sample(cuda, scene64k, monkeypatch):
+    """The kernel route samples the environment in K2: a pass renders with
+    the PyTorch env sample and row decode made to raise."""
+    sd, params = scene64k
+
+    def refuse(*a, **k):
+        raise AssertionError("the kernel route ran the PyTorch glue")
+
+    monkeypatch.setattr(fused, "sample_env_transition", refuse)
+    monkeypatch.setattr(fused, "shade_rows", refuse)
+    before = cuda_transition.transition16_cuda.launches["transition16"]
+    film, _occ, rays, _arr, iters = fused.fused_pass_with_stats(sd, _config(), params, 0)
+    assert cuda_transition.transition16_cuda.launches["transition16"] - before == iters
+    assert torch.isfinite(film).all() and float(film.mean()) > 0 and int(rays) > 0
 
 
 @gpu

@@ -96,12 +96,13 @@ def _capture(tsd, tcfg, tparams):
     calls = [0]
 
     def recorder(fn):
-        def rec(scene, config, params, s, budget, current_sample, trav_done):
+        def rec(scene, config, params, s, budget, current_sample):
             calls[0] += 1
             if calls[0] == CAPTURE_AT:
-                got.update(s=copy.deepcopy(s), trav_done=trav_done.clone(), budget=budget)
+                # The transitions read trav_done from the arrivals' ptr.
+                got.update(s=copy.deepcopy(s), trav_done=s.trav.ptr < 0, budget=budget)
                 raise _Stop
-            return fn(scene, config, params, s, budget, current_sample, trav_done)
+            return fn(scene, config, params, s, budget, current_sample)
         return rec
 
     mp = pytest.MonkeyPatch()
@@ -176,7 +177,7 @@ def test_general_transition_matches_reference(name):
     jparams = jcamera(width=W, height=H, **cam, **uniforms)
     cap = _capture(tsd, tcfg, tparams)
     s = copy.deepcopy(cap["s"])
-    tfused._transition(tsd, tcfg, tparams, s, cap["budget"], 0, cap["trav_done"])
+    tfused._transition(tsd, tcfg, tparams, s, cap["budget"], 0)
     want = _jax_transition(jsd, jcfg, jparams, _to_jax(cap["s"]), cap["budget"], 0,
                            jnp.asarray(cap["trav_done"].numpy()))
     modes = np.bincount(cap["s"].mode.numpy(), minlength=4)

@@ -1,6 +1,8 @@
-"""Kernel K2's plain twin (what ``transition_step16_cuda`` runs on CPU
-tensors) against the reference's Pallas transition in interpret mode,
-and the port's env sample against the reference's.
+"""Kernel K2's per-lane body on pre-gathered inputs
+(``transition_step16_plain``, the last stage of the plain version
+``transition16_plain`` that ``transition16_cuda`` runs on CPU tensors)
+against the reference's Pallas transition in interpret mode, and the
+port's env sample against the reference's.
 
 The transition inputs are captured from a real JAX pass (the reference's
 ``fused_pass_with_stats`` with its Pallas kernels, run eagerly): the
@@ -114,7 +116,7 @@ def _check_twin(kw):
     want = jpt.transition_step16_pallas(
         **{k: jnp.asarray(v) for k, v in kw.items() if k not in STATIC},
         **static, interpret=True)
-    got = tct.transition_step16_cuda(**_to_torch(kw), **static,
+    got = tct.transition_step16_plain(**_to_torch(kw), **static,
                                      firefly_max=torch.tensor(float(kw["firefly_max"])))
     for name in tct.TransitionOut._fields:
         g = getattr(got, name).numpy()

@@ -42,9 +42,12 @@ class RenderConfig:
     ``attr_compact`` picks the attribute rows the transitions read: 2, one
     32-byte row of f16 normals and uvs per triangle; 3, one 16-byte row of
     oct-encoded normals (no uv, so untextured scenes only).
-    ``attr_in_kernel`` hands kernel K2 the raw mode-2 rows to decode
-    itself (its ``attr_raw`` form); mode 3 and the general transition
-    ignore it, as in the reference."""
+    ``attr_in_kernel`` is the reference's choice between decoding the
+    mode-2 rows before its transition kernel and inside it.  The port's
+    kernel K2 always reads and decodes each lane's row itself, so either
+    value selects the same kernel (``transition16``) and gives the same
+    film, bit for bit; mode 3 and the general transition ignore it, as in
+    the reference."""
 
     width: int = 512
     height: int = 512

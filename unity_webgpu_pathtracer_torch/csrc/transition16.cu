@@ -1,30 +1,50 @@
-// Fused-integrator transition step (shade / env NEE / BSDF / Russian
-// roulette), one thread per lane, in two instantiations:
-// transition16_launch (the hit's attribute row given as 15 decoded f32
-// planes, shade_row) and transition16_attr_raw_launch (the raw attribute
-// table and each lane's row index: the kernel loads the lane's 32-byte row
-// and decodes its f16 normals itself).
+// Fused-integrator transition (environment sample, attribute and material
+// fetch, shade / env NEE / BSDF / Russian roulette), one thread per lane,
+// in place on the pass's lane state, in two instantiations by attribute
+// row: transition16_launch (32-byte rows of f16 normals and uvs,
+// attr_compact=2) and transition16_oct_launch (16-byte rows of oct-encoded
+// normals, attr_compact=3).
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_transition.py::_transition_kernel
-// (reached from transition_step16_pallas), shade_row form (attr_raw=False)
-// and attr_raw form (attr_raw=True).  The reference's attr_raw input is a
-// pre-gathered 64-byte pair of rows plus a parity plane; the port stores
-// one triangle per 32-byte row, so the pair and the parity collapse to
-// "row attr of the table", loaded here as K1 loads its node row.
+// (reached from transition_step16_pallas) together with what the
+// reference's render/fused.py::_transition_pallas computes for it in XLA
+// (:979-1095): scene/envmap.py::sample_env_transition (two uniforms, the
+// merged env row, the alias pick, the texel direction, both solid-angle
+// pdfs), the intensity scaling, the attribute-row fetch and decode (f16,
+// or the oct decode with its per-vertex normalize) and the material
+// gather.  The record append and regeneration stay outside.
 //
-// What bounds it on an H100: memory traffic.  Each lane reads ~95 words of
-// state and pre-gathered inputs and writes ~50, all lane-contiguous
-// (coalesced); the per-lane arithmetic (a Disney BSDF evaluated twice, a
-// handful of sin/cos/log/pow) is a few hundred flops.  Branch divergence
-// is the second cost: lanes sit in different modes.  The attr_raw form
-// reads 1 index plane and a 32-byte row per lane in place of 15 planes.
+// What bounds it on an H100: instruction issue in the BSDF, not memory.
+// Cut by section on a 1080p main-path state (98,304 lanes, ~15 MB of
+// traffic, a bytes bound of ~0.0045 ms; the readings are in PERF.md), the
+// BSDF evaluation and lobe sample with their frame take over half of the
+// ~0.03 ms: five lobes evaluated per lane with IEEE division and
+// square roots and no FMA contraction (both needed to round as the plain
+// version does), in warps whose lanes take different cases.  The design
+// keeps that work to what each lane's case needs.  A lane between
+// segments (mid-traversal) changes only its RNG state: it reads mode,
+// ptr, found and rng and writes rng and died, 26 bytes.  A lane at a
+// finished segment reads the state its case needs and the rows it uses
+// (the 80-byte merged env row only at a finished primary segment: its
+// alias half on a hit, its bilinear footprint on a miss; the attribute
+// and 22-word material rows only where a hit is shaded or a shadow
+// segment ends), as 16-byte __ldg vectors, and stores only the fields
+// that change; the state is updated in place, so no output plane is
+// allocated or copied.  The BSDF is evaluated once per lane, toward the
+// env sample on a hit (NEE) or toward the sampled lobe at a finished
+// shadow segment: the two lane sets never overlap, so a warp holding both
+// runs one evaluation, not two.  The block size is the build constant
+// UWPT_K2_THREADS (ops/cuda_transition.py) and nvcc picks the registers:
+// the kernel is not bound by occupancy (experiments/k2_variants.py times
+// other block sizes and register limits).
 //
-// First design: a direct per-lane transcription of the reference kernel
-// body, every branch evaluated and merged by selects exactly as the
-// reference's planes code does, so the RNG stream (native uint32 PCG,
-// five draws per lane and call with Russian roulette) and every rounding
-// match the plain twin (ops/cuda_transition.py::transition_step16_plain)
-// under -fmad=false.  Making it branch and skip dead work is later work.
+// Every lane advances its PCG state by every draw the reference makes, in
+// its order, used or not: 2 env draws, 1 alpha, 3 BSDF, and 1 RR with
+// Russian roulette.  Every rounding follows the plain version
+// (ops/cuda_transition.py::transition16_plain: the port's env sample,
+// gathers and transition_step16_plain) under -fmad=false: numpy-rounded
+// literals, the twin's operation order, PyTorch's CUDA division of a
+// tensor by a Python number (a multiply by the f32 reciprocal).
 //
 // Constants come from the Python side as -D macros (ops/cuda_build.py).
 
@@ -32,74 +52,53 @@
 #include <stdint.h>
 
 #define F(x) ((float)(x))
+#define PI_D 3.14159265358979323
+#define INV_PI_D 0.31830988618379067
+#define TWO_PI_D 6.28318530717958648
+#define INV_TWO_PI_D 0.15915494309189533
 
 struct TransitionArgs {
-  // inputs: (B,) columns and (R, B) planes
-  const int* mode;
-  const unsigned char* trav_done;
-  const int* ptr;
-  const int* pend;
-  const int* sp;
-  const float* t;
-  const float* u;
-  const float* v;
-  const int* tri;
-  const unsigned char* found;
-  const float* trav_o;
-  const float* trav_d;
-  const float* path_o;
-  const float* path_d;
-  const float* hit_t;
-  const float* hit_bary;   // (2, B)
-  const int* hit_tri;
-  const float* pending;
-  const float* throughput;
-  const float* radiance;
-  const long long* rng;    // uint32 values
-  const int* depth;
-  const float* max_rough;
-  const float* prev_pdf;
-  const int* lane_cap;
-  const float* mdata;      // (22, B)
-  const float* sky_col;
-  const float* sky_pdf;
-  const float* env_dir;
-  const float* env_li;
-  const float* env_pdf;
-  // the hit's attribute row: one of the two forms, the other null
-  const float* shade_row;  // (15, B) decoded planes
-  const int* attr_table;   // (T, 8) raw rows, 16-byte aligned
-  const int* attr;         // (B,) row index of each lane
-  const float* firefly_max;  // (1,) or null
-  // outputs
-  int* o_mode;
-  int* o_ptr;
-  int* o_pend;
-  int* o_sp;
-  float* o_t;
-  float* o_u;
-  float* o_v;
-  int* o_tri;
-  unsigned char* o_found;
-  float* o_trav_o;
-  float* o_trav_d;
-  float* o_path_o;
-  float* o_path_d;
-  float* o_hit_t;
-  float* o_hit_bary;
-  int* o_hit_tri;
-  float* o_pending;
-  float* o_throughput;
-  float* o_radiance;
-  float* o_rad_out;
-  long long* o_rng;
-  int* o_depth;
-  float* o_max_rough;
-  float* o_prev_pdf;
-  int* o_lane_cap;
-  unsigned char* o_died;
-  int* o_nray;
+  // lane state, updated in place: (B,) columns and (R, B) planes
+  int* mode;
+  int* ptr;
+  int* pend;
+  int* sp;
+  float* t;
+  float* u;
+  float* v;
+  int* tri;
+  unsigned char* found;
+  float* trav_o;
+  float* trav_d;
+  float* path_o;
+  float* path_d;
+  float* hit_t;
+  float* hit_bary;       // (2, B)
+  int* hit_tri;
+  float* pending;
+  float* throughput;
+  float* radiance;
+  long long* rng;        // uint32 values
+  int* depth;
+  float* max_rough;
+  float* prev_pdf;
+  int* lane_cap;
+  unsigned long long* rays;  // () ray starts of the pass, added to atomically
+  // per-call outputs
+  unsigned char* died;
+  float* rad_out;        // (3, B), written where died
+  // tables, 16-byte aligned
+  const float* env_rows;   // (H*W, 20) [alias row 8 | 2x2 footprint 12]
+  const int* attr_rows;    // (T, 8) f16 rows or (T, 4) oct rows
+  const float* materials;  // (NM, 32), words 0-21 read
+  // device scalars
+  const float* cdf_sum;
+  const float* rotation;
+  const float* intensity;
+  const float* firefly_max;
   int b;
+  int env_w;
+  int env_h;
   int use_rr;
   int max_bounces;
   int firefly;
@@ -121,7 +120,6 @@ __device__ __forceinline__ float jmax(float a, float b) {
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return jmin(jmax(x, lo), hi);
 }
-__device__ __forceinline__ float sel(bool m, float a, float b) { return m ? a : b; }
 __device__ __forceinline__ V3 vsel(bool m, V3 a, V3 b) { return m ? a : b; }
 __device__ __forceinline__ float vdot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
 __device__ __forceinline__ V3 vcross(V3 a, V3 b) {
@@ -180,15 +178,15 @@ __device__ __forceinline__ float smith_g_aniso(float n_dot_v, float v_dot_x, flo
 __device__ __forceinline__ float gtr1(float n_dot_h, float a) {
   const float a2 = a * a;
   const float t = 1.0f + (a2 - 1.0f) * n_dot_h * n_dot_h;
-  const float d = (a2 - 1.0f) / (F(3.14159265358979323) * logf(a2) * t);
-  return a >= 1.0f ? F(0.31830988618379067) : d;
+  const float d = (a2 - 1.0f) / (F(PI_D) * logf(a2) * t);
+  return a >= 1.0f ? F(INV_PI_D) : d;
 }
 __device__ __forceinline__ float gtr2_aniso(float n_dot_h, float h_dot_x, float h_dot_y,
                                             float ax, float ay) {
   const float a = h_dot_x / ax;
   const float b = h_dot_y / ay;
   const float c = a * a + b * b + n_dot_h * n_dot_h;
-  return 1.0f / (F(3.14159265358979323) * ax * ay * c * c);
+  return 1.0f / (F(PI_D) * ax * ay * c * c);
 }
 __device__ __forceinline__ float power_heuristic(float a, float b) {
   const float t = a * a;
@@ -235,7 +233,7 @@ __device__ __forceinline__ float rand_f32(uint32_t& state) {
 
 __device__ __forceinline__ V3 cosine_sample_hemisphere(float r1, float r2) {
   const float r = sqrtf(r1);
-  const float phi = F(6.28318530717958648) * r2;
+  const float phi = F(TWO_PI_D) * r2;
   const float x = r * cosf(phi);
   const float y = r * sinf(phi);
   const float z = sqrtf(jmax(1.0f - x * x - y * y, 0.0f));
@@ -244,7 +242,7 @@ __device__ __forceinline__ V3 cosine_sample_hemisphere(float r1, float r2) {
 __device__ __forceinline__ V3 sample_gtr1(float rgh, float r1, float r2) {
   const float a = jmax(rgh, F(0.001));
   const float a2 = a * a;
-  const float phi = r1 * F(6.28318530717958648);
+  const float phi = r1 * F(TWO_PI_D);
   const float cos_theta = sqrtf(jmax((1.0f - powf(a2, 1.0f - r2)) / (1.0f - a2), 0.0f));
   const float sin_theta = clip(sqrtf(jmax(1.0f - cos_theta * cos_theta, 0.0f)), 0.0f, 1.0f);
   return v3(sin_theta * cosf(phi), sin_theta * sinf(phi), cos_theta);
@@ -256,7 +254,7 @@ __device__ __forceinline__ V3 sample_ggx_vndf(V3 v, float ax, float ay, float r1
   const V3 t1 = lensq > 0.0f ? v3(-vh.y * inv_len, vh.x * inv_len, 0.0f) : v3(1.0f, 0.0f, 0.0f);
   const V3 t2 = vcross(vh, t1);
   const float r = sqrtf(r1);
-  const float phi = F(6.28318530717958648) * r2;
+  const float phi = F(TWO_PI_D) * r2;
   const float p1 = r * cosf(phi);
   float p2 = r * sinf(phi);
   const float s = 0.5f * (1.0f + vh.z);
@@ -331,7 +329,7 @@ __device__ __forceinline__ void eval_diffuse(const Mat& m, V3 csheen, V3 v, V3 l
   const float ss = 1.25f * (fss * (safe_div(1.0f, lz + vz) - 0.5f) + 0.5f);
   const float fh = schlick_weight(l_dot_h);
   const float coef = (fd + fretro) + (ss - (fd + fretro)) * m.subsurface;
-  const float ip = F(0.31830988618379067);
+  const float ip = F(INV_PI_D);
   const V3 fv3 = v3(ip * m.bc.x * coef + fh * m.sheen * csheen.x,
                     ip * m.bc.y * coef + fh * m.sheen * csheen.y,
                     ip * m.bc.z * coef + fh * m.sheen * csheen.z);
@@ -454,11 +452,9 @@ __device__ __forceinline__ void eval_brdf_local(const Mat& m, V3 v, V3 l, const 
   pdf_out = pdf;
 }
 
-__device__ __forceinline__ void sample_brdf(const Mat& m, const Onb& onb, V3 v, const Probs& p,
-                                            uint32_t& state, V3& f, V3& l_world, float& pdf) {
-  const float r1 = rand_f32(state);
-  const float r2 = rand_f32(state);
-  const float r3 = rand_f32(state);
+// The lobe pick and direction of sample_brdf (render/bsdf.py), local frame.
+__device__ __forceinline__ V3 sample_lobe(const Mat& m, V3 v, const Probs& p, float r1,
+                                          float r2, float r3) {
   const float cdf0 = p.diff_pr;
   const float cdf1 = cdf0 + p.dielectric_pr;
   const float cdf2 = cdf1 + p.metal_pr;
@@ -478,10 +474,7 @@ __device__ __forceinline__ void sample_brdf(const Mat& m, const Onb& onb, V3 v, 
   h_cc = vsel(h_cc.z < 0.0f, vneg(h_cc), h_cc);
   const V3 l_cc = vnormalize(vreflect(vneg(v), h_cc));
 
-  const V3 l = vsel(r3 < cdf0, l_diff,
-                    vsel(r3 < cdf2, l_spec, vsel(r3 < cdf3, l_glass, l_cc)));
-  eval_brdf_local(m, v, l, p, f, pdf);
-  l_world = to_world(onb, l);
+  return vsel(r3 < cdf0, l_diff, vsel(r3 < cdf2, l_spec, vsel(r3 < cdf3, l_glass, l_cc)));
 }
 
 // f16 halfword (0..65535) -> f32 in integer steps, the reference's
@@ -494,6 +487,28 @@ __device__ __forceinline__ float f16_decode(unsigned int h) {
   return e == 0u ? (s ? -mf : mf) : __uint_as_float(bits);
 }
 
+// One 16-bit octahedral word pair -> unit vector (render/hitinfo.py::
+// oct_decode, then utils/math.py::normalize).
+__device__ __forceinline__ V3 oct_normal(unsigned int w) {
+  const float kq = F(2.0 / 65535.0);
+  float x = (float)(w & 0xFFFFu) * kq - 1.0f;
+  float y = (float)((w >> 16) & 0xFFFFu) * kq - 1.0f;
+  const float z = 1.0f - fabsf(x) - fabsf(y);
+  const float tf = jmax(-z, 0.0f);
+  x = x - (x >= 0.0f ? tf : -tf);
+  y = y - (y >= 0.0f ? tf : -tf);
+  const float inv = 1.0f / sqrtf(jmax(x * x + y * y + z * z, F(1.0e-20)));
+  return v3(x * inv, y * inv, z * inv);
+}
+
+// scene/envmap.py::_solid_angle_pdf.
+__device__ __forceinline__ float solid_angle_pdf(V3 color, float cdf_den, int k,
+                                                 float sin_theta) {
+  float pdf = lum(color) / cdf_den;
+  pdf = pdf * (float)k / jmax(F(TWO_PI_D * PI_D) * sin_theta, F(1e-8));
+  return sin_theta <= 0.0f ? 0.0f : pdf;
+}
+
 __device__ __forceinline__ V3 ld3(const float* p, int i, int B) {
   return v3(p[i], p[B + i], p[2 * B + i]);
 }
@@ -502,266 +517,361 @@ __device__ __forceinline__ void st3(float* p, int i, int B, V3 v) {
   p[B + i] = v.y;
   p[2 * B + i] = v.z;
 }
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
 
-template <bool ATTR_RAW>
-__global__ void transition16_kernel(TransitionArgs A) {
+// The lane's attribute row: the three vertex normals and the material index.
+template <int ATTR>
+__device__ __forceinline__ void attr_row(const int* rows, int attr, V3 n[3], int& mat) {
+  if (ATTR == 3) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(rows) + attr);
+    n[0] = oct_normal((unsigned int)q.x);
+    n[1] = oct_normal((unsigned int)q.y);
+    n[2] = oct_normal((unsigned int)q.z);
+    mat = q.w;
+  } else {
+    // Halfword k of word k / 2, low first; the material is halfword 15.
+    const int4* row = reinterpret_cast<const int4*>(rows) + (size_t)attr * 2;
+    const int4 q0 = __ldg(row), q1 = __ldg(row + 1);
+    const unsigned int w[5] = {(unsigned int)q0.x, (unsigned int)q0.y, (unsigned int)q0.z,
+                               (unsigned int)q0.w, (unsigned int)q1.x};
+    float sr[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) sr[k] = f16_decode((w[k >> 1] >> (16 * (k & 1))) & 0xFFFFu);
+    n[0] = v3(sr[0], sr[1], sr[2]);
+    n[1] = v3(sr[3], sr[4], sr[5]);
+    n[2] = v3(sr[6], sr[7], sr[8]);
+    mat = (int)(((unsigned int)q1.w >> 16) & 0xFFFFu);
+  }
+}
+
+template <int ATTR>
+__global__ void __launch_bounds__(UWPT_K2_THREADS)
+transition16_kernel(TransitionArgs A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.b) return;
   const int B = A.b;
 
   const int mode = A.mode[i];
-  const bool trav_done = A.trav_done[i] != 0;
+  const bool trav_done = A.ptr[i] < 0;
   const bool found = A.found[i] != 0;
-  const float t_in = A.t[i], u_in = A.u[i], v_in = A.v[i];
-  const int tri_in = A.tri[i];
-  V3 path_o = ld3(A.path_o, i, B);
-  V3 path_d = ld3(A.path_d, i, B);
-  V3 pending = ld3(A.pending, i, B);
-  V3 throughput = ld3(A.throughput, i, B);
-  V3 radiance = ld3(A.radiance, i, B);
-  const int depth = A.depth[i];
   uint32_t rng = (uint32_t)A.rng[i];
-  const float prev_pdf_in = A.prev_pdf[i];
-  const float max_rough_in = A.max_rough[i];
-
-  const bool shadow_done = trav_done || found;
   const bool a = (mode == UWPT_MODE_PRIMARY) && trav_done;
-  const bool hit_valid = tri_in >= 0;
+  const bool env_done = (mode == UWPT_MODE_SHADOW_ENV) && (trav_done || found);
+  unsigned int nray = 0;
 
-  // --- miss -> sky with MIS ---
-  const V3 sky_col = ld3(A.sky_col, i, B);
-  const float mis = depth > 0 ? power_heuristic(prev_pdf_in, A.sky_pdf[i]) : 1.0f;
-  const bool miss = a && !hit_valid;
-  const bool g_miss = miss && (mis > 0.0f);
-  radiance = v3(radiance.x + (g_miss ? mis * sky_col.x * throughput.x : 0.0f),
-                radiance.y + (g_miss ? mis * sky_col.y * throughput.y : 0.0f),
-                radiance.z + (g_miss ? mis * sky_col.z * throughput.z : 0.0f));
-
-  bool shade = a && hit_valid;
-
-  // --- hit frame: normal interpolated from the gathered attr row ---
-  const float hb0_in = A.hit_bary[i], hb1_in = A.hit_bary[B + i];
-  const float b0 = a ? u_in : hb0_in;
-  const float b1 = a ? v_in : hb1_in;
-  const float sel_t = a ? t_in : A.hit_t[i];
-  float sr[9];
-  if (ATTR_RAW) {
-    // The lane's 32-byte row: halfword k (k < 9) of word k / 2, low first.
-    const int4* row = reinterpret_cast<const int4*>(A.attr_table) + (size_t)A.attr[i] * 2;
-    const int4 q0 = __ldg(row), q1 = __ldg(row + 1);
-    const unsigned int w[5] = {(unsigned int)q0.x, (unsigned int)q0.y, (unsigned int)q0.z,
-                               (unsigned int)q0.w, (unsigned int)q1.x};
-#pragma unroll
-    for (int k = 0; k < 9; ++k) sr[k] = f16_decode((w[k >> 1] >> (16 * (k & 1))) & 0xFFFFu);
+  if (!a && !env_done) {
+    // Mid-traversal or dead: only the RNG advances, by every draw.
+    const int draws = A.use_rr ? 7 : 6;
+    for (int k = 0; k < draws; ++k) rng = pcg_next(rng);
+    A.rng[i] = (long long)rng;
+    A.died[i] = 0;
   } else {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) sr[k] = A.shade_row[(size_t)k * B + i];
-  }
-  const float w0 = 1.0f - b0 - b1;
-  const V3 normal = vnormalize(v3(sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
-                                  sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
-                                  sr[2] * w0 + sr[5] * b0 + sr[8] * b1));
+    // --- env sample (scene/envmap.py::sample_env_transition) ---
+    const float u1 = rand_f32(rng);
+    const float u2 = rand_f32(rng);
+    const int depth = A.depth[i];
+    const V3 path_d = ld3(A.path_d, i, B);
+    V3 throughput = ld3(A.throughput, i, B);
+    V3 radiance = ld3(A.radiance, i, B);
+    const float prev_pdf_in = A.prev_pdf[i];
+    const int cap = A.lane_cap[i];
+    const int tri_in = a ? A.tri[i] : -1;
+    const bool miss = a && tri_in < 0;
+    bool shade = a && tri_in >= 0;
+    const int k_env = A.env_w * A.env_h;
+    const float cdf_den = jmax(*A.cdf_sum, F(1e-20));
+    const float rot = *A.rotation;
+    const float inten = *A.intensity;
 
-  // --- material derivation (material.hlsl:84-137, untextured) ---
-  float md[22];
-#pragma unroll
-  for (int k = 0; k < 22; ++k) md[k] = A.mdata[(size_t)k * B + i];
-  const float opacity = md[3];
-  const float rough_m = jmax(md[9], F(0.001));
-  const float ior = clip(md[11], F(1.001), 2.0f);
-  const float aniso = clip(md[13], F(-0.9), F(0.9));
-  const float aspect = sqrtf(1.0f - aniso * F(0.9));
-  const bool entering = (path_d.x * normal.x + path_d.y * normal.y + path_d.z * normal.z) < 0.0f;
-  const float max_rough = shade ? jmax(max_rough_in, rough_m) : max_rough_in;
-  Mat m;
-  m.bc = v3(md[0], md[1], md[2]);
-  m.roughness = max_rough;
-  m.subsurface = md[18];
-  m.spec_tint = md[15];
-  m.sheen = md[16];
-  m.sheen_tint = md[17];
-  m.clearcoat = md[19];
-  m.cc_rough = F(0.1) + F(0.001 - 0.1) * md[20];
-  m.spec_trans = 1.0f - clip(opacity, 0.0f, 1.0f);
-  m.ior = ior;
-  m.metallic = md[8];
-  m.ax = jmax(max_rough / aspect, F(0.001));
-  m.ay = jmax(max_rough * aspect, F(0.001));
-  m.eta = entering ? 1.0f / ior : ior;
-  const int alpha_mode = (int)md[12];
-  const float alpha_cutoff = md[7];
-  const V3 emission = v3(md[4], md[5], md[6]);
-  const float nd = normal.x * path_d.x + normal.y * path_d.y + normal.z * path_d.z;
-  const V3 ffnormal = nd <= 0.0f ? normal : vneg(normal);
-  const V3 position = v3(path_o.x + sel_t * path_d.x, path_o.y + sel_t * path_d.y,
-                         path_o.z + sel_t * path_d.z);
-  const V3 scatter_pos = v3(position.x + normal.x * UWPT_SURF_EPSILON,
-                            position.y + normal.y * UWPT_SURF_EPSILON,
-                            position.z + normal.z * UWPT_SURF_EPSILON);
-
-  radiance = v3(radiance.x + (shade ? emission.x * throughput.x : 0.0f),
-                radiance.y + (shade ? emission.y * throughput.y : 0.0f),
-                radiance.z + (shade ? emission.z * throughput.z : 0.0f));
-  const bool over_budget = depth >= A.max_bounces;
-  const bool ended_budget = shade && over_budget;
-  shade = shade && !over_budget;
-
-  // --- alpha passthrough (pathtrace.hlsl:84-89) ---
-  const float u_alpha = rand_f32(rng);
-  const bool passthrough = shade && (((alpha_mode == 2) && (opacity < alpha_cutoff)) ||
-                                     ((alpha_mode == 1) && (u_alpha > opacity)));
-  shade = shade && !passthrough;
-
-  // --- shadow traversal finished -> apply the pending contribution ---
-  const bool env_done = (mode == UWPT_MODE_SHADOW_ENV) && shadow_done;
-  const bool g_app = env_done && !found;
-  radiance = v3(radiance.x + (g_app ? pending.x * throughput.x : 0.0f),
-                radiance.y + (g_app ? pending.y * throughput.y : 0.0f),
-                radiance.z + (g_app ? pending.z * throughput.z : 0.0f));
-  const bool to_env = shade;
-  const bool to_bsdf = env_done;
-
-  const Onb onb = build_onb(ffnormal);
-  const V3 v_local = to_local(onb, vneg(path_d));
-  const Probs probs = lobe_probabilities(m, v_local);
-
-  // --- env NEE evaluation (light.hlsl:125-158) ---
-  const V3 env_dir = ld3(A.env_dir, i, B);
-  const V3 env_li = ld3(A.env_li, i, B);
-  const float env_pdf = A.env_pdf[i];
-  const V3 l_env = to_local(onb, env_dir);
-  V3 f_u;
-  float bpdf_u;
-  eval_brdf_local(m, v_local, l_env, probs, f_u, bpdf_u);
-  const float mis_e = power_heuristic(env_pdf, bpdf_u);
-  const float epdf_den = jmax(env_pdf, F(1e-20));
-  const V3 contrib = v3(mis_e * env_li.x * f_u.x / epdf_den, mis_e * env_li.y * f_u.y / epdf_den,
-                        mis_e * env_li.z * f_u.z / epdf_den);
-  const bool ok = (bpdf_u > 0.0f) && (env_pdf > 0.0f) && (mis_e > 0.0f);
-  pending = to_env ? (ok ? contrib : v3(0.0f, 0.0f, 0.0f)) : pending;
-
-  // Fresh shadow segment at the root for to_env lanes.
-  V3 trav_o = to_env ? scatter_pos : ld3(A.trav_o, i, B);
-  V3 trav_d = to_env ? env_dir : ld3(A.trav_d, i, B);
-  int ptr = to_env ? 0 : A.ptr[i];
-  int pend = to_env ? UWPT_TRAV_FULL : A.pend[i];
-  int sp = to_env ? 0 : A.sp[i];
-  float t_out = to_env ? UWPT_FAR_PLANE : t_in;
-  float u_out = to_env ? 0.0f : u_in;
-  float v_out = to_env ? 0.0f : v_in;
-  int tri_out = to_env ? -1 : tri_in;
-  bool found_out = found && !to_env;
-  int new_mode = to_env ? UWPT_MODE_SHADOW_ENV : mode;
-
-  // --- BSDF sample + Russian roulette -> next bounce or death ---
-  V3 f_s, l_s;
-  float pdf_s;
-  sample_brdf(m, onb, v_local, probs, rng, f_s, l_s, pdf_s);
-  const bool nan_lane = (f_s.x != f_s.x) || (f_s.y != f_s.y) || (f_s.z != f_s.z) ||
-                        (pdf_s != pdf_s);
-  const bool sample_ok = to_bsdf && !nan_lane && (pdf_s > 0.0f);
-  const float pdf_den = jmax(pdf_s, F(1e-20));
-  if (sample_ok) {
-    throughput = v3(throughput.x * f_s.x / pdf_den, throughput.y * f_s.y / pdf_den,
-                    throughput.z * f_s.z / pdf_den);
-  }
-  bool continue_ray = sample_ok;
-  if (A.use_rr) {
-    const float u_rr = rand_f32(rng);
-    const float t_max3 = jmax(jmax(throughput.x, throughput.y), throughput.z);
-    const float p_cont = jmin(t_max3 + F(0.001), F(0.95));
-    const bool rr_kill = continue_ray && (u_rr >= p_cont);
-    if (continue_ray && !rr_kill) {
-      throughput = v3(throughput.x / p_cont, throughput.y / p_cont, throughput.z / p_cont);
+    // --- miss -> sky with MIS: the bilinear footprint at the direction ---
+    V3 sky_col = v3(0.0f, 0.0f, 0.0f);
+    float sky_pdf = 0.0f;
+    if (miss) {
+      const float theta = acosf(clip(path_d.y, -1.0f, 1.0f));
+      const float phi_atan = atan2f(path_d.z, path_d.x);
+      const float uv0 = (phi_atan + F(PI_D)) * F(INV_TWO_PI_D) + rot;
+      const float uv1 = 1.0f - theta * F(INV_PI_D);
+      const float x = (uv0 - floorf(uv0)) * (float)A.env_w - 0.5f;
+      const float y = (uv1 - floorf(uv1)) * (float)A.env_h - 0.5f;
+      const float x0 = floorf(x), y0 = floorf(y);
+      const float fx = x - x0, fy = y - y0;
+      int x0i = (int)x0 % A.env_w, y0i = (int)y0 % A.env_h;
+      x0i += x0i < 0 ? A.env_w : 0;
+      y0i += y0i < 0 ? A.env_h : 0;
+      const float* row = A.env_rows + (size_t)(y0i * A.env_w + x0i) * 20;
+      const float4 q2 = ldg4(row + 8), q3 = ldg4(row + 12), q4 = ldg4(row + 16);
+      const V3 p00 = v3(q2.x, q2.y, q2.z), p10 = v3(q2.w, q3.x, q3.y);
+      const V3 p01 = v3(q3.z, q3.w, q4.x), p11 = v3(q4.y, q4.z, q4.w);
+      const float gx = 1.0f - fx, gy = 1.0f - fy;
+      const V3 sky = v3((p00.x * gx + p10.x * fx) * gy + (p01.x * gx + p11.x * fx) * fy,
+                        (p00.y * gx + p10.y * fx) * gy + (p01.y * gx + p11.y * fx) * fy,
+                        (p00.z * gx + p10.z * fx) * gy + (p01.z * gx + p11.z * fx) * fy);
+      sky_pdf = solid_angle_pdf(sky, cdf_den, k_env, sinf(theta));
+      sky_col = vscale(sky, depth > 0 ? inten : 1.0f);
     }
-    continue_ray = continue_ray && !rr_kill;
+    const float mis = depth > 0 ? power_heuristic(prev_pdf_in, sky_pdf) : 1.0f;
+    const bool g_miss = miss && (mis > 0.0f);
+    radiance = v3(radiance.x + (g_miss ? mis * sky_col.x * throughput.x : 0.0f),
+                  radiance.y + (g_miss ? mis * sky_col.y * throughput.y : 0.0f),
+                  radiance.z + (g_miss ? mis * sky_col.z * throughput.z : 0.0f));
+
+    // --- hit: the alias-method env NEE sample from the bin's alias row ---
+    V3 env_dir = v3(0.0f, 0.0f, 0.0f), env_li = env_dir;
+    float env_pdf = 0.0f;
+    if (shade) {
+      int bin = (int)(u1 * (float)k_env);
+      bin = bin < 0 ? 0 : (bin > k_env - 1 ? k_env - 1 : bin);
+      const float* row = A.env_rows + (size_t)bin * 20;
+      const float4 q0 = ldg4(row), q1 = ldg4(row + 4);
+      const bool take_alias = u2 >= q0.x;
+      const int a_idx = take_alias ? __float_as_int(q0.y) : bin;
+      const V3 color = take_alias ? v3(q1.y, q1.z, q1.w) : v3(q0.z, q0.w, q1.x);
+      const float xt = (float)(a_idx % A.env_w), yt = (float)(a_idx / A.env_w);
+      const float tu = (xt + 0.5f) * (1.0f / (float)A.env_w);
+      const float tv = (yt + 0.5f) * (1.0f / (float)A.env_h);
+      const float theta = (1.0f - tv) * F(PI_D);
+      const float phi = (tu - rot) * F(TWO_PI_D);
+      const float sin_theta = sinf(theta);
+      env_dir = v3(-sin_theta * cosf(phi), cosf(theta), -sin_theta * sinf(phi));
+      env_pdf = solid_angle_pdf(color, cdf_den, k_env, sin_theta);
+      env_li = vscale(color, inten);
+    }
+
+    // --- hit frame and material, where a hit is shaded or a shadow
+    // segment ends: the attribute row (the saved hit for shadow lanes) ---
+    const bool need = shade || env_done;
+    float t_in = 0.0f, u_in = 0.0f, v_in = 0.0f, sel_t = 0.0f;
+    V3 normal = v3(0.0f, 0.0f, 0.0f), path_o = normal, emission = normal;
+    float md[24];
+    int alpha_mode = 0;
+    float opacity = 0.0f, alpha_cutoff = 0.0f;
+    float max_rough = A.max_rough[i];
+    const float max_rough_in = max_rough;
+    Mat m;
+    if (need) {
+      float b0, b1;
+      int sel_tri;
+      if (a) {
+        t_in = A.t[i];
+        u_in = A.u[i];
+        v_in = A.v[i];
+        b0 = u_in;
+        b1 = v_in;
+        sel_t = t_in;
+        sel_tri = tri_in;
+      } else {
+        b0 = A.hit_bary[i];
+        b1 = A.hit_bary[B + i];
+        sel_t = A.hit_t[i];
+        sel_tri = A.hit_tri[i];
+      }
+      path_o = ld3(A.path_o, i, B);
+      V3 n[3];
+      int mat;
+      attr_row<ATTR>(A.attr_rows, sel_tri < 0 ? 0 : sel_tri, n, mat);
+      const float w0 = 1.0f - b0 - b1;
+      normal = vnormalize(v3(n[0].x * w0 + n[1].x * b0 + n[2].x * b1,
+                             n[0].y * w0 + n[1].y * b0 + n[2].y * b1,
+                             n[0].z * w0 + n[1].z * b0 + n[2].z * b1));
+      const float* mrow = A.materials + (size_t)(mat < 0 ? 0 : mat) * 32;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float4 q = ldg4(mrow + 4 * k);
+        md[4 * k] = q.x;
+        md[4 * k + 1] = q.y;
+        md[4 * k + 2] = q.z;
+        md[4 * k + 3] = q.w;
+      }
+      // material derivation (material.hlsl:84-137, untextured)
+      opacity = md[3];
+      const float rough_m = jmax(md[9], F(0.001));
+      const float ior = clip(md[11], F(1.001), 2.0f);
+      const float aniso = clip(md[13], F(-0.9), F(0.9));
+      const float aspect = sqrtf(1.0f - aniso * F(0.9));
+      const bool entering =
+          (path_d.x * normal.x + path_d.y * normal.y + path_d.z * normal.z) < 0.0f;
+      if (shade) max_rough = jmax(max_rough_in, rough_m);
+      m.bc = v3(md[0], md[1], md[2]);
+      m.roughness = max_rough;
+      m.subsurface = md[18];
+      m.spec_tint = md[15];
+      m.sheen = md[16];
+      m.sheen_tint = md[17];
+      m.clearcoat = md[19];
+      m.cc_rough = F(0.1) + F(0.001 - 0.1) * md[20];
+      m.spec_trans = 1.0f - clip(opacity, 0.0f, 1.0f);
+      m.ior = ior;
+      m.metallic = md[8];
+      m.ax = jmax(max_rough / aspect, F(0.001));
+      m.ay = jmax(max_rough * aspect, F(0.001));
+      m.eta = entering ? 1.0f / ior : ior;
+      alpha_mode = (int)md[12];
+      alpha_cutoff = md[7];
+      emission = v3(md[4], md[5], md[6]);
+    }
+    const float nd = normal.x * path_d.x + normal.y * path_d.y + normal.z * path_d.z;
+    const V3 ffnormal = nd <= 0.0f ? normal : vneg(normal);
+    const V3 position = v3(path_o.x + sel_t * path_d.x, path_o.y + sel_t * path_d.y,
+                           path_o.z + sel_t * path_d.z);
+
+    radiance = v3(radiance.x + (shade ? emission.x * throughput.x : 0.0f),
+                  radiance.y + (shade ? emission.y * throughput.y : 0.0f),
+                  radiance.z + (shade ? emission.z * throughput.z : 0.0f));
+    const bool shade0 = shade;
+    const bool ended_budget = shade && depth >= A.max_bounces;
+    shade = shade && !ended_budget;
+
+    // --- alpha passthrough (pathtrace.hlsl:84-89) ---
+    const float u_alpha = rand_f32(rng);
+    const bool passthrough = shade && (((alpha_mode == 2) && (opacity < alpha_cutoff)) ||
+                                       ((alpha_mode == 1) && (u_alpha > opacity)));
+    shade = shade && !passthrough;
+
+    // --- shadow traversal finished -> apply the pending contribution ---
+    V3 pending = v3(0.0f, 0.0f, 0.0f);
+    if (env_done) pending = ld3(A.pending, i, B);
+    const bool g_app = env_done && !found;
+    radiance = v3(radiance.x + (g_app ? pending.x * throughput.x : 0.0f),
+                  radiance.y + (g_app ? pending.y * throughput.y : 0.0f),
+                  radiance.z + (g_app ? pending.z * throughput.z : 0.0f));
+    const bool to_env = shade;
+    const bool to_bsdf = env_done;
+
+    // --- one BSDF evaluation: toward the env sample (NEE, light.hlsl:
+    // 125-158) or toward the sampled lobe (the BSDF sample) ---
+    const float r1 = rand_f32(rng);
+    const float r2 = rand_f32(rng);
+    const float r3 = rand_f32(rng);
+    V3 f_e = v3(0.0f, 0.0f, 0.0f), l_s = f_e;
+    float pdf_e = 0.0f;
+    if (to_env || to_bsdf) {
+      const Onb onb = build_onb(ffnormal);
+      const V3 v_local = to_local(onb, vneg(path_d));
+      const Probs probs = lobe_probabilities(m, v_local);
+      const V3 l = to_env ? to_local(onb, env_dir) : sample_lobe(m, v_local, probs, r1, r2, r3);
+      eval_brdf_local(m, v_local, l, probs, f_e, pdf_e);
+      l_s = to_world(onb, l);
+    }
+    if (to_env) {
+      const float mis_e = power_heuristic(env_pdf, pdf_e);
+      const float epdf_den = jmax(env_pdf, F(1e-20));
+      const bool ok = (pdf_e > 0.0f) && (env_pdf > 0.0f) && (mis_e > 0.0f);
+      pending = ok ? v3(mis_e * env_li.x * f_e.x / epdf_den, mis_e * env_li.y * f_e.y / epdf_den,
+                        mis_e * env_li.z * f_e.z / epdf_den)
+                   : v3(0.0f, 0.0f, 0.0f);
+    }
+
+    // --- BSDF sample + Russian roulette -> next bounce or death ---
+    const bool nan_lane = to_bsdf && ((f_e.x != f_e.x) || (f_e.y != f_e.y) ||
+                                      (f_e.z != f_e.z) || (pdf_e != pdf_e));
+    const bool sample_ok = to_bsdf && !nan_lane && (pdf_e > 0.0f);
+    if (sample_ok) {
+      const float pdf_den = jmax(pdf_e, F(1e-20));
+      throughput = v3(throughput.x * f_e.x / pdf_den, throughput.y * f_e.y / pdf_den,
+                      throughput.z * f_e.z / pdf_den);
+    }
+    bool continue_ray = sample_ok;
+    if (A.use_rr) {
+      const float u_rr = rand_f32(rng);
+      if (continue_ray) {
+        const float t_max3 = jmax(jmax(throughput.x, throughput.y), throughput.z);
+        const float p_cont = jmin(t_max3 + F(0.001), F(0.95));
+        if (u_rr >= p_cont) {
+          continue_ray = false;
+        } else {
+          throughput = v3(throughput.x / p_cont, throughput.y / p_cont, throughput.z / p_cont);
+        }
+      }
+    }
+
+    const bool died = miss || ended_budget || (to_bsdf && !continue_ray) || cap <= 0;
+    const bool bounce = (continue_ray || passthrough) && !died;
+
+    // --- stores: only the fields this lane's case changes ---
+    A.mode[i] = bounce ? UWPT_MODE_PRIMARY
+                       : (died ? UWPT_MODE_DEAD : (to_env ? UWPT_MODE_SHADOW_ENV : mode));
+    if (to_env || bounce) {
+      // A fresh segment at the root: the shadow ray toward the env sample,
+      // or the continuing path (the sampled direction, or straight on).
+      const V3 dir = bounce ? (passthrough ? path_d : l_s) : env_dir;
+      const V3 org = bounce ? v3(position.x + dir.x * UWPT_SURF_EPSILON,
+                                 position.y + dir.y * UWPT_SURF_EPSILON,
+                                 position.z + dir.z * UWPT_SURF_EPSILON)
+                            : v3(position.x + normal.x * UWPT_SURF_EPSILON,
+                                 position.y + normal.y * UWPT_SURF_EPSILON,
+                                 position.z + normal.z * UWPT_SURF_EPSILON);
+      A.ptr[i] = 0;
+      A.pend[i] = UWPT_TRAV_FULL;
+      A.sp[i] = 0;
+      A.t[i] = UWPT_FAR_PLANE;
+      A.u[i] = 0.0f;
+      A.v[i] = 0.0f;
+      A.tri[i] = -1;
+      A.found[i] = 0;
+      st3(A.trav_o, i, B, org);
+      st3(A.trav_d, i, B, dir);
+      if (bounce) {
+        st3(A.path_o, i, B, org);
+        st3(A.path_d, i, B, dir);
+      }
+    }
+    if (to_env || passthrough) {
+      A.hit_t[i] = t_in;
+      A.hit_bary[i] = u_in;
+      A.hit_bary[B + i] = v_in;
+      A.hit_tri[i] = tri_in;
+    }
+    if (to_env) st3(A.pending, i, B, pending);
+    if (to_bsdf) {
+      st3(A.throughput, i, B, throughput);
+      A.prev_pdf[i] = pdf_e;
+    }
+    st3(A.radiance, i, B, radiance);
+    A.rng[i] = (long long)rng;
+    if (continue_ray) A.depth[i] = depth + 1;
+    if (shade0) A.max_rough[i] = max_rough;
+    A.lane_cap[i] = cap - 1;
+    A.died[i] = died ? 1 : 0;
+    if (died) {
+      V3 rad_out = radiance;
+      if (A.firefly) {
+        const float l = lum(rad_out);
+        const float ffly = *A.firefly_max;
+        const float scale = l > ffly ? ffly / jmax(l, F(1e-20)) : 1.0f;
+        rad_out = vscale(rad_out, scale);
+      }
+      if (A.nan_canary && nan_lane) rad_out = v3(0.0f, 1.0f, 0.0f);
+      st3(A.rad_out, i, B, rad_out);
+    }
+    nray = (bounce ? 1u : 0u) + (to_env ? 1u : 0u);
   }
 
-  const bool processed = a || env_done;
-  const int cap = A.lane_cap[i];
-  const bool cap_exhausted = processed && (cap <= 0);
-  const bool died = miss || ended_budget || (to_bsdf && !continue_ray) || cap_exhausted;
-
-  V3 rad_out = radiance;
-  if (A.firefly) {
-    const float l = lum(rad_out);
-    const float ffly = A.firefly_max[0];
-    const float scale = l > ffly ? ffly / jmax(l, F(1e-20)) : 1.0f;
-    rad_out = vscale(rad_out, scale);
+  // Ray starts: one exact integer atomic per group of converged lanes.
+  const unsigned int mask = __activemask();
+  const unsigned int total = __reduce_add_sync(mask, nray);
+  if ((int)(threadIdx.x & 31u) == __ffs(mask) - 1 && total != 0u) {
+    atomicAdd(A.rays, (unsigned long long)total);
   }
-  if (A.nan_canary && to_bsdf && nan_lane) {
-    rad_out = v3(0.0f, 1.0f, 0.0f);
-  }
-
-  // --- continuing bounce: new primary ray ---
-  const V3 new_dir = passthrough ? path_d : l_s;
-  const bool bounce = (continue_ray || passthrough) && !died;
-  const V3 new_origin = v3(position.x + new_dir.x * UWPT_SURF_EPSILON,
-                           position.y + new_dir.y * UWPT_SURF_EPSILON,
-                           position.z + new_dir.z * UWPT_SURF_EPSILON);
-  if (bounce) {
-    path_o = new_origin;
-    path_d = new_dir;
-    trav_o = path_o;
-    trav_d = path_d;
-    ptr = 0;
-    pend = UWPT_TRAV_FULL;
-    sp = 0;
-    t_out = UWPT_FAR_PLANE;
-    u_out = 0.0f;
-    v_out = 0.0f;
-    tri_out = -1;
-    found_out = false;
-  }
-  new_mode = bounce ? UWPT_MODE_PRIMARY : (died ? UWPT_MODE_DEAD : new_mode);
-
-  const bool saved = shade || passthrough;
-  A.o_mode[i] = new_mode;
-  A.o_ptr[i] = ptr;
-  A.o_pend[i] = pend;
-  A.o_sp[i] = sp;
-  A.o_t[i] = t_out;
-  A.o_u[i] = u_out;
-  A.o_v[i] = v_out;
-  A.o_tri[i] = tri_out;
-  A.o_found[i] = found_out ? 1 : 0;
-  st3(A.o_trav_o, i, B, trav_o);
-  st3(A.o_trav_d, i, B, trav_d);
-  st3(A.o_path_o, i, B, path_o);
-  st3(A.o_path_d, i, B, path_d);
-  A.o_hit_t[i] = saved ? t_in : A.hit_t[i];
-  A.o_hit_bary[i] = saved ? u_in : hb0_in;
-  A.o_hit_bary[B + i] = saved ? v_in : hb1_in;
-  A.o_hit_tri[i] = saved ? tri_in : A.hit_tri[i];
-  st3(A.o_pending, i, B, pending);
-  st3(A.o_throughput, i, B, throughput);
-  st3(A.o_radiance, i, B, radiance);
-  st3(A.o_rad_out, i, B, rad_out);
-  A.o_rng[i] = (long long)rng;
-  A.o_depth[i] = continue_ray ? depth + 1 : depth;
-  A.o_max_rough[i] = max_rough;
-  A.o_prev_pdf[i] = to_bsdf ? pdf_s : prev_pdf_in;
-  A.o_lane_cap[i] = processed ? cap - 1 : cap;
-  A.o_died[i] = died ? 1 : 0;
-  A.o_nray[i] = (bounce ? 1 : 0) + (to_env ? 1 : 0);
 }
 
-template <bool ATTR_RAW>
+template <int ATTR>
 static int launch(const TransitionArgs* args, void* stream) {
-  const int threads = 128;
+  const int threads = UWPT_K2_THREADS;
   const int blocks = (args->b + threads - 1) / threads;
   if (blocks > 0) {
-    transition16_kernel<ATTR_RAW><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+    transition16_kernel<ATTR><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int transition16_launch(const TransitionArgs* args, void* stream) {
-  return launch<false>(args, stream);
+  return launch<2>(args, stream);
 }
 
-extern "C" int transition16_attr_raw_launch(const TransitionArgs* args, void* stream) {
-  return launch<true>(args, stream);
+extern "C" int transition16_oct_launch(const TransitionArgs* args, void* stream) {
+  return launch<3>(args, stream);
 }
 
 // Check entry: the kernel's f16 decode of n halfwords and its uint32 ->

@@ -1,7 +1,9 @@
-"""Timing, bounds and result rows shared by the probes; the capture of
-K1's inputs from a real pass (``capture_inputs``, ``arrival_state``) that
-``chip_smoke.py`` and ``k1_variants`` use; and the one-arrival loop
-(``one_step_loop``) that the multi-arrival kernel replaced."""
+"""Timing, bounds and result rows shared by the probes; the bounds of K1
+and K2 (``arrival_work``, ``arrivals_work``, ``transition_work``); the
+capture of K1's and K2's inputs from a real pass (``capture_inputs``,
+``arrival_state``) that ``chip_smoke.py``, ``k1_variants`` and
+``k2_variants`` use; and the one-arrival loop (``one_step_loop``) that the
+multi-arrival kernel replaced."""
 
 from __future__ import annotations
 
@@ -23,6 +25,18 @@ PEAK_BF16 = 133.8e12
 # slab tests of an inner row (36 each), one Moller-Trumbore test per leaf
 # triangle, the world-to-local transform of an instance row.
 K1_OPS_INNER, K1_OPS_TRI, K1_OPS_INST = 576, 55, 30
+# f32 operations of K2 (csrc/transition16.cu) by lane case, counted from
+# its source (each add, multiply, divide, square root and transcendental
+# one; selects and integer work none): every lane at a finished segment
+# (its uniforms and radiance updates); a miss (the sky footprint, its pdf,
+# the MIS weight); a shaded hit (the alias sample, its direction and pdf,
+# the NEE contribution); the attribute row's normal by attr_compact (f16
+# or oct decode, interpolation, normalize); the material and hit frame;
+# one BSDF evaluation with its frame and lobe probabilities; the lobe
+# sample; the throughput update and RR.  A lane between segments does
+# integer work only (its PCG steps).
+K2_OPS = dict(lane=40, miss=68, hit=50, normal={2: 36, 3: 93}, material=43, eval=622,
+              sample=219, rr=14)
 
 
 def cuda_device(device=None) -> torch.device:
@@ -72,14 +86,15 @@ def time_in_place_ms(fn, restore, reps: int = 100) -> tuple[float, float, float]
     return t_both - t_restore, t_both, t_restore
 
 
-def ptxas_registers(log_text: str) -> dict:
-    """K1's kernels in an ``nvcc -Xptxas -v`` log: mangled name (up to its
-    template arguments) -> "N regs, S B spill"."""
+def ptxas_registers(log_text: str, kernel: str = "arrival16") -> dict:
+    """The kernels whose names hold ``kernel`` (K1's by default) in an
+    ``nvcc -Xptxas -v`` log: mangled name (up to its template arguments)
+    -> "N regs, S B spill"."""
     out, cur = {}, None
     for ln in log_text.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)Ev", ln)
-        if m:
-            cur = m.group(1) if "arrival16" in m.group(1) else None
+        if "Compiling entry function" in ln:
+            m = re.search(r"'_Z\d+(\w+?)Ev", ln)
+            cur = m.group(1) if m and kernel in m.group(1) else None
             continue
         if cur is None:
             continue
@@ -228,20 +243,31 @@ def clone_state(s):
     return s._replace(**{f: getattr(s, f).clone() for f in s._fields})
 
 
-def capture_inputs(sd, cfg, params, k1_calls: tuple, k2_call: int | None = None):
+class K2Launch(NamedTuple):
+    """The inputs of one transition (``cuda_transition.transition16_cuda``)."""
+    scene: object
+    config: object
+    params: object
+    st: object
+
+
+def capture_inputs(sd, cfg, params, k1_calls: tuple, k2_calls: tuple = ()):
     """Clone the inputs of the multi-arrival launches numbered ``k1_calls``
     (the lane state at the start of those super-iterations, before the
-    update in place) and of the ``k2_call``-th transition of a real pass
-    (the arrivals alone when ``k2_call`` is None), then stop the pass;
-    returns the K1Launch list in call order and the transition's inputs."""
+    update in place) and of the transitions numbered ``k2_calls`` (the
+    state after the arrivals, before the env draw) of a real pass, then
+    stop the pass; returns the K1Launch and K2Launch lists in call order."""
     from unity_webgpu_pathtracer_torch.render import fused
 
-    got = {"k1": []}
-    arrive, trans = fused.arrival_steps16_cuda, fused.transition_step16_cuda
+    got = {"k1": [], "k2": []}
+    arrive, trans = fused.arrival_steps16_cuda, fused.transition16_cuda
     n = {"k1": 0, "k2": 0}
 
     def clone(x):
         return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def done():
+        return len(got["k1"]) == len(k1_calls) and len(got["k2"]) == len(k2_calls)
 
     def k1(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None, has_instances=False):
         n["k1"] += 1
@@ -249,28 +275,91 @@ def capture_inputs(sd, cfg, params, k1_calls: tuple, k2_call: int | None = None)
             got["k1"].append(K1Launch(nodes, oT.clone(), dT.clone(), invT.clone(),
                                       clone_state(s), steps, clone(live), clone(stop_on_found),
                                       has_instances))
-            if k2_call is None and n["k1"] == max(k1_calls):
+            if done():
                 raise _Captured
         return arrive(nodes, oT, dT, invT, s, steps, live, stop_on_found, has_instances)
 
-    def k2(**kw):
+    def k2(scene, config, params_, st):
         n["k2"] += 1
-        if n["k2"] == k2_call:
-            got["k2"] = {k: clone(v) for k, v in kw.items()}
-            raise _Captured
-        return trans(**kw)
+        if n["k2"] in k2_calls:
+            got["k2"].append(K2Launch(scene, config, params_, clone_state(st)))
+            if done():
+                raise _Captured
+        return trans(scene, config, params_, st)
 
-    fused.arrival_steps16_cuda, fused.transition_step16_cuda = k1, k2
+    fused.arrival_steps16_cuda, fused.transition16_cuda = k1, k2
     try:
         fused.fused_pass_with_stats(sd, cfg, params, 0)
     except _Captured:
         pass
     finally:
-        fused.arrival_steps16_cuda, fused.transition_step16_cuda = arrive, trans
-    if len(got["k1"]) != len(k1_calls) or (k2_call is not None and "k2" not in got):
+        fused.arrival_steps16_cuda, fused.transition16_cuda = arrive, trans
+    if not done():
         raise RuntimeError(f"pass ended before the capture: {len(got['k1'])} launches, "
-                           f"transition {'k2' in got}")
-    return got["k1"], got.get("k2")
+                           f"{len(got['k2'])} transitions")
+    return got["k1"], got["k2"]
+
+
+def transition_work(cap: K2Launch, after, died):
+    """(bytes, f32 operations, counts) of one K2 launch on ``cap.st``, where
+    ``after`` is the state it leaves and ``died`` its died plane (from the
+    plain version on a clone).  Bytes: mode, ptr, found and rng of every
+    lane read, rng and died written; for each lane at a finished segment
+    the state its case reads, read once; each field element whose value
+    changes written once, rad_out of the lanes that die, the ray counter;
+    each distinct attribute row (32 or 16 bytes), material row (22 words)
+    and env row half (the 32-byte alias half on a hit, the 48-byte
+    footprint on a miss) once.  Operations: ``K2_OPS`` by lane case.
+    ``counts``: lanes by case and distinct rows."""
+    from unity_webgpu_pathtracer_torch.ops import cuda_transition as ct
+    from unity_webgpu_pathtracer_torch.scene.envmap import _bilerp_coords
+    from unity_webgpu_pathtracer_torch.utils import rng as urng
+    from unity_webgpu_pathtracer_torch.utils.math import INV_PI, INV_TWO_PI, PI
+
+    scene, cfg, st = cap.scene, cap.config, cap.st
+    trav_done = st.ptr < 0
+    a = (st.mode == ct.MODE_PRIMARY) & trav_done
+    hit, miss = a & (st.tri >= 0), a & (st.tri < 0)
+    shadow = (st.mode == ct.MODE_SHADOW_ENV) & (trav_done | st.found)
+    need = hit | shadow
+    b = st.mode.shape[0]
+
+    attr = ct.attr_index(a, need, st.tri, st.hit_tri)[need]
+    mats = ct.shade_rows(scene, cfg.attr_compact, attr)[1]
+    row_bytes = 16 if cfg.attr_compact == 3 else 32
+    h, w = scene.env.image.shape[0], scene.env.image.shape[1]
+    u1 = urng.random_float(st.rng[hit])[0]
+    bins = torch.clamp((u1 * (h * w)).to(torch.int32), 0, h * w - 1)
+    d = st.path_d[:, miss]
+    theta = torch.acos(torch.clamp(d[1], -1.0, 1.0))
+    uv = torch.stack([(PI + torch.atan2(d[2], d[0])) * INV_TWO_PI
+                      + cap.params.environment_rotation, 1.0 - theta * INV_PI], dim=-1)
+    x0i, y0i, _fx, _fy = _bilerp_coords(h, w, uv)
+    counts = dict(idle=int((~(a | shadow)).sum()), miss=int(miss.sum()), hit=int(hit.sum()),
+                  shadow=int(shadow.sum()), attr_rows=int(torch.unique(attr).numel()),
+                  material_rows=int(torch.unique(mats).numel()),
+                  alias_rows=int(torch.unique(bins).numel()),
+                  footprint_rows=int(torch.unique(y0i * w + x0i).numel()))
+    proc = counts["miss"] + counts["hit"] + counts["shadow"]
+
+    reads = (17 * b + 52 * proc + 4 * (counts["miss"] + counts["hit"]) + 24 * counts["hit"]
+             + 40 * counts["shadow"] + row_bytes * counts["attr_rows"]
+             + 88 * counts["material_rows"] + 32 * counts["alias_rows"]
+             + 48 * counts["footprint_rows"] + 16)
+    writes = 9 * b + 12 * int(died.sum()) + 8
+    for f in ct.TransitionState._fields:
+        if f in ("rng", "rays"):
+            continue
+        x, y = getattr(st, f), getattr(after, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        writes += int((x != y).sum()) * x.element_size()
+    ops = (K2_OPS["lane"] * proc + K2_OPS["miss"] * counts["miss"]
+           + (K2_OPS["hit"] + K2_OPS["normal"][cfg.attr_compact] + K2_OPS["material"]
+              + K2_OPS["eval"]) * counts["hit"]
+           + (K2_OPS["normal"][cfg.attr_compact] + K2_OPS["material"] + K2_OPS["eval"]
+              + K2_OPS["sample"] + K2_OPS["rr"]) * counts["shadow"])
+    return reads + writes, ops, counts
 
 
 def running(live, stop_on_found, s):

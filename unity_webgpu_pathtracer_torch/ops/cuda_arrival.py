@@ -170,23 +170,6 @@ def arrival_step16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
     return out
 
 
-def _check_in_place(s: Wide16State, fields, inputs) -> None:
-    """Raise unless every updated state field has a storage of its own,
-    shared with no other field and no input: an update in place through
-    one would change the other."""
-    owner = {}
-    for name in fields:
-        key = getattr(s, name).untyped_storage().data_ptr()
-        if key in owner:
-            raise ValueError(f"{name} shares its storage with {owner[key]}; the arrivals "
-                             "update the state in place, so each field needs its own")
-        owner[key] = name
-    for name, x in inputs.items():
-        if x is not None and x.untyped_storage().data_ptr() in owner:
-            raise ValueError(f"{name} shares its storage with the state field "
-                             f"{owner[x.untyped_storage().data_ptr()]}")
-
-
 def arrival_steps16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor,
                          invT: torch.Tensor, s: Wide16State, steps: int,
                          live: torch.Tensor | None = None,
@@ -207,8 +190,8 @@ def arrival_steps16_cuda(nodes: torch.Tensor, oT: torch.Tensor, dT: torch.Tensor
     if steps < 1:
         raise ValueError(f"steps: expected at least 1, got {steps}")
     fields = _FLAT_FIELDS + (_INST_FIELDS if has_instances else ())
-    _check_in_place(s, fields, dict(nodes=nodes, oT=oT, dT=dT, invT=invT, live=live,
-                                    stop_on_found=stop_on_found))
+    cuda_build.check_in_place(s, fields, dict(nodes=nodes, oT=oT, dT=dT, invT=invT, live=live,
+                                              stop_on_found=stop_on_found))
     if nodes.device.type == "cpu":
         return arrival_steps16(nodes, oT.T, dT.T, invT.T, s, steps, live, stop_on_found,
                                has_instances)

@@ -44,7 +44,7 @@ ENTRIES = {
     },
     "transition16": {
         "transition16_launch": [_P, _P],                 # args struct, stream
-        "transition16_attr_raw_launch": [_P, _P],
+        "transition16_oct_launch": [_P, _P],
         "transition16_decode_check": [_P, _P, _I, _P, _P, _I, _P],
     },
     "probes": {                                          # the experiments/ probes
@@ -79,7 +79,7 @@ def _defines() -> list[str]:
 
     ints = dict(MODE_PRIMARY=ct.MODE_PRIMARY, MODE_SHADOW_ENV=ct.MODE_SHADOW_ENV,
                 MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
-                K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS,
+                K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS, K2_THREADS=ct.K2_THREADS,
                 **{f"PROBE_{m.upper()}": k for m, k in ca.PROBE_NUMBERS.items()},
                 **{f"OP_{op.upper()}": k for k, op in enumerate(cp.INTRINSICS)})
     floats = dict(FAR_PLANE=FAR_PLANE, DET_EPS=tw.DET_EPS, T_MIN=tw.T_MIN,
@@ -180,6 +180,23 @@ def check_tensor(x, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}"
                          f"{'' if x.is_contiguous() else ' (non-contiguous)'}")
+
+
+def check_in_place(state, fields, inputs: dict) -> None:
+    """Raise unless each of ``fields`` of ``state`` (the tensors a kernel
+    updates in place) has a storage of its own, shared with no other field
+    and no input: an update through one would change the other."""
+    owner = {}
+    for name in fields:
+        key = getattr(state, name).untyped_storage().data_ptr()
+        if key in owner:
+            raise ValueError(f"{name} shares its storage with {owner[key]}; the kernel "
+                             "updates the state in place, so each field needs its own")
+        owner[key] = name
+    for name, x in inputs.items():
+        if x is not None and x.untyped_storage().data_ptr() in owner:
+            raise ValueError(f"{name} shares its storage with the state field "
+                             f"{owner[x.untyped_storage().data_ptr()]}")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

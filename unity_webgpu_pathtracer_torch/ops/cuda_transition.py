@@ -1,26 +1,32 @@
-"""Fused-integrator transition step: the CUDA kernel
-``csrc/transition16.cu`` and its plain twin.
+"""Fused-integrator transition: the CUDA kernel ``csrc/transition16.cu``
+and its plain version.
 
-The per-lane shade / env-NEE / BSDF / Russian-roulette step of the
-reference's ``ops/pallas_transition.py::_transition_kernel`` on
-pre-gathered inputs: the env sample, the attribute and material fetches,
-the record-film append and the work-queue regeneration stay outside
-(``render/fused.py``), as in the reference.  Mode machine: PRIMARY ->
-SHADOW_ENV -> PRIMARY or DEAD.
+``transition16_cuda(scene, config, params, st)`` runs one transition of
+the HDRI kernel route on the pass's lane state ``st`` (a
+``TransitionState``: the ``FusedState`` fields the transition reads and
+writes, vectors as (3, B) planes), in place: the environment sample, the
+attribute and material fetch and the shade / env-NEE / BSDF / Russian-
+roulette step of the reference's ``render/fused.py::_transition_pallas``
+up to, not including, its record append and regeneration.  It returns the
+per-call outputs ``(died, rad_out)``; ``rad_out`` holds the radiance of the
+lanes that died (other lanes' columns are undefined: the record append
+never reads them).  Lanes that are neither at a finished primary segment
+nor at a finished shadow segment change only their RNG state; the ray
+starts are added to ``st.rays``.  Mode machine: PRIMARY -> SHADOW_ENV ->
+PRIMARY or DEAD.
 
-``transition_step16_cuda`` takes and returns the tensors of the
-reference's ``transition_step16_pallas``, vectors as (3, B) planes, with
-the hit's attribute row in one of two forms: ``shade_rowT``, 15 decoded
-f32 planes (kernel ``transition16``), or the raw form, the (T, 8) int32
-attribute table and each lane's row index ``attr``, whose f16 normals are
-decoded in the kernel (``transition16_attr_raw``, the reference's
-``attr_raw``; its pair row and parity are one 32-byte row here).  CUDA
-tensors launch a kernel, counted in
-``transition_step16_cuda.launches[name]``; CPU tensors run the plain twin
-``transition_step16_plain``, a transcription of the same kernel body in
-the same operation order.  Every lane draws the same number of
-uniforms in the same order (1 alpha + 3 BSDF + 1 RR), so the RNG stream
-is the reference's.
+CUDA tensors launch one kernel, by attribute rows: ``transition16`` for
+the f16 rows of ``attr_compact=2`` (``attr_in_kernel`` either way: the
+port decodes in the kernel, which gives the bits a decode in PyTorch
+gives), ``transition16_oct`` for the oct rows of ``attr_compact=3``;
+launches are counted in ``transition16_cuda.launches[name]``.  CPU tensors
+run the plain version ``transition16_plain``: the port's
+``scene/envmap.py::sample_env_transition``, the attribute and material
+gathers and ``transition_step16_plain`` (the per-lane body on pre-gathered
+planes, a transcription of the reference kernel held against
+``transition_step16_pallas``), composed in that order, with the same
+in-place contract.  Every lane draws the same uniforms in the same order
+(2 env + 1 alpha + 3 BSDF + 1 RR), so the RNG stream is the reference's.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     EPSILON,
     FAR_PLANE,
     build_onb,
+    normalize,
     to_local,
     vluminance,
     vneg,
@@ -57,6 +64,9 @@ FULL16 = 0xFFFF
 
 
 class TransitionOut(NamedTuple):
+    """The outputs of ``transition_step16_plain``, the reference kernel's
+    ``TransitionOut``."""
+
     mode: torch.Tensor
     ptr: torch.Tensor
     pend: torch.Tensor
@@ -86,7 +96,7 @@ class TransitionOut(NamedTuple):
     nray: torch.Tensor         # int32 ray starts (bounce + shadow)
 
 
-# Inputs in kernel-struct order: (name, dtype, rows) with rows 0 = (B,).
+# Inputs of transition_step16_plain: (name, dtype, rows) with rows 0 = (B,).
 _INPUTS = (
     ("mode", torch.int32, 0), ("trav_done", torch.bool, 0),
     ("ptr", torch.int32, 0), ("pend", torch.int32, 0), ("sp", torch.int32, 0),
@@ -105,35 +115,68 @@ _INPUTS = (
     ("env_dirT", torch.float32, 3), ("env_liT", torch.float32, 3),
     ("env_pdf", torch.float32, 0),
 )
-_OUT_SPEC = {
-    "mode": (torch.int32, 0), "ptr": (torch.int32, 0), "pend": (torch.int32, 0),
-    "sp": (torch.int32, 0), "t": (torch.float32, 0), "u": (torch.float32, 0),
-    "v": (torch.float32, 0), "tri": (torch.int32, 0), "found": (torch.bool, 0),
-    "trav_oT": (torch.float32, 3), "trav_dT": (torch.float32, 3),
-    "path_oT": (torch.float32, 3), "path_dT": (torch.float32, 3),
-    "hit_t": (torch.float32, 0), "hit_baryT": (torch.float32, 2),
-    "hit_tri": (torch.int32, 0), "pendingT": (torch.float32, 3),
-    "throughputT": (torch.float32, 3), "radianceT": (torch.float32, 3),
-    "rad_outT": (torch.float32, 3), "rng": (torch.int64, 0),
-    "depth": (torch.int32, 0), "max_rough": (torch.float32, 0),
-    "prev_pdf": (torch.float32, 0), "lane_cap": (torch.int32, 0),
-    "died": (torch.bool, 0), "nray": (torch.int32, 0),
-}
+
+
+class TransitionState(NamedTuple):
+    """The ``FusedState`` tensors a transition reads and updates in place
+    (``render/fused.py::transition_state``), in the kernel struct's order;
+    vectors as (3, B) planes."""
+
+    mode: torch.Tensor
+    ptr: torch.Tensor
+    pend: torch.Tensor
+    sp: torch.Tensor
+    t: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+    tri: torch.Tensor
+    found: torch.Tensor        # bool
+    trav_o: torch.Tensor       # (3, B)
+    trav_d: torch.Tensor
+    path_o: torch.Tensor
+    path_d: torch.Tensor
+    hit_t: torch.Tensor
+    hit_bary: torch.Tensor     # (2, B)
+    hit_tri: torch.Tensor
+    pending: torch.Tensor
+    throughput: torch.Tensor
+    radiance: torch.Tensor
+    rng: torch.Tensor          # int64 holding uint32
+    depth: torch.Tensor
+    max_rough: torch.Tensor
+    prev_pdf: torch.Tensor
+    lane_cap: torch.Tensor
+    rays: torch.Tensor         # () int64 ray starts of the pass
+
+
+# dtype and rows of each state field (0: (B,); None: a () counter).
+_STATE = dict(
+    mode=(torch.int32, 0), ptr=(torch.int32, 0), pend=(torch.int32, 0), sp=(torch.int32, 0),
+    t=(torch.float32, 0), u=(torch.float32, 0), v=(torch.float32, 0), tri=(torch.int32, 0),
+    found=(torch.bool, 0), trav_o=(torch.float32, 3), trav_d=(torch.float32, 3),
+    path_o=(torch.float32, 3), path_d=(torch.float32, 3), hit_t=(torch.float32, 0),
+    hit_bary=(torch.float32, 2), hit_tri=(torch.int32, 0), pending=(torch.float32, 3),
+    throughput=(torch.float32, 3), radiance=(torch.float32, 3), rng=(torch.int64, 0),
+    depth=(torch.int32, 0), max_rough=(torch.float32, 0), prev_pdf=(torch.float32, 0),
+    lane_cap=(torch.int32, 0), rays=(torch.int64, None))
+_TABLES = ("env_rows", "attr_rows", "materials")
+_SCALARS = ("cdf_sum", "rotation", "intensity", "firefly_max")
 
 
 class _TransitionArgs(ctypes.Structure):
     """Mirror of ``TransitionArgs`` in ``csrc/transition16.cu``."""
 
-    _fields_ = ([(n, ctypes.c_void_p) for n, _, _ in _INPUTS]
-                + [(n, ctypes.c_void_p) for n in ("shade_rowT", "attr_table", "attr")]
-                + [("firefly_max", ctypes.c_void_p)]
-                + [("o_" + n, ctypes.c_void_p) for n in TransitionOut._fields]
-                + [(n, ctypes.c_int) for n in
-                   ("b", "use_rr", "max_bounces", "firefly", "nan_canary")])
+    _fields_ = ([(n, ctypes.c_void_p) for n in TransitionState._fields]
+                + [(n, ctypes.c_void_p) for n in ("died", "rad_out", *_TABLES, *_SCALARS)]
+                + [(n, ctypes.c_int) for n in ("b", "env_w", "env_h", "use_rr", "max_bounces",
+                                               "firefly", "nan_canary")])
 
 
-# Kernel name by attribute form (raw or not); its C entry is name + "_launch".
-KERNELS = {False: "transition16", True: "transition16_attr_raw"}
+# Kernel name by attr_compact; its C entry is name + "_launch".
+KERNELS = {2: "transition16", 3: "transition16_oct"}
+# Threads per block (UWPT_K2_THREADS in csrc/transition16.cu; nvcc picks
+# the registers).  experiments/k2_variants.py builds and times other values.
+K2_THREADS = 128
 
 
 def f16_decode(h: torch.Tensor) -> torch.Tensor:
@@ -150,10 +193,49 @@ def f16_decode(h: torch.Tensor) -> torch.Tensor:
     return torch.where(e == 0, torch.where(s != 0, -m_f, m_f), v)
 
 
+def oct_decode(u: torch.Tensor) -> torch.Tensor:
+    """16-bit octahedral words (int32 view of uint32, (B,)) -> unnormalized
+    (B, 3) vectors (the reference's ``render/fused.py::_oct_decode``)."""
+    k = torch.tensor(2.0 / 65535.0, dtype=torch.float32)   # f32, as the reference's
+    x = (u & 0xFFFF).to(torch.float32) * k - 1.0
+    y = ((u >> 16) & 0xFFFF).to(torch.float32) * k - 1.0
+    z = 1.0 - torch.abs(x) - torch.abs(y)
+    t_f = torch.clamp_min(-z, 0.0)
+    x = x - torch.where(x >= 0, t_f, -t_f)
+    y = y - torch.where(y >= 0, t_f, -t_f)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def attr_index(a: torch.Tensor, need: torch.Tensor, tri: torch.Tensor,
+               hit_tri: torch.Tensor) -> torch.Tensor:
+    """The attribute row of each lane's hit, (B,) int64: the fresh hit
+    ``tri`` where the primary segment just ended (``a``), the saved
+    ``hit_tri`` elsewhere; lanes outside ``need`` (those that consume no
+    attributes this transition) read row 0."""
+    sel_tri = torch.where(a, tri, hit_tri)
+    return torch.where(need, torch.clamp_min(sel_tri, 0), torch.zeros_like(sel_tri)).long()
+
+
+def shade_rows(scene, attr_compact: int, attr: torch.Tensor):
+    """Rows ``attr`` of the attribute table of ``attr_compact`` as (15, B)
+    f32 planes (3 vertex normals, 3 uvs; mode 3 stores no uv, so those
+    planes are 0 there, and its oct normals are normalized per vertex as in
+    the reference) and their u16 material index."""
+    if attr_compact == 3:
+        rows = scene.attr_shade_o[attr]                          # (B, 4) int32
+        normals = [normalize(oct_decode(rows[:, v])) for v in range(3)]
+        zeros = torch.zeros((attr.shape[0], 6), dtype=torch.float32, device=attr.device)
+        return torch.cat(normals + [zeros], dim=1).T.contiguous(), rows[:, 3]
+    rows = scene.attr_shade_c[attr]                              # (B, 8) int32
+    shade_rowT = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
+    return shade_rowT, (rows[:, 7] >> 16) & 0xFFFF
+
+
 # ---------------------------------------------------------------------------
-# Plain twin: the kernel body on (B,) tensors, vectors as planes 3-tuples,
-# in the kernel's operation order; the shading math is the port's shared
-# BSDF (render/bsdf.py, render/sampling.py, scene/material.py).
+# The per-lane body on pre-gathered (B,) planes, vectors as 3-tuples of
+# planes, a transcription of the reference kernel; the shading math is the
+# port's shared BSDF (render/bsdf.py, render/sampling.py,
+# scene/material.py).
 # ---------------------------------------------------------------------------
 
 def transition_step16_plain(*, mode, trav_done, ptr, pend, sp, t, u, v, tri, found,
@@ -166,9 +248,13 @@ def transition_step16_plain(*, mode, trav_done, ptr, pend, sp, t, u, v, tri, fou
                             shade_rowT=None, attr_table=None, attr=None,
                             firefly: bool = False, firefly_max=None,
                             nan_canary: bool = False) -> TransitionOut:
-    """The transition kernels' body in plain PyTorch (see module doc);
-    the attribute row comes as ``shade_rowT`` or as ``attr_table`` and
-    ``attr``, whose lane rows are gathered and decoded here."""
+    """The reference transition kernel's body in plain PyTorch, on the
+    inputs ``transition_step16_pallas`` takes: the attribute row comes as
+    ``shade_rowT`` (15 decoded planes) or as ``attr_table`` and ``attr``,
+    whose lane rows are gathered and decoded here."""
+    if (attr_table is None) == (shade_rowT is None) or (attr_table is None) != (attr is None):
+        raise ValueError("pass exactly one attribute form: shade_rowT, or attr_table "
+                         "with attr")
     _w = torch.where
 
     def p3(x):
@@ -339,71 +425,131 @@ def transition_step16_plain(*, mode, trav_done, ptr, pend, sp, t, u, v, tri, fou
     )
 
 
-def transition_step16_cuda(*, use_rr: bool, max_bounces: int,
-                           shade_rowT=None, attr_table=None, attr=None,
-                           firefly: bool = False, firefly_max=None,
-                           nan_canary: bool = False, **inputs) -> TransitionOut:
-    """One transition on pre-gathered inputs (the keyword tensors of
-    ``transition_step16_plain``; exactly one of ``shade_rowT`` or
-    ``attr_table`` with ``attr``), checked against the kernel's contract
-    on either device; CUDA tensors launch a kernel."""
-    mode = inputs["mode"]
-    dev = mode.device
+def transition16_plain(scene, config, params, st: TransitionState):
+    """The plain version of ``transition16_cuda``, on either device: the
+    env sample, the attribute and material gathers and
+    ``transition_step16_plain``, then the in-place update (lanes that
+    process nothing keep every field but ``rng``)."""
+    from unity_webgpu_pathtracer_torch.scene.envmap import sample_env_transition
+
+    trav_done = st.ptr < 0
+    a = (st.mode == MODE_PRIMARY) & trav_done
+    hit_valid = st.tri >= 0
+    sky_raw, sky_pdf, env_dir, env_col, env_pdf, rng = sample_env_transition(
+        scene.env, params.environment_rotation, st.path_d.T, a & hit_valid, st.rng, need=a)
+    intensity = torch.where(st.depth > 0, params.environment_intensity,
+                            torch.ones_like(sky_pdf))
+    env_done = (st.mode == MODE_SHADOW_ENV) & (trav_done | st.found)
+    shade_rowT, mat_idx = shade_rows(
+        scene, config.attr_compact, attr_index(a, (a & hit_valid) | env_done, st.tri, st.hit_tri))
+    k = transition_step16_plain(
+        mode=st.mode, trav_done=trav_done, ptr=st.ptr, pend=st.pend, sp=st.sp, t=st.t,
+        u=st.u, v=st.v, tri=st.tri, found=st.found, trav_oT=st.trav_o, trav_dT=st.trav_d,
+        path_oT=st.path_o, path_dT=st.path_d, hit_t=st.hit_t, hit_baryT=st.hit_bary,
+        hit_tri=st.hit_tri, pendingT=st.pending, throughputT=st.throughput,
+        radianceT=st.radiance, rng=rng, depth=st.depth, max_rough=st.max_rough,
+        prev_pdf=st.prev_pdf, lane_cap=st.lane_cap,
+        mdataT=scene.materials[mat_idx.long(), 0:22].T, shade_rowT=shade_rowT,
+        sky_colT=(sky_raw * intensity[:, None]).T, sky_pdf=sky_pdf, env_dirT=env_dir.T,
+        env_liT=(env_col * params.environment_intensity).T, env_pdf=env_pdf,
+        use_rr=config.use_russian_roulette, max_bounces=config.max_bounces,
+        firefly=config.use_firefly_filter, firefly_max=params.max_firefly_luminance,
+        nan_canary=config.debug_nan_canary)
+    processed = a | env_done
+    out = {name.rstrip("T"): x for name, x in k._asdict().items()}   # trav_oT -> trav_o
+    for name in TransitionState._fields:
+        dst = getattr(st, name)
+        if name == "rng":
+            dst.copy_(k.rng)
+        elif name == "rays":
+            dst.add_(k.nray.sum())
+        else:
+            dst.copy_(torch.where(processed, out[name], dst))
+    return k.died, torch.where(k.died, k.rad_outT, torch.zeros_like(k.rad_outT))
+
+
+def _scene_inputs(scene, config, params) -> dict:
+    """The tables and device scalars the kernel reads."""
+    return dict(env_rows=scene.env.merged_rows,
+                attr_rows=scene.attr_shade_o if config.attr_compact == 3 else scene.attr_shade_c,
+                materials=scene.materials, cdf_sum=scene.env.cdf_sum,
+                rotation=params.environment_rotation, intensity=params.environment_intensity,
+                firefly_max=params.max_firefly_luminance)
+
+
+def _check(ins: dict, st: TransitionState, attr_compact: int, env_hw) -> None:
+    """The kernel's contract, on either device: the state's fields of
+    their dtypes and shapes, contiguous, each with a storage of its own
+    that no table shares; the tables 16-byte aligned (rows are loaded as
+    16-byte vectors); the scalars one float32 each."""
+    dev = st.mode.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    b = mode.shape[0]
-    if set(inputs) != {n for n, _, _ in _INPUTS}:
-        raise ValueError(f"inputs differ from the kernel's: "
-                         f"{sorted(set(inputs) ^ {n for n, _, _ in _INPUTS})}")
-    for name, dtype, rows in _INPUTS:
-        x = inputs[name]
-        shape = (b,) if rows == 0 else (rows, b)
-        cuda_build.check_tensor(x, name, dtype, shape, dev)
-    raw = attr_table is not None
-    if raw == (shade_rowT is not None) or raw != (attr is not None):
-        raise ValueError("pass exactly one attribute form: shade_rowT, or attr_table "
-                         "with attr")
-    if raw:
-        cuda_build.check_tensor(attr_table, "attr_table", torch.int32,
-                                (attr_table.shape[0], 8), dev)
-        cuda_build.check_tensor(attr, "attr", torch.int32, (b,), dev)
-        if attr_table.data_ptr() % 16:
-            raise ValueError("attr_table: the kernel loads rows as 16-byte vectors; "
-                             "pass a 16-byte-aligned table")
-        form = dict(attr_table=attr_table, attr=attr)
-    else:
-        cuda_build.check_tensor(shade_rowT, "shade_rowT", torch.float32, (15, b), dev)
-        form = dict(shade_rowT=shade_rowT)
-    if firefly:
-        if firefly_max is None or firefly_max.device != dev \
-                or firefly_max.dtype != torch.float32 or firefly_max.numel() != 1:
-            raise ValueError("firefly needs firefly_max as a 1-element float32 "
-                             f"tensor on {dev}")
-    if dev.type == "cpu":
-        return transition_step16_plain(use_rr=use_rr, max_bounces=max_bounces,
-                                       firefly=firefly, firefly_max=firefly_max,
-                                       nan_canary=nan_canary, **form, **inputs)
-    out = TransitionOut(**{
-        n: torch.empty((b,) if rows == 0 else (rows, b), dtype=dtype, device=dev)
-        for n, (dtype, rows) in _OUT_SPEC.items()})
+    b = st.mode.shape[0]
+    for name, (dtype, rows) in _STATE.items():
+        shape = () if rows is None else (b,) if rows == 0 else (rows, b)
+        cuda_build.check_tensor(getattr(st, name), name, dtype, shape, dev)
+    width = 4 if attr_compact == 3 else 8
+    h, w = env_hw
+    for name, (dtype, cols) in dict(env_rows=(torch.float32, 20),
+                                    attr_rows=(torch.int32, width),
+                                    materials=(torch.float32, 32)).items():
+        x = ins[name]
+        cuda_build.check_tensor(x, name, dtype, (x.shape[0], cols), dev)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel loads rows as 16-byte vectors; pass a "
+                             "16-byte-aligned table")
+    if ins["env_rows"].shape[0] != h * w:
+        raise ValueError(f"env_rows: expected the {h}x{w} environment's {h * w} merged rows, "
+                         f"got {ins['env_rows'].shape[0]}")
+    for name in _SCALARS:
+        x = ins[name]
+        if x.device != dev or x.dtype != torch.float32 or x.numel() != 1:
+            raise ValueError(f"{name}: expected one float32 on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    cuda_build.check_in_place(st, TransitionState._fields, ins)
+
+
+def transition16_cuda(scene, config, params, st: TransitionState):
+    """One transition of the HDRI kernel route on ``st``, in place (see
+    the module doc); returns ``(died (B,) bool, rad_out (3, B))``.
+    ``scene`` is the ``SceneData``, ``config`` the ``RenderConfig`` (its
+    ``attr_compact``, RR, bounce, firefly and NaN-canary settings),
+    ``params`` the ``RenderParams``.  The inputs are checked against the
+    kernel's contract on either device; CUDA tensors launch the kernel."""
+    _check(_scene_inputs(scene, config, params), st, config.attr_compact,
+           tuple(scene.env.image.shape[:2]))
+    if st.mode.device.type == "cpu":
+        return transition16_plain(scene, config, params, st)
+    name, died, rad_out = launch(cuda_build.load()["transition16"], scene, config, params, st)
+    transition16_cuda.launches[name] += 1
+    return died, rad_out
+
+
+def launch(lib: ctypes.CDLL, scene, config, params, st: TransitionState):
+    """Launch the entry of ``lib`` (a build of ``csrc/transition16.cu``) for
+    ``config.attr_compact`` on CUDA inputs that ``transition16_cuda`` has
+    checked; returns ``(kernel name, died, rad_out)``.  Counts nothing."""
+    ins = _scene_inputs(scene, config, params)
+    dev = st.mode.device
+    b = st.mode.shape[0]
+    died = torch.empty((b,), dtype=torch.bool, device=dev)
+    rad_out = torch.empty((3, b), dtype=torch.float32, device=dev)
     args = _TransitionArgs(
-        *(inputs[n].data_ptr() for n, _, _ in _INPUTS),
-        *(form[n].data_ptr() if n in form else 0
-          for n in ("shade_rowT", "attr_table", "attr")),
-        firefly_max.data_ptr() if firefly else 0,
-        *(getattr(out, n).data_ptr() for n in TransitionOut._fields),
-        b, int(use_rr), int(max_bounces), int(firefly), int(nan_canary))
-    lib = cuda_build.load()["transition16"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    name = KERNELS[raw]
-    err = getattr(lib, name + "_launch")(ctypes.byref(args), stream)
+        *(getattr(st, n).data_ptr() for n in TransitionState._fields),
+        died.data_ptr(), rad_out.data_ptr(), *(ins[n].data_ptr() for n in _TABLES + _SCALARS),
+        b, scene.env.image.shape[1], scene.env.image.shape[0],
+        int(config.use_russian_roulette), int(config.max_bounces),
+        int(config.use_firefly_filter), int(config.debug_nan_canary))
+    name = KERNELS[config.attr_compact]
+    err = getattr(lib, name + "_launch")(ctypes.byref(args),
+                                         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, name)
-    transition_step16_cuda.launches[name] += 1
-    return out
+    return name, died, rad_out
 
 
 # Launch count of each kernel entry.
-transition_step16_cuda.launches = dict.fromkeys(KERNELS.values(), 0)
+transition16_cuda.launches = dict.fromkeys(KERNELS.values(), 0)
 
 
 def decode_check_cuda(halfwords: torch.Tensor, states: torch.Tensor):

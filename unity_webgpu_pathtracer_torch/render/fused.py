@@ -10,15 +10,16 @@ RNG stream depends on it.
 
 The transition is routed per pass as the reference routes it
 (``_pallas_transition_supported``): the HDRI configuration on a flat
-scene runs kernel K2 (``ops/cuda_transition.py``) on pre-gathered inputs
-(``_transition_kernel_path``); every other configuration the port admits
-(the constant environment, the basic sky, no sky, instanced scenes) runs
-the general transition (``_transition``), plain PyTorch like the
-reference's XLA one.  Both end in the same record-film append and
-work-queue regeneration.  The hit's attribute row is read from the paired
-f16 rows (``attr_compact=2``) or the oct-normal rows (``attr_compact=3``);
-with ``attr_in_kernel`` on mode 2, K2 receives the raw rows and decodes
-them itself.
+scene runs kernel K2 (``ops/cuda_transition.py``), one launch that samples
+the environment, reads each lane's attribute and material rows and
+updates the lane state in place (``_transition_kernel_path``); every other
+configuration the port admits (the constant environment, the basic sky,
+no sky, instanced scenes) runs the general transition (``_transition``),
+plain PyTorch like the reference's XLA one.  Both end in the same
+record-film append and work-queue regeneration.  The hit's attribute row
+is read from the paired f16 rows (``attr_compact=2``) or the oct-normal
+rows (``attr_compact=3``); ``attr_in_kernel`` changes nothing here, since
+K2 reads and decodes the rows itself on either setting.
 
 Dead lanes pull (pixel, sample) work items off a pixel-major queue.  Each
 path's radiance is appended once, keyed by pixel, to a pass-lifetime
@@ -48,7 +49,10 @@ from unity_webgpu_pathtracer_torch.ops.cuda_transition import (
     MODE_DEAD,
     MODE_PRIMARY,
     MODE_SHADOW_ENV,
-    transition_step16_cuda,
+    TransitionState,
+    attr_index,
+    shade_rows,
+    transition16_cuda,
 )
 from unity_webgpu_pathtracer_torch.render import bsdf
 from unity_webgpu_pathtracer_torch.render import camera as ucamera
@@ -66,7 +70,6 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     EPSILON,
     FAR_PLANE,
     PI,
-    normalize,
     safe_rcp,
     vdot,
     vluminance,
@@ -208,103 +211,28 @@ def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedS
     s.rays = s.rays + take.sum()
 
 
-def _attr_index(s: FusedState, a: torch.Tensor, hit_valid: torch.Tensor,
-                shadow_done: torch.Tensor) -> torch.Tensor:
-    """The attribute row of each lane's hit (B,) int64: the fresh hit for
-    lanes whose primary segment just ended, the saved one for shadow
-    lanes; lanes that consume no attributes this transition read row 0."""
-    need_mat = (a & hit_valid) | ((s.mode == MODE_SHADOW_ENV) & shadow_done)
-    sel_tri = torch.where(a, s.trav.tri, s.hit_tri)
-    return torch.where(need_mat, torch.clamp_min(sel_tri, 0), torch.zeros_like(sel_tri)).long()
-
-
-def _oct_decode(u: torch.Tensor) -> torch.Tensor:
-    """16-bit octahedral words (int32 view of uint32, (B,)) -> unnormalized
-    (B, 3) vectors (the reference's ``render/fused.py::_oct_decode``)."""
-    k = torch.tensor(2.0 / 65535.0, dtype=torch.float32)   # f32, as the reference's
-    x = (u & 0xFFFF).to(torch.float32) * k - 1.0
-    y = ((u >> 16) & 0xFFFF).to(torch.float32) * k - 1.0
-    z = 1.0 - torch.abs(x) - torch.abs(y)
-    t_f = torch.clamp_min(-z, 0.0)
-    x = x - torch.where(x >= 0, t_f, -t_f)
-    y = y - torch.where(y >= 0, t_f, -t_f)
-    return torch.stack([x, y, z], dim=-1)
-
-
-def _shade_rows(scene, config: RenderConfig, attr: torch.Tensor):
-    """Rows ``attr`` of the attribute table as (15, B) f32 planes (3 vertex
-    normals, 3 uvs; mode 3 stores no uv, so those planes are 0 there, and
-    its oct normals are normalized per vertex as in the reference) and
-    their u16 material index."""
-    if config.attr_compact == 3:
-        rows = scene.attr_shade_o[attr]                          # (B, 4) int32
-        normals = [normalize(_oct_decode(rows[:, v])) for v in range(3)]
-        zeros = torch.zeros((attr.shape[0], 6), dtype=torch.float32, device=attr.device)
-        return torch.cat(normals + [zeros], dim=1).T.contiguous(), rows[:, 3]
-    rows = scene.attr_shade_c[attr]                              # (B, 8) int32
-    shade_rowT = rows.view(torch.float16)[:, 0:15].to(torch.float32).T.contiguous()
-    return shade_rowT, (rows[:, 7] >> 16) & 0xFFFF
+def transition_state(s: FusedState) -> TransitionState:
+    """The tensors of ``s`` that K2 updates in place."""
+    tr = s.trav
+    return TransitionState(
+        mode=s.mode, ptr=tr.ptr, pend=tr.pend, sp=tr.sp, t=tr.t, u=tr.u, v=tr.v, tri=tr.tri,
+        found=tr.found, trav_o=s.trav_o, trav_d=s.trav_d, path_o=s.path_o, path_d=s.path_d,
+        hit_t=s.hit_t, hit_bary=s.hit_uv_bary, hit_tri=s.hit_tri, pending=s.pending,
+        throughput=s.throughput, radiance=s.radiance, rng=s.rng, depth=s.depth,
+        max_rough=s.max_roughness, prev_pdf=s.prev_pdf, lane_cap=s.lane_cap, rays=s.rays)
 
 
 def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
-                            s: FusedState, budget: int, current_sample: int,
-                            trav_done: torch.Tensor) -> None:
-    """One transition through kernel K2: env sample and gathers, the
-    kernel, then the record-film append and regeneration (updates ``s``
-    in place)."""
-    tr = s.trav
-    a = (s.mode == MODE_PRIMARY) & trav_done
-    hit_valid = tr.tri >= 0
-    sky_raw, sky_pdf, env_dir, env_col, env_pdf, rng_state = sample_env_transition(
-        scene.env, params.environment_rotation, s.path_d.T, a & hit_valid, s.rng,
-        need=a)
-    intensity = torch.where(s.depth > 0, params.environment_intensity,
-                            torch.ones_like(sky_pdf))
-    sky_color = sky_raw * intensity[:, None]
-    env_li = env_col * params.environment_intensity
-    attr = _attr_index(s, a, hit_valid, trav_done | tr.found)
-    if config.attr_in_kernel and config.attr_compact == 2:
-        # Raw rows into the kernel; only the material index (the high
-        # half of word 7) is decoded here, as in the reference.
-        form = dict(attr_table=scene.attr_shade_c, attr=attr.to(torch.int32))
-        mat_idx = (scene.attr_shade_c[attr, 7] >> 16) & 0xFFFF
-    else:
-        shade_rowT, mat_idx = _shade_rows(scene, config, attr)
-        form = dict(shade_rowT=shade_rowT)
-    mdataT = scene.materials[mat_idx.long(), 0:22].T.contiguous()
-
-    k = transition_step16_cuda(
-        mode=s.mode, trav_done=trav_done, ptr=tr.ptr, pend=tr.pend, sp=tr.sp,
-        t=tr.t, u=tr.u, v=tr.v, tri=tr.tri, found=tr.found,
-        trav_oT=s.trav_o, trav_dT=s.trav_d, path_oT=s.path_o, path_dT=s.path_d,
-        hit_t=s.hit_t, hit_baryT=s.hit_uv_bary, hit_tri=s.hit_tri,
-        pendingT=s.pending, throughputT=s.throughput, radianceT=s.radiance,
-        rng=rng_state, depth=s.depth, max_rough=s.max_roughness,
-        prev_pdf=s.prev_pdf, lane_cap=s.lane_cap, **form, mdataT=mdataT,
-        sky_colT=sky_color.T.contiguous(), sky_pdf=sky_pdf,
-        env_dirT=env_dir.T.contiguous(), env_liT=env_li.T.contiguous(),
-        env_pdf=env_pdf,
-        use_rr=config.use_russian_roulette, max_bounces=config.max_bounces,
-        firefly=config.use_firefly_filter,
-        firefly_max=params.max_firefly_luminance.reshape(1),
-        nan_canary=config.debug_nan_canary)
-
-    s.mode = k.mode
-    s.trav = tr._replace(ptr=k.ptr, pend=k.pend, sp=k.sp, t=k.t, u=k.u, v=k.v,
-                         tri=k.tri, found=k.found)
-    s.trav_o, s.trav_d = k.trav_oT, k.trav_dT
-    s.path_o, s.path_d = k.path_oT, k.path_dT
-    s.hit_t, s.hit_uv_bary, s.hit_tri = k.hit_t, k.hit_baryT, k.hit_tri
-    s.pending, s.throughput, s.radiance = k.pendingT, k.throughputT, k.radianceT
-    s.rng, s.depth, s.max_roughness = k.rng, k.depth, k.max_rough
-    s.prev_pdf, s.lane_cap = k.prev_pdf, k.lane_cap
-    # Bounce and shadow starts are counted in-kernel (nray); regens below.
-    s.rays = s.rays + k.nray.sum()
-    _record_and_regenerate(config, params, s, budget, current_sample, k.died, k.rad_outT)
+                            s: FusedState, budget: int, current_sample: int) -> None:
+    """One transition through kernel K2 (it reads ``trav_done`` from the
+    arrivals' ``ptr`` and adds its ray starts to ``s.rays``), then the
+    record-film append and regeneration (updates ``s`` in place)."""
+    died, rad_out = transition16_cuda(scene, config, params, transition_state(s))
+    _record_and_regenerate(config, params, s, budget, current_sample, died, rad_out)
 
 
 def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState,
-                budget: int, current_sample: int, trav_done: torch.Tensor) -> None:
+                budget: int, current_sample: int) -> None:
     """The general transition (the reference's ``_transition``, the
     branches the port admits): miss -> sky with MIS; hit -> shade with the
     instance hooks, emission, alpha passthrough; shadow result -> pending
@@ -316,6 +244,7 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     ``s`` in place."""
     env_nee = config.sky_mode == SKY_MODE_ENVIRONMENT
     tr = s.trav
+    trav_done = tr.ptr < 0
     shadow_done = trav_done | tr.found
     rng = s.rng
     a = (s.mode == MODE_PRIMARY) & trav_done
@@ -348,7 +277,9 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     b0 = torch.where(a, tr.u, s.hit_uv_bary[0])
     b1 = torch.where(a, tr.v, s.hit_uv_bary[1])
     sel_t = torch.where(a, tr.t, s.hit_t)
-    sr, mat_idx = _shade_rows(scene, config, _attr_index(s, a, hit_valid, shadow_done))
+    env_done = (s.mode == MODE_SHADOW_ENV) & shadow_done
+    sr, mat_idx = shade_rows(scene, config.attr_compact,
+                             attr_index(a, (a & hit_valid) | env_done, tr.tri, s.hit_tri))
     w0 = 1.0 - b0 - b1
     normal = vnormalize((sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
                          sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
@@ -379,7 +310,6 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     shade = shade & ~passthrough
 
     # --- shadow traversal finished -> apply the pending contribution ---
-    env_done = (s.mode == MODE_SHADOW_ENV) & shadow_done
     g_app = env_done & ~tr.found
     radiance = tuple(radiance[c] + torch.where(g_app, s.pending[c] * throughput[c], zero)
                      for c in range(3))
@@ -541,11 +471,10 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         # te arrivals; a shadow lane stops at its first hit.
         s.trav = arrival_steps16_cuda(nodes, s.trav_o, s.trav_d, inv, s.trav, te, live,
                                       shadowing, has_instances)
-        trav_done = s.trav.ptr < 0
         s.arrivals = s.arrivals + te * stepping.sum()
         s.busy = s.busy + live.sum()
         s.ticks = s.ticks + b
-        transition(scene, config, params, s, budget, current_sample, trav_done)
+        transition(scene, config, params, s, budget, current_sample)
         fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
                  & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
         s.trav = tw16.prestep16(nodes, scene.wide16_top, s.trav_o.T, s.trav_d.T,
