@@ -69,7 +69,11 @@ Phases, each printing one or more lines:
     experiments``, this slice's path): each module's ``run`` at its
     probe's sizes, every probe kernel held against its plain version (the
     counts set to 0 before and read after: every probe kernel must have
-    launched), then K1's probe modes (the kernel diet and the bf16 leaf
+    launched; the ring gather and the one-pass scan also after their
+    timed graph replays, the scan at ragged sizes and at 4,194,304 too;
+    the kernels line gives a kernel's last row: ring_gather at 8,192 rows
+    of the 232 MB table, the scan at the pool's 98,304), then K1's probe
+    modes (the kernel diet and the bf16 leaf
     decode) on states of phase 2's pass at its 27th arrival (the third of
     super-iteration 4), its 1,200th (the last of super-iteration 150,
     about halfway, when most lanes have ended their segment) and its

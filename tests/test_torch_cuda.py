@@ -381,8 +381,21 @@ def test_probe_kernels_match_plain(cuda):
     from unity_webgpu_pathtracer_torch.experiments import round2_probe, round18_mosaic_probe
 
     tab = round2_probe.table(4000, cuda_probes.RING_W, cuda)
-    idx = torch.from_numpy(round2_probe.hashed_idx(1000, 4000)).to(cuda)
-    assert torch.equal(cuda_probes.ring_gather(tab, idx), cuda_probes.ring_gather_plain(tab, idx))
+    # Fewer rows than slots, an uneven plan, the probe's largest chunk, one
+    # whose blocks reuse their ring slots, and one past 1,024 k a block on
+    # every SM (more blocks than SMs).
+    for chunk in (5, 1000, 8192, 20000, 1025 * torch.cuda.get_device_properties(cuda)
+                  .multi_processor_count):
+        idx = torch.from_numpy(round2_probe.hashed_idx(chunk, 4000)).to(cuda)
+        assert torch.equal(cuda_probes.ring_gather(tab, idx),
+                           cuda_probes.ring_gather_plain(tab, idx)), chunk
+    # The one-pass scan at ragged sizes, the pool's and a large one, in an
+    # order that changes the tile count from call to call.
+    for n in (1, 1025, 98_303, 4_194_304, 98_304, 1025):
+        a = torch.from_numpy(np.random.default_rng(n).integers(-1000, 1000, n)
+                             .astype(np.int32)).to(cuda)
+        assert torch.equal(cuda_probes.intrinsic("cumsum_i32", a),
+                           cuda_probes.intrinsic_plain("cumsum_i32", a)), n
     for n, on_chip in ((1024, True), (20000, False)):
         tab = round2_probe.table(n, cuda_probes.TABLE_W, cuda)
         idx = torch.from_numpy(round2_probe.hashed_idx(4096, n)).to(cuda)
@@ -409,3 +422,55 @@ def test_probe_kernels_match_plain(cuda):
     x = torch.arange(4096, dtype=torch.float32, device=cuda).reshape(4, 8, 128)
     assert torch.equal(cuda_probes.step_chain(x), cuda_probes.step_chain_plain(x))
     torch.cuda.synchronize()
+
+
+@gpu
+def test_cumsum_graph_replays(cuda):
+    """The scan's scratch carries from call to call (its counters and
+    epoch): one call captured in a CUDA graph and replayed twice gives the
+    exact cumsum after each replay."""
+    a = torch.from_numpy(np.random.default_rng(7).integers(-1000, 1000, 98_304)
+                         .astype(np.int32)).to(cuda)
+    want = torch.cumsum(a, 0, dtype=torch.int32)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_probes.intrinsic("cumsum_i32", a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_probes.intrinsic("cumsum_i32", a)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@gpu
+def test_cumsum_scratch_outlives_growth(cuda):
+    """A graph captured at a small n keeps its scratch after an eager call
+    at a larger n on the same stream outgrows it, and a call on another
+    stream takes a scratch of its own: every output stays exact."""
+    rng = np.random.default_rng(8)
+    small, large = (torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32)).to(cuda)
+                    for n in (1025, 1_000_000))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        cuda_probes.intrinsic("cumsum_i32", small)
+        with torch.cuda.graph(graph, stream=side):
+            out = cuda_probes.intrinsic("cumsum_i32", small)
+        grown = cuda_probes.intrinsic("cumsum_i32", large)
+    other = torch.cuda.Stream()
+    other.wait_stream(side)
+    with torch.cuda.stream(other):
+        apart = cuda_probes.intrinsic("cumsum_i32", large)
+    torch.cuda.synchronize()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.cumsum(small, 0, dtype=torch.int32))
+    assert torch.equal(grown, torch.cumsum(large, 0, dtype=torch.int32))
+    assert torch.equal(apart, grown)

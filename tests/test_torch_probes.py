@@ -259,10 +259,15 @@ def test_step_chain_matches_pallas(probes):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=0.0)
 
 
-def test_ring_gather_matches_probe():
+@pytest.mark.parametrize("chunk", [1, 5, 15, 16, 17, 33, 1000, 1024, 2112, 2113, 8192, 8449,
+                                   20000, 135_168])
+def test_ring_gather_matches_probe(chunk):
     """round2_probe.py:80-81 (inputs) and :83-116 (a 16-slot ring: copy k
-    lands in slot k % 16; out is the ring's column sum)."""
-    n, w, chunk = 300, cp.RING_W, 1024
+    lands in slot k % 16; out is the ring's column sum): fewer rows than
+    slots, about one and two rings, the probe's chunks, and chunks at and
+    past the kernel's slicing edges on 132 SMs (16 k a block on every SM,
+    1,024 k a block on every SM)."""
+    n, w = 300, cp.RING_W
     jtable = jnp.arange(n * w, dtype=jnp.float32).reshape(n, w) % 7.0
     jidx = (jnp.arange(chunk, dtype=jnp.int32) * np.int32(-1640531527)) % n
     table = port_round2.table(n, w, "cpu")
@@ -270,10 +275,43 @@ def test_ring_gather_matches_probe():
     np.testing.assert_array_equal(table.numpy(), np.asarray(jtable))
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     ring = np.zeros((cp.RING_SLOTS, w), np.float32)
+    jt, ji = np.asarray(jtable), np.asarray(jidx)
     for k in range(chunk):
-        ring[k % cp.RING_SLOTS] = np.asarray(jtable)[int(jidx[k])]
+        ring[k % cp.RING_SLOTS] = jt[ji[k]]
     want = np.asarray(jnp.sum(jnp.asarray(ring), axis=0, keepdims=True))
     np.testing.assert_array_equal(cp.ring_gather(table, idx).numpy(), want)
+
+
+def test_ring_gather_refuses_misaligned_table():
+    """A contiguous (n, 128) view one float into its storage: the bulk
+    copies need 16-byte sources, so the wrapper refuses it on either
+    device (the kernel would fault)."""
+    flat = torch.zeros(10 * cp.RING_W + 4)
+    table = flat[1:1 + 10 * cp.RING_W].view(10, cp.RING_W)
+    assert table.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.ring_gather(table, torch.zeros(4, dtype=torch.int32))
+    cp.ring_gather(flat[4:].view(10, cp.RING_W), torch.zeros(4, dtype=torch.int32))
+
+
+def test_cumsum_refuses_misaligned_input():
+    """The scan loads 16-byte vectors: an int32 view one element in is
+    refused on either device."""
+    flat = torch.arange(101, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.intrinsic("cumsum_i32", flat[1:])
+    assert torch.equal(cp.intrinsic("cumsum_i32", flat[4:]), torch.cumsum(flat[4:], 0))
+
+
+@pytest.mark.parametrize("n", [1, 1025, 98_303, 98_304])
+def test_cumsum_plain_matches_jnp(n):
+    """round18_mosaic_probe.py:102-105 (``jnp.cumsum`` of int32): the scan's
+    plain version exactly, at ragged sizes and the pool's 98,304, on int32
+    inputs with negatives."""
+    a = np.random.default_rng(n).integers(-1000, 1000, n).astype(np.int32)
+    want = np.asarray(jnp.cumsum(jnp.asarray(a)))
+    assert want.dtype == np.int32
+    np.testing.assert_array_equal(cp.intrinsic("cumsum_i32", torch.from_numpy(a)).numpy(), want)
 
 
 @pytest.mark.parametrize("on_chip", [True, False])

@@ -13,11 +13,12 @@
 //   lobe_chain_launch       P6 experiments/round18_bf16_shade_probe.py:78
 //   cluster_gather_launch   P7 experiments/round18_vmem_tree_probe.py:63
 //   intrinsic_launch        P8 experiments/round18_mosaic_probe.py:35
+//   cumsum_i32_launch       P8 experiments/round18_mosaic_probe.py:35 (cumsum_i32)
 //   sum_scalar_launch       P9 experiments/round18_mosaic_probe.py:111
 //   step_chain_launch       P10 experiments/round20_tile3d_probe.py:58
 //
-// Constants shared with Python (the intrinsic op numbers) come as -D
-// macros (ops/cuda_build.py).
+// Constants shared with Python (the intrinsic op numbers, P8's scan tile)
+// come as -D macros (ops/cuda_build.py).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -53,15 +54,24 @@ __device__ __forceinline__ void block_sum_to(float acc, float* out) {
 }
 
 // ---------------------------------------------------------------- P1
-// Per-row async gather into a 16-slot ring (round2_probe.py dma_gather):
-// one issuing thread keeps 16 row copies in flight, each one TMA bulk copy
-// (cp.async.bulk global -> shared, 512 bytes) completing on its slot's
-// mbarrier: Hopper's make_async_copy and DMA semaphore.  The copy into a
-// slot is reissued as soon as the slot's previous copy has landed, as on
-// the TPU, so out is the ring's column sum: the last 16 rows gathered.
-// Bound: bytes (each gathered row once), but one thread issuing one copy
-// at a time makes it latency-bound in practice, which is the question.
-constexpr int RING_W = 128, RING_SLOTS = 16;
+// Per-row async gather through a ring (round2_probe.py dma_gather): out is
+// the column sum of the rows table[idx[k]] of the last 16 k, the original's
+// 16-slot ring (copy k lands in slot k % 16).  Every one of the chunk rows
+// is brought into shared memory by its own TMA bulk copy (cp.async.bulk
+// global -> shared, 512 bytes) that completes on its ring slot's mbarrier:
+// Hopper's make_async_copy and DMA semaphore.  Bound: bytes (each row and
+// index once), but a copy's round trip (~1.5 us) bounds any one issuer, so
+// the card must hold about latency x bandwidth (~5 MB) in flight.  The
+// design: a block on every SM, each over a contiguous slice of k of 16 to
+// RING_MAX_ROWS (beyond that, more blocks than SMs), cut back from the end
+// so the last block holds the last 16 k and writes out; the block stages
+// its slice of idx in shared memory with one coalesced load, then one warp
+// issues a copy per lane into a ring of RING_DEPTH slots and reissues a
+// slot once its previous copy has landed.  132 blocks of 64 slots hold 4.3
+// MB in flight: the whole of an 8,192-row chunk.
+constexpr int RING_W = 128, RING_SLOTS = 16, RING_DEPTH = 64, RING_MAX_ROWS = 1024;
+static_assert(RING_DEPTH % 32 == 0 && RING_DEPTH >= RING_SLOTS,
+              "a warp's copies take distinct slots; the last 16 k stay in the ring");
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
@@ -75,51 +85,74 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-__global__ void ring_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                                   int chunk, float* __restrict__ out) {
-  __shared__ alignas(128) float ring[RING_SLOTS][RING_W];
-  __shared__ alignas(8) uint64_t bars[RING_SLOTS];
+__global__ void __launch_bounds__(RING_W)
+    ring_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx, int chunk,
+                       int per, float* __restrict__ out) {
+  __shared__ alignas(128) float ring[RING_DEPTH][RING_W];
+  __shared__ alignas(8) uint64_t bars[RING_DEPTH];
+  __shared__ int rows[RING_MAX_ROWS];
+  // This block's k: [lo, hi), slices of `per` counted back from the end.
+  const int hi = chunk - (int)(gridDim.x - 1 - blockIdx.x) * per;
+  const int lo = max(hi - per, 0), n = hi - lo;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) rows[j] = idx[lo + j];
   if (threadIdx.x == 0) {
-    for (int s = 0; s < RING_SLOTS; ++s)
+    for (int s = 0; s < RING_DEPTH; ++s)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bars[s]))
                    : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    auto issue = [&](int k) {
-      const int s = k % RING_SLOTS;
+  if (threadIdx.x < 32) {
+    // Row j goes to slot j % RING_DEPTH as that slot's use j / RING_DEPTH,
+    // which is the barrier's phase of the same number: one arrival and
+    // 512 bytes of transaction a phase.
+    const int lane = threadIdx.x;
+    for (int j = lane; j < n; j += 32) {
+      const int s = j % RING_DEPTH;
       const uint32_t bar = smem_addr(&bars[s]);
+      if (j >= RING_DEPTH) mbar_wait(bar, (j / RING_DEPTH - 1) & 1);   // the slot's last copy
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
                    "r"(RING_W * 4)
                    : "memory");
       asm volatile(
           "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
           "[%3];" ::"r"(smem_addr(ring[s])),
-          "l"(table + (size_t)idx[k] * RING_W), "r"(RING_W * 4), "r"(bar)
+          "l"(table + (size_t)rows[j] * RING_W), "r"(RING_W * 4), "r"(bar)
           : "memory");
-    };
-    for (int k = 0; k < RING_SLOTS && k < chunk; ++k) issue(k);
-    for (int k = 0; k < chunk; ++k) {
-      mbar_wait(smem_addr(&bars[k % RING_SLOTS]), (k / RING_SLOTS) & 1);
-      if (k + RING_SLOTS < chunk) issue(k + RING_SLOTS);
     }
+    // No copy may land after the block has left: wait for each slot's last
+    // (every lane has issued its copies, so no slot is a phase behind).
+    __syncwarp();
+    for (int j = max(n - RING_DEPTH, 0) + lane; j < n; j += 32)
+      mbar_wait(smem_addr(&bars[j % RING_DEPTH]), (j / RING_DEPTH) & 1);
   }
-  __syncthreads();
-  // Every thread waits on each slot's last copy, so the async writes are
-  // visible to it; those phases have completed, so the waits return at once.
+  if (blockIdx.x != gridDim.x - 1) return;
+  __syncthreads();   // warp 0 has seen every slot's last copy land
+  // The original's slot s holds k_s, the last k < chunk with k % 16 == s.
+  // Every thread waits on that copy's phase (complete by now), so the async
+  // write is visible to it.
   const int used = chunk < RING_SLOTS ? chunk : RING_SLOTS;
-  for (int s = 0; s < used; ++s) mbar_wait(smem_addr(&bars[s]), ((chunk - 1 - s) / RING_SLOTS) & 1);
-  if (threadIdx.x < RING_W) {
-    float acc = 0.0f;
-    for (int s = 0; s < used; ++s) acc += ring[s][threadIdx.x];
-    out[threadIdx.x] = acc;
+  float acc = 0.0f;
+  for (int s = 0; s < used; ++s) {
+    const int j = s + (chunk - 1 - s) / RING_SLOTS * RING_SLOTS - lo;
+    mbar_wait(smem_addr(&bars[j % RING_DEPTH]), (j / RING_DEPTH) & 1);
+    acc += ring[j % RING_DEPTH][threadIdx.x];
   }
+  out[threadIdx.x] = acc;
 }
 
 extern "C" int ring_gather_launch(const float* table, const int* idx, int chunk, float* out,
                                   void* stream) {
-  ring_gather_kernel<<<1, RING_W, 0, (cudaStream_t)stream>>>(table, idx, chunk, out);
+  // A slice of k for each SM, 16 to RING_MAX_ROWS long; the slices tile
+  // [0, chunk) from the end, the first one short if they do not divide it.
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (chunk < 0) return (int)cudaErrorInvalidValue;
+  const int per = min(RING_MAX_ROWS, max(RING_SLOTS, (chunk + sms - 1) / sms));
+  const int blocks = max(1, (chunk + per - 1) / per);
+  ring_gather_kernel<<<blocks, RING_W, 0, (cudaStream_t)stream>>>(table, idx, chunk, per, out);
   return (int)cudaGetLastError();
 }
 
@@ -391,9 +424,8 @@ extern "C" int cluster_gather_launch(const void* table, const int* idx, int n, f
 // The ops the TPU probe asked Mosaic for (round18_mosaic_probe.py), with
 // CUDA's accurate library functions (never fast math): a uint32 PCG step,
 // uint32 -> f32 times 1/4294967295, sin, cos, log, exp, sqrt, acos, atan,
-// atan2, pow, one op per launch (the argument); cumsum over int32 as one
-// block's scan (warp shuffles, then the warps' totals), carried across
-// 1,024-element pieces.  Bound: bytes (one op per element).
+// atan2, pow, one op per launch (the argument); cumsum over int32 is a
+// kernel of its own (below).  Bound: bytes (one op per element).
 __global__ void intrinsic_kernel(int op, const void* __restrict__ a, const void* __restrict__ b,
                                  void* __restrict__ out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -426,48 +458,189 @@ __global__ void intrinsic_kernel(int op, const void* __restrict__ a, const void*
   }
 }
 
-__global__ void cumsum_kernel(const int* __restrict__ x, int* __restrict__ out, int n) {
-  __shared__ int warp_sum[32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < n; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    int v = i < n ? x[i] : 0;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += up;
-    }
-    if (lane == 31) warp_sum[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      int w = lane < (int)(blockDim.x >> 5) ? warp_sum[lane] : 0;
-      for (int off = 1; off < 32; off <<= 1) {
-        const int up = __shfl_up_sync(0xffffffffu, w, off);
-        if (lane >= off) w += up;
-      }
-      warp_sum[lane] = w;   // inclusive prefix of the warps' totals
-    }
-    __syncthreads();
-    const int c = carry;
-    if (i < n) out[i] = c + v + (warp > 0 ? warp_sum[warp - 1] : 0);
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = c + warp_sum[(blockDim.x >> 5) - 1];
-    __syncthreads();
-  }
-}
-
 extern "C" int intrinsic_launch(int op, const void* a, const void* b, void* out, int n,
                                 void* stream) {
-  if (op == UWPT_OP_CUMSUM_I32) {
-    cumsum_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(static_cast<const int*>(a),
-                                                        static_cast<int*>(out), n);
-  } else if (n > 0) {
+  if (op == UWPT_OP_CUMSUM_I32) return (int)cudaErrorInvalidValue;   // cumsum_i32_launch
+  if (n > 0) {
     const int threads = 256;
     intrinsic_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(op, a, b,
                                                                                        out, n);
   }
+  return (int)cudaGetLastError();
+}
+
+// cumsum over int32 (the regeneration's work-queue ranks, the probe's
+// "phase 2"): the inclusive prefix sum in one pass with decoupled
+// look-back (Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back", NVIDIA, 2016).  Bound: bytes (each element read and
+// written once).  Each block scans one tile of UWPT_SCAN_TILE elements held
+// as 16-byte vectors (a warp's loads and stores coalesced), publishes the
+// tile's aggregate and then its inclusive prefix as one 64-bit word
+// (value, status and the call's epoch), and its warp 0 reads the
+// predecessors' words back to the nearest inclusive prefix.  Tiles are
+// numbered by an atomic ticket in the order blocks start, so every tile a
+// block waits on has started.  What costs is latency a block waits out
+// (its ticket, its loads, its look-back) rather than bytes, so a tile is
+// large: at 4 blocks an SM, 528 tiles of 8,192 (4,194,304 elements) are
+// all resident at once.  The look-back of tiles that start together waits
+// for the prefixes to travel forward, a window of words a round trip, so
+// a window is wide (SCAN_LOOK words a lane, 128 tiles) and its loads fly
+// together.  The status and value travel in one word, so no other write
+// needs ordering: the words are stored and loaded relaxed (a release store
+// costs a fence on the publishing path).  The scratch (ops/cuda_probes.py
+// keeps one per device and stream, zeroed once) is a control word, the
+// ticket (low 32 bits) and the call's epoch (high), then a word a tile.
+// It resets itself: the block that takes the last ticket sets the ticket
+// to 0 and advances the epoch, so no word of an earlier call (or of a
+// graph's earlier replay) reads as this call's.  Sums wrap in 32 bits, as
+// torch.cumsum's int32 sums do.
+constexpr int SCAN_THREADS = 256, SCAN_VEC = UWPT_SCAN_TILE / (SCAN_THREADS * 4), SCAN_LOOK = 4;
+static_assert(SCAN_VEC >= 1 && SCAN_VEC * SCAN_THREADS * 4 == UWPT_SCAN_TILE,
+              "a tile is a whole number of 16-byte vectors a thread");
+constexpr uint32_t SCAN_AGGREGATE = 1, SCAN_PREFIX = 2, SCAN_EPOCH_MASK = 0x3FFFFFFFu;
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+// Bits 0-31 the value, 32-33 the status (0: not yet), 34-63 the epoch.
+__device__ __forceinline__ unsigned long long scan_word(uint32_t epoch, uint32_t status,
+                                                        uint32_t value) {
+  return (unsigned long long)epoch << 34 | (unsigned long long)status << 32 | value;
+}
+__device__ __forceinline__ uint32_t scan_status(unsigned long long w, uint32_t epoch) {
+  return (uint32_t)(w >> 34) == epoch ? (uint32_t)(w >> 32) & 3u : 0u;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS, 4)
+    cumsum_kernel(const int* __restrict__ x, int* __restrict__ out, int n,
+                  unsigned long long* ctl, unsigned long long* words) {
+  __shared__ uint32_t warp_total[SCAN_THREADS / 32];
+  __shared__ uint32_t s_tile, s_epoch, s_prefix;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    const unsigned long long c = atomicAdd(ctl, 1ull);
+    s_tile = (uint32_t)c;
+    s_epoch = (uint32_t)(c >> 32);
+    // Every block has its ticket and epoch once the last ticket is taken.
+    if (s_tile == gridDim.x - 1)
+      atomicExch(ctl, (unsigned long long)((s_epoch + 1) & SCAN_EPOCH_MASK) << 32);
+  }
+  __syncthreads();
+  const uint32_t tile = s_tile, epoch = s_epoch;
+  // Vector v of a lane: elements base + v * 128 .. + 3, the warp's
+  // SCAN_VEC * 128 elements in the order (v, lane).
+  const size_t base =
+      (size_t)tile * UWPT_SCAN_TILE + (size_t)warp * SCAN_VEC * 128 + (size_t)lane * 4;
+  uint4 q[SCAN_VEC];
+#pragma unroll
+  for (int v = 0; v < SCAN_VEC; ++v) {
+    const size_t i = base + (size_t)v * 128;
+    if (i + 4 <= (size_t)n) {
+      q[v] = *reinterpret_cast<const uint4*>(x + i);
+    } else {
+      q[v].x = i < (size_t)n ? x[i] : 0;
+      q[v].y = i + 1 < (size_t)n ? x[i + 1] : 0;
+      q[v].z = i + 2 < (size_t)n ? x[i + 2] : 0;
+      q[v].w = 0;
+    }
+  }
+  // Inclusive within the lane's 4, then across the warp's lanes, vector by
+  // vector (carry: the warp's sum before vector v).
+  uint32_t carry = 0;
+#pragma unroll
+  for (int v = 0; v < SCAN_VEC; ++v) {
+    q[v].y += q[v].x;
+    q[v].z += q[v].y;
+    q[v].w += q[v].z;
+    uint32_t incl = q[v].w;
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    const uint32_t add = carry + incl - q[v].w;
+    q[v].x += add;
+    q[v].y += add;
+    q[v].z += add;
+    q[v].w += add;
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) warp_total[warp] = carry;
+  __syncthreads();
+  uint32_t before = 0, aggregate = 0;   // the warps' sum before this one, the tile's
+#pragma unroll
+  for (int w = 0; w < SCAN_THREADS / 32; ++w) {
+    const uint32_t t = warp_total[w];
+    if (w < warp) before += t;
+    aggregate += t;
+  }
+  if (warp == 0) {
+    uint32_t prefix = 0;   // the sum of every tile before this one
+    if (tile == 0) {
+      if (lane == 0) st_relaxed(&words[0], scan_word(epoch, SCAN_PREFIX, aggregate));
+    } else {
+      if (lane == 0) st_relaxed(&words[tile], scan_word(epoch, SCAN_AGGREGATE, aggregate));
+      for (int pred = (int)tile - 1;; pred -= 32 * SCAN_LOOK) {
+        // Window position p = k * 32 + lane is tile pred - p; each lane waits
+        // until its words are published in this epoch.  A position before
+        // tile 0 stands for a prefix of 0.
+        unsigned long long w[SCAN_LOOK];
+#pragma unroll
+        for (int k = 0; k < SCAN_LOOK; ++k) {
+          const int t = pred - (k * 32 + lane);
+          w[k] = t >= 0 ? ld_relaxed(&words[t]) : scan_word(epoch, SCAN_PREFIX, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < SCAN_LOOK; ++k)
+          while (scan_status(w[k], epoch) == 0) w[k] = ld_relaxed(&words[pred - (k * 32 + lane)]);
+        // Sum the aggregates up to and including the nearest prefix.
+        int stop = 32 * SCAN_LOOK;
+#pragma unroll
+        for (int k = SCAN_LOOK - 1; k >= 0; --k) {
+          const unsigned prefixes =
+              __ballot_sync(0xffffffffu, scan_status(w[k], epoch) == SCAN_PREFIX);
+          if (prefixes) stop = k * 32 + __ffs(prefixes) - 1;
+        }
+        uint32_t sum = 0;
+#pragma unroll
+        for (int k = 0; k < SCAN_LOOK; ++k)
+          if (k * 32 + lane <= stop) sum += (uint32_t)w[k];
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        prefix += sum;
+        if (stop < 32 * SCAN_LOOK) break;
+      }
+      if (lane == 0) st_relaxed(&words[tile], scan_word(epoch, SCAN_PREFIX, prefix + aggregate));
+    }
+    if (lane == 0) s_prefix = prefix;
+  }
+  __syncthreads();
+  const uint32_t add = s_prefix + before;
+#pragma unroll
+  for (int v = 0; v < SCAN_VEC; ++v) {
+    const size_t i = base + (size_t)v * 128;
+    const uint4 r = make_uint4(q[v].x + add, q[v].y + add, q[v].z + add, q[v].w + add);
+    if (i + 4 <= (size_t)n) {
+      *reinterpret_cast<uint4*>(out + i) = r;
+    } else {
+      if (i < (size_t)n) out[i] = (int)r.x;
+      if (i + 1 < (size_t)n) out[i + 1] = (int)r.y;
+      if (i + 2 < (size_t)n) out[i + 2] = (int)r.z;
+    }
+  }
+}
+
+extern "C" int cumsum_i32_launch(const int* x, int* out, int n, void* scratch, int scratch_words,
+                                 void* stream) {
+  // scratch: int64 words, the control word then one a tile.
+  const int tiles = n > 0 ? (int)(((long long)n + UWPT_SCAN_TILE - 1) / UWPT_SCAN_TILE) : 1;
+  if (n < 0 || scratch_words < 1 + tiles || ((uintptr_t)x | (uintptr_t)out) % 16)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  cumsum_kernel<<<tiles, SCAN_THREADS, 0, (cudaStream_t)stream>>>(x, out, n, words, words + 1);
   return (int)cudaGetLastError();
 }
 

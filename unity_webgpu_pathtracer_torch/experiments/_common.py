@@ -39,6 +39,10 @@ K2_OPS = dict(lane=40, miss=68, hit=50, normal={2: 36, 3: 93}, material=43, eval
               sample=219, rr=14)
 
 
+# Calls of the timed function captured back to back in one CUDA graph.
+CALLS = 20
+
+
 def cuda_device(device=None) -> torch.device:
     """The CUDA device a probe runs on; raises without one (a probe
     measures the card and never falls back to the CPU)."""
@@ -49,9 +53,13 @@ def cuda_device(device=None) -> torch.device:
 
 
 def time_ms(fn, reps: int = 100) -> float:
-    """Device time of one call of ``fn``: the call is captured once in a
-    CUDA graph and the graph replayed ``reps`` times between two CUDA
-    events, so the host's per-call work is not what is timed."""
+    """Device time of one call of ``fn``: ``CALLS`` calls are captured
+    back to back in one CUDA graph, and the graph is replayed between two
+    CUDA events until ``reps`` calls have run.  One call a graph would
+    time the host's replay, which takes longer than most probe kernels;
+    ``CALLS`` a graph keep the device busy.  The capture runs on the
+    stream of the warm-up calls, so what a wrapper keeps by stream (the
+    scan's scratch) is made before the capture, not in it."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -59,17 +67,35 @@ def time_ms(fn, reps: int = 100) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(CALLS):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
+    replays = max(1, reps // CALLS)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
+    for _ in range(replays):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (replays * CALLS)
+
+
+def time_ms_out(fn, reps: int = 100) -> tuple[float, object]:
+    """``time_ms`` of ``fn``, and the output of the last captured call as
+    the last replay left it: a check of it finds what one call leaves
+    wrong for the next (every call has the same arguments).  Each call
+    drops the last output before it runs, so the captured calls reuse one
+    output's memory, as they do in ``time_ms``."""
+    last = []
+
+    def call():
+        last.clear()
+        last.append(fn())
+
+    ms = time_ms(call, reps)
+    return ms, last[0]
 
 
 def time_in_place_ms(fn, restore, reps: int = 100) -> tuple[float, float, float]:

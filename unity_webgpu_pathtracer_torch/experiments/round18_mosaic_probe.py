@@ -8,8 +8,12 @@ step and cumsum over int32 (exact), uint32 -> f32 times 1/4294967295
 (atol 1e-6, as the original; exactness is printed), sin, cos, log, exp,
 sqrt, arccos, arctan, arctan2, power (rtol 1e-5, atol 1e-6), and the sum
 of the (B,) plane to one scalar (rtol 1e-5).  Each is also timed at B =
-98,304, since at 1,024 the time is only the launch, beside the one
-PyTorch call that computes it where there is one.
+98,304 (the pool's lanes), since at 1,024 the time is only the launch,
+beside the one PyTorch call that computes it where there is one.  The
+one-pass scan of cumsum carries its scratch from call to call, so it is
+also checked at ragged sizes (1, 1,025, 98,303) and after the timed
+replays, and timed once more at 4,194,304, where bandwidth and not the
+launch sets the time.
 
     python -m unity_webgpu_pathtracer_torch.experiments.round18_mosaic_probe
 """
@@ -20,10 +24,11 @@ import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device, max_err, row,
-                                                              time_ms)
+                                                              time_ms, time_ms_out)
 from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
 
 B, B_TIMED = 1024, 98_304
+SCAN_RAGGED, SCAN_LARGE = (1, 1025, 98_303), 4_194_304   # cumsum's further sizes
 EXACT = ("pcg_uint32", "cumsum_i32")
 LIBRARY = {"sin": torch.sin, "cos": torch.cos, "log": torch.log, "exp": torch.exp,
            "sqrt": torch.sqrt, "arccos": torch.acos, "arctan": torch.atan,
@@ -73,7 +78,9 @@ def max_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
 def run(device=None) -> list[dict]:
     dev = cuda_device(device)
     small, big = inputs(dev, B), inputs(dev, B_TIMED)
-    out = []
+    # A kernel's last row is the one chip_smoke.py's kernels line reports:
+    # the scan's is the pool's 98,304, below, not this one.
+    out = [scan_large(dev)]
     for op in cp.INTRINSICS:
         args = operands(op, small)
         got, want = cp.intrinsic(op, *args), cp.intrinsic_plain(op, *args)
@@ -83,16 +90,25 @@ def run(device=None) -> list[dict]:
             rtol = 0.0 if op == "u32_to_f32" else 1e-5
             ok, tol = bool(torch.allclose(got, want, rtol=rtol, atol=1e-6)), \
                 f"rtol {rtol:g}, atol 1e-6"
+        err = max_err(got, want)
         args = operands(op, big)
         lib = LIBRARY.get(op)
-        ms = time_ms(lambda: cp.intrinsic(op, *args))
+        ms, again = time_ms_out(lambda: cp.intrinsic(op, *args))
         res = cp.intrinsic_plain(op, *args)
+        if op == "cumsum_i32":
+            pairs = [(again, res)]
+            for n in SCAN_RAGGED:
+                a = inputs(dev, n)["i32"]
+                pairs.append((cp.intrinsic(op, a), cp.intrinsic_plain(op, a)))
+            ok = ok and all(torch.equal(g, w) for g, w in pairs)
+            err = max([err] + [max_err(g, w) for g, w in pairs])
+            tol = f"exact, also at {SCAN_RAGGED} and after the replays at {B_TIMED}"
         out.append(row(f"{op} B={B}: {'PASS' if ok else 'MISMATCH'}", f"intrinsic_{op}", ms,
                        time_ms(lambda: cp.intrinsic_plain(op, *args)), ms * 1e6 / B_TIMED,
-                       "lane", sum(a.nbytes for a in args) + res.nbytes, B_TIMED,
-                       max_err(got, want), ok, tol,
+                       "lane", sum(a.nbytes for a in args) + res.nbytes, B_TIMED, err, ok, tol,
                        library_ms=None if lib is None else time_ms(lambda: lib(*args)),
-                       ulps=max_ulps(got, want), exact=bool(torch.equal(got, want))))
+                       ulps=max_ulps(got, want), exact=bool(torch.equal(got, want)),
+                       timed_b=B_TIMED))
     f = small["f"]
     got, want = cp.sum_scalar(f), f.sum().reshape(1)
     ok = bool(torch.allclose(got, want, rtol=1e-5, atol=0.0))
@@ -102,8 +118,24 @@ def run(device=None) -> list[dict]:
     out.append(row(f"sum_to_scalar B={B}: {'PASS' if ok else 'MISMATCH'}", "sum_scalar", ms,
                    plain, ms * 1e6 / B_TIMED, "lane", fb.nbytes + 4, B_TIMED,
                    max_err(got, want), ok, "rtol 1e-5", library_ms=plain,
-                   ulps=max_ulps(got, want), exact=bool(torch.equal(got, want))))
+                   ulps=max_ulps(got, want), exact=bool(torch.equal(got, want)), timed_b=B_TIMED))
     return check(out)
+
+
+def scan_large(dev) -> dict:
+    """cumsum_i32 at SCAN_LARGE: checked after the first call and after the
+    timed replays, beside ``torch.cumsum``."""
+    a = inputs(dev, SCAN_LARGE)["i32"]
+    got, want = cp.intrinsic("cumsum_i32", a), cp.intrinsic_plain("cumsum_i32", a)
+    ms, again = time_ms_out(lambda: cp.intrinsic("cumsum_i32", a))
+    ok = bool(torch.equal(got, want) and torch.equal(again, want))
+    return row(f"cumsum_i32 B={SCAN_LARGE}: {'PASS' if ok else 'MISMATCH'}",
+               "intrinsic_cumsum_i32", ms,
+               time_ms(lambda: cp.intrinsic_plain("cumsum_i32", a)), ms * 1e6 / SCAN_LARGE,
+               "lane", 2 * a.nbytes, SCAN_LARGE, max(max_err(got, want), max_err(again, want)),
+               ok, "exact, after the first call and after the replays",
+               library_ms=time_ms(lambda: LIBRARY["cumsum_i32"](a)), ulps=0 if ok else -1,
+               exact=ok, timed_b=SCAN_LARGE)
 
 
 def main() -> None:
@@ -111,7 +143,8 @@ def main() -> None:
     for r in run():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"{r['name']} exact={r['exact']} max ulps={r['ulps']} ({r['tol']}); at "
-              f"B={B_TIMED} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}")
+              f"B={r['timed_b']} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms{lib}; bound "
+              f"{r['bound_ms']:.5f} ms")
 
 
 if __name__ == "__main__":

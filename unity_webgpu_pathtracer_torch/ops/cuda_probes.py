@@ -19,7 +19,8 @@ from unity_webgpu_pathtracer_torch.ops import cuda_build
 # takes (``cuda_build`` passes them as UWPT_OP_* macros).
 INTRINSICS = ("pcg_uint32", "u32_to_f32", "sin", "cos", "log", "exp", "sqrt", "arccos",
               "arctan", "arctan2", "power", "cumsum_i32")
-RING_W, RING_SLOTS = 128, 16          # P1: row floats, ring slots
+RING_W, RING_SLOTS = 128, 16          # P1: row floats, the original's ring slots
+SCAN_TILE = 8192                      # P8 cumsum: elements a block scans
 TABLE_W = 48                          # P2: row floats
 SMEM_BYTES = 232_448                  # P2: the most shared memory one block can use
 TREE_ROWS, TREE_COLS = 4096, 96       # P7: the table held on chip
@@ -47,6 +48,13 @@ def _device(x: torch.Tensor) -> torch.device:
     return x.device
 
 
+def _check_aligned(x: torch.Tensor, name: str) -> None:
+    """The kernel copies or loads ``x`` in 16-byte pieces."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (data_ptr % 16 = "
+                         f"{x.data_ptr() % 16})")
+
+
 # ---- P1: ring gather (round2_probe.py:125) ----
 
 def ring_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -54,11 +62,13 @@ def ring_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def ring_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(1, 128): the sum of the rows ``table[idx[k]]`` of the last 16 k,
-    gathered one row copy at a time through a 16-slot ring."""
+    """(1, 128): the sum of the rows ``table[idx[k]]`` of the last 16 k.
+    Every row is gathered by its own bulk copy through a ring of slots, on
+    blocks over every SM."""
     dev = _device(table)
     cuda_build.check_tensor(table, "table", torch.float32, (table.shape[0], RING_W), dev)
     cuda_build.check_tensor(idx, "idx", torch.int32, (idx.shape[0],), dev)
+    _check_aligned(table, "table")
     if dev.type == "cpu":
         return ring_gather_plain(table, idx)
     out = torch.empty((1, RING_W), dtype=torch.float32, device=dev)
@@ -225,8 +235,9 @@ def intrinsic_plain(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> 
 
 def intrinsic(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     """One op of ``INTRINSICS`` over (B,): uint32 operands and the PCG
-    result travel as int32 bit patterns; ``cumsum_i32`` takes int32;
-    ``arctan2`` (a = y, b = x) and ``power`` take two f32 operands."""
+    result travel as int32 bit patterns; ``cumsum_i32`` takes int32 on a
+    16-byte boundary (a one-pass scan, its own kernel); ``arctan2`` (a =
+    y, b = x) and ``power`` take two f32 operands."""
     if op not in INTRINSICS:
         raise ValueError(f"unknown op {op!r}")
     dev = _device(a)
@@ -235,12 +246,40 @@ def intrinsic(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.
     cuda_build.check_tensor(a, "a", dtype, (n,), dev)
     if op in ("arctan2", "power"):
         cuda_build.check_tensor(b, "b", torch.float32, (n,), dev)
+    if op == "cumsum_i32":
+        _check_aligned(a, "a")
     if dev.type == "cpu":
         return intrinsic_plain(op, a, b)
     out = torch.empty((n,), dtype=torch.float32 if op == "u32_to_f32" else dtype, device=dev)
-    _launch(f"intrinsic_{op}", "intrinsic_launch", a, INTRINSICS.index(op), a.data_ptr(),
-            0 if b is None else b.data_ptr(), out.data_ptr(), n)
+    if op == "cumsum_i32":
+        scratch = _scan_scratch(dev, max(1, -(-n // SCAN_TILE)))
+        _launch("intrinsic_cumsum_i32", "cumsum_i32_launch", a, a.data_ptr(), out.data_ptr(), n,
+                scratch.data_ptr(), scratch.numel())
+    else:
+        _launch(f"intrinsic_{op}", "intrinsic_launch", a, INTRINSICS.index(op), a.data_ptr(),
+                0 if b is None else b.data_ptr(), out.data_ptr(), n)
     return out
+
+
+# The one-pass scan's scratch by device and stream: an int64 control word
+# (the tile ticket and the call's epoch), then a status word a tile.
+# Zeroed once; every call leaves it ready for the next (csrc/probes.cu).
+# Calls on one stream are ordered by it, so they may share a scratch; calls
+# on two streams may run at once, so they must not.  A scratch outgrown by
+# a larger call is kept, never freed: a CUDA graph that captured a call
+# holds its address for as long as it replays.
+_SCAN_SCRATCH: dict[tuple[torch.device, int], torch.Tensor] = {}
+_SCAN_OUTGROWN: list[torch.Tensor] = []
+
+
+def _scan_scratch(dev: torch.device, tiles: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    s = _SCAN_SCRATCH.get(key)
+    if s is None or s.numel() < 1 + tiles:
+        if s is not None:
+            _SCAN_OUTGROWN.append(s)
+        s = _SCAN_SCRATCH[key] = torch.zeros(1 + tiles, dtype=torch.int64, device=dev)
+    return s
 
 
 # ---- P9: sum to one scalar (round18_mosaic_probe.py:111) ----
