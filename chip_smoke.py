@@ -69,10 +69,14 @@ Phases, each printing one or more lines:
     experiments``, this slice's path): each module's ``run`` at its
     probe's sizes, every probe kernel held against its plain version (the
     counts set to 0 before and read after: every probe kernel must have
-    launched; the ring gather and the one-pass scan also after their
-    timed graph replays, the scan at ragged sizes and at 4,194,304 too;
-    the kernels line gives a kernel's last row: ring_gather at 8,192 rows
-    of the 232 MB table, the scan at the pool's 98,304), then K1's probe
+    launched; the ring gather, the one-pass scan, the sum and every op of
+    P8 also after their timed graph replays, the ops and the sum at the
+    pool's 98,304 too, the scan and the sum at ragged sizes and at
+    4,194,304; the kernels line gives a kernel's last row: ring_gather at
+    8,192 rows of the 232 MB table, the scan and the sum at the pool's
+    98,304), PyTorch's reductions of the pool as a super-iteration calls
+    them (``round18_mosaic_probe.reductions``, priced a super-iteration by
+    the calls phase 4's profile counted), then K1's probe
     modes (the kernel diet and the bf16 leaf
     decode) on states of phase 2's pass at its 27th arrival (the third of
     super-iteration 4), its 1,200th (the last of super-iteration 150,
@@ -105,8 +109,10 @@ launches in the one-step turns stand in ``turn_launches``.  No
 single PyTorch call computes an arrival or a transition, so
 ``library_ms`` is null for K1 and K2; for a probe it
 is the one PyTorch call that computes the same function where there is
-one (``table[idx]`` for the gathers, ``torch.sum``, ``torch.sin`` and the
-others); a probe measured at several sizes reports its last (largest).
+one (``table[idx]`` for P1's and P7's gathers, ``embedding_bag`` for P2,
+whose two calls ``tab[li, 0].sum()`` are logged beside it,
+``torch.sum``, ``torch.sin`` and the others); a probe measured at
+several sizes reports its last row.
 
 Every failure raises (non-zero exit).  The last two lines are the
 kernels' JSON summary line and the device line; without a CUDA device it
@@ -385,6 +391,7 @@ def main() -> int:
         log(f"{label} kernel launches per super-iteration (torch.profiler, super-iterations "
             f"{k2_span.PROFILE_SI[0]}-{k2_span.PROFILE_SI[1] - 1}): {c['kernels_per_si']:.1f} "
             f"kernels, {c['memcpy_memset_per_si']:.1f} memcpy/memset; {c}; card: {card}")
+        return c
 
     def turns(r, label, one_name, run_name, te):
         """One pass at a time from a reset film (the same work each time)
@@ -474,7 +481,9 @@ def main() -> int:
     check_film(flat_img, (h, w, 3), "phase 4")
     log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches {got}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-    launches_per_si(r.scene, cfg, r.params, "phase 4 main path")
+    main_si = launches_per_si(r.scene, cfg, r.params, "phase 4 main path")
+    if main_si["reductions_per_si"]["any"] < 1:   # the loop's test, once a super-iteration
+        raise AssertionError(f"phase 4: the profile saw no reduction: {main_si}")
     turns(r, "phase 4", "arrival16", "arrival16_run", TE)
     del r
 
@@ -715,6 +724,8 @@ def main() -> int:
         rows += got_rows
         for r in got_rows:
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+            if "two_calls_ms" in r:
+                lib += f", two calls {r['two_calls_ms']:.4f} ms"
             log(f"phase 13 {mod.__name__.rsplit('.', 1)[1]} {r['name']}: {r['ms']:.4f} ms "
                 f"({r['ns_per']:.4f} ns/{r['per']}), plain {r['plain_ms']:.4f} ms{lib}; bound "
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
@@ -728,6 +739,11 @@ def main() -> int:
                              f"{[k for k, v in got.items() if v == 0]}")
     log(f"phase 13 probes: {len(rows)} measurements in {time.perf_counter() - t0:.1f} s, "
         f"launches {got}")
+    red = round18_mosaic_probe.reductions(dev, main_si["reductions_per_si"])
+    log(f"phase 13 reductions of {POOL} lanes (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in red.items())
+        + f" ({main_si['reductions_per_si']} calls a super-iteration, phase 4's profile); "
+        f"card: {card}")
     for mode, (dt, share) in round14_kernel_diet.savings(
             [r for r in rows if r["kernel"].startswith("arrival16_diet")]).items():
         log(f"phase 13 synthetic diet: {mode} saves {dt:.4f} ms ({share * 100:.1f}%)")

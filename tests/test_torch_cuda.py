@@ -377,7 +377,8 @@ def test_probe_kernels_match_plain(cuda):
     """Every kernel of csrc/probes.cu against its plain version at a small
     size: gathers, integers and the step chain exact; the float chains and
     transcendentals within rtol 1e-5 / atol 1e-6 (bf16: 99% of lanes
-    within rtol 2^-6), the sum within rtol 1e-5."""
+    within rtol 2^-6), the sum within rtol 1e-5 of ``torch.sum`` and
+    exact against its plain version, up to 4,194,304 elements."""
     from unity_webgpu_pathtracer_torch.experiments import round2_probe, round18_mosaic_probe
 
     tab = round2_probe.table(4000, cuda_probes.RING_W, cuda)
@@ -413,12 +414,25 @@ def test_probe_kernels_match_plain(cuda):
     rows = torch.randint(0, cuda_probes.TREE_ROWS, (5000,), dtype=torch.int32, device=cuda)
     assert torch.equal(cuda_probes.cluster_gather(table, rows),
                        cuda_probes.cluster_gather_plain(table, rows))
+    # Every op: whole vectors only, tails of 1-3 elements, the pool's size
+    # less one.
+    for n in (3000, 1, 3, 1025, 98_303):
+        t = round18_mosaic_probe.inputs(cuda, n)
+        for op in cuda_probes.INTRINSICS:
+            args = round18_mosaic_probe.operands(op, t)
+            _assert_same(cuda_probes.intrinsic(op, *args),
+                         cuda_probes.intrinsic_plain(op, *args), f"{op} n={n}")
     t = round18_mosaic_probe.inputs(cuda, 3000)
-    for op in cuda_probes.INTRINSICS:
-        args = round18_mosaic_probe.operands(op, t)
-        _assert_same(cuda_probes.intrinsic(op, *args), cuda_probes.intrinsic_plain(op, *args), op)
     torch.testing.assert_close(cuda_probes.sum_scalar(t["f"]), t["f"].sum().reshape(1),
                                rtol=1e-5, atol=0.0)
+    # The sum exact against its plain version (which follows its order),
+    # the same bits on a second call, from one block to 1,024 blocks, and
+    # two rounds a block past 4,194,304.
+    for n in (1, 3, 1023, 1025, 98_303, 98_304, 10**6, 4_194_304, 4_194_309):
+        f = round18_mosaic_probe.inputs(cuda, n)["f"]
+        first, second = cuda_probes.sum_scalar(f), cuda_probes.sum_scalar(f)
+        assert torch.equal(first, cuda_probes.sum_scalar_plain(f)), n
+        assert torch.equal(first.view(torch.int32), second.view(torch.int32)), n
     x = torch.arange(4096, dtype=torch.float32, device=cuda).reshape(4, 8, 128)
     assert torch.equal(cuda_probes.step_chain(x), cuda_probes.step_chain_plain(x))
     torch.cuda.synchronize()
@@ -473,4 +487,56 @@ def test_cumsum_scratch_outlives_growth(cuda):
     torch.cuda.synchronize()
     assert torch.equal(out, torch.cumsum(small, 0, dtype=torch.int32))
     assert torch.equal(grown, torch.cumsum(large, 0, dtype=torch.int32))
+    assert torch.equal(apart, grown)
+
+
+@gpu
+def test_sum_scalar_graph_replays(cuda):
+    """The sum's scratch carries from call to call (its ticket and epoch):
+    one call captured in a CUDA graph and replayed twice gives the plain
+    version's bits after each replay."""
+    x = torch.from_numpy(np.random.default_rng(9).uniform(-1.0, 3.0, 98_304)
+                         .astype(np.float32)).to(cuda)
+    want = cuda_probes.sum_scalar_plain(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_probes.sum_scalar(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_probes.sum_scalar(x)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@gpu
+def test_sum_scalar_scratch_outlives_growth(cuda):
+    """A graph captured at a small n keeps the sum's scratch after an eager
+    call at a larger n on the same stream outgrows it, and a call on
+    another stream takes a scratch of its own: every output stays exact."""
+    rng = np.random.default_rng(10)
+    small, large = (torch.from_numpy(rng.uniform(-1.0, 3.0, n).astype(np.float32)).to(cuda)
+                    for n in (1025, 1_000_000))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        cuda_probes.sum_scalar(small)
+        with torch.cuda.graph(graph, stream=side):
+            out = cuda_probes.sum_scalar(small)
+        grown = cuda_probes.sum_scalar(large)
+    other = torch.cuda.Stream()
+    other.wait_stream(side)
+    with torch.cuda.stream(other):
+        apart = cuda_probes.sum_scalar(large)
+    torch.cuda.synchronize()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, cuda_probes.sum_scalar_plain(small))
+    assert torch.equal(grown, cuda_probes.sum_scalar_plain(large))
     assert torch.equal(apart, grown)

@@ -327,6 +327,38 @@ def test_table_sum_matches_probe(on_chip):
     assert float(got[0, 0]) == float(want)
 
 
+@pytest.mark.parametrize("n", [1024, 4000])
+def test_table_sum_library_matches_probe(n):
+    """P2's library call (``round2_probe.table_sum_library``, one
+    ``embedding_bag`` over the column view) against the probe's fori_loop
+    sum (round2_probe.py:166-174), exactly."""
+    chunk = 4096
+    jtable = jnp.arange(n * cp.TABLE_W, dtype=jnp.float32).reshape(n, cp.TABLE_W) % 7.0
+    jidx = (jnp.arange(chunk, dtype=jnp.int32) * np.int32(-1640531527)) % n
+    want = jax.lax.fori_loop(0, chunk, lambda k, acc: acc + jtable[jidx[k]][0], jnp.float32(0.0))
+    li = torch.from_numpy(port_round2.hashed_idx(chunk, n)).long()
+    got = port_round2.table_sum_library(port_round2.table(n, cp.TABLE_W, "cpu"), li,
+                                        torch.zeros(1, dtype=torch.long))
+    assert got.shape == (1, 1) and float(got[0, 0]) == float(want)
+
+
+def test_scalar_reductions_counts_whole_tensor_reductions():
+    """``k2_span.ScalarReductions``, by which phase 13 prices the main
+    path's reductions a super-iteration: the ``.sum()`` and ``.any()`` of a
+    whole tensor the code calls, not a reduction over a dim (the prestep's
+    ``.sum(dim=1)``, ``.any(dim=1)``) nor the sums that ``sum_to_size`` and
+    ``mean`` make."""
+    from unity_webgpu_pathtracer_torch.experiments import k2_span
+
+    x = torch.rand(64, 16)
+    mask = x < 0.5
+    with k2_span.ScalarReductions() as red:
+        mask.sum(), mask.sum(), torch.minimum(x.sum(), x.max())
+        bool((mask.any() | (x.mean() < 0)).item())
+        mask.sum(dim=1, dtype=torch.int32), mask.any(dim=1), x.sum_to_size(1, 16)
+    assert red.counts == {"sum": 3, "any": 1}
+
+
 def test_schlick_chain_matches_probe():
     """round2_probe.py:257-268 (the kernel body), op by op in jnp on the
     probe's (2048, 128) lanes: equal within rtol 1e-5 on >= 99.5%."""
@@ -383,6 +415,105 @@ def test_sum_scalar_matches_probe():
     f = port_mosaic.inputs("cpu", 1024)["f"]
     want = float(jnp.sum(jnp.asarray(f.numpy())))
     assert abs(float(cp.sum_scalar(f)[0]) - want) <= 1e-5 * abs(want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025, 98_303, 98_304, 10**6])
+def test_sum_scalar_plain_matches_jnp(n):
+    """round18_mosaic_probe.py:117 (within rtol 1e-5 of ``jnp.sum``): the
+    sum's plain version, which follows the kernel's order, at ragged sizes,
+    the pool's 98,304 and 10^6 (245 blocks)."""
+    x = np.random.default_rng(n).uniform(0.01, 0.99, n).astype(np.float32)
+    want = float(jnp.sum(jnp.asarray(x)))
+    got = cp.sum_scalar(torch.from_numpy(x))
+    assert got.shape == (1,) and got.dtype == torch.float32
+    assert abs(float(got[0]) - want) <= 1e-5 * abs(want)
+
+
+def _sum_in_kernel_order(x, threads, vec, max_blocks):
+    """csrc/probes.cu ``sum_scalar_kernel`` as scalar float32 loops: block b
+    reads its rounds of ``vec`` 16-byte vectors a thread (elements past n
+    read as 0), each thread adds its elements in order from 0, each warp
+    shuffles down (a lane past 31 reads its own value), warp 0 does the
+    same over the warps' sums, and the last block does it all again over
+    the blocks' partials, thread t taking partials t, t + threads, ..."""
+    f32 = np.float32
+    n, per_round = len(x), threads * vec * 4
+    slices = max(1, -(-n // per_round))
+    rounds = -(-slices // max_blocks)
+    blocks = -(-slices // rounds)
+
+    def shuffle_down(v, width):
+        off = width // 2
+        while off:
+            v = [f32(v[lane] + v[lane + off if lane + off < 32 else lane]) for lane in range(32)]
+            off //= 2
+        return v[0]
+
+    def tree(vals):
+        warp_sums = [shuffle_down(vals[w * 32:(w + 1) * 32], 32) for w in range(threads // 32)]
+        return shuffle_down(warp_sums + [f32(0.0)] * (32 - len(warp_sums)), threads // 32)
+
+    partials = []
+    for b in range(blocks):
+        accs = []
+        for t in range(threads):
+            acc = f32(0.0)
+            for r in range(rounds):
+                for v in range(vec):
+                    for c in range(4):
+                        i = (b * rounds + r) * per_round + v * threads * 4 + t * 4 + c
+                        acc = f32(acc + (x[i] if i < n else f32(0.0)))
+            accs.append(acc)
+        partials.append(tree(accs))
+    last = []
+    for t in range(threads):
+        acc = f32(0.0)
+        for j in range(t, blocks, threads):
+            acc = f32(acc + partials[j])
+        last.append(acc)
+    return tree(last)
+
+
+@pytest.mark.parametrize("n, max_blocks", [(3 * 4096 + 1234, cp.SUM_MAX_BLOCKS),
+                                           (5 * 4096 + 77, 2)])
+def test_sum_scalar_plain_follows_kernel_order(monkeypatch, n, max_blocks):
+    """The plain version bit for bit against a scalar loop in the kernel's
+    order: four blocks with a ragged tail; and, with the block cap cut to
+    2 (at the kernel's cap that takes over 4M elements), three rounds a
+    block on two blocks.  The values span six decades of both signs, so
+    that another order rounds to other bits."""
+    monkeypatch.setattr(cp, "SUM_MAX_BLOCKS", max_blocks)
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)).astype(np.float32)
+    want = _sum_in_kernel_order(x, cp.SUM_THREADS, cp.SUM_VEC, max_blocks)
+    got = cp.sum_scalar(torch.from_numpy(x))
+    assert got.numpy().view(np.int32)[0] == np.float32(want).view(np.int32)
+
+
+def test_sum_scalar_refuses_misaligned_input():
+    """The sum loads 16-byte vectors: a plane one float in is refused on
+    either device."""
+    flat = torch.arange(101, dtype=torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.sum_scalar(flat[1:])
+    assert torch.equal(cp.sum_scalar(flat[4:]), cp.sum_scalar_plain(flat[4:]))
+
+
+@pytest.mark.parametrize("op", [op for op in cp.INTRINSICS if op != "cumsum_i32"])
+def test_intrinsic_refuses_misaligned_operands(op):
+    """The elementwise kernel's unary ops move 16-byte vectors, and every
+    op keeps that rule: an operand one element into its storage is refused
+    on either device (either operand of the two-operand ops), and one 16
+    bytes in is taken."""
+    t = port_mosaic.inputs("cpu", 105)
+    args = port_mosaic.operands(op, t)
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.intrinsic(op, *(a[1:] for a in args))
+    if len(args) == 2:
+        with pytest.raises(ValueError, match="16-byte"):
+            cp.intrinsic(op, args[0][4:-1].clone(), args[1][1:-4])
+    got = cp.intrinsic(op, *(a[4:] for a in args))
+    assert torch.equal(got, cp.intrinsic_plain(op, *(a[4:] for a in args)))
 
 
 def test_k1_work_and_bound():

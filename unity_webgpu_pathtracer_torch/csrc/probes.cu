@@ -17,8 +17,8 @@
 //   sum_scalar_launch       P9 experiments/round18_mosaic_probe.py:111
 //   step_chain_launch       P10 experiments/round20_tile3d_probe.py:58
 //
-// Constants shared with Python (the intrinsic op numbers, P8's scan tile)
-// come as -D macros (ops/cuda_build.py).
+// Constants shared with Python (the intrinsic op numbers, P8's scan tile,
+// P9's plan) come as -D macros (ops/cuda_build.py).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -424,49 +424,116 @@ extern "C" int cluster_gather_launch(const void* table, const int* idx, int n, f
 // The ops the TPU probe asked Mosaic for (round18_mosaic_probe.py), with
 // CUDA's accurate library functions (never fast math): a uint32 PCG step,
 // uint32 -> f32 times 1/4294967295, sin, cos, log, exp, sqrt, acos, atan,
-// atan2, pow, one op per launch (the argument); cumsum over int32 is a
-// kernel of its own (below).  Bound: bytes (one op per element).
-__global__ void intrinsic_kernel(int op, const void* __restrict__ a, const void* __restrict__ b,
-                                 void* __restrict__ out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* fa = static_cast<const float*>(a);
-  const float* fb = static_cast<const float*>(b);
-  float* fo = static_cast<float*>(out);
-  switch (op) {
-    case UWPT_OP_PCG_UINT32: {
-      const uint32_t s = static_cast<const uint32_t*>(a)[i];
-      const uint32_t old = s + 747796405u + 2891336453u;
-      const uint32_t shift = (old >> 28) + 4u;
-      const uint32_t word = ((old >> shift) ^ old) * 277803737u;
-      static_cast<uint32_t*>(out)[i] = (word >> 22) ^ word;
-      break;
-    }
-    case UWPT_OP_U32_TO_F32:
-      fo[i] = __uint2float_rn(static_cast<const uint32_t*>(a)[i]) * (float)(1.0 / 4294967295.0);
-      break;
-    case UWPT_OP_SIN: fo[i] = sinf(fa[i]); break;
-    case UWPT_OP_COS: fo[i] = cosf(fa[i]); break;
-    case UWPT_OP_LOG: fo[i] = logf(fa[i]); break;
-    case UWPT_OP_EXP: fo[i] = expf(fa[i]); break;
-    case UWPT_OP_SQRT: fo[i] = sqrtf(fa[i]); break;
-    case UWPT_OP_ARCCOS: fo[i] = acosf(fa[i]); break;
-    case UWPT_OP_ARCTAN: fo[i] = atanf(fa[i]); break;
-    case UWPT_OP_ARCTAN2: fo[i] = atan2f(fa[i], fb[i]); break;
-    case UWPT_OP_POWER: fo[i] = powf(fa[i], fb[i]); break;
-    default: break;
+// atan2, pow; cumsum over int32 is a kernel of its own (below).  Bound:
+// bytes (one op per element).  One instantiation per op (the template
+// parameter), so each carries only its own op's registers and no thread
+// branches on the op.  The nine unary ops move 16-byte vectors of 4
+// elements in a loop over blocks sized to the SMs, and block 0 takes the
+// n % 4 tail element by element.  atan2 and pow, whose library functions
+// branch and take longest, run one element a thread with 4-byte loads:
+// a thread's 4 calls would run one after another, which measured slower.
+// Every operand must start on a 16-byte boundary, the same rule for every
+// op.  Every value passes as its 32 bits.
+constexpr int INTR_THREADS = 256, INTR_BLOCKS_PER_SM = 8;
+
+__host__ __device__ constexpr bool intrinsic_binary(int op) {
+  return op == UWPT_OP_ARCTAN2 || op == UWPT_OP_POWER;
+}
+
+template <int OP>
+__device__ __forceinline__ uint32_t intrinsic_op(uint32_t a, uint32_t b) {
+  const float fa = __uint_as_float(a), fb = __uint_as_float(b);
+  if constexpr (OP == UWPT_OP_PCG_UINT32) {
+    const uint32_t old = a + 747796405u + 2891336453u;
+    const uint32_t shift = (old >> 28) + 4u;
+    const uint32_t word = ((old >> shift) ^ old) * 277803737u;
+    return (word >> 22) ^ word;
+  } else if constexpr (OP == UWPT_OP_U32_TO_F32) {
+    return __float_as_uint(__uint2float_rn(a) * (float)(1.0 / 4294967295.0));
+  } else if constexpr (OP == UWPT_OP_SIN) {
+    return __float_as_uint(sinf(fa));
+  } else if constexpr (OP == UWPT_OP_COS) {
+    return __float_as_uint(cosf(fa));
+  } else if constexpr (OP == UWPT_OP_LOG) {
+    return __float_as_uint(logf(fa));
+  } else if constexpr (OP == UWPT_OP_EXP) {
+    return __float_as_uint(expf(fa));
+  } else if constexpr (OP == UWPT_OP_SQRT) {
+    return __float_as_uint(sqrtf(fa));
+  } else if constexpr (OP == UWPT_OP_ARCCOS) {
+    return __float_as_uint(acosf(fa));
+  } else if constexpr (OP == UWPT_OP_ARCTAN) {
+    return __float_as_uint(atanf(fa));
+  } else if constexpr (OP == UWPT_OP_ARCTAN2) {
+    return __float_as_uint(atan2f(fa, fb));
+  } else {
+    static_assert(OP == UWPT_OP_POWER, "an op of cuda_probes.INTRINSICS");
+    return __float_as_uint(powf(fa, fb));
   }
+}
+
+template <int OP>
+__global__ void __launch_bounds__(INTR_THREADS)
+    intrinsic_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                     uint32_t* __restrict__ out, int n) {
+  const int first = blockIdx.x * INTR_THREADS + threadIdx.x, stride = gridDim.x * INTR_THREADS;
+  if constexpr (intrinsic_binary(OP)) {
+    for (int i = first; i < n; i += stride) out[i] = intrinsic_op<OP>(a[i], b[i]);
+  } else {
+    const int n4 = n >> 2;
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    uint4* o4 = reinterpret_cast<uint4*>(out);
+    for (int i = first; i < n4; i += stride) {
+      const uint4 p = a4[i];
+      o4[i] = make_uint4(intrinsic_op<OP>(p.x, 0u), intrinsic_op<OP>(p.y, 0u),
+                         intrinsic_op<OP>(p.z, 0u), intrinsic_op<OP>(p.w, 0u));
+    }
+    if (blockIdx.x == 0 && threadIdx.x < (n & 3)) {
+      const int i = (n4 << 2) + threadIdx.x;
+      out[i] = intrinsic_op<OP>(a[i], 0u);
+    }
+  }
+}
+
+template <int OP>
+int intrinsic_run(const void* a, const void* b, void* out, int n, cudaStream_t stream) {
+  if (((uintptr_t)a | (uintptr_t)out | (intrinsic_binary(OP) ? (uintptr_t)b : 0)) % 16)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = intrinsic_binary(OP) ? n : n / 4;
+  const int blocks =
+      max(1, min((threads + INTR_THREADS - 1) / INTR_THREADS, sms * INTR_BLOCKS_PER_SM));
+  intrinsic_kernel<OP><<<blocks, INTR_THREADS, 0, stream>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), n);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int intrinsic_launch(int op, const void* a, const void* b, void* out, int n,
                                 void* stream) {
-  if (op == UWPT_OP_CUMSUM_I32) return (int)cudaErrorInvalidValue;   // cumsum_i32_launch
-  if (n > 0) {
-    const int threads = 256;
-    intrinsic_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(op, a, b,
-                                                                                       out, n);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (op) {
+#define INTRINSIC_CASE(OP) \
+  case OP: return intrinsic_run<OP>(a, b, out, n, s);
+    INTRINSIC_CASE(UWPT_OP_PCG_UINT32)
+    INTRINSIC_CASE(UWPT_OP_U32_TO_F32)
+    INTRINSIC_CASE(UWPT_OP_SIN)
+    INTRINSIC_CASE(UWPT_OP_COS)
+    INTRINSIC_CASE(UWPT_OP_LOG)
+    INTRINSIC_CASE(UWPT_OP_EXP)
+    INTRINSIC_CASE(UWPT_OP_SQRT)
+    INTRINSIC_CASE(UWPT_OP_ARCCOS)
+    INTRINSIC_CASE(UWPT_OP_ARCTAN)
+    INTRINSIC_CASE(UWPT_OP_ARCTAN2)
+    INTRINSIC_CASE(UWPT_OP_POWER)
+#undef INTRINSIC_CASE
+    default: return (int)cudaErrorInvalidValue;   // the cumsum: cumsum_i32_launch
   }
-  return (int)cudaGetLastError();
 }
 
 // cumsum over int32 (the regeneration's work-queue ranks, the probe's
@@ -645,16 +712,114 @@ extern "C" int cumsum_i32_launch(const int* x, int* out, int n, void* scratch, i
 }
 
 // ---------------------------------------------------------------- P9
-// (B,) f32 summed to one scalar (round18_mosaic_probe.py sum_k): one block,
-// each thread a strided partial sum, then warp shuffles.  Bound: bytes.
-__global__ void sum_scalar_kernel(const float* __restrict__ x, int n, float* __restrict__ out) {
-  float acc = 0.0f;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) acc += x[k];
-  block_sum_to(acc, out);
+// (B,) f32 summed to one scalar (round18_mosaic_probe.py sum_k).  Bound:
+// bytes (each element read once).  One launch over every SM: block b sums
+// the b-th slice of the input, cut by n alone (cuda_probes.sum_plan): one
+// round of SUM_VEC 16-byte vectors a thread (4,096 elements a block) up to
+// UWPT_SUM_MAX_BLOCKS blocks, more rounds a block beyond that.  A thread
+// issues a round's loads together, then adds them in order; the block's
+// threads are summed by a shuffle tree in each warp and one over the
+// warps' sums (sum_tree).  Each block publishes its partial in one 64-bit
+// word beside the call's tag, relaxed, with no fence: the block that took
+// the last ticket waits on each word's tag instead, then sums the partials
+// in block order the same way and writes out.  It took its ticket last,
+// so every block it waits on has started and waits on nothing.  The order
+// depends on n alone, so every call gives the same bits, and the plain
+// version (cuda_probes.sum_scalar_plain) follows it op for op.  Tickets
+// are taken at the start, while the loads fly.  The scratch
+// (ops/cuda_probes.py, one per kernel, device and stream, zeroed once) is the
+// scan's layout: a control word (ticket low, epoch high), then a word a
+// block.  It resets itself as the scan's does, and a word's tag is the
+// epoch plus one, so a zeroed word never reads as published.
+constexpr int SUM_THREADS = UWPT_SUM_THREADS, SUM_VEC = UWPT_SUM_VEC;
+constexpr int SUM_WARPS = SUM_THREADS / 32, SUM_SLICE = SUM_THREADS * SUM_VEC * 4;
+constexpr int SUM_WORDS = UWPT_SUM_MAX_BLOCKS / SUM_THREADS;   // the last block's, a thread
+constexpr uint32_t SUM_EPOCH_MASK = 0x7FFFFFFFu;
+static_assert(SUM_THREADS % 32 == 0 && SUM_WARPS <= 32 && (SUM_WARPS & (SUM_WARPS - 1)) == 0,
+              "whole warps, a power of two of them");
+static_assert(SUM_WORDS >= 1 && SUM_WORDS * SUM_THREADS == UWPT_SUM_MAX_BLOCKS,
+              "the last block's threads read the partials in whole rounds");
+
+// The sum of the block's values v, in thread 0: a shuffle tree in each
+// warp (lane l adds lane l + off), then one over the warps' sums in warp 0.
+__device__ __forceinline__ float sum_tree(float v) {
+  __shared__ float warp_sum[SUM_WARPS];
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < SUM_WARPS ? warp_sum[threadIdx.x] : 0.0f;
+    for (int off = SUM_WARPS / 2; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
 }
 
-extern "C" int sum_scalar_launch(const float* x, int n, float* out, void* stream) {
-  sum_scalar_kernel<<<1, 1024, 0, (cudaStream_t)stream>>>(x, n, out);
+__device__ __forceinline__ float4 load4_or_zero(const float* x, size_t i, int n) {
+  if (i + 4 <= (size_t)n) return *reinterpret_cast<const float4*>(x + i);
+  return make_float4(i < (size_t)n ? x[i] : 0.0f, i + 1 < (size_t)n ? x[i + 1] : 0.0f,
+                     i + 2 < (size_t)n ? x[i + 2] : 0.0f, 0.0f);
+}
+
+__global__ void __launch_bounds__(SUM_THREADS)
+    sum_scalar_kernel(const float* __restrict__ x, int n, int rounds, float* __restrict__ out,
+                      unsigned long long* ctl, unsigned long long* words) {
+  __shared__ uint32_t s_tag, s_last;
+  unsigned long long ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(ctl, 1ull);   // comes back while the loads fly
+  float acc = 0.0f;
+  for (int r = 0; r < rounds; ++r) {
+    const size_t base = ((size_t)blockIdx.x * rounds + r) * SUM_SLICE + (size_t)threadIdx.x * 4;
+    float4 q[SUM_VEC];
+#pragma unroll
+    for (int v = 0; v < SUM_VEC; ++v)
+      q[v] = load4_or_zero(x, base + (size_t)v * SUM_THREADS * 4, n);
+#pragma unroll
+    for (int v = 0; v < SUM_VEC; ++v) {
+      acc += q[v].x;
+      acc += q[v].y;
+      acc += q[v].z;
+      acc += q[v].w;
+    }
+  }
+  if (threadIdx.x == 0) {
+    const uint32_t epoch = (uint32_t)(ticket >> 32);
+    s_tag = epoch + 1;
+    s_last = (uint32_t)ticket == gridDim.x - 1;
+    // Every block has its ticket and epoch once the last ticket is taken.
+    if (s_last) atomicExch(ctl, (unsigned long long)((epoch + 1) & SUM_EPOCH_MASK) << 32);
+  }
+  const float total = sum_tree(acc);   // its barrier publishes s_tag and s_last
+  const unsigned long long tag = s_tag;
+  if (threadIdx.x == 0) st_relaxed(&words[blockIdx.x], tag << 32 | __float_as_uint(total));
+  if (!s_last) return;
+  __syncthreads();   // warp 0 is done with warp_sum before sum_tree fills it again
+  unsigned long long w[SUM_WORDS];
+#pragma unroll
+  for (int k = 0; k < SUM_WORDS; ++k) {
+    const int j = k * SUM_THREADS + threadIdx.x;
+    w[k] = j < (int)gridDim.x ? ld_relaxed(&words[j]) : tag << 32;
+  }
+  float part = 0.0f;
+#pragma unroll
+  for (int k = 0; k < SUM_WORDS; ++k) {
+    const int j = k * SUM_THREADS + threadIdx.x;
+    while ((w[k] >> 32) != tag) w[k] = ld_relaxed(&words[j]);
+    if (j < (int)gridDim.x) part += __uint_as_float((uint32_t)w[k]);
+  }
+  const float sum = sum_tree(part);
+  if (threadIdx.x == 0) out[0] = sum;
+}
+
+extern "C" int sum_scalar_launch(const float* x, int n, int blocks, int rounds, float* out,
+                                 void* scratch, int scratch_words, void* stream) {
+  // The plan is cuda_probes.sum_plan's; the entry checks that it covers n
+  // and that the last block reads every partial.
+  if (n < 0 || (uintptr_t)x % 16 || blocks < 1 || blocks > UWPT_SUM_MAX_BLOCKS || rounds < 1 ||
+      (long long)blocks * rounds * SUM_SLICE < n || scratch_words < 1 + blocks)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  sum_scalar_kernel<<<blocks, SUM_THREADS, 0, (cudaStream_t)stream>>>(x, n, rounds, out, words,
+                                                                       words + 1);
   return (int)cudaGetLastError();
 }
 

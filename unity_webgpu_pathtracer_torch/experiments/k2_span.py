@@ -17,7 +17,9 @@ itself.  The script prints:
 - the kernel launches of one eager span, and of the main path per
   super-iteration over three super-iterations (5, 6, 7), counted by
   ``torch.profiler`` (device kernels, memcpy/memset, and the CPU-side
-  launch calls; the ctypes kernels appear as device kernels only);
+  launch calls; the ctypes kernels appear as device kernels only), and
+  the main path's reductions of a whole tensor to one value
+  (``ScalarReductions``);
 - with ``--passes N``, only this: N passes of that configuration through
   ``Renderer`` after one warm-up pass, the seconds of each (the same work
   every pass), so two checkouts can be timed in turns in one machine
@@ -32,6 +34,7 @@ import sys
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from unity_webgpu_pathtracer_torch.experiments._common import (cuda_device, ptxas_registers,
                                                                time_in_place_ms)
@@ -168,6 +171,23 @@ def _count(prof) -> dict:
     return dict(kernels=kern, memcpy_memset=mem, cpu_launch_calls=launch, top=top)
 
 
+class ScalarReductions(TorchDispatchMode):
+    """Counts the reductions of a whole tensor to one value that the code
+    calls (``x.sum()``, ``x.any()``); a reduction over a dim
+    (``x.sum(dim=1)``) and an op that an op calls inside are not counted."""
+
+    OPS = {torch.ops.aten.sum.default: "sum", torch.ops.aten.any.default: "any"}
+
+    def __init__(self):
+        super().__init__()
+        self.counts = dict.fromkeys(self.OPS.values(), 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.OPS:
+            self.counts[self.OPS[func]] += 1
+        return func(*args, **(kwargs or {}))
+
+
 def _profile(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -179,8 +199,9 @@ def _profile(fn) -> dict:
 
 
 def launches_per_si(sd, cfg, params, window=PROFILE_SI) -> dict:
-    """The main path's launches per super-iteration, profiled from the K1
-    launch of super-iteration ``window[0]`` to that of ``window[1]``."""
+    """The main path's launches and reductions to one value
+    (``ScalarReductions``) per super-iteration, counted from the K1 launch
+    of super-iteration ``window[0]`` to that of ``window[1]``."""
     from torch.profiler import ProfilerActivity, profile
 
     from unity_webgpu_pathtracer_torch.render import fused
@@ -193,7 +214,10 @@ def launches_per_si(sd, cfg, params, window=PROFILE_SI) -> dict:
             torch.cuda.synchronize()
             box["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             box["prof"].__enter__()
+            box["red"] = ScalarReductions()
+            box["red"].__enter__()
         elif n[0] == window[1]:
+            box["red"].__exit__(None, None, None)
             torch.cuda.synchronize()
             box["prof"].__exit__(None, None, None)
             raise _Stop
@@ -209,7 +233,8 @@ def launches_per_si(sd, cfg, params, window=PROFILE_SI) -> dict:
     c = _count(box["prof"])
     si = window[1] - window[0]
     return {**c, "super_iterations": si, "kernels_per_si": c["kernels"] / si,
-            "memcpy_memset_per_si": c["memcpy_memset"] / si}
+            "memcpy_memset_per_si": c["memcpy_memset"] / si,
+            "reductions_per_si": {k: v / si for k, v in box["red"].counts.items()}}
 
 
 def main() -> None:

@@ -7,13 +7,17 @@ tolerances (PASS or MISMATCH, and the largest error in ulps): a uint32 PCG
 step and cumsum over int32 (exact), uint32 -> f32 times 1/4294967295
 (atol 1e-6, as the original; exactness is printed), sin, cos, log, exp,
 sqrt, arccos, arctan, arctan2, power (rtol 1e-5, atol 1e-6), and the sum
-of the (B,) plane to one scalar (rtol 1e-5).  Each is also timed at B =
-98,304 (the pool's lanes), since at 1,024 the time is only the launch,
-beside the one PyTorch call that computes it where there is one.  The
-one-pass scan of cumsum carries its scratch from call to call, so it is
-also checked at ragged sizes (1, 1,025, 98,303) and after the timed
-replays, and timed once more at 4,194,304, where bandwidth and not the
-launch sets the time.
+of the (B,) plane to one scalar (exact against its plain version, which
+follows the kernel's order; rtol 1e-5 of ``torch.sum``).  Each is also
+timed at B = 98,304 (the pool's lanes), since at 1,024 the time is only
+the launch, beside the one PyTorch call that computes it where there is
+one, and checked there after its first call and after the timed replays.
+The one-pass scan and the sum carry their scratch from call to call, so
+they are also checked at ragged sizes (1, 1,025, 98,303) and timed once
+more at 4,194,304, where bandwidth and not the launch sets the time.
+``reductions`` times PyTorch's reductions of a 98,304-lane plane as the
+main path's super-iteration calls them (``render/fused.py``); ``chip_smoke.py``
+prices a super-iteration's from the calls its profile counts.
 
     python -m unity_webgpu_pathtracer_torch.experiments.round18_mosaic_probe
 """
@@ -28,7 +32,7 @@ from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_devic
 from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
 
 B, B_TIMED = 1024, 98_304
-SCAN_RAGGED, SCAN_LARGE = (1, 1025, 98_303), 4_194_304   # cumsum's further sizes
+RAGGED, LARGE = (1, 1025, 98_303), 4_194_304   # the scan's and the sum's further sizes
 EXACT = ("pcg_uint32", "cumsum_i32")
 LIBRARY = {"sin": torch.sin, "cos": torch.cos, "log": torch.log, "exp": torch.exp,
            "sqrt": torch.sqrt, "arccos": torch.acos, "arctan": torch.atan,
@@ -75,71 +79,110 @@ def max_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((a - b).abs().max()) if a.numel() else 0
 
 
+def _tol_check(op: str, got: torch.Tensor, want: torch.Tensor) -> bool:
+    if op in EXACT:
+        return bool(torch.equal(got, want))
+    rtol = 0.0 if op == "u32_to_f32" else 1e-5
+    return bool(torch.allclose(got, want, rtol=rtol, atol=1e-6))
+
+
 def run(device=None) -> list[dict]:
     dev = cuda_device(device)
     small, big = inputs(dev, B), inputs(dev, B_TIMED)
     # A kernel's last row is the one chip_smoke.py's kernels line reports:
-    # the scan's is the pool's 98,304, below, not this one.
-    out = [scan_large(dev)]
+    # the scan's and the sum's are the pool's 98,304, below, not these.
+    out = [scan_large(dev), sum_row(dev, LARGE)]
     for op in cp.INTRINSICS:
         args = operands(op, small)
         got, want = cp.intrinsic(op, *args), cp.intrinsic_plain(op, *args)
-        if op in EXACT:
-            ok, tol = bool(torch.equal(got, want)), "exact"
-        else:
-            rtol = 0.0 if op == "u32_to_f32" else 1e-5
-            ok, tol = bool(torch.allclose(got, want, rtol=rtol, atol=1e-6)), \
-                f"rtol {rtol:g}, atol 1e-6"
-        err = max_err(got, want)
-        args = operands(op, big)
+        tol = "exact" if op in EXACT else \
+            f"rtol {0.0 if op == 'u32_to_f32' else 1e-5:g}, atol 1e-6"
+        bargs = operands(op, big)
         lib = LIBRARY.get(op)
-        ms, again = time_ms_out(lambda: cp.intrinsic(op, *args))
-        res = cp.intrinsic_plain(op, *args)
+        first = cp.intrinsic(op, *bargs)
+        ms, again = time_ms_out(lambda: cp.intrinsic(op, *bargs))
+        res = cp.intrinsic_plain(op, *bargs)
+        pairs = [(got, want), (first, res), (again, res)]
         if op == "cumsum_i32":
-            pairs = [(again, res)]
-            for n in SCAN_RAGGED:
+            for n in RAGGED:
                 a = inputs(dev, n)["i32"]
                 pairs.append((cp.intrinsic(op, a), cp.intrinsic_plain(op, a)))
-            ok = ok and all(torch.equal(g, w) for g, w in pairs)
-            err = max([err] + [max_err(g, w) for g, w in pairs])
-            tol = f"exact, also at {SCAN_RAGGED} and after the replays at {B_TIMED}"
+        ok = all(_tol_check(op, g, w) for g, w in pairs)
+        tol += f"; at {B}, at {B_TIMED} and after its replays" + \
+            (f", also at {RAGGED}" if op == "cumsum_i32" else "")
         out.append(row(f"{op} B={B}: {'PASS' if ok else 'MISMATCH'}", f"intrinsic_{op}", ms,
-                       time_ms(lambda: cp.intrinsic_plain(op, *args)), ms * 1e6 / B_TIMED,
-                       "lane", sum(a.nbytes for a in args) + res.nbytes, B_TIMED, err, ok, tol,
-                       library_ms=None if lib is None else time_ms(lambda: lib(*args)),
-                       ulps=max_ulps(got, want), exact=bool(torch.equal(got, want)),
-                       timed_b=B_TIMED))
-    f = small["f"]
-    got, want = cp.sum_scalar(f), f.sum().reshape(1)
-    ok = bool(torch.allclose(got, want, rtol=1e-5, atol=0.0))
-    fb = big["f"]
-    ms = time_ms(lambda: cp.sum_scalar(fb))
-    plain = time_ms(lambda: fb.sum())
-    out.append(row(f"sum_to_scalar B={B}: {'PASS' if ok else 'MISMATCH'}", "sum_scalar", ms,
-                   plain, ms * 1e6 / B_TIMED, "lane", fb.nbytes + 4, B_TIMED,
-                   max_err(got, want), ok, "rtol 1e-5", library_ms=plain,
-                   ulps=max_ulps(got, want), exact=bool(torch.equal(got, want)), timed_b=B_TIMED))
+                       time_ms(lambda: cp.intrinsic_plain(op, *bargs)), ms * 1e6 / B_TIMED,
+                       "lane", sum(a.nbytes for a in bargs) + res.nbytes, B_TIMED,
+                       max(max_err(g, w) for g, w in pairs), ok, tol,
+                       library_ms=None if lib is None else time_ms(lambda: lib(*bargs)),
+                       ulps=max(max_ulps(g, w) for g, w in pairs),
+                       exact=all(bool(torch.equal(g, w)) for g, w in pairs), timed_b=B_TIMED))
+    out.append(sum_row(dev, B_TIMED))
     return check(out)
 
 
+def sum_row(dev, b: int) -> dict:
+    """P9 at ``b``: exact against ``sum_scalar_plain`` after the first
+    call, after a second (the same bits) and after the timed replays, and
+    within rtol 1e-5 of ``torch.sum``; at the pool's size also at ``B``
+    and the ragged sizes."""
+    f = inputs(dev, b)["f"]
+    want = cp.sum_scalar_plain(f)
+    got, second = cp.sum_scalar(f), cp.sum_scalar(f)
+    ms, again = time_ms_out(lambda: cp.sum_scalar(f))
+    pairs = [(got, want), (second, want), (again, want)]
+    sizes = (B, *RAGGED) if b == B_TIMED else ()
+    for n in sizes:
+        x = inputs(dev, n)["f"]
+        pairs.append((cp.sum_scalar(x), cp.sum_scalar_plain(x)))
+    lib_ms = time_ms(lambda: f.sum())
+    ok = all(torch.equal(g, w) for g, w in pairs) and bool(
+        torch.allclose(got, f.sum().reshape(1), rtol=1e-5, atol=0.0))
+    return row(f"sum_to_scalar B={b}: {'PASS' if ok else 'MISMATCH'}", "sum_scalar", ms,
+               time_ms(lambda: cp.sum_scalar_plain(f)), ms * 1e6 / b, "lane", f.nbytes + 4, b,
+               max(max_err(g, w) for g, w in pairs), ok,
+               "exact against the plain version after the first call, a second and the "
+               f"replays{f', also at {sizes}' if sizes else ''}; rtol 1e-5 of torch.sum",
+               library_ms=lib_ms, ulps=max(max_ulps(g, w) for g, w in pairs),
+               exact=all(bool(torch.equal(g, w)) for g, w in pairs), timed_b=b)
+
+
 def scan_large(dev) -> dict:
-    """cumsum_i32 at SCAN_LARGE: checked after the first call and after the
+    """cumsum_i32 at LARGE: checked after the first call and after the
     timed replays, beside ``torch.cumsum``."""
-    a = inputs(dev, SCAN_LARGE)["i32"]
+    a = inputs(dev, LARGE)["i32"]
     got, want = cp.intrinsic("cumsum_i32", a), cp.intrinsic_plain("cumsum_i32", a)
     ms, again = time_ms_out(lambda: cp.intrinsic("cumsum_i32", a))
     ok = bool(torch.equal(got, want) and torch.equal(again, want))
-    return row(f"cumsum_i32 B={SCAN_LARGE}: {'PASS' if ok else 'MISMATCH'}",
+    return row(f"cumsum_i32 B={LARGE}: {'PASS' if ok else 'MISMATCH'}",
                "intrinsic_cumsum_i32", ms,
-               time_ms(lambda: cp.intrinsic_plain("cumsum_i32", a)), ms * 1e6 / SCAN_LARGE,
-               "lane", 2 * a.nbytes, SCAN_LARGE, max(max_err(got, want), max_err(again, want)),
+               time_ms(lambda: cp.intrinsic_plain("cumsum_i32", a)), ms * 1e6 / LARGE,
+               "lane", 2 * a.nbytes, LARGE, max(max_err(got, want), max_err(again, want)),
                ok, "exact, after the first call and after the replays",
                library_ms=time_ms(lambda: LIBRARY["cumsum_i32"](a)), ulps=0 if ok else -1,
-               exact=ok, timed_b=SCAN_LARGE)
+               exact=ok, timed_b=LARGE)
+
+
+def reductions(device=None, per_si: dict | None = None) -> dict:
+    """Device ms of PyTorch's reductions of a 98,304-lane plane as the
+    super-iteration calls them (``bool.sum()``, ``int32.sum()``,
+    ``.any()``), and with ``per_si`` (the ``sum`` and ``any`` calls a
+    super-iteration, as ``k2_span.launches_per_si`` counts them on the main
+    path) their device ms a super-iteration, each sum priced as a bool
+    sum."""
+    dev = cuda_device(device)
+    t = inputs(dev, B_TIMED)
+    mask = t["i32"] < 50
+    ms = {"bool_sum": time_ms(lambda: mask.sum()), "int32_sum": time_ms(lambda: t["i32"].sum()),
+          "any": time_ms(lambda: mask.any())}
+    if per_si is not None:
+        ms["per_super_iteration"] = per_si["sum"] * ms["bool_sum"] + per_si["any"] * ms["any"]
+    return ms
 
 
 def main() -> None:
     print("device:", torch.cuda.get_device_name(cuda_device()))
+    print("reductions of 98,304 lanes (ms):", reductions())
     for r in run():
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         print(f"{r['name']} exact={r['exact']} max ulps={r['ulps']} ({r['tol']}); at "

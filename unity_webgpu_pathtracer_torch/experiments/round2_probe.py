@@ -1,7 +1,7 @@
 """Row gathers and a shading-like chain on the H100 (``experiments/round2_probe.py``).
 
-Three kernels of the original, each against its plain version and
-``table[idx]`` (the XLA gather the TPU probe timed beside them):
+Three kernels of the original, each against its plain version, the
+gathers beside the PyTorch calls that compute what they compute:
 
 * ``dma_gather`` (P1): per-row TMA bulk copies through rings of slots
   on blocks over every SM, from tables of 8 / 87 / 232 MB, 1,024 and
@@ -11,7 +11,10 @@ Three kernels of the original, each against its plain version and
 * ``vmem_gather`` (P2): 4,096 dynamic row reads from a (N, 48) table held
   in one block's shared memory.  One block holds at most 227 KB, so the
   tables on chip are 24, 48, 96 and 192 KB; the original's 2-24 MB run as
-  the same reads from device memory (held by the 50 MB L2);
+  the same reads from device memory (held by the 50 MB L2).  Its library
+  call is ``table_sum_library``, one ``embedding_bag`` that computes
+  sum_k table[idx[k], 0], checked exact against the plain version;
+  ``tab[li, 0].sum()``, two calls, is timed beside it;
 * ``shade`` (P3): 40 blocks of a Schlick-like chain over (2048, 128).
 
     python -m unity_webgpu_pathtracer_torch.experiments.round2_probe
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device, max_err, row,
                                                               time_ms, time_ms_out)
@@ -46,6 +50,13 @@ def hashed_idx(chunk: int, n: int) -> np.ndarray:
     product wraps in int32, the remainder is floored."""
     prod = (np.arange(chunk, dtype=np.int64) * -1640531527).astype(np.int32)
     return np.mod(prod.astype(np.int64), n).astype(np.int32)
+
+
+def table_sum_library(tab: torch.Tensor, li: torch.Tensor, bag: torch.Tensor) -> torch.Tensor:
+    """P2's function in one PyTorch call, (1, 1): ``embedding_bag`` sums
+    the column view ``tab[:, :1]`` over one bag of every index (``bag``
+    holds its offset, 0)."""
+    return F.embedding_bag(li, tab[:, :1], bag, mode="sum")
 
 
 def dma_gather(dev) -> list[dict]:
@@ -77,8 +88,10 @@ def vmem_gather(dev) -> list[dict]:
     for n, label, on_chip in sizes:
         tab = table(n, cp.TABLE_W, dev)
         idx = torch.from_numpy(hashed_idx(VMEM_CHUNK, n)).to(dev)
-        li = idx.long()
+        li, bag = idx.long(), torch.zeros(1, dtype=torch.long, device=dev)
         got, want = cp.table_sum(tab, idx, on_chip), cp.table_sum_plain(tab, idx)
+        if not torch.equal(table_sum_library(tab, li, bag), want):
+            raise AssertionError(f"table_sum_library disagrees with table_sum_plain at {label}")
         ms = time_ms(lambda: cp.table_sum(tab, idx, on_chip))
         distinct = int(torch.unique(idx).numel())
         rows.append(row(f"vmem_gather table={label} chunk={VMEM_CHUNK}",
@@ -86,7 +99,8 @@ def vmem_gather(dev) -> list[dict]:
                         time_ms(lambda: cp.table_sum_plain(tab, idx)), ms * 1e6 / VMEM_CHUNK,
                         "row", distinct * 4 + VMEM_CHUNK * 4 + 4, VMEM_CHUNK,
                         max_err(got, want), bool(torch.equal(got, want)), "exact",
-                        library_ms=time_ms(lambda: tab[li])))
+                        library_ms=time_ms(lambda: table_sum_library(tab, li, bag)),
+                        two_calls_ms=time_ms(lambda: tab[li, 0].sum())))
     return rows
 
 
@@ -110,7 +124,9 @@ def run(device=None) -> list[dict]:
 def main() -> None:
     print("device:", torch.cuda.get_device_name(cuda_device()))
     for r in run():
-        lib = "" if r["library_ms"] is None else f", table[idx] {r['library_ms']:.4f} ms"
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        if "two_calls_ms" in r:
+            lib += f", tab[li, 0].sum() (two calls) {r['two_calls_ms']:.4f} ms"
         print(f"{r['name']}: {r['ms']:.4f} ms ({r['ns_per']:.2f} ns/{r['per']}); plain "
               f"{r['plain_ms']:.4f} ms{lib}; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
               f"max abs err {r['max_abs_err']:g} ({r['tol']})")

@@ -55,7 +55,8 @@ ENTRIES = {
         "cluster_gather_launch": [_P, _P, _I, _P, _P],
         "intrinsic_launch": [_I, _P, _P, _P, _I, _P],    # op, a, b, out, n, stream
         "cumsum_i32_launch": [_P, _P, _I, _P, _I, _P],   # a, out, n, scratch, its words, stream
-        "sum_scalar_launch": [_P, _I, _P, _P],
+        # x, n, blocks, rounds, out, scratch, its words, stream
+        "sum_scalar_launch": [_P, _I, _I, _I, _P, _P, _I, _P],
         "step_chain_launch": [_P, _P, _I, _P],
     },
 }
@@ -81,7 +82,8 @@ def _defines() -> list[str]:
     ints = dict(MODE_PRIMARY=ct.MODE_PRIMARY, MODE_SHADOW_ENV=ct.MODE_SHADOW_ENV,
                 MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
                 K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS, K2_THREADS=ct.K2_THREADS,
-                SCAN_TILE=cp.SCAN_TILE,
+                SCAN_TILE=cp.SCAN_TILE, SUM_THREADS=cp.SUM_THREADS, SUM_VEC=cp.SUM_VEC,
+                SUM_MAX_BLOCKS=cp.SUM_MAX_BLOCKS,
                 **{f"PROBE_{m.upper()}": k for m, k in ca.PROBE_NUMBERS.items()},
                 **{f"OP_{op.upper()}": k for k, op in enumerate(cp.INTRINSICS)})
     floats = dict(FAR_PLANE=FAR_PLANE, DET_EPS=tw.DET_EPS, T_MIN=tw.T_MIN,

@@ -21,6 +21,9 @@ INTRINSICS = ("pcg_uint32", "u32_to_f32", "sin", "cos", "log", "exp", "sqrt", "a
               "arctan", "arctan2", "power", "cumsum_i32")
 RING_W, RING_SLOTS = 128, 16          # P1: row floats, the original's ring slots
 SCAN_TILE = 8192                      # P8 cumsum: elements a block scans
+SUM_THREADS, SUM_VEC = 256, 4         # P9: a block's threads, 16-byte vectors a thread a round
+SUM_MAX_BLOCKS = 1024                 # P9: blocks a call, beyond which a block takes more rounds
+SUM_SLICE = SUM_THREADS * SUM_VEC * 4   # P9: elements a block reads a round
 TABLE_W = 48                          # P2: row floats
 SMEM_BYTES = 232_448                  # P2: the most shared memory one block can use
 TREE_ROWS, TREE_COLS = 4096, 96       # P7: the table held on chip
@@ -234,25 +237,27 @@ def intrinsic_plain(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> 
 
 
 def intrinsic(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    """One op of ``INTRINSICS`` over (B,): uint32 operands and the PCG
-    result travel as int32 bit patterns; ``cumsum_i32`` takes int32 on a
-    16-byte boundary (a one-pass scan, its own kernel); ``arctan2`` (a =
-    y, b = x) and ``power`` take two f32 operands."""
+    """One op of ``INTRINSICS`` over (B,), each operand on a 16-byte
+    boundary (the scan and the unary ops load 16-byte vectors; ``arctan2``
+    and ``power`` one element a thread, under the same rule): uint32 operands and the
+    PCG result travel as int32 bit patterns; ``cumsum_i32`` takes int32 (a
+    one-pass scan, its own kernel); ``arctan2`` (a = y, b = x) and
+    ``power`` take two f32 operands."""
     if op not in INTRINSICS:
         raise ValueError(f"unknown op {op!r}")
     dev = _device(a)
     n = a.shape[0]
     dtype = torch.int32 if op in ("pcg_uint32", "u32_to_f32", "cumsum_i32") else torch.float32
     cuda_build.check_tensor(a, "a", dtype, (n,), dev)
+    _check_aligned(a, "a")
     if op in ("arctan2", "power"):
         cuda_build.check_tensor(b, "b", torch.float32, (n,), dev)
-    if op == "cumsum_i32":
-        _check_aligned(a, "a")
+        _check_aligned(b, "b")
     if dev.type == "cpu":
         return intrinsic_plain(op, a, b)
     out = torch.empty((n,), dtype=torch.float32 if op == "u32_to_f32" else dtype, device=dev)
     if op == "cumsum_i32":
-        scratch = _scan_scratch(dev, max(1, -(-n // SCAN_TILE)))
+        scratch = _scratch("scan", dev, 1 + max(1, -(-n // SCAN_TILE)))
         _launch("intrinsic_cumsum_i32", "cumsum_i32_launch", a, a.data_ptr(), out.data_ptr(), n,
                 scratch.data_ptr(), scratch.numel())
     else:
@@ -261,37 +266,91 @@ def intrinsic(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.
     return out
 
 
-# The one-pass scan's scratch by device and stream: an int64 control word
-# (the tile ticket and the call's epoch), then a status word a tile.
-# Zeroed once; every call leaves it ready for the next (csrc/probes.cu).
-# Calls on one stream are ordered by it, so they may share a scratch; calls
-# on two streams may run at once, so they must not.  A scratch outgrown by
-# a larger call is kept, never freed: a CUDA graph that captured a call
-# holds its address for as long as it replays.
-_SCAN_SCRATCH: dict[tuple[torch.device, int], torch.Tensor] = {}
-_SCAN_OUTGROWN: list[torch.Tensor] = []
+# The scratch of the one-launch kernels (the scan, the sum) by kernel,
+# device and stream: an int64 control word (the ticket and the call's
+# epoch), then a word a tile or block.  Zeroed once; every call leaves it
+# ready for the next (csrc/probes.cu).  Calls on one stream are ordered by
+# it, so they may share a scratch; calls on two streams may run at once,
+# so they must not; the two kernels tag their words differently, so each
+# has its own.  A scratch outgrown by a larger call is kept, never freed:
+# a CUDA graph that captured a call holds its address for as long as it
+# replays.
+_SCRATCH: dict[tuple[str, torch.device, int], torch.Tensor] = {}
+_OUTGROWN: list[torch.Tensor] = []
 
 
-def _scan_scratch(dev: torch.device, tiles: int) -> torch.Tensor:
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
-    s = _SCAN_SCRATCH.get(key)
-    if s is None or s.numel() < 1 + tiles:
+def _scratch(kind: str, dev: torch.device, words: int) -> torch.Tensor:
+    key = (kind, dev, torch.cuda.current_stream(dev).cuda_stream)
+    s = _SCRATCH.get(key)
+    if s is None or s.numel() < words:
         if s is not None:
-            _SCAN_OUTGROWN.append(s)
-        s = _SCAN_SCRATCH[key] = torch.zeros(1 + tiles, dtype=torch.int64, device=dev)
+            _OUTGROWN.append(s)
+        s = _SCRATCH[key] = torch.zeros(words, dtype=torch.int64, device=dev)
     return s
 
 
 # ---- P9: sum to one scalar (round18_mosaic_probe.py:111) ----
 
+def sum_plan(n: int) -> tuple[int, int]:
+    """(blocks, rounds) of the sum over n elements: slices of
+    ``SUM_SLICE``, at most ``SUM_MAX_BLOCKS`` blocks of whole rounds."""
+    slices = max(1, -(-n // SUM_SLICE))
+    rounds = -(-slices // SUM_MAX_BLOCKS)
+    return -(-slices // rounds), rounds
+
+
+def _sum_tree(v: torch.Tensor) -> torch.Tensor:
+    """csrc/probes.cu ``sum_tree`` over the last dimension (a block's
+    threads): lane l adds lane l + off within each warp, then the same
+    over the warps' sums."""
+    v = v.reshape(*v.shape[:-1], -1, 32)
+    for width in (v.shape[-1], v.shape[-2]):
+        off = width // 2
+        while off:
+            v = v[..., :off] + v[..., off:2 * off]
+            off //= 2
+        v = v[..., 0]
+    return v
+
+
+def sum_scalar_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum in its order: each thread's vectors of each round
+    in turn, the block's tree, then the blocks' partials in block order
+    (thread t of the last block adds partials t, t + SUM_THREADS, ...) and
+    the tree again.  Zeros pad the input and the partials: a thread's sum
+    starts at +0.0 and never becomes -0.0, so adding +0.0 changes no bit."""
+    n = x.shape[0]
+    blocks, rounds = sum_plan(n)
+    xp = torch.zeros(blocks * rounds * SUM_SLICE, dtype=torch.float32, device=x.device)
+    xp[:n] = x
+    q = xp.view(blocks, rounds, SUM_VEC, SUM_THREADS, 4)
+    acc = torch.zeros((blocks, SUM_THREADS), dtype=torch.float32, device=x.device)
+    for r in range(rounds):
+        for v in range(SUM_VEC):
+            for c in range(4):
+                acc = acc + q[:, r, v, :, c]
+    parts = torch.zeros(-(-blocks // SUM_THREADS) * SUM_THREADS, dtype=torch.float32,
+                        device=x.device)
+    parts[:blocks] = _sum_tree(acc)
+    part = torch.zeros(SUM_THREADS, dtype=torch.float32, device=x.device)
+    for k in range(parts.shape[0] // SUM_THREADS):
+        part = part + parts[k * SUM_THREADS:(k + 1) * SUM_THREADS]
+    return _sum_tree(part).reshape(1)
+
+
 def sum_scalar(x: torch.Tensor) -> torch.Tensor:
-    """(1,) f32: the sum of the (B,) plane (plain version ``torch.sum``)."""
+    """(1,) f32: the sum of the (B,) plane, on a 16-byte boundary, in one
+    launch over every SM; the same bits on every call."""
     dev = _device(x)
     cuda_build.check_tensor(x, "x", torch.float32, (x.shape[0],), dev)
+    _check_aligned(x, "x")
     if dev.type == "cpu":
-        return x.sum().reshape(1)
+        return sum_scalar_plain(x)
     out = torch.empty((1,), dtype=torch.float32, device=dev)
-    _launch("sum_scalar", "sum_scalar_launch", x, x.data_ptr(), x.shape[0], out.data_ptr())
+    blocks, rounds = sum_plan(x.shape[0])
+    scratch = _scratch("sum", dev, 1 + blocks)
+    _launch("sum_scalar", "sum_scalar_launch", x, x.data_ptr(), x.shape[0], blocks, rounds,
+            out.data_ptr(), scratch.data_ptr(), scratch.numel())
     return out
 
 
