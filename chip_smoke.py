@@ -77,8 +77,9 @@ Phases, each printing one or more lines:
     98,304), PyTorch's reductions of the pool as a super-iteration calls
     them (``round18_mosaic_probe.reductions``, priced a super-iteration by
     the calls phase 4's profile counted), then K1's probe
-    modes (the kernel diet and the bf16 leaf
-    decode) on states of phase 2's pass at its 27th arrival (the third of
+    modes (the kernel diet, in place, each mode bounded by its own bytes
+    and timed with the L2 flushed after each restore and warm; and the
+    bf16 leaf decode) on states of phase 2's pass at its 27th arrival (the third of
     super-iteration 4), its 1,200th (the last of super-iteration 150,
     about halfway, when most lanes have ended their segment) and its
     1,203rd (the third of super-iteration 151), each reached from the
@@ -92,11 +93,17 @@ against its twin, its device time and its twin's, and its bound: the
 least time an H100 could take for the same work, the larger of the bytes
 it must move (each input read once, each output written once; for K1 the
 distinct node rows the live lanes load) over 3.35 TB/s and its
-operations at the card's peak for their type: f32 at 67 TFLOP/s, packed
-bf16 (the bf16 lobe chain) at 133.8 TFLOP/s.  The multi-arrival kernels
+operations at the card's issue rate for their type: unfused f32 (the
+kernels are built with -fmad=false) at 132 SMs x 128 lanes x 1.98 GHz =
+33.45e12/s, packed bf16 (the bf16 lobe chain) at 66.9e12
+lane-operations/s.  The multi-arrival kernels
 update their state in place, so a CUDA graph replays a restore of the
-captured state (``copy_`` from a clone) and the launch, and the graph of
-the restore alone is subtracted; their bound is
+captured state (``copy_`` from a clone), a write of 128 MB that flushes
+the L2, and the launch, and the graph of the restore and the flush alone
+is subtracted (``ms``; the reading without the flush, which also charges
+the kernel for the next restore's L2 misses, is logged beside it, and
+``_common.restore_penalty`` prices those misses on phase 13's states);
+their bound is
 ``experiments/_common.py::arrivals_work`` (the state of the lanes that
 step, read and written once a launch; the rows of every arrival; 8 bytes
 a stack push or a pop from memory), and so does K2, whose bound is
@@ -233,7 +240,8 @@ def main() -> int:
                                                                    arrivals_work, bound,
                                                                    capture_inputs, clone_state,
                                                                    one_step_loop,
-                                                                   ptxas_registers, running,
+                                                                   ptxas_registers,
+                                                                   restore_penalty, running,
                                                                    time_in_place_ms, time_ms,
                                                                    transition_work)
     from unity_webgpu_pathtracer_torch.models.benchmark import (
@@ -299,12 +307,21 @@ def main() -> int:
         log(f"{label} K1 {name}: B={s.ptr.shape[0]} live={live} distinct rows={rows} "
             f"max_abs_err={err:g} (tol {FLOAT_TOL}); {ms:.4f} ms vs plain {plain:.4f} ms; {b}")
 
-    def check_run(name, cap: K1Launch, label, record_it=True):
+    def log_penalty(restore, label):
+        p = restore_penalty(restore)
+        log(f"{label} restore penalty (a 55 MB read as the in-place call): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
+            + f"; in place - alone {p['in_place_ms'] - p['read_ms']:.4f} ms warm, "
+            f"{p['in_place_cold_ms'] - p['read_cold_ms']:.4f} cold; restore cold - warm "
+            f"{p['restore_cold_ms'] - p['restore_ms']:.4f} ms; card: {card}")
+
+    def check_run(name, cap: K1Launch, label, record_it=True, penalty=False):
         """The multi-arrival kernel against its plain version on a captured
         super-iteration start state, max abs error 0 on every field; its
-        time per launch (a graph of restore + launch, minus a graph of the
-        restore alone), the one-arrival kernel's on the same arrivals, the
-        plain version's, and the bound of ``arrivals_work``."""
+        time per launch (a graph of restore + flush + launch, minus a graph
+        of restore + flush; warm: without the flush), the one-arrival
+        kernel's on the same arrivals, the plain version's, and the bound of
+        ``arrivals_work``; ``penalty``: ``restore_penalty`` of its restore."""
         nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
         out, ref = clone_state(s0), clone_state(s0)
         cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, out, steps, live, stop, hi)
@@ -320,12 +337,16 @@ def main() -> int:
             for f in fields:
                 getattr(work, f).copy_(getattr(s0, f))
 
-        ms, t_run, t_restore = time_in_place_ms(
-            lambda: cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, work, steps, live,
-                                                      stop, hi), restore)
+        def launch():
+            cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, work, steps, live, stop, hi)
+
+        ms, t_run, t_restore = time_in_place_ms(launch, restore, cold=True)
+        warm = time_in_place_ms(launch, restore)[0]
         plain_ms = time_in_place_ms(
             lambda: arrival_steps16(nodes, oT.T, dT.T, invT.T, work, steps, live, stop, hi),
-            restore)[0]
+            restore, cold=True)[0]
+        if penalty:
+            log_penalty(restore, f"{label} K1 {name}")
         one, st = [], s0   # the one-arrival kernel on each of the same arrivals
         for _ in range(steps):
             act = running(live, stop, st)
@@ -339,8 +360,8 @@ def main() -> int:
         log(f"{label} K1 {name} ({steps} arrivals, in place): B={s0.ptr.shape[0]} lanes "
             f"stepping={n['lanes']} distinct rows={rows} pushes={n['pushes']} pops from "
             f"memory={n['pops']} max_abs_err={err:g} (every field, stack planes included); "
-            f"{ms:.4f} ms per launch (graph of restore + launch {t_run:.4f} ms, restore alone "
-            f"{t_restore:.4f} ms); one-arrival kernel {steps} x {one[0]:.4f} = "
+            f"{ms:.4f} ms per launch (graph of restore + flush + launch {t_run:.4f} ms, "
+            f"restore + flush {t_restore:.4f} ms; warm {warm:.4f} ms); one-arrival kernel {steps} x {one[0]:.4f} = "
             f"{steps * one[0]:.4f} ms on the start state, {sum(one):.4f} ms summed over the "
             f"{steps} arrivals; plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
             f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
@@ -349,9 +370,9 @@ def main() -> int:
     def check_transition(name, k2: K2Launch, label, record_it=True):
         """K2 against its plain version on a captured pre-transition state,
         max abs error 0 on every state field, on died, and on rad_out where
-        a lane died; its time (a graph of restore + launch, minus a graph
-        of the restore alone), the plain version's, and the bound of
-        ``transition_work``."""
+        a lane died; its time (a graph of restore + flush + launch, minus a
+        graph of restore + flush; warm: without the flush), the plain
+        version's, and the bound of ``transition_work``."""
         sc, kcfg, kpr, st0 = k2
         out, ref = clone_state(st0), clone_state(st0)
         died, rad = cuda_transition.transition16_cuda(sc, kcfg, kpr, out)
@@ -370,18 +391,23 @@ def main() -> int:
             for f in work._fields:
                 getattr(work, f).copy_(getattr(st0, f))
 
-        ms, t_run, t_restore = time_in_place_ms(
-            lambda: cuda_transition.transition16_cuda(sc, kcfg, kpr, work), restore)
+        def launch():
+            cuda_transition.transition16_cuda(sc, kcfg, kpr, work)
+
+        ms, t_run, t_restore = time_in_place_ms(launch, restore, cold=True)
+        warm = time_in_place_ms(launch, restore)[0]
         plain_ms = time_in_place_ms(
-            lambda: cuda_transition.transition16_plain(sc, kcfg, kpr, work), restore)[0]
+            lambda: cuda_transition.transition16_plain(sc, kcfg, kpr, work), restore,
+            cold=True)[0]
         nbytes, ops, n = transition_work(k2, ref, died_r)
         b_ms, b_by = bound(nbytes, ops)
         if record_it:
             record(name, K2_SRC, K2_TPU, err, ms, plain_ms, nbytes, ops)
         log(f"{label} K2 {name} (in place): B={st0.mode.shape[0]} lanes {n} died="
             f"{int(died.sum())} max_abs_err={err:g} (every field; rad_out where died); "
-            f"{ms:.4f} ms per launch (graph of restore + launch {t_run:.4f} ms, restore alone "
-            f"{t_restore:.4f} ms); plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
+            f"{ms:.4f} ms per launch (graph of restore + flush + launch {t_run:.4f} ms, "
+            f"restore + flush {t_restore:.4f} ms; warm {warm:.4f} ms); plain {plain_ms:.4f} ms; "
+            f"bound {b_ms:.5f} ms ({b_by}, "
             f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
 
     def launches_per_si(sd_, cfg_, params_, label):
@@ -724,6 +750,10 @@ def main() -> int:
         rows += got_rows
         for r in got_rows:
             lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+            if "cold_ms" in r:
+                lib += f", cold L2 {r['cold_ms']:.4f} ms"
+            if "warm_ms" in r:
+                lib += f", warm L2 {r['warm_ms']:.4f} ms (ms: cold L2)"
             if "two_calls_ms" in r:
                 lib += f", two calls {r['two_calls_ms']:.4f} ms"
             log(f"phase 13 {mod.__name__.rsplit('.', 1)[1]} {r['name']}: {r['ms']:.4f} ms "
@@ -744,9 +774,15 @@ def main() -> int:
         + ", ".join(f"{k} {v:.4f}" for k, v in red.items())
         + f" ({main_si['reductions_per_si']} calls a super-iteration, phase 4's profile); "
         f"card: {card}")
-    for mode, (dt, share) in round14_kernel_diet.savings(
-            [r for r in rows if r["kernel"].startswith("arrival16_diet")]).items():
-        log(f"phase 13 synthetic diet: {mode} saves {dt:.4f} ms ({share * 100:.1f}%)")
+    diet_rows = [r for r in rows if r["kernel"].startswith("arrival16_diet")]
+    for key, l2 in (("ms", "cold"), ("warm_ms", "warm")):
+        for mode, (dt, share) in round14_kernel_diet.savings(diet_rows, key=key).items():
+            log(f"phase 13 synthetic diet ({l2} L2): {mode} saves {dt:.4f} ms "
+                f"({share * 100:.1f}%)")
+    log_penalty(round14_kernel_diet.restorer(round14_kernel_diet.synthetic_inputs(dev))[1],
+                "phase 13 synthetic diet")
+    log(f"phase 13 lobe chain: bf16 / f32 time {round18_bf16_shade_probe.ratio(rows):.3f}; "
+        f"card: {card}")
     replaces = {  # kernel name prefix -> the Pallas probe it replaces
         "ring_gather": "round2_probe.py:125", "table_sum": "round2_probe.py:177",
         "schlick_chain": "round2_probe.py:271", "arrival16_diet": "round14_kernel_diet.py:260",
@@ -778,7 +814,8 @@ def main() -> int:
     sd = scene.build("wide16", device=dev)
     caps, _ = capture_inputs(sd, cfg, params, k1_calls=(4, 150, 151))
     for cap, si in zip(caps, (4, 150, 151)):
-        check_run("arrival16_run", cap, f"phase 13 super-iteration {si}", record_it=False)
+        check_run("arrival16_run", cap, f"phase 13 super-iteration {si}", record_it=False,
+                  penalty=si == 4)
     for call, cap, k in ((3 * TE + 3, caps[0], 3), (1200, caps[1], TE), (150 * TE + 3, caps[2], 3)):
         nodes, oT, dT, invT, s, active = arrival_state(cap, k)
         out = cuda_arrival.arrival_step16_cuda(nodes, oT, dT, invT, s, active)
@@ -787,6 +824,7 @@ def main() -> int:
         state = (nodes, s.ptr, oT, dT, invT, s, active)
         mrows = round14_kernel_diet.modes_on_state(state, f"arrival {call}",
                                                    DIET_MODES + ("f16leaf", "bf16leaf"))
+        k1_bound = bound(*arrival_work(*state)[:2])
         bad = [r["name"] for r in mrows if not r["ok"]]
         if bad:
             raise AssertionError(f"phase 13: probe modes disagree with their twins: {bad}")
@@ -798,13 +836,15 @@ def main() -> int:
         log(f"phase 13 K1 state at arrival {call}: B={s.ptr.shape[0]} live={live} (inner "
             f"{int((meta == 0).sum())}, leaf {int((meta > 0).sum())}), distinct rows "
             f"{mrows[0]['distinct_rows']}; arrival16 {k1_ms:.4f} ms (max_abs_err {err:g}); bound "
-            f"{mrows[0]['bound_ms']:.4f} ms ({mrows[0]['bound_by']}, {mrows[0]['bytes'] / 1e6:.2f} "
-            f"MB, {mrows[0]['ops'] / 1e6:.2f} Mflop)")
+            f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+        diet = [r for r in mrows if r["mode"] in DIET_MODES]
+        for line in round14_kernel_diet.report(diet):
+            log(f"phase 13 K1 arrival {call} diet {line.strip()}")
         for r in mrows:
-            log(f"phase 13 K1 arrival {call} {r['mode']}: {r['ms']:.4f} ms, plain "
-                f"{r['plain_ms']:.4f} ms, max_abs_err {r['max_abs_err']:g}")
-        for mode, (dt, share) in round14_kernel_diet.savings(mrows).items():
-            log(f"phase 13 K1 arrival {call}: {mode} saves {dt:.4f} ms ({share * 100:.1f}%)")
+            if r["mode"] not in DIET_MODES:
+                log(f"phase 13 K1 arrival {call} {r['mode']}: {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, max_abs_err "
+                    f"{r['max_abs_err']:g}")
         dt, share = round14_kernel_diet.savings(mrows, "f16leaf")["bf16leaf"]
         log(f"phase 13 K1 arrival {call}: bf16 leaf decode saves {dt:.4f} ms "
             f"({share * 100:.1f}%); card: {card}")

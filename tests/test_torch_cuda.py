@@ -97,8 +97,9 @@ def test_entries_match_sources():
         cuda_arrival.RUN_KERNELS.values())
     assert set(cuda_transition.transition16_cuda.launches) == set(
         cuda_transition.KERNELS.values())
-    # The probes: K1's probe modes behind one entry, the others in probes.cu.
-    assert "arrival16_probe_launch" in cuda_build.ENTRIES["arrival16"]
+    # The probes: K1's probe modes behind two entries, the others in probes.cu.
+    assert {"arrival16_probe_launch", "arrival16_diet_launch"} <= set(
+        cuda_build.ENTRIES["arrival16"])
     assert set(cuda_arrival.arrival_probe_cuda.launches) == set(
         cuda_arrival.PROBE_KERNELS.values())
     assert set(cuda_probes.LAUNCHES) == set(cuda_probes.KERNELS)
@@ -346,7 +347,8 @@ def test_wrappers_reject_bad_inputs(cuda, scene64k):
 @pytest.mark.parametrize("mode", cuda_arrival.PROBE_KERNELS)
 def test_probe_modes_match_twin(cuda, scene64k, monkeypatch, mode):
     """K1's probe modes against the twin: on the kernel diet's synthetic
-    rows (each lane on its own row) and on a state captured from a pass."""
+    rows (each lane on its own row) and on a state captured from a pass.
+    The diet's modes run in place on a copy, exact."""
     from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import synthetic_inputs
 
     sd, params = scene64k
@@ -365,20 +367,26 @@ def test_probe_modes_match_twin(cuda, scene64k, monkeypatch, mode):
     before = cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]]
     for nodes, rows, oT, dT, invT, s, active in (synthetic_inputs(cuda, b=8192),
                                                   captured["k1"]):
-        out = cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
         ref = cuda_arrival.arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
-        for name in cuda_arrival._FLAT_FIELDS:
-            _assert_same(getattr(out, name), getattr(ref, name), f"{mode}.{name}")
+        if mode not in cuda_arrival.DIET_MODES:
+            out = cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
+            for name in cuda_arrival._FLAT_FIELDS:
+                _assert_same(getattr(out, name), getattr(ref, name), f"{mode}.{name}")
+            continue
+        work = _clone(s)
+        out = cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, work, active, mode)
+        assert out is work
+        _assert_exact(out, ref, mode)
     assert cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]] == before + 2
 
 
 @gpu
 def test_probe_kernels_match_plain(cuda):
     """Every kernel of csrc/probes.cu against its plain version at a small
-    size: gathers, integers and the step chain exact; the float chains and
-    transcendentals within rtol 1e-5 / atol 1e-6 (bf16: 99% of lanes
-    within rtol 2^-6), the sum within rtol 1e-5 of ``torch.sum`` and
-    exact against its plain version, up to 4,194,304 elements."""
+    size: gathers, integers, the step chain and both lobe chains (f32 and
+    bf16, also over 25 binades of either sign) exact; the Schlick chain and transcendentals within rtol 1e-5 /
+    atol 1e-6, the sum within rtol 1e-5 of ``torch.sum`` and exact against
+    its plain version, up to 4,194,304 elements."""
     from unity_webgpu_pathtracer_torch.experiments import round2_probe, round18_mosaic_probe
 
     tab = round2_probe.table(4000, cuda_probes.RING_W, cuda)
@@ -404,12 +412,18 @@ def test_probe_kernels_match_plain(cuda):
                            cuda_probes.table_sum_plain(tab, idx))
     x = torch.linspace(0.1, 0.9, 8192, device=cuda)
     _assert_same(cuda_probes.schlick_chain(x), cuda_probes.schlick_chain_plain(x), "schlick")
-    xl = torch.rand(4096, device=cuda) * 0.9 + 0.05
-    _assert_same(cuda_probes.lobe_chain(xl, torch.float32),
-                 cuda_probes.lobe_chain_plain(xl, torch.float32), "lobe f32")
-    got = cuda_probes.lobe_chain(xl, torch.bfloat16)
-    want = cuda_probes.lobe_chain_plain(xl, torch.bfloat16)
-    assert torch.isclose(got, want, rtol=2.0 ** -6, atol=0.0).float().mean() >= 0.99
+    # The probe's range at an odd count (the last block part full), and
+    # inputs of either sign over 25 binades, zeros and ones, where the
+    # divisions and square roots meet operands far from it.
+    rng = np.random.default_rng(6)
+    wide = 2.0 ** rng.uniform(-20, 5, 8192) * rng.choice([-1.0, 1.0], 8192)
+    for xl in (torch.rand(4097, device=cuda) * 0.9 + 0.05,
+               torch.from_numpy(np.concatenate([wide, [0.0, -0.0, 1.0, -1.0]])
+                                .astype(np.float32)).to(cuda)):
+        for dtype in (torch.float32, torch.bfloat16):
+            torch.testing.assert_close(cuda_probes.lobe_chain(xl, dtype),
+                                       cuda_probes.lobe_chain_plain(xl, dtype), rtol=0, atol=0,
+                                       equal_nan=True, msg=lambda m, d=dtype: f"{d}: {m}")
     table = torch.rand((cuda_probes.TREE_ROWS, cuda_probes.TREE_COLS), device=cuda).bfloat16()
     rows = torch.randint(0, cuda_probes.TREE_ROWS, (5000,), dtype=torch.int32, device=cuda)
     assert torch.equal(cuda_probes.cluster_gather(table, rows),

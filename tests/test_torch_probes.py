@@ -543,8 +543,124 @@ def test_k1_work_and_bound():
         assert n == distinct
         assert nbytes == distinct * 384 + 3 * 12 * B + B + 2 * state + inst_state
         assert ops == 576 * (meta == 0).sum() + 55 * tris + (30 * (meta < 0).sum() if inst else 0)
-    f32_ms, by = _common.bound(0.0, 67e9)
+    f32_ms, by = _common.bound(0.0, 33.45408e9)
     assert (by, round(f32_ms, 9)) == ("operations", 1.0)
-    assert round(_common.bound(0.0, 67e9, 133.8e9)[0], 9) == 2.0
-    bytes_ms, by = _common.bound(3.35e10, 67e9, 133.8e9)
+    assert round(_common.bound(0.0, 33.45408e9, 66.90816e9)[0], 9) == 2.0
+    bytes_ms, by = _common.bound(3.35e10, 33.45408e9, 66.90816e9)
     assert (by, round(bytes_ms, 9)) == ("bytes", 10.0)
+
+
+def test_bound_counts_issue_rates():
+    """``bound`` prices unfused f32 operations at the H100's issue rate (132
+    SMs x 128 lanes x 1.98 GHz: the kernels are built with -fmad=false, so
+    no FMA counts twice) and packed bf16x2 lane-operations at twice it;
+    bytes at 3.35 TB/s; the larger of the two binds."""
+    from unity_webgpu_pathtracer_torch.experiments import _common
+
+    assert _common.PEAK_F32 == 33.45408e12
+    assert _common.PEAK_BF16 == 66.90816e12
+    assert _common.PEAK_BYTES == 3.35e12
+    assert _common.bound(0.0, 33.45408e12) == (1e3, "operations")
+    assert _common.bound(0.0, 0.0, 66.90816e12) == (1e3, "operations")
+    ms, by = _common.bound(0.0, 33.45408e12, 66.90816e12)
+    assert (round(ms, 9), by) == (2e3, "operations")
+    ms, by = _common.bound(3.35e12 * 1.5, 33.45408e12)
+    assert (round(ms, 9), by) == (1.5e3, "bytes")
+    # P6's bf16 chain: 13 f32 and 61 packed lane-operations a lane-repeat.
+    from unity_webgpu_pathtracer_torch.experiments import round18_bf16_shade_probe as p6
+
+    n = p6.B * cp.LOBE_REPEATS
+    ms, _ = _common.bound(2 * 4 * p6.B, p6.BF16_F32_OPS * n, p6.BF16_PACKED_OPS * n)
+    assert abs(ms - (13 / 33.45408e12 + 61 / 66.90816e12) * n * 1e3) < 1e-12
+
+
+def _diet_tiny():
+    """Three lanes on three rows: lane 0 live on an inner row (row 1) whose
+    16 children are all empty, lane 1 live on a leaf of 2 degenerate
+    triangles (row 2) with one stack entry, lane 2 dead (row 0 is a leaf);
+    t = FAR_PLANE everywhere, so no triangle is taken."""
+    nodes = torch.zeros((3, 96), dtype=torch.float32)
+    ni = nodes.view(torch.int32)
+    ni[0, 3], ni[1, 3], ni[2, 3] = 1, 0, 2
+    ni[1, 32:48] = -1
+    b, depth = 3, 2
+    s = Wide16State(
+        ptr=torch.tensor([1, 2, -1], dtype=torch.int32),
+        pend=torch.full((b,), FULL, dtype=torch.int32),
+        sp=torch.tensor([0, 1, 0], dtype=torch.int32),
+        stack_row=torch.tensor([[5, 7, 5], [0, 0, 0]], dtype=torch.int32),
+        stack_mask=torch.zeros((depth, b), dtype=torch.int32),
+        t=torch.full((b,), 1e5), u=torch.zeros(b), v=torch.zeros(b),
+        tri=torch.full((b,), -1, dtype=torch.int32), found=torch.zeros(b, dtype=torch.bool),
+        inst=torch.full((b,), -1, dtype=torch.int32),
+        hit_inst=torch.full((b,), -1, dtype=torch.int32),
+        sp_enter=torch.zeros(b, dtype=torch.int32), local_o=torch.zeros((3, b)),
+        local_d=torch.zeros((3, b)), local_inv=torch.zeros((3, b)))
+    o = torch.tensor([[0.5, 0.5, 0.5]] * 3).T.contiguous()
+    d = torch.tensor([[1.0, 2.0, 3.0]] * 3).T.contiguous()
+    inv = (1.0 / d).contiguous()
+    return nodes, torch.tensor([1, 2, 0], dtype=torch.int32), o, d, inv, s
+
+
+# Bytes and f32 operations of each diet mode on ``_diet_tiny``, counted by
+# hand: ptr and t of 3 lanes (24); rows, pend and sp of 2 live lanes (24);
+# 16 a distinct row word group; 12 a ray plane triple; 8 lane 1's pop; 4
+# each ptr, pend or sp that changes (lane 0's ptr, lane 1's ptr and sp).
+# full: groups 0-11 of row 1 (12), 0 and the first 4 words of each comp
+# of row 2 (10); o and inv of lane 0, o and d of lane 1; 576 + 2 x 55 ops.
+# no_stack: the slab test on lane 1 too (groups 0-11, 13, 15, 17 of row 2;
+# inv too), no pop, lane 1's ptr unchanged.  no_leaf: group 1 of every
+# lane's row (row 0 for the dead lane), the leaf's kept loads.  no_inner:
+# lane 0 reads inv only.
+_DIET_TINY = {
+    "full": (24 + 24 + 16 * 22 + 12 * 4 + 8 + 12, 576 + 110),
+    "leaf_bf16": (24 + 24 + 16 * 22 + 12 * 4 + 8 + 12, 576 + 110),
+    "leaf_noint": (24 + 24 + 16 * 22 + 12 * 4 + 8 + 12, 576 + 110),
+    "no_stack": (24 + 24 + 16 * 27 + 12 * 5 + 0 + 8, 2 * 576 + 110),
+    "no_leaf": (24 + 24 + 16 * 23 + 12 * 4 + 8 + 12, 576 + 3),
+    "no_inner": (24 + 24 + 16 * 22 + 12 * 3 + 8 + 12, 110),
+}
+
+
+@pytest.mark.parametrize("mode", DIET_MODES)
+def test_diet_work_counts_mode_bytes(mode):
+    """``_common.diet_work``: each mode's own bytes and operations on a
+    hand-built state of an inner, a leaf and a dead lane."""
+    from unity_webgpu_pathtracer_torch.experiments import _common
+    from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import diet_step16
+
+    nodes, rows, o, d, inv, s = _diet_tiny()
+    out = diet_step16(nodes, rows, o.T, d.T, inv.T, s, None, mode)
+    assert out.ptr[0] == -1 and int(out.sp[1]) == 0 and not bool(out.found.any())
+    assert int(out.ptr[1]) == (2 if mode == "no_stack" else 7)
+    nbytes, ops, counts = _common.diet_work(nodes, rows, o, d, inv, s, None, mode)
+    assert (nbytes, ops) == _DIET_TINY[mode]
+    assert counts["live"] == 2 and counts["improved"] == 0
+    active = torch.tensor([True, True, False])
+    assert _common.diet_work(nodes, rows, o, d, inv, s, active, mode)[0] == nbytes + 2
+
+
+@pytest.mark.parametrize("mode", DIET_MODES)
+def test_diet_in_place_wrapper_matches_diet_step16(mode):
+    """The in-place wrapper (its plain path on the CPU) leaves in ``s``
+    what ``diet_step16`` returns out of place, on every lane kind, with t >
+    FAR_PLANE on some lanes (the leaf section's first slot then reaches
+    every lane); it returns ``s`` and refuses a rows plane that shares the
+    state's storage."""
+    from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import diet_step16
+
+    rows, o, d, inv, st, active = _k1_inputs(seed=7)
+    st["t"][::7] = 2e5
+    s = _torch_state(st)
+    args = [torch.from_numpy(x) for x in (rows, np.arange(B, dtype=np.int32), o, d, inv)]
+    act = torch.from_numpy(active)
+    want = diet_step16(args[0], args[1], args[2].T, args[3].T, args[4].T, s, act, mode)
+    before = {f: getattr(s, f) for f in ("ptr", "t", "stack_row")}
+    got = arrival_probe_cuda(*args, s, act, mode)
+    assert got is s and all(getattr(s, f) is x for f, x in before.items())
+    for f in ("ptr", "pend", "sp", "stack_row", "stack_mask", "t", "u", "v", "tri", "found"):
+        a, b = getattr(s, f), getattr(want, f)
+        assert torch.equal(a, b) or bool(((a == b) | (a.isnan() & b.isnan())).all()), f
+    assert bool((want.t[::7] < 2e5).all())             # every far lane improved
+    with pytest.raises(ValueError):
+        arrival_probe_cuda(args[0], s.ptr, *args[2:], s, act, mode)

@@ -5,8 +5,8 @@
 // running several arrivals per launch on state updated in place
 // (arrival16_run_launch, arrival16_inst_run_launch,
 // arrival16_leaf8_run_launch, arrival16_inst_leaf8_run_launch); and the
-// probe modes of the measurement probes behind arrival16_probe_launch (at
-// the end).
+// probe modes of the measurement probes behind arrival16_diet_launch and
+// arrival16_probe_launch (at the end).
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py::_arrival_kernel
 // (reached from arrival_step16_pallas): has_inst off and on, leaf_slots
@@ -57,9 +57,9 @@
 // (InstArgs), read and written only by this instantiation, so the flat
 // kernel pays nothing for it.
 //
-// Probe modes, behind arrival16_probe_launch, on 96-float flat rows, with
-// each lane's row index from a plane of its own (the lane index on a
-// probe's synthetic rows, ptr on a captured state):
+// Probe modes, behind arrival16_diet_launch and arrival16_probe_launch, on
+// 96-float flat rows, with each lane's row index from a plane of its own
+// (the lane index on a probe's synthetic rows, ptr on a captured state):
 // - UWPT_PROBE_F16LEAF and UWPT_PROBE_BF16LEAF replace
 //   experiments/round16_bf16leaf_probe.py: arrival16_kernel's third
 //   template parameter (default UWPT_PROBE_PROD, the production code) reads
@@ -67,21 +67,24 @@
 //   __uint_as_float(h << 16), in place of __half2float;
 // - the other six replace experiments/round14_kernel_diet.py::make_kernel
 //   (full, no_leaf, no_inner, no_stack, leaf_bf16, leaf_noint): a kernel
-//   of their own, arrival16_diet_kernel<MODE> at the end.  The diet is a
-//   stripped copy of an older K1 whose child-box bytes and leaf halfwords
-//   were stored interleaved (slot 4w + j in byte j of word w; slot 2w + h
-//   in half h of word w), not in today's split order, so its "full" is
-//   that older kernel; "leaf_noint" is the split order.  A stub keeps
-//   every row load of the section it removes: the TPU loads the row as one
-//   block, but nvcc would drop the loads of unused words, and the diet
-//   would then price bytes, not arithmetic.  So a stub issues the same
-//   loads as volatile inline-PTX ld.global.nc (keep_load), which nvcc
-//   cannot remove, and drops only the arithmetic.
+//   of their own, arrival16_diet_kernel<MODE> behind
+//   arrival16_diet_launch, in place on the multi-arrival kernel's design.
+//   The diet is a stripped copy of an older K1 whose child-box bytes and
+//   leaf halfwords were stored interleaved (slot 4w + j in byte j of word
+//   w; slot 2w + h in half h of word w), not in today's split order, so
+//   its "full" is that older kernel; "leaf_noint" is the split order.  A
+//   stub keeps every row load of the section it removes: the TPU loads the
+//   row as one block, but nvcc would drop the loads of unused words, and
+//   the diet would then price bytes, not arithmetic.  So a stub issues the
+//   same loads as volatile inline-PTX ld.global.nc (keep_load4 for row
+//   words, keep_load for ray planes), which nvcc cannot remove, and drops
+//   only the arithmetic.
 //
 // Constants come from the Python side as -D macros (ops/cuda_build.py).
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 struct ArrivalArgs {
   const float* nodes;           // (N, ROWF), 16-byte aligned
@@ -670,65 +673,110 @@ extern "C" int arrival16_inst_leaf8_run_launch(const RunArgs* args, const InstAr
 }
 
 // A load that nvcc keeps although its value is unused (probe stubs).
-__device__ __forceinline__ void keep_load(const int* p) {
+__device__ __forceinline__ void keep_load(const void* p) {
   int v;
   asm volatile("ld.global.nc.b32 %0, [%1];" : "=r"(v) : "l"(p));
 }
-__device__ __forceinline__ void keep_load4(const int* p) {  // 16-byte aligned
+__device__ __forceinline__ void keep_load4(const int4* p) {
   int x, y, z, w;
   asm volatile("ld.global.nc.v4.b32 {%0, %1, %2, %3}, [%4];"
                : "=r"(x), "=r"(y), "=r"(z), "=r"(w) : "l"(p));
 }
 
+constexpr int DIET_THREADS = 256;
+
 // One arrival of round14_kernel_diet.py::make_kernel(mode), one thread per
-// lane, on 96-float rows.  It computes what the diet computes for every
-// lane: the TPU runs both sections on every lane and keeps results by
-// selects, so a section that can change a lane that is not its row kind
-// runs for it here too: no_stack pops every live lane to the entry the inner section
-// would push (so leaf lanes run the slab test on their leaf words),
-// no_leaf offers t = FAR_PLANE + row[5] to every lane, dead ones on row 0,
-// and with t > FAR_PLANE the leaf section's first slot reaches every lane.
+// lane, on 96-float rows, in place, on arrival16_run_kernel's design: the
+// lane's scalars live in registers, a push writes one stack entry and a pop
+// reads one, a field is stored only where its value changes (found only
+// where it turns true), and row words are loaded where they are used as
+// 16-byte vectors.  It computes what the diet computes for every lane: the
+// TPU runs both sections on every lane and keeps results by selects, so a
+// section that can change a lane that is not its row kind runs for it here
+// too: no_stack pops every live lane to the entry the inner section would
+// push (so leaf lanes run the slab test on their leaf words), no_leaf
+// offers t = FAR_PLANE + row[5] to every lane, dead ones on row 0, and with
+// t > FAR_PLANE the leaf section's first slot reaches every lane.  A stub
+// keeps its section's loads (keep_load4 for row words, keep_load for ray
+// planes) and drops the arithmetic; no_stack reads and writes no stack
+// plane.  Bound: bytes
+// (experiments/_common.py::diet_work counts them by mode).  What bounds it
+// on the card is the latency of the row loads, so occupancy: built, as K1
+// is, for UWPT_K1_MIN_BLOCKS blocks of 256 an SM (at 3, 80 registers and at
+// most 16 bytes spilled), it was faster than at 2 or 4 blocks
+// (experiments/k1_variants.py), and faster than staging each warp's rows
+// in shared memory by cp.async.bulk on the synthetic input and on 3 of 4
+// real states (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
 template <int MODE>
-__global__ void arrival16_diet_kernel(ArrivalArgs a, const int* rowidx) {
+__global__ void __launch_bounds__(DIET_THREADS, UWPT_K1_MIN_BLOCKS)
+    arrival16_diet_kernel(RunArgs a, const int* __restrict__ rowidx) {
+  constexpr bool NO_LEAF = MODE == UWPT_PROBE_NO_LEAF, NO_INNER = MODE == UWPT_PROBE_NO_INNER,
+                 NO_STACK = MODE == UWPT_PROBE_NO_STACK, NOINT = MODE == UWPT_PROBE_LEAF_NOINT,
+                 BF16 = MODE == UWPT_PROBE_LEAF_BF16;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.b) return;
   const int B = a.b;
-  const int ptr = a.ptr[i], pend = a.pend[i], sp = a.sp[i];
-  const float t0 = a.t[i];
-  const bool live = ptr >= 0 && (a.active == nullptr || a.active[i] != 0);
-  const int* rowi = reinterpret_cast<const int*>(a.nodes) + (size_t)(live ? rowidx[i] : 0) * 96;
-  const float* row = reinterpret_cast<const float*>(rowi);
-  const int meta = live ? rowi[3] : 0;
+  const bool in = i < B;
+  const int ptr = in ? a.ptr[i] : UWPT_TRAV_DONE;
+  const float t0 = in ? a.t[i] : 0.0f;
+  const bool live = ptr >= 0 && (a.live == nullptr || a.live[i] != 0);
+  // The leaf section runs on leaf lanes and, with t > FAR_PLANE, on every
+  // lane (slot 0 only); a dead lane then reads row 0.
+  const bool far = !NO_LEAF && in && t0 > UWPT_FAR_PLANE;
+  const int4* grow =
+      reinterpret_cast<const int4*>(a.nodes) + (size_t)(live ? rowidx[i] : 0) * 24;
+  if (!in) return;
+  const auto R = [grow](int k) { return __ldg(grow + k); };   // words 4k..4k+3
+  const int4 head = (live || far) ? R(0) : make_int4(0, 0, 0, 0);   // anchor, meta
+  const int meta = live ? head.w : 0;
   const bool is_leaf = live && meta > 0, is_inner = live && meta == 0;
+  const float ax = __int_as_float(head.x), ay = __int_as_float(head.y),
+              az = __int_as_float(head.z);
+  const int pend = live ? a.pend[i] : 0, sp = live ? a.sp[i] : 0;
 
   // ---- inner: 16 child boxes (interleaved bytes), slab test ----
-  int hitbits = 0, first = 0;
+  int hitbits = 0, first = 0, first_ptr = 0;
   float best = __int_as_float(0x7f800000);  // +inf
-  if (is_inner || (MODE == UWPT_PROBE_NO_STACK && live)) {
-    const float i0 = a.inv[i], i1 = a.inv[B + i], i2 = a.inv[2 * B + i];
-    const float o0 = a.o[i], o1 = a.o[B + i], o2 = a.o[2 * B + i];
-    const float ax = row[0], ay = row[1], az = row[2];
-    if (MODE == UWPT_PROBE_NO_INNER) {   // the row words and ray planes of the slab test
-      keep_load(rowi + 4);
-      for (int w = 8; w < 32; w += 4) keep_load4(rowi + w);
-      for (int c = 0; c < 3; ++c) keep_load(reinterpret_cast<const int*>(a.inv) + c * B + i);
+  int4 ptrs[4] = {};
+  if (is_inner || (NO_STACK && live)) {
+    int4 box[6] = {};
+    int eword = 0;
+    float o0 = 0.0f, o1 = 0.0f, o2 = 0.0f, i0 = 0.0f, i1 = 0.0f, i2 = 0.0f;
+    if (NO_INNER) {   // the row words and ray planes of the slab test
+#pragma unroll
+      for (int k = 1; k < 8; ++k) keep_load4(grow + k);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) keep_load(a.inv + c * B + i);
+    } else {
+      i0 = a.inv[i];
+      i1 = a.inv[B + i];
+      i2 = a.inv[2 * B + i];
+      o0 = a.o[i];
+      o1 = a.o[B + i];
+      o2 = a.o[2 * B + i];
+      eword = R(1).x;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) box[k] = R(2 + k);
     }
-    const int eword = MODE == UWPT_PROBE_NO_INNER ? 0 : rowi[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ptrs[k] = R(8 + k);
     const float s0 = __int_as_float((eword & 0xFF) << 23);
     const float s1 = __int_as_float(((eword >> 8) & 0xFF) << 23);
     const float s2 = __int_as_float(((eword >> 16) & 0xFF) << 23);
+#pragma unroll
     for (int s = 0; s < 16; ++s) {
       float t_near = 0.0f, t_far = t0;
-      if (MODE == UWPT_PROBE_NO_INNER) {
+      if (NO_INNER) {
         t_near = 0.0f + ax;
       } else {
+        // INTERLEAVED byte order: slot s is byte s & 3 of word s >> 2 of
+        // each 4-word byte plane (groups 2-7).
         const int w = s >> 2, sh = 8 * (s & 3);
-        const float ql[3] = {(float)((rowi[8 + w] >> sh) & 0xFF),
-                             (float)((rowi[12 + w] >> sh) & 0xFF),
-                             (float)((rowi[16 + w] >> sh) & 0xFF)};
-        const float qh[3] = {(float)((rowi[20 + w] >> sh) & 0xFF),
-                             (float)((rowi[24 + w] >> sh) & 0xFF),
-                             (float)((rowi[28 + w] >> sh) & 0xFF)};
+        const float ql[3] = {(float)((lane4(box[0], w) >> sh) & 0xFF),
+                             (float)((lane4(box[1], w) >> sh) & 0xFF),
+                             (float)((lane4(box[2], w) >> sh) & 0xFF)};
+        const float qh[3] = {(float)((lane4(box[3], w) >> sh) & 0xFF),
+                             (float)((lane4(box[4], w) >> sh) & 0xFF),
+                             (float)((lane4(box[5], w) >> sh) & 0xFF)};
         const float an[3] = {ax, ay, az}, sc[3] = {s0, s1, s2};
         const float oo[3] = {o0, o1, o2}, ii[3] = {i0, i1, i2};
 #pragma unroll
@@ -739,11 +787,13 @@ __global__ void arrival16_diet_kernel(ArrivalArgs a, const int* rowidx) {
           t_far = jmin(t_far, jmax(tl, th));
         }
       }
-      if ((t_near <= t_far) && (rowi[32 + s] >= 0) && ((pend >> s) & 1)) {
+      const int child = lane4(ptrs[s >> 2], s & 3);
+      if ((t_near <= t_far) && (child >= 0) && ((pend >> s) & 1)) {
         hitbits |= 1 << s;
         if (t_near < best) {  // strict: the first minimum, as argmin
           best = t_near;
           first = s;
+          first_ptr = child;
         }
       }
     }
@@ -752,146 +802,165 @@ __global__ void arrival16_diet_kernel(ArrivalArgs a, const int* rowidx) {
   const int rem = hitbits & ~(1 << first);
   const bool push = found_child && rem != 0;
   const bool one_left = __popc(rem) == 1;
-  const int entry_row = one_left ? rowi[32 + (__ffs(rem) - 1)] : ptr;
+  int entry_row = ptr;
+  if (one_left) {
+#pragma unroll
+    for (int s = 0; s < 16; ++s)
+      if (rem == (1 << s)) entry_row = lane4(ptrs[s >> 2], s & 3);
+  }
   const int entry_mask = one_left ? 0 : rem;
 
   // ---- leaf: f16 triangles (interleaved halfwords), Moller-Trumbore ----
-  float t = t0, u = a.u[i], v = a.v[i];
-  int tri = a.tri[i];
   bool improved = false;
-  if (MODE == UWPT_PROBE_NO_LEAF) {
-    if (is_leaf) {
+  float t = t0, u = 0.0f, v = 0.0f;
+  int best_s = 0;
+  if (NO_LEAF) {
+    if (is_leaf) {   // the leaf's comp words and the ray planes of Moller-Trumbore
       const int cnt = meta < 16 ? meta : 16;
-      for (int k = 0; k < 9; ++k)
-        for (int w = 0; w < (cnt + 1) >> 1; ++w) keep_load(rowi + 4 + 8 * k + w);
-      for (int c = 0; c < 3; ++c) {   // and the ray planes of Moller-Trumbore
-        keep_load(reinterpret_cast<const int*>(a.o) + c * B + i);
-        keep_load(reinterpret_cast<const int*>(a.d) + c * B + i);
+      for (int g = 0; 8 * g < cnt; ++g)
+#pragma unroll
+        for (int k = 0; k < 9; ++k) keep_load4(grow + 1 + 2 * k + g);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        keep_load(a.o + c * B + i);
+        keep_load(a.d + c * B + i);
       }
     }
-    const float tt = UWPT_FAR_PLANE + row[5];   // equal in every slot: argmin 0
+    const float tt = UWPT_FAR_PLANE + __int_as_float(R(1).y);   // row[5] in every slot
     improved = tt < t0;
-    if (improved) {
-      t = tt;
-      u = 0.0f;
-      v = 0.0f;
-      tri = rowi[76];
-    }
-  } else if (is_leaf || t0 > UWPT_FAR_PLANE) {
+    t = tt;
+  } else if (is_leaf || far) {
     // Slots at or past meta are invalid (FAR_PLANE) and never beat slot 0.
+    // Component k of slot s is halfword s & 1 of word s >> 1 of its 8 words
+    // (groups 1 + 2k and 2 + 2k); leaf_noint: halfword s >> 3 of word s & 7.
+    // The slots are visited group by group, so a tie keeps the lower slot
+    // (argmin's first minimum); tt is never NaN.
     const int cnt = is_leaf ? (meta < 16 ? meta : 16) : 1;
     const float o0 = a.o[i], o1 = a.o[B + i], o2 = a.o[2 * B + i];
     const float d0 = a.d[i], d1 = a.d[B + i], d2 = a.d[2 * B + i];
-    const float ax = row[0], ay = row[1], az = row[2];
-    float best_t = 0.0f, best_u = 0.0f, best_v = 0.0f;
-    int best_s = 0;
-    for (int s = 0; s < cnt; ++s) {
-      const int w = MODE == UWPT_PROBE_LEAF_NOINT ? (s & 7) : (s >> 1);
-      const int sh = MODE == UWPT_PROBE_LEAF_NOINT ? 16 * (s >> 3) : 16 * (s & 1);
-      float c[9];
+    float best_t = __int_as_float(0x7f800000), best_u = 0.0f, best_v = 0.0f;
+    best_s = 16;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const unsigned int h = (((unsigned int)rowi[4 + 8 * k + w]) >> sh) & 0xFFFFu;
-        c[k] = MODE == UWPT_PROBE_LEAF_BF16 ? __uint_as_float(h << 16)
-                                            : __half2float(__ushort_as_half((unsigned short)h));
-      }
-      const float e2x = c[0], e2y = c[1], e2z = c[2];
-      const float e1x = c[3], e1y = c[4], e1z = c[5];
-      const float v0x = c[6] + ax, v0y = c[7] + ay, v0z = c[8] + az;
-      const float rx = d1 * e2z - d2 * e2y;
-      const float ry = d2 * e2x - d0 * e2z;
-      const float rz = d0 * e2y - d1 * e2x;
-      const float det = e1x * rx + e1y * ry + e1z * rz;
-      const float finv = 1.0f / (fabsf(det) < UWPT_DET_EPS ? 1.0f : det);
-      const float sx = o0 - v0x, sy = o1 - v0y, sz = o2 - v0z;
-      const float uu = finv * (sx * rx + sy * ry + sz * rz);
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float vv = finv * (d0 * qx + d1 * qy + d2 * qz);
-      float tt = finv * (e2x * qx + e2y * qy + e2z * qz);
-      const bool valid = is_leaf && fabsf(det) > UWPT_DET_EPS && uu >= 0.0f && uu <= 1.0f &&
-                         vv >= 0.0f && uu + vv <= 1.0f && tt > UWPT_T_MIN && tt < t0;
-      if (!valid) tt = UWPT_FAR_PLANE;
-      if (s == 0 || tt < best_t) {  // first minimum, as argmin
-        best_t = tt;
-        best_u = uu;
-        best_v = vv;
-        best_s = s;
+    for (int g = 0; g < 2; ++g) {
+      if ((NOINT ? 4 : 8) * g >= cnt) continue;
+      int4 comp[9];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) comp[k] = R(1 + 2 * k + g);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int s = NOINT ? 4 * g + (j & 3) + 8 * (j >> 2) : 8 * g + j;
+        const int w = NOINT ? (j & 3) : (j >> 1), sh = NOINT ? 16 * (j >> 2) : 16 * (j & 1);
+        if (s >= cnt) continue;
+        float c[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          const unsigned int h = (((unsigned int)lane4(comp[k], w)) >> sh) & 0xFFFFu;
+          c[k] = BF16 ? __uint_as_float(h << 16)
+                      : __half2float(__ushort_as_half((unsigned short)h));
+        }
+        const float e2x = c[0], e2y = c[1], e2z = c[2];
+        const float e1x = c[3], e1y = c[4], e1z = c[5];
+        const float v0x = c[6] + ax, v0y = c[7] + ay, v0z = c[8] + az;
+        const float rx = d1 * e2z - d2 * e2y;
+        const float ry = d2 * e2x - d0 * e2z;
+        const float rz = d0 * e2y - d1 * e2x;
+        const float det = e1x * rx + e1y * ry + e1z * rz;
+        const float finv = 1.0f / (fabsf(det) < UWPT_DET_EPS ? 1.0f : det);
+        const float sx = o0 - v0x, sy = o1 - v0y, sz = o2 - v0z;
+        const float uu = finv * (sx * rx + sy * ry + sz * rz);
+        const float qx = sy * e1z - sz * e1y;
+        const float qy = sz * e1x - sx * e1z;
+        const float qz = sx * e1y - sy * e1x;
+        const float vv = finv * (d0 * qx + d1 * qy + d2 * qz);
+        float tt = finv * (e2x * qx + e2y * qy + e2z * qz);
+        const bool valid = is_leaf && fabsf(det) > UWPT_DET_EPS && uu >= 0.0f && uu <= 1.0f &&
+                           vv >= 0.0f && uu + vv <= 1.0f && tt > UWPT_T_MIN && tt < t0;
+        if (!valid) tt = UWPT_FAR_PLANE;
+        if (tt < best_t || (tt == best_t && s < best_s)) {
+          best_t = tt;
+          best_u = uu;
+          best_v = vv;
+          best_s = s;
+        }
       }
     }
     improved = best_t < t0;
-    if (improved) {
-      t = best_t;
-      u = best_u;
-      v = best_v;
-      tri = rowi[76 + best_s];
-    }
+    t = best_t;
+    u = best_u;
+    v = best_v;
+  }
+  if (improved) {
+    // attribute indices: words 76-91 (groups 19-22)
+    a.t[i] = t;
+    a.u[i] = u;
+    a.v[i] = v;
+    a.tri[i] = lane4(R(19 + (best_s >> 2)), best_s & 3);
+    if (a.found[i] == 0) a.found[i] = 1;
   }
 
-  // ---- stack push (select chain over the D planes) + pop ----
+  // ---- stack: a push writes its level, a pop reads one ----
+  if (!live) return;
   const int sp_pushed = sp + (push ? 1 : 0);
-  int top_row = 0, top_mask = 0;
-  if (MODE == UWPT_PROBE_NO_STACK) {
-    for (int lev = 0; lev < a.depth; ++lev) {
-      const size_t k = (size_t)lev * B + i;
-      a.o_stack_row[k] = a.stack_row[k];
-      a.o_stack_mask[k] = a.stack_mask[k];
-    }
-    top_row = entry_row;
-    top_mask = entry_mask;
-  } else {
-    for (int lev = 0; lev < a.depth; ++lev) {
-      const size_t k = (size_t)lev * B + i;
-      const bool at = push && sp == lev;
-      const int nr = at ? entry_row : a.stack_row[k];
-      const int nm = at ? entry_mask : a.stack_mask[k];
-      a.o_stack_row[k] = nr;
-      a.o_stack_mask[k] = nm;
-      if (sp_pushed - 1 == lev) {
-        top_row = nr;
-        top_mask = nm;
-      }
-    }
-  }
   const bool need_pop = (is_inner && !found_child) || is_leaf;
   const bool has = sp_pushed > 0;
+  int top_row = 0, top_mask = 0;
+  if (NO_STACK) {
+    top_row = entry_row;
+    top_mask = entry_mask;
+  } else if (push) {
+    if (sp < a.depth) {
+      a.stack_row[(size_t)sp * B + i] = entry_row;
+      a.stack_mask[(size_t)sp * B + i] = entry_mask;
+    }
+  } else if (need_pop && has && sp - 1 < a.depth) {
+    top_row = a.stack_row[(size_t)(sp - 1) * B + i];
+    top_mask = a.stack_mask[(size_t)(sp - 1) * B + i];
+  }
   const int pop_ptr = has ? top_row : UWPT_TRAV_DONE;
   const int pop_pend = top_mask == 0 ? UWPT_TRAV_FULL : top_mask;
-  const int new_ptr = found_child ? rowi[32 + first] : (need_pop ? pop_ptr : ptr);
+  const int new_ptr = found_child ? first_ptr : (need_pop ? pop_ptr : ptr);
   const int new_pend = found_child ? UWPT_TRAV_FULL
                                    : (need_pop ? (has ? pop_pend : UWPT_TRAV_FULL) : pend);
-  a.o_ptr[i] = live ? new_ptr : ptr;
-  a.o_pend[i] = live ? new_pend : pend;
-  a.o_sp[i] = live ? (need_pop && has ? sp_pushed - 1 : sp_pushed) : sp;
-  a.o_t[i] = t;
-  a.o_u[i] = u;
-  a.o_v[i] = v;
-  a.o_tri[i] = tri;
-  a.o_found[i] = (a.found[i] != 0 || improved) ? 1 : 0;
+  const int new_sp = need_pop && has ? sp_pushed - 1 : sp_pushed;
+  if (new_ptr != ptr) a.ptr[i] = new_ptr;
+  if (new_pend != pend) a.pend[i] = new_pend;
+  if (new_sp != sp) a.sp[i] = new_sp;
 }
 
 template <int MODE>
-static int launch_diet(const ArrivalArgs* args, const int* rowidx, void* stream) {
-  const int threads = 256;
-  const int blocks = (args->b + threads - 1) / threads;
+static int launch_diet(const RunArgs* args, const int* rowidx, void* stream) {
+  const int blocks = (args->b + DIET_THREADS - 1) / DIET_THREADS;
   if (blocks > 0)
-    arrival16_diet_kernel<MODE><<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, rowidx);
+    arrival16_diet_kernel<MODE><<<blocks, DIET_THREADS, 0, (cudaStream_t)stream>>>(*args, rowidx);
   return (int)cudaGetLastError();
 }
 
-// A probe mode (the number of one of the probe macros) on 96-float flat rows;
-// lane i reads row rowidx[i] (row 0 when it is not live).
+// A kernel-diet mode (the number of one of the diet's probe macros) on
+// 96-float flat rows, in place; lane i reads row rowidx[i] (row 0 where a
+// dead lane reads one).
+extern "C" int arrival16_diet_launch(int mode, const RunArgs* args, const int* rowidx,
+                                     void* stream) {
+  switch (mode) {
+#define DIET_CASE(M) \
+    case M: return launch_diet<M>(args, rowidx, stream);
+    DIET_CASE(UWPT_PROBE_FULL)
+    DIET_CASE(UWPT_PROBE_NO_LEAF)
+    DIET_CASE(UWPT_PROBE_NO_INNER)
+    DIET_CASE(UWPT_PROBE_NO_STACK)
+    DIET_CASE(UWPT_PROBE_LEAF_BF16)
+    DIET_CASE(UWPT_PROBE_LEAF_NOINT)
+#undef DIET_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A leaf-decode probe mode (UWPT_PROBE_F16LEAF or UWPT_PROBE_BF16LEAF): the
+// one-arrival kernel on 96-float flat rows, out of place; lane i reads row
+// rowidx[i].
 extern "C" int arrival16_probe_launch(int mode, const ArrivalArgs* args, const int* rowidx,
                                       void* stream) {
   const InstArgs none = {};
   switch (mode) {
-    case UWPT_PROBE_FULL: return launch_diet<UWPT_PROBE_FULL>(args, rowidx, stream);
-    case UWPT_PROBE_NO_LEAF: return launch_diet<UWPT_PROBE_NO_LEAF>(args, rowidx, stream);
-    case UWPT_PROBE_NO_INNER: return launch_diet<UWPT_PROBE_NO_INNER>(args, rowidx, stream);
-    case UWPT_PROBE_NO_STACK: return launch_diet<UWPT_PROBE_NO_STACK>(args, rowidx, stream);
-    case UWPT_PROBE_LEAF_BF16: return launch_diet<UWPT_PROBE_LEAF_BF16>(args, rowidx, stream);
-    case UWPT_PROBE_LEAF_NOINT: return launch_diet<UWPT_PROBE_LEAF_NOINT>(args, rowidx, stream);
     case UWPT_PROBE_F16LEAF:
       return launch<false, 96, UWPT_PROBE_F16LEAF>(args, &none, stream, rowidx);
     case UWPT_PROBE_BF16LEAF:

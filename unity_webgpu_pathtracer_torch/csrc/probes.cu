@@ -237,40 +237,48 @@ extern "C" int schlick_chain_launch(const float* x, float* out, int n, void* str
 // ---------------------------------------------------------------- P6
 // A Disney lobe chain (round18_bf16_shade_probe.py): 64 repeats of the
 // schlick + GTR2 + Smith + Fresnel mix, accumulated in f32, in f32 or in
-// bf16.  The bf16 form packs two lanes a thread in __nv_bfloat162 and runs
-// add, sub, mul, min and max as one packed bf16x2 instruction each (the
-// .rn forms, which are never contracted into an fma); division and sqrt go
-// through f32 and round back, as PyTorch's bf16 ops do.  The TPU's three
-// layouts ((B,), (8, B/8), (16, B/16)) are the same bytes on the card, so
-// one flat kernel serves all three.  Bound: operations.  f32: 68 per
-// repeat.  bf16: 61 packed bf16x2 operations per lane and repeat at the
-// card's non-tensor bf16 rate (twice the f32 rate), and 13 at the f32 rate
-// (4 divisions, 2 square roots, their 6 roundings back to bf16, the sum).
-__device__ __forceinline__ uint32_t u32_of(__nv_bfloat162 a) {
-  return *reinterpret_cast<uint32_t*>(&a);
+// bf16.  The TPU's three layouts ((B,), (8, B/8), (16, B/16)) are the same
+// bytes on the card, so one flat kernel serves all three.  One lane a
+// thread in both dtypes: bf16 adds, subtracts, multiplies, takes min and
+// max in scalar bf16 instructions (the .rn forms, never contracted into an
+// fma); it divides and takes square roots as PyTorch does, by the IEEE f32
+// division and sqrtf, rounded to bf16.  Bound: operations (f32: 68 a
+// repeat; bf16: 61 lane-operations a repeat at the packed bf16 rate and 13
+// at the f32 rate: the divisions, square roots, their roundings to bf16
+// and the sum).  Each lane's chain is one long dependent sequence, so what
+// bounds the kernel on the card is latency: how many independent chains
+// each scheduler holds.  Blocks of LOBE_THREADS give 1,024 blocks at
+// B = 65,536, all resident on 132 SMs.  Measured on an NVIDIA H100 80GB
+// HBM3, 700.00 W (round18_bf16_shade_probe.py, PERF.md section 6), one
+// lane a thread was faster in both dtypes than two lanes a thread (f32
+// interleaved, bf16 packed in __nv_bfloat162), and IEEE division faster
+// than an approximate reciprocal with a test for bf16 rounding midpoints;
+// blocks of 32 to 256 threads were within 0.0006 ms.
+constexpr int LOBE_THREADS = 64;
+
+__device__ __forceinline__ unsigned short u16_of(__nv_bfloat16 a) {
+  return *reinterpret_cast<unsigned short*>(&a);
 }
-__device__ __forceinline__ __nv_bfloat162 b2_of(uint32_t u) {
-  return *reinterpret_cast<__nv_bfloat162*>(&u);
+__device__ __forceinline__ __nv_bfloat16 b1_of(unsigned short u) {
+  return *reinterpret_cast<__nv_bfloat16*>(&u);
 }
-#define BF16X2_OP(fn, ptx)                                                   \
-  __device__ __forceinline__ __nv_bfloat162 fn(__nv_bfloat162 a, __nv_bfloat162 b) { \
-    uint32_t r;                                                              \
-    asm(ptx " %0, %1, %2;" : "=r"(r) : "r"(u32_of(a)), "r"(u32_of(b)));       \
-    return b2_of(r);                                                         \
+#define BF16_OP(fn, ptx)                                                     \
+  __device__ __forceinline__ __nv_bfloat16 fn(__nv_bfloat16 a, __nv_bfloat16 b) { \
+    unsigned short r;                                                        \
+    asm(ptx " %0, %1, %2;" : "=h"(r) : "h"(u16_of(a)), "h"(u16_of(b)));      \
+    return b1_of(r);                                                         \
   }
-BF16X2_OP(vadd, "add.rn.bf16x2")
-BF16X2_OP(vsub, "sub.rn.bf16x2")
-BF16X2_OP(vmul, "mul.rn.bf16x2")
-BF16X2_OP(vmin, "min.bf16x2")
-BF16X2_OP(vmax, "max.bf16x2")
-#undef BF16X2_OP
-__device__ __forceinline__ __nv_bfloat162 vdiv(__nv_bfloat162 a, __nv_bfloat162 b) {
-  const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-  return __floats2bfloat162_rn(fa.x / fb.x, fa.y / fb.y);
+BF16_OP(vadd, "add.rn.bf16")
+BF16_OP(vsub, "sub.rn.bf16")
+BF16_OP(vmul, "mul.rn.bf16")
+BF16_OP(vmin, "min.bf16")
+BF16_OP(vmax, "max.bf16")
+#undef BF16_OP
+__device__ __forceinline__ __nv_bfloat16 vdiv(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __float2bfloat16_rn(__bfloat162float(a) / __bfloat162float(b));
 }
-__device__ __forceinline__ __nv_bfloat162 vsqrt(__nv_bfloat162 a) {
-  const float2 fa = __bfloat1622float2(a);
-  return __floats2bfloat162_rn(sqrtf(fa.x), sqrtf(fa.y));
+__device__ __forceinline__ __nv_bfloat16 vsqrt(__nv_bfloat16 a) {
+  return __float2bfloat16_rn(sqrtf(__bfloat162float(a)));
 }
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }
 __device__ __forceinline__ float vsub(float a, float b) { return a - b; }
@@ -285,9 +293,11 @@ __device__ __forceinline__ T cst(float v);
 template <>
 __device__ __forceinline__ float cst<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat162 cst<__nv_bfloat162>(float v) {
-  return __float2bfloat162_rn(v);
+__device__ __forceinline__ __nv_bfloat16 cst<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
+__device__ __forceinline__ float wide(float x) { return x; }
+__device__ __forceinline__ float wide(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // round18_bf16_shade_probe.py::_chain, in its expression order.
 template <typename T>
@@ -318,49 +328,28 @@ __device__ __forceinline__ void lobe_chain(T& x, T& y, T& z) {
 
 constexpr int LOBE_REPEATS = 64;
 
-__global__ void lobe_chain_f32_kernel(const float* __restrict__ xin, float* __restrict__ out,
-                                      int n) {
+// Lane i in thread i, in T.
+template <typename T>
+__global__ void lobe_chain_kernel(const float* __restrict__ xin, float* __restrict__ out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float xi = xin[i];
-  float x = xi, y = xi * 0.5f, z = xi * 0.25f + 0.1f, acc = 0.0f;
+  T x = cst<T>(xi), y = cst<T>(xi * 0.5f), z = cst<T>(xi * 0.25f + 0.1f);
+  float acc = 0.0f;
   for (int r = 0; r < LOBE_REPEATS; ++r) {
     lobe_chain(x, y, z);
-    acc = acc + x;
-  }
-  out[i] = acc;
-}
-
-__global__ void lobe_chain_bf16_kernel(const float2* __restrict__ xin, float2* __restrict__ out,
-                                       int n2) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n2) return;
-  const float2 xi = xin[i];
-  __nv_bfloat162 x = __floats2bfloat162_rn(xi.x, xi.y);
-  __nv_bfloat162 y = __floats2bfloat162_rn(xi.x * 0.5f, xi.y * 0.5f);
-  __nv_bfloat162 z = __floats2bfloat162_rn(xi.x * 0.25f + 0.1f, xi.y * 0.25f + 0.1f);
-  float2 acc = make_float2(0.0f, 0.0f);
-  for (int r = 0; r < LOBE_REPEATS; ++r) {
-    lobe_chain(x, y, z);
-    const float2 fx = __bfloat1622float2(x);
-    acc.x = acc.x + fx.x;
-    acc.y = acc.y + fx.y;
+    acc = acc + wide(x);
   }
   out[i] = acc;
 }
 
 extern "C" int lobe_chain_launch(const float* x, float* out, int n, int bf16, void* stream) {
-  const int threads = 256;
-  if (bf16) {
-    if (n % 2) return (int)cudaErrorInvalidValue;
-    const int n2 = n / 2;
-    if (n2 > 0)
-      lobe_chain_bf16_kernel<<<(n2 + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-          reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(out), n2);
-  } else if (n > 0) {
-    lobe_chain_f32_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        x, out, n);
-  }
+  const int blocks = (n + LOBE_THREADS - 1) / LOBE_THREADS;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0 && bf16)
+    lobe_chain_kernel<__nv_bfloat16><<<blocks, LOBE_THREADS, 0, st>>>(x, out, n);
+  else if (n > 0)
+    lobe_chain_kernel<float><<<blocks, LOBE_THREADS, 0, st>>>(x, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -15,12 +15,16 @@ import torch
 from unity_webgpu_pathtracer_torch.device import resolve_device
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import _FLAT_FIELDS, _INST_FIELDS
 
-# H100 SXM peaks (NVIDIA's data sheet and H100 whitepaper): HBM bytes/s; f32
-# FLOP/s without tensor cores; bf16 FLOP/s without tensor cores, twice the
-# f32 rate because a packed bf16x2 instruction does two lanes' operations.
+# H100 SXM rates: HBM bytes/s (NVIDIA's data sheet); f32 and packed bf16
+# operations without tensor cores at the card's issue rate, 132 SMs x 128
+# lanes x 1.98 GHz.  Every kernel is built with -fmad=false
+# (ops/cuda_build.py), so an add and a multiply are one instruction each,
+# not one FMA counted as two operations (the data sheet's 67 TFLOP/s).  A
+# packed bf16x2 add, mul, min or max does two lanes' operations in one
+# instruction: 66.9e12 lane-operations/s.
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-PEAK_BF16 = 133.8e12
+PEAK_F32 = 132 * 128 * 1.98e9
+PEAK_BF16 = 2 * PEAK_F32
 # f32 operations per lane of K1, counted from csrc/arrival16.cu: the 16
 # slab tests of an inner row (36 each), one Moller-Trumbore test per leaf
 # triangle, the world-to-local transform of an instance row.
@@ -98,18 +102,76 @@ def time_ms_out(fn, reps: int = 100) -> tuple[float, object]:
     return ms, last[0]
 
 
-def time_in_place_ms(fn, restore, reps: int = 100) -> tuple[float, float, float]:
+def time_in_place_ms(fn, restore, reps: int = 100,
+                     cold: bool = False) -> tuple[float, float, float]:
     """Device time of ``fn``, which updates its inputs in place: a graph of
     ``restore(); fn()`` (``restore`` copies the inputs back from a saved
-    clone) minus a graph of ``restore()`` alone.  Returns (ms, ms of the
-    pair, ms of the restore)."""
-    def both():
+    clone) minus a graph of ``restore()`` alone.  ``cold``: the L2 is
+    flushed (``flush_l2``) after each restore, which warms it, in both
+    graphs.  Warm, a kernel that evicts the restore's sources from the L2
+    is also charged the next restore's misses, which the graph of restores
+    alone does not have (``restore_penalty`` measures that); cold, both
+    graphs restore after the same flush.  Returns (ms, ms of the pair, ms
+    of the restore)."""
+    def before():
         restore()
+        if cold:
+            flush_l2()
+
+    def both():
+        before()
         fn()
 
-    t_restore = time_ms(restore, reps)
+    t_restore = time_ms(before, reps)
     t_both = time_ms(both, reps)
     return t_both - t_restore, t_both, t_restore
+
+
+# Bytes written between calls to evict the L2 (50 MB on an H100).
+FLUSH_BYTES = 128 << 20
+_FLUSH = {}
+
+
+def flush_l2() -> None:
+    """Write a buffer of FLUSH_BYTES on the current CUDA device, which
+    evicts what the L2 held (made once per device, outside any capture)."""
+    dev = torch.cuda.current_device()
+    if dev not in _FLUSH:
+        _FLUSH[dev] = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=f"cuda:{dev}")
+    _FLUSH[dev].fill_(1)
+
+
+def time_cold_ms(fn, reps: int = 100) -> float:
+    """Device time of ``fn`` with a cold L2: a graph of ``flush_l2();
+    fn()`` minus a graph of ``flush_l2()`` alone."""
+    def both():
+        flush_l2()
+        fn()
+
+    flush_l2()
+    return time_ms(both, reps) - time_ms(flush_l2, reps)
+
+
+def restore_penalty(restore, nbytes: int = 55 << 20, reps: int = 100) -> dict:
+    """Whether ``time_in_place_ms`` charges a kernel for its restore's L2
+    misses, asked of a stand-in: ``read`` sums an unrelated buffer of
+    ``nbytes`` (more than the L2) and changes no state, so as an in-place
+    call it should take what it takes alone.  Returns the reader alone
+    (``read_ms`` warm, ``read_cold_ms`` after a flush), the reader as an
+    in-place call (``in_place_ms``, ``in_place_cold_ms``), and the restore
+    alone (``restore_ms``) and after a flush (``restore_cold_ms``).  If the
+    penalty is the restore's misses, ``in_place_ms - read_ms`` is about
+    ``restore_cold_ms - restore_ms`` and ``in_place_cold_ms`` about
+    ``read_cold_ms``."""
+    buf = torch.ones(nbytes // 4, device=f"cuda:{torch.cuda.current_device()}")
+
+    def read():
+        buf.sum()
+
+    return dict(read_ms=time_ms(read, reps), read_cold_ms=time_cold_ms(read, reps),
+                in_place_ms=time_in_place_ms(read, restore, reps)[0],
+                in_place_cold_ms=time_in_place_ms(read, restore, reps, cold=True)[0],
+                restore_ms=time_ms(restore, reps), restore_cold_ms=time_cold_ms(restore, reps))
 
 
 def ptxas_registers(log_text: str, kernel: str = "arrival16") -> dict:
@@ -135,9 +197,9 @@ def ptxas_registers(log_text: str, kernel: str = "arrival16") -> dict:
 
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> tuple[float, str]:
     """The least time (ms) for ``nbytes`` of traffic, ``ops`` f32
-    operations and ``bf16_ops`` packed bf16 operations on an H100 (the two
-    kinds share the same units, so their times add), and which of bytes
-    and operations binds."""
+    operations and ``bf16_ops`` bf16 lane-operations in packed bf16x2
+    instructions on an H100 (the two kinds share the same units, so their
+    times add), and which of bytes and operations binds."""
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = (ops / PEAK_F32 + bf16_ops / PEAK_BF16) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -158,6 +220,68 @@ def arrival_work(nodes, rows, oT, dT, invT, s, active, has_instances: bool = Fal
     state = sum(getattr(s, f).nbytes for f in fields)
     return (distinct * nodes.shape[1] * 4 + rays + (0 if active is None else active.nbytes)
             + 2 * state, ops, distinct)
+
+
+def diet_work(nodes, rows, oT, dT, invT, s, active, mode: str):
+    """(bytes, f32 operations, counts) of one in-place launch of the kernel
+    diet's ``mode`` (``arrival16_diet_kernel``) on state ``s``, found by
+    running its plain version on ``s`` (``s`` is left as it is).  Bytes, as
+    the kernel moves them: ptr and t of every lane, ``active`` of every lane
+    with ptr >= 0; rows, pend and sp of the live lanes; 12 bytes a ray plane
+    triple a lane reads (inv and o for the slab test, o alone not in
+    no_inner; o and d for the leaf section or, in no_leaf, its kept loads);
+    each distinct 16-byte word group of a row the lanes load (a dead lane's
+    on row 0); t, u, v and tri written and found read where a lane
+    improves, found written where it turns true; each ptr, pend and sp that
+    changes written; 8 bytes a stack push and a pop (none in no_stack).
+    Operations: 576 a slab test (none in no_inner), 55 a triangle slot, 1 a
+    no_leaf lane.  ``counts``: lanes by kind, distinct row groups."""
+    from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import diet_step16
+    from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE
+
+    tr = {}
+    out = diet_step16(nodes, rows, oT.T, dT.T, invT.T, s, active, mode, tr)
+    b, depth = s.ptr.shape[0], s.stack_row.shape[0]
+    live, inner, leaf, meta = tr["live"], tr["is_inner"], tr["is_leaf"], tr["meta"]
+    no_leaf = mode == "no_leaf"
+    far = torch.zeros_like(live) if no_leaf else s.t > FAR_PLANE
+    slab = inner | (live if mode == "no_stack" else torch.zeros_like(live))
+    leaf_sec = torch.zeros_like(live) if no_leaf else leaf | far
+    kept = leaf & no_leaf                         # no_leaf's kept loads
+    cnt = torch.where(leaf, meta.clamp(max=16), torch.ones_like(meta))
+    improved = tr["improved"]
+    push = tr["push"] & (s.sp < depth)
+    pop = tr["pop"] & (s.sp - 1 < depth)
+
+    # Row word groups by lane: bit g for words 4g..4g+3.
+    comp0 = sum(1 << (1 + 2 * k) for k in range(9))      # comp words 0-3
+    comp1 = comp0 << 1                                   # comp words 4-7
+    two = cnt > (4 if mode == "leaf_noint" else 8)
+    g = torch.zeros(b, dtype=torch.int64, device=s.ptr.device)
+    g |= (live | far).long()                             # anchor, meta
+    g |= slab.long() * (((1 << 12) - 1) & ~1)            # groups 1-11
+    g |= (leaf_sec | kept).long() * comp0
+    g |= ((leaf_sec | kept) & two).long() * comp1
+    if no_leaf:
+        g |= 1 << 1                                      # row[5], every lane
+    g |= improved.long() << (19 + (tr["best"] >> 2)).clamp(max=22)
+    row_of = torch.where(live, rows, torch.zeros_like(rows)).long()
+    keys = [row_of[(g >> k) & 1 == 1] * 24 + k for k in range(24)]
+    groups = int(torch.unique(torch.cat(keys)).numel())
+
+    o_read = leaf_sec | kept | (slab if mode != "no_inner" else torch.zeros_like(slab))
+    nbytes = (8 * b + int((s.ptr >= 0).sum()) * (0 if active is None else 1)
+              + 12 * int(live.sum()) + 16 * groups
+              + 12 * int(o_read.sum() + (leaf_sec | kept).sum() + slab.sum())
+              + 17 * int(improved.sum()) + int((improved & ~s.found).sum())
+              + 8 * int(((push | pop) if mode != "no_stack" else torch.zeros_like(push)).sum()))
+    for f in ("ptr", "pend", "sp"):
+        nbytes += 4 * int((getattr(out, f) != getattr(s, f)).sum())
+    ops = (576 * int(slab.sum()) * (mode != "no_inner") + 55 * int(cnt[leaf_sec].sum())
+           + (b if no_leaf else 0))
+    counts = dict(live=int(live.sum()), inner=int(inner.sum()), leaf=int(leaf.sum()),
+                  improved=int(improved.sum()), row_groups=groups)
+    return nbytes, ops, counts
 
 
 def _k1_ops(meta: torch.Tensor, slots: int, has_instances: bool) -> int:

@@ -10,7 +10,12 @@ of a super-iteration captured from each path ``chip_smoke.py`` drives
 (main path early and deep, path B's Cornell box with its larger pool,
 path A's instanced grid, path C's leaf8 table, instanced leaf8), held to
 the plain version exactly and timed as a graph of restore + launch minus
-the restore.  It picks nothing: it prints the times beside the registers.
+the restore.  The kernel diet (``arrival16_diet_kernel``, built for the
+same blocks per SM) runs in each build too (``diet``): its ``full`` and
+``no_inner`` modes on the diet's synthetic input and on the main path's
+27th and 1,203rd arrivals, held exact against ``diet_step16``, timed
+with a warm and a cold L2.  It picks nothing: it prints the times beside
+the registers.
 
     python -m unity_webgpu_pathtracer_torch.experiments.k1_variants
 """
@@ -58,8 +63,33 @@ def build() -> dict[int, tuple[ctypes.CDLL, dict]]:
         lib.cuda_error_string.restype = ctypes.c_char_p
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         regs = ptxas_registers(out + err)
-        libs[blocks] = (lib, {k: v for k, v in regs.items() if "run_kernel" in k})
+        libs[blocks] = (lib, {k: v for k, v in regs.items()
+                              if "run_kernel" in k or "diet_kernel" in k})
     return libs
+
+
+def diet(libs, inputs, label: str, modes=("full", "no_inner")) -> list[dict]:
+    """The diet's ``modes`` from each build on one input (``(nodes, rows,
+    oT, dT, invT, state, active)``): exact against ``diet_step16``, (warm,
+    cold) ms, registers."""
+    from unity_webgpu_pathtracer_torch.experiments import round14_kernel_diet as d
+
+    nodes, rows, oT, dT, invT, s, active = inputs
+    out = []
+    for mode in modes:
+        ref = d.diet_step16(nodes, rows, oT.T, dT.T, invT.T, s, active, mode)
+        for blocks, (lib, regs) in libs.items():
+            def launch(w, lib=lib):
+                cuda_arrival.launch_diet(lib, nodes, rows, oT, dT, invT, w, active, mode)
+
+            work = clone_state(s)
+            launch(work)
+            warm, cold = d.in_place_times(inputs, launch)
+            name = f"diet_kernelILi{cuda_arrival.PROBE_NUMBERS[mode]}E"
+            out.append(dict(blocks=blocks, state=label, mode=mode, ms=warm, cold_ms=cold,
+                            exact=d._same(work, ref, True)[0],
+                            regs=regs[next(k for k in regs if name in k)]))
+    return out
 
 
 def states(dev) -> list[tuple[str, object]]:
@@ -96,10 +126,17 @@ def states(dev) -> list[tuple[str, object]]:
 
 
 def run(device=None) -> list[dict]:
+    from unity_webgpu_pathtracer_torch.experiments._common import arrival_state
+    from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import synthetic_inputs
+
     dev = cuda_device(device)
     libs = build()
-    rows = []
+    rows = diet(libs, synthetic_inputs(dev), "synthetic")
     for label, cap in states(dev):
+        if label in ("main SI 4", "main SI 151"):   # its 3rd arrival: 27 or 1,203
+            nodes, oT, dT, invT, s, active = arrival_state(cap, 3)
+            rows += diet(libs, (nodes, s.ptr.clone(), oT, dT, invT, s, active),
+                         f"{label} arrival 3")
         nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
         ref = arrival_steps16(nodes, oT.T, dT.T, invT.T, clone_state(s0), steps, live, stop, hi)
         fields = cuda_arrival._FLAT_FIELDS + (cuda_arrival._INST_FIELDS if hi else ())
@@ -130,6 +167,10 @@ def main() -> None:
     dev = cuda_device()
     print(f"device={torch.cuda.get_device_name(dev)}")
     for r in run(dev):
+        if "mode" in r:
+            print(f"lb{r['blocks']} {r['state']:20s} diet {r['mode']:8s}: {r['ms']:.4f} ms warm, "
+                  f"{r['cold_ms']:.4f} cold; exact {r['exact']}; {r['regs']}")
+            continue
         print(f"lb{r['blocks']} {r['state']:20s} {r['kernel']:24s} B={r['lanes']} "
               f"te={r['steps']}: {r['ms']:.4f} ms/launch; exact {r['exact']}; {r['regs']}")
 

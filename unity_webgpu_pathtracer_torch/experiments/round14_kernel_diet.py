@@ -2,13 +2,15 @@
 
 The diet's copy of the arrival kernel with sections stubbed out
 (``arrival_probe_cuda`` modes, ``arrival16_diet_kernel`` in
-``csrc/arrival16.cu``, whose stubs keep every load of the section they
-remove; plain version ``diet_step16`` here):
+``csrc/arrival16.cu``, in place on ``arrival16_run_kernel``'s design,
+whose stubs keep every load of the section they remove; plain version
+``diet_step16`` here):
 
 * ``full``       the diet's copy of K1 (its older interleaved slot order)
 * ``no_leaf``    leaf f16 decode + Moller-Trumbore replaced by FAR_PLANE + row[5]
 * ``no_inner``   child-box decode + slab test replaced by row[0]
-* ``no_stack``   the stack's select chain dropped (the planes are copied)
+* ``no_stack``   no stack plane read or written: a pop takes the entry the
+                 inner section would push (so every live lane runs the slab test)
 * ``leaf_bf16``  the leaf halfwords decoded as bf16
 * ``leaf_noint`` the split slot order (today's tables)
 
@@ -17,7 +19,11 @@ row of its own of normal floats, DEPTH = 11.  Word 3 of such a row is a
 random float's bits, never 0, so no lane is an inner row there and on the
 card a branch no lane takes costs nothing: ``no_inner`` means something
 only on a real state (``modes_on_state``, run by ``chip_smoke.py`` phase
-13 on states captured early and deep in a 1080p pass).
+13 on states captured early and deep in a 1080p pass).  Each mode is
+timed with the L2 flushed before each call (``ms``) and warm
+(``warm_ms``, which also charges the mode for the restore's L2 misses:
+``_common.time_in_place_ms``), bounded by the bytes it moves
+(``_common.diet_work``) and held exact against ``diet_step16``.
 
     python -m unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet
 """
@@ -28,8 +34,9 @@ import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.accel.wide16 import OFF_IDX, WIDTH
-from unity_webgpu_pathtracer_torch.experiments._common import (arrival_work, check, cuda_device,
-                                                              row, time_ms)
+from unity_webgpu_pathtracer_torch.experiments._common import (arrival_work, check, clone_state,
+                                                              cuda_device, diet_work, row,
+                                                              time_in_place_ms, time_ms)
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import (_FLAT_FIELDS, DIET_MODES,
                                                             PROBE_KERNELS, arrival_probe_cuda,
                                                             arrival_probe_plain)
@@ -59,7 +66,7 @@ def synthetic_inputs(dev, b: int = B, depth: int = DEPTH):
 
 def diet_step16(nodes: torch.Tensor, rows: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
                 inv: torch.Tensor, s: Wide16State, active: torch.Tensor | None,
-                mode: str) -> Wide16State:
+                mode: str, trace: dict | None = None) -> Wide16State:
     """The plain version of ``arrival16_diet_kernel<mode>``: one arrival of
     ``make_kernel(mode)`` on flat (N, 96) rows, the ray (B, 3), live lane i
     on row ``rows[i]``.  The diet's kernel predates the split slot order:
@@ -69,7 +76,10 @@ def diet_step16(nodes: torch.Tensor, rows: torch.Tensor, o: torch.Tensor, d: tor
     diet's selects do: ``no_inner`` makes t_near row[0] for all 16 slots,
     ``no_leaf`` offers t = FAR_PLANE + row[5] in every slot, and
     ``no_stack`` leaves the stack planes as they are and pops the entry
-    the inner section would have pushed."""
+    the inner section would have pushed.  ``trace``, where given, receives
+    the lane masks ``live``, ``is_inner``, ``is_leaf``, ``push``, ``pop``
+    (a pop that reads the stack), ``improved``, the best slot ``best`` and
+    ``meta`` (``_common.diet_work`` counts bytes from them)."""
     nodes_i = nodes.view(torch.int32)
     live = s.ptr >= 0 if active is None else (s.ptr >= 0) & active
     idx = torch.where(live, rows, torch.zeros_like(rows)).long()
@@ -146,6 +156,9 @@ def diet_step16(nodes: torch.Tensor, rows: torch.Tensor, o: torch.Tensor, d: tor
     new_ptr = torch.where(found_child, child_ptr, torch.where(need_pop, pop_ptr, s.ptr))
     new_pend = torch.where(found_child, full,
                            torch.where(need_pop, torch.where(has, pop_pend, full), s.pend))
+    if trace is not None:
+        trace.update(live=live, is_inner=is_inner, is_leaf=is_leaf, push=push,
+                     pop=need_pop & has, improved=improved, best=best[:, 0], meta=meta)
     return s._replace(
         ptr=torch.where(live, new_ptr, s.ptr), pend=torch.where(live, new_pend, s.pend),
         sp=torch.where(live, torch.where(need_pop & has, sp - 1, sp), s.sp),
@@ -157,12 +170,17 @@ def diet_step16(nodes: torch.Tensor, rows: torch.Tensor, o: torch.Tensor, d: tor
         found=s.found | improved)
 
 
-def _same(out: Wide16State, ref: Wide16State) -> tuple[bool, float]:
+def _same(out: Wide16State, ref: Wide16State, exact: bool) -> tuple[bool, float]:
+    """Integers equal; floats equal where ``exact`` (NaN where the other is
+    NaN), else within FLOAT_TOL; and the largest float difference."""
     ok, worst = True, 0.0
     for f in _FLAT_FIELDS:
         a, b = getattr(out, f), getattr(ref, f)
         if a.dtype.is_floating_point:
-            ok &= bool(torch.allclose(a, b, equal_nan=True, **FLOAT_TOL))
+            if exact:
+                ok &= bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+            else:
+                ok &= bool(torch.allclose(a, b, equal_nan=True, **FLOAT_TOL))
             fin = torch.isfinite(a) & torch.isfinite(b)
             if bool(fin.any()):
                 worst = max(worst, float((a[fin] - b[fin]).abs().max()))
@@ -171,31 +189,70 @@ def _same(out: Wide16State, ref: Wide16State) -> tuple[bool, float]:
     return ok, worst
 
 
+def restorer(inputs):
+    """(work, restore): a copy of the state of ``inputs`` and the function
+    that copies the state back into it."""
+    s = inputs[5]
+    work = clone_state(s)
+
+    def restore():
+        for f in _FLAT_FIELDS:
+            getattr(work, f).copy_(getattr(s, f))
+
+    return work, restore
+
+
+def in_place_times(inputs, launch) -> tuple[float, float]:
+    """(warm, cold) device ms of ``launch(state)``, one in-place arrival of
+    the diet, on a copy of the state restored from ``inputs`` before each
+    call (``cold``: the L2 flushed after the restore)."""
+    work, restore = restorer(inputs)
+    return (time_in_place_ms(lambda: launch(work), restore)[0],
+            time_in_place_ms(lambda: launch(work), restore, cold=True)[0])
+
+
 def modes_on_state(inputs, label: str, modes) -> list[dict]:
     """Each probe mode in ``modes`` on one state: kernel against the plain
-    twin (integers equal, floats within FLOAT_TOL), kernel and twin
-    times, the bound, and the state's distinct rows."""
+    version (the diet's modes exact, in place on a copy; the leaf decodes
+    integers equal, floats within FLOAT_TOL), kernel and plain times, the
+    bound (the diet's by mode, ``diet_work``; the leaf decodes'
+    ``arrival_work``), and the state's distinct rows.  A diet mode's ``ms``
+    is taken with the L2 flushed after each restore, and its row carries
+    the warm reading as ``warm_ms``."""
     nodes, rows, oT, dT, invT, s, active = inputs
-    nbytes, ops, distinct = arrival_work(nodes, rows, oT, dT, invT, s, active)
+    k1_bytes, k1_ops, distinct = arrival_work(nodes, rows, oT, dT, invT, s, active)
     b = s.ptr.shape[0]
     out = []
     for mode in modes:
-        got = arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
+        diet = mode in DIET_MODES
         ref = arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
-        ok, err = _same(got, ref)
-        ms = time_ms(lambda: arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode))
+        extra = {}
+        if diet:
+            got = arrival_probe_cuda(nodes, rows, oT, dT, invT, clone_state(s), active, mode)
+            ok, err = _same(got, ref, True)
+            extra["warm_ms"], ms = in_place_times(inputs, lambda w: arrival_probe_cuda(
+                nodes, rows, oT, dT, invT, w, active, mode))
+            nbytes, ops, extra["counts"] = diet_work(nodes, rows, oT, dT, invT, s, active, mode)
+            tol = "exact (max abs err 0)"
+        else:
+            got = arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
+            ok, err = _same(got, ref, False)
+            ms = time_ms(lambda: arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode))
+            nbytes, ops = k1_bytes, k1_ops
+            tol = "integers equal, floats rtol 1e-5 / atol 1e-6"
         plain = time_ms(lambda: arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode))
         out.append(row(f"{label} {mode}", PROBE_KERNELS[mode], ms, plain, ms * 1e6 / b, "lane",
-                       nbytes, ops, err, ok, "integers equal, floats rtol 1e-5 / atol 1e-6",
-                       mode=mode, distinct_rows=distinct))
+                       nbytes, ops, err, ok, tol, mode=mode, distinct_rows=distinct, **extra))
     return out
 
 
-def savings(rows: list[dict], base: str = "full") -> dict[str, tuple[float, float]]:
-    """ms and share each mode saves against the first ``base`` row."""
-    full = next(r["ms"] for r in rows if r["mode"] == base)
-    return {r["mode"]: (full - r["ms"], (full - r["ms"]) / full) for r in rows
-            if r["mode"] != base}
+def savings(rows: list[dict], base: str = "full",
+            key: str = "ms") -> dict[str, tuple[float, float]]:
+    """ms and share each mode saves against the first ``base`` row, by
+    ``key`` (``ms``, or ``warm_ms`` of the diet's rows)."""
+    full = next(r[key] for r in rows if r["mode"] == base)
+    return {r["mode"]: (full - r[key], (full - r[key]) / full) for r in rows
+            if r["mode"] != base and key in r}
 
 
 def run(device=None) -> list[dict]:
@@ -204,14 +261,26 @@ def run(device=None) -> list[dict]:
     return check(modes_on_state(synthetic_inputs(dev), "synthetic", ("full",) + DIET_MODES))
 
 
+def report(rows: list[dict]) -> list[str]:
+    """A line a mode (cold and warm ms, the bound), then the savings
+    against ``full``, cold and warm."""
+    lines = []
+    for r in rows:
+        lines.append(f"{r['name']}: {r['ms']:.4f} ms cold / {r['warm_ms']:.4f} warm; plain "
+                     f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+                     f"{r['bytes'] / 1e6:.3f} MB); {r['counts']}; max_abs_err "
+                     f"{r['max_abs_err']:g}")
+    for key in ("ms", "warm_ms"):
+        for mode, (dt, share) in savings(rows, key=key).items():
+            lines.append(f"  {mode} saves {dt:.4f} ms ({share * 100:.1f}%) "
+                         f"{'cold' if key == 'ms' else 'warm'}")
+    return lines
+
+
 def main() -> None:
     print(f"B={B} DEPTH={DEPTH} device={torch.cuda.get_device_name(cuda_device())}")
-    rows = run()
-    for r in rows:
-        print(f"{r['mode']:10s}: {r['ms']:7.4f} ms/call  ({r['ns_per']:5.3f} ns/lane); plain "
-              f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    for mode, (dt, share) in savings(rows).items():
-        print(f"  -> {mode} saves {dt:7.4f} ms ({share * 100:4.1f}%)")
+    for line in report(run()):
+        print(line)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,8 @@ on CPU tensors it runs the plain version ``traverse_wide16.arrival_steps16``.
 
 ``arrival_probe_cuda`` runs a probe mode (``PROBE_MODES``) on flat
 96-float rows, each lane on the row its ``rows`` plane names: the kernel
-diet's six (``arrival16_diet_kernel``, plain version
+diet's six (``arrival16_diet_kernel``, in place, entry
+``arrival16_diet_launch``; plain version
 ``experiments/round14_kernel_diet.diet_step16``), and ``f16leaf`` and
 ``bf16leaf`` (the production kernel on the row plane, with the f16 or a
 bf16 leaf decode; plain version the twin).  It counts launches in
@@ -58,9 +59,10 @@ K1_MIN_BLOCKS = 3
 # with the f16 or a bf16 leaf decode (experiments/round16_bf16leaf_probe.py).
 DIET_MODES = ("full", "no_leaf", "no_inner", "no_stack", "leaf_bf16", "leaf_noint")
 PROBE_MODES = DIET_MODES + ("f16leaf", "bf16leaf")
-# Probe kernel name by mode; the C entry ``arrival16_probe_launch`` takes
-# the mode's number (``cuda_build`` passes them as UWPT_PROBE_* macros;
-# 0 is the production code).
+# Probe kernel name by mode; the C entries ``arrival16_diet_launch`` (the
+# diet's modes) and ``arrival16_probe_launch`` (the leaf decodes) take the
+# mode's number (``cuda_build`` passes them as UWPT_PROBE_* macros; 0 is
+# the production code).
 PROBE_KERNELS = {m: f"arrival16_{m}" if m.endswith("16leaf") else f"arrival16_diet_{m}"
                  for m in PROBE_MODES}
 PROBE_NUMBERS = {m: k + 1 for k, m in enumerate(PROBE_MODES)}
@@ -228,21 +230,53 @@ def arrival_probe_cuda(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tensor
                        dT: torch.Tensor, invT: torch.Tensor, s: Wide16State,
                        active: torch.Tensor | None = None, mode: str = "full") -> Wide16State:
     """One arrival of probe ``mode`` on flat (N, 96) rows, lane i on row
-    ``rows[i]`` (int32 (B,)); otherwise as ``arrival_step16_cuda``."""
+    ``rows[i]`` (int32 (B,)).  The diet's modes (``DIET_MODES``) update
+    ``s``'s flat fields in place and return ``s``, with the contract of
+    ``arrival_steps16_cuda`` (each field contiguous, with a storage of its
+    own).  The leaf-decode modes return a new state, as
+    ``arrival_step16_cuda`` does."""
     if mode not in PROBE_KERNELS or nodes.dim() != 2 or nodes.shape[1] != 96:
         raise ValueError(f"probe mode {mode!r} on {tuple(nodes.shape)}: expected one of "
                          f"{tuple(PROBE_KERNELS)} on (N, 96) rows")
     _check(nodes, oT, dT, invT, s, active, False)
     cuda_build.check_tensor(rows, "rows", torch.int32, s.ptr.shape, nodes.device)
+    diet = mode in DIET_MODES
+    if diet:
+        cuda_build.check_in_place(s, _FLAT_FIELDS, dict(nodes=nodes, rows=rows, oT=oT, dT=dT,
+                                                        invT=invT, active=active))
     if nodes.device.type == "cpu":
-        return arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
-    out, args = _args(nodes, oT, dT, invT, s, active, _FLAT_FIELDS)
+        out = arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
+        if not diet:
+            return out
+        for f in _FLAT_FIELDS:
+            getattr(s, f).copy_(getattr(out, f))
+        return s
     lib = cuda_build.load()["arrival16"]
-    err = lib.arrival16_probe_launch(PROBE_NUMBERS[mode], ctypes.byref(args), rows.data_ptr(),
-                                     torch.cuda.current_stream(nodes.device).cuda_stream)
-    cuda_build.check(lib, err, PROBE_KERNELS[mode])
+    if diet:
+        launch_diet(lib, nodes, rows, oT, dT, invT, s, active, mode)
+        out = s
+    else:
+        out, args = _args(nodes, oT, dT, invT, s, active, _FLAT_FIELDS)
+        err = lib.arrival16_probe_launch(PROBE_NUMBERS[mode], ctypes.byref(args),
+                                         rows.data_ptr(),
+                                         torch.cuda.current_stream(nodes.device).cuda_stream)
+        cuda_build.check(lib, err, PROBE_KERNELS[mode])
     arrival_probe_cuda.launches[PROBE_KERNELS[mode]] += 1
     return out
+
+
+def launch_diet(lib: ctypes.CDLL, nodes, rows, oT, dT, invT, s: Wide16State, active,
+                mode: str) -> None:
+    """Launch the diet's ``mode`` from ``lib`` (a build of
+    ``csrc/arrival16.cu``) on CUDA tensors that ``arrival_probe_cuda`` has
+    checked, updating ``s`` in place.  Counts nothing."""
+    args = _RunArgs(nodes.data_ptr(), oT.data_ptr(), dT.data_ptr(), invT.data_ptr(),
+                    0 if active is None else active.data_ptr(), 0,
+                    *(getattr(s, n).data_ptr() for n in _FLAT_FIELDS),
+                    s.ptr.shape[0], s.stack_row.shape[0], 1)
+    err = lib.arrival16_diet_launch(PROBE_NUMBERS[mode], ctypes.byref(args), rows.data_ptr(),
+                                    torch.cuda.current_stream(nodes.device).cuda_stream)
+    cuda_build.check(lib, err, PROBE_KERNELS[mode])
 
 
 def arrival_probe_plain(nodes: torch.Tensor, rows: torch.Tensor, oT: torch.Tensor,

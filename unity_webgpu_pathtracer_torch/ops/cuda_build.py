@@ -41,6 +41,7 @@ ENTRIES = {
         "arrival16_inst_run_launch": [_P, _P, _P],       # run args, instance args, stream
         "arrival16_inst_leaf8_run_launch": [_P, _P, _P],
         "arrival16_probe_launch": [_I, _P, _P, _P],      # mode, args, row plane, stream
+        "arrival16_diet_launch": [_I, _P, _P, _P],       # mode, run args (in place), rows, stream
     },
     "transition16": {
         "transition16_launch": [_P, _P],                 # args struct, stream

@@ -166,13 +166,11 @@ def lobe_chain_plain(xin: torch.Tensor, dtype: torch.dtype,
 
 def lobe_chain(xin: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """64 repeats of the lobe chain computed in ``dtype`` (float32 or
-    bfloat16, two lanes a thread), accumulated in f32."""
+    bfloat16, one lane a thread), accumulated in f32."""
     dev = _device(xin)
     cuda_build.check_tensor(xin, "x", torch.float32, xin.shape, dev)
-    if dtype not in (torch.float32, torch.bfloat16) or (dtype == torch.bfloat16
-                                                         and xin.numel() % 2):
-        raise ValueError(f"lobe_chain: float32, or bfloat16 on an even count; got {dtype}, "
-                         f"{xin.numel()}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"lobe_chain: float32 or bfloat16, got {dtype}")
     if dev.type == "cpu":
         return lobe_chain_plain(xin, dtype)
     out = torch.empty_like(xin)
