@@ -69,12 +69,18 @@ Phases, each printing one or more lines:
     experiments``, this slice's path): each module's ``run`` at its
     probe's sizes, every probe kernel held against its plain version (the
     counts set to 0 before and read after: every probe kernel must have
-    launched; the ring gather, the one-pass scan, the sum and every op of
-    P8 also after their timed graph replays, the ops and the sum at the
-    pool's 98,304 too, the scan and the sum at ragged sizes and at
-    4,194,304; the kernels line gives a kernel's last row: ring_gather at
-    8,192 rows of the 232 MB table, the scan and the sum at the pool's
-    98,304), PyTorch's reductions of the pool as a super-iteration calls
+    launched; the ring gather, P2, the one-pass scan, the sum and every
+    op of P8 also after their timed graph replays, the ops and the sum at
+    the pool's 98,304 too, the scan and the sum at ragged sizes and at
+    4,194,304; P3 bit for bit; the kernels line gives a kernel's last row:
+    ring_gather at 8,192 rows of the 232 MB table, P2 on chip at 2 MB on a
+    cluster of 16 and in device memory at 24 MB, the scan and the sum at
+    the pool's 98,304), a line with P3's remainder against fmodf over all
+    2^31 non-negative f32 bit patterns (0 mismatches, or the phase
+    fails), P2's cluster sizes with the clusters of them the card can hold
+    (``cudaOccupancyMaxActiveClusters``), each P2 row beside the launch
+    floor (a graph-replayed one-element add), PyTorch's reductions of the
+    pool as a super-iteration calls
     them (``round18_mosaic_probe.reductions``, priced a super-iteration by
     the calls phase 4's profile counted), then K1's probe
     modes (the kernel diet, in place, each mode bounded by its own bytes
@@ -756,6 +762,10 @@ def main() -> int:
                 lib += f", warm L2 {r['warm_ms']:.4f} ms (ms: cold L2)"
             if "two_calls_ms" in r:
                 lib += f", two calls {r['two_calls_ms']:.4f} ms"
+            if "floor_ms" in r:
+                lib += (f", launch floor {r['floor_ms']:.4f} ms, "
+                        + (f"cluster of {r['cluster']}" if "cluster" in r
+                           else f"{r['blocks']} blocks"))
             log(f"phase 13 {mod.__name__.rsplit('.', 1)[1]} {r['name']}: {r['ms']:.4f} ms "
                 f"({r['ns_per']:.4f} ns/{r['per']}), plain {r['plain_ms']:.4f} ms{lib}; bound "
                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.3f} MB, "
@@ -769,6 +779,14 @@ def main() -> int:
                              f"{[k for k, v in got.items() if v == 0]}")
     log(f"phase 13 probes: {len(rows)} measurements in {time.perf_counter() - t0:.1f} s, "
         f"launches {got}")
+    shade = next(r for r in rows if r["kernel"] == "schlick_chain")
+    log(f"phase 13 P3 remainder by 0.9f against fmodf over all 2^31 non-negative f32 bit "
+        f"patterns: {shade['remainder_mismatches']} mismatches")
+    row_bytes = cuda_probes.TABLE_W * 4
+    for label, n in (("192 KB", 192 * 1024 // row_bytes), ("2 MB", int(2e6 / row_bytes))):
+        c, per, fit = cuda_probes.table_max_clusters(n, dev)
+        log(f"phase 13 P2 on chip, {label} table: a cluster of {c} blocks, {per} rows "
+            f"({per * row_bytes} bytes) a block; cudaOccupancyMaxActiveClusters {fit}")
     red = round18_mosaic_probe.reductions(dev, main_si["reductions_per_si"])
     log(f"phase 13 reductions of {POOL} lanes (ms): "
         + ", ".join(f"{k} {v:.4f}" for k, v in red.items())

@@ -554,3 +554,215 @@ def test_sum_scalar_scratch_outlives_growth(cuda):
     assert torch.equal(out, cuda_probes.sum_scalar_plain(small))
     assert torch.equal(grown, cuda_probes.sum_scalar_plain(large))
     assert torch.equal(apart, grown)
+
+
+def _bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Every element's bits equal, NaN where the other is NaN (torch.equal
+    calls no NaN equal, and lets -0.0 equal +0.0)."""
+    nan = got.isnan()
+    return bool(torch.equal(nan, want.isnan())
+                and torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+def _probe_table(n: int, dev):
+    from unity_webgpu_pathtracer_torch.experiments import round2_probe
+
+    return round2_probe.table(n, cuda_probes.TABLE_W, dev)
+
+
+@gpu
+@pytest.mark.parametrize("on_chip,rows", [(True, 128), (True, 1024), (True, 10_416),
+                                          (False, 10_416), (False, 125_000)])
+@pytest.mark.parametrize("n_idx", [1, 4095, 4096, 4097, 20_000])
+def test_table_sum_exact_on_probe_tables(cuda, on_chip, rows, n_idx):
+    """P2 in both modes equals ``table_sum_plain`` on the probe's tables
+    (integers 0-6, so any order sums exactly): 24 KB, 192 KB and 2 MB on
+    chip (clusters of 8, 8 and 16), 2 and 24 MB in device memory, at the
+    probe's 4,096 indices and ragged counts."""
+    from unity_webgpu_pathtracer_torch.experiments import round2_probe
+
+    tab = _probe_table(rows, cuda)
+    idx = torch.from_numpy(round2_probe.hashed_idx(n_idx, rows)).to(cuda)
+    assert torch.equal(cuda_probes.table_sum(tab, idx, on_chip),
+                       cuda_probes.table_sum_plain(tab, idx))
+
+
+@gpu
+@pytest.mark.parametrize("on_chip", [True, False])
+def test_table_sum_graph_replays(cuda, on_chip):
+    """One P2 call captured in a CUDA graph and replayed 20 times gives the
+    plain version's sum after every replay (the device mode's scratch
+    resets itself; the cluster launch replays)."""
+    from unity_webgpu_pathtracer_torch.experiments import round2_probe
+
+    tab = _probe_table(1024 if on_chip else 10_416, cuda)
+    idx = torch.from_numpy(round2_probe.hashed_idx(4096, tab.shape[0])).to(cuda)
+    want = cuda_probes.table_sum_plain(tab, idx)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_probes.table_sum(tab, idx, on_chip)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_probes.table_sum(tab, idx, on_chip)
+    for _ in range(20):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@gpu
+def test_table_sum_scratch_outlives_growth(cuda):
+    """A graph captured at a few indices keeps P2's scratch after an eager
+    call with more indices on the same stream outgrows it, and a call on
+    another stream takes a scratch of its own: every output stays exact."""
+    from unity_webgpu_pathtracer_torch.experiments import round2_probe
+
+    tab = _probe_table(10_416, cuda)
+    small, large = (torch.from_numpy(round2_probe.hashed_idx(n, 10_416)).to(cuda)
+                    for n in (1025, 1_000_000))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        cuda_probes.table_sum(tab, small, False)
+        with torch.cuda.graph(graph, stream=side):
+            out = cuda_probes.table_sum(tab, small, False)
+        grown = cuda_probes.table_sum(tab, large, False)
+    other = torch.cuda.Stream()
+    other.wait_stream(side)
+    with torch.cuda.stream(other):
+        apart = cuda_probes.table_sum(tab, large, False)
+    torch.cuda.synchronize()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, cuda_probes.table_sum_plain(tab, small))
+    assert torch.equal(grown, cuda_probes.table_sum_plain(tab, large))
+    assert torch.equal(apart, grown)
+
+
+def _block_tree(acc: np.ndarray) -> np.ndarray:
+    """csrc/probes.cu ``block_tree`` of each row of ``acc`` (blocks, threads)
+    in float32: the shuffle tree within each warp, then over the warps'
+    sums."""
+    w = acc.reshape(acc.shape[0], -1, 32)
+    for off in (16, 8, 4, 2, 1):
+        w = w[..., :off] + w[..., off:2 * off]
+    w = w[..., 0]
+    off = w.shape[1] // 2
+    while off:
+        w = w[:, :off] + w[:, off:2 * off]
+        off //= 2
+    return w[:, 0]
+
+
+def _table_sum_model(vals: np.ndarray, rows: int, on_chip: bool) -> np.float32:
+    """P2's sum of the float32 terms ``vals`` in the kernel's own order:
+    in device memory each thread's rounds, the tree of each block, the
+    last block's threads over the partials (``TABLE_MAX_BLOCKS /
+    TABLE_THREADS`` each) and the tree again; on chip each rank's slice of
+    ``TABLE_CL_THREADS`` = 256 threads, 2 indices a thread a round, its
+    tree, and rank 0 over the ranks' partials in rank order."""
+    n = vals.shape[0]
+    if not on_chip:
+        blocks, rounds = cuda_probes.table_plan(n)
+        t = cuda_probes.TABLE_THREADS
+        pad = np.zeros(blocks * rounds * t, np.float32)
+        pad[:n] = vals
+        acc = np.zeros((blocks, t), np.float32)
+        for r in range(rounds):
+            acc = acc + pad.reshape(blocks, rounds, t)[:, r]
+        parts = np.zeros(cuda_probes.TABLE_MAX_BLOCKS, np.float32)
+        parts[:blocks] = _block_tree(acc)
+        part = np.zeros(t, np.float32)
+        for k in range(cuda_probes.TABLE_MAX_BLOCKS // t):
+            part = part + parts[k * t:(k + 1) * t]
+        return _block_tree(part[None])[0]
+    c, _ = cuda_probes.table_cluster_plan(rows)
+    t, vec = 256, 2
+    each = -(-n // c)
+    total = np.float32(0.0)
+    for rank in range(c):
+        lo = min(n, rank * each)
+        hi = min(n, lo + each)
+        acc = np.zeros(t, np.float32)
+        for first in range(lo, hi, t * vec):
+            for j in range(vec):
+                i = first + j * t + np.arange(t)
+                acc = acc + np.where(i < hi, vals[np.minimum(i, n - 1)], np.float32(0.0))
+        total = np.float32(total + _block_tree(acc[None])[0])
+    return total
+
+
+@gpu
+@pytest.mark.parametrize("on_chip,rows", [(True, 1024), (True, 10_416), (False, 125_000)])
+def test_table_sum_random_tables(cuda, on_chip, rows):
+    """On a table of random floats of either sign P2 gives the same bits on
+    every call, the bits of a float32 model of its own summation order (so
+    a dropped or repeated term shows), and differs from the float64 sum by
+    at most 32 u sum_k |t_k|, u = 2^-24 (its tree of additions is at most
+    26 deep at 4,096 terms: 2 a thread, 8 in the block, 16 over the ranks).
+    ``table_sum_plain`` sums in another order: within 4 sqrt(n) u sum_k
+    |t_k| of it, the size rounding errors of either sign reach in practice
+    (Higham, Accuracy and Stability, section 4.2), since no bound on the
+    depth of PyTorch's own order is stated."""
+    rng = np.random.default_rng(rows)
+    tab = torch.from_numpy(rng.uniform(-3.0, 5.0, (rows, cuda_probes.TABLE_W))
+                           .astype(np.float32)).to(cuda)
+    n = 4096
+    idx = torch.from_numpy(rng.integers(0, rows, n).astype(np.int32)).to(cuda)
+    first = cuda_probes.table_sum(tab, idx, on_chip)
+    for _ in range(4):
+        assert torch.equal(cuda_probes.table_sum(tab, idx, on_chip).view(torch.int32),
+                           first.view(torch.int32))
+    terms = tab[idx.long(), 0]
+    model = _table_sum_model(terms.cpu().numpy(), rows, on_chip)
+    assert first.cpu().numpy().reshape(()).view(np.int32) == np.float32(model).view(np.int32)
+    scale = 2.0 ** -24 * float(terms.double().abs().sum())
+    assert abs(float(first) - float(terms.double().sum())) <= 32 * scale
+    assert abs(float(first) - float(cuda_probes.table_sum_plain(tab, idx))) <= 4 * n ** 0.5 * scale
+
+
+@gpu
+def test_table_sum_refuses_and_reports_clusters(cuda):
+    """A table above the on-chip capacity is refused on the card too; the
+    card can place the clusters the probe's tables take."""
+    big = torch.zeros((cuda_probes.TABLE_ROWS_MAX + 1, cuda_probes.TABLE_W), device=cuda)
+    idx = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_probes.table_sum(big, idx, True)
+    assert float(cuda_probes.table_sum(big, idx, False)) == 0.0
+    for rows, cluster in ((128, 8), (1024, 8), (10_416, 16)):
+        c, per, count = cuda_probes.table_max_clusters(rows, cuda)
+        assert (c, per * c >= rows, count >= 1) == (cluster, True, True), (rows, count)
+
+
+@gpu
+def test_schlick_chain_exact_over_wide_inputs(cuda):
+    """P3 bit for bit against ``schlick_chain_plain`` (NaN where it is NaN):
+    on the probe's input, on inputs of either sign over 25 binades, and on
+    zeros, ones, +-Inf, NaN and values at and above the remainder's short
+    form (2048), which the chain's remainder meets through fmodf."""
+    from unity_webgpu_pathtracer_torch.experiments import round2_probe
+
+    x = torch.from_numpy(np.linspace(0.1, 0.9, round2_probe.SHADE_B).astype(np.float32)
+                         .reshape(-1, 128)).to(cuda)
+    assert _bits_equal(cuda_probes.schlick_chain(x), cuda_probes.schlick_chain_plain(x))
+    rng = np.random.default_rng(11)
+    wide = 2.0 ** rng.uniform(-20, 5, 8192) * rng.choice([-1.0, 1.0], 8192)
+    special = [0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 2047.99, 2048.0, 2049.0, 3000.0,
+               -7000.0, 1e6, 1e30, 3.4e38, 1e-40, -1e-45]
+    xs = torch.from_numpy(np.concatenate([wide, special]).astype(np.float32)).to(cuda)
+    assert _bits_equal(cuda_probes.schlick_chain(xs), cuda_probes.schlick_chain_plain(xs))
+
+
+@gpu
+def test_remainder_check_exhaustive(cuda):
+    """P3's remainder equals fmodf by 0.9f on all 2^31 non-negative f32 bit
+    patterns (Inf and NaN included); the check does count mismatches where
+    there are some (the short form is not meant for negative dividends)."""
+    assert cuda_probes.remainder_check(device=cuda) == 0
+    assert cuda_probes.remainder_check(2**31 + 0x3F000000, 1 << 20, cuda) > 0

@@ -342,6 +342,92 @@ def test_table_sum_library_matches_probe(n):
     assert got.shape == (1, 1) and float(got[0, 0]) == float(want)
 
 
+@pytest.mark.parametrize("n_idx,plan", [(0, (1, 1)), (1, (1, 1)), (4095, (32, 1)),
+                                         (4096, (32, 1)), (4097, (33, 1)), (20_000, (157, 1)),
+                                         (131_072, (1024, 1)), (131_073, (513, 2))])
+def test_table_plan_pinned(n_idx, plan):
+    """P2 in device memory: blocks of 128 threads, one index a thread a
+    round, 32 blocks at the probe's 4,096; past 1,024 blocks, more rounds a
+    block."""
+    assert cp.table_plan(n_idx) == plan
+
+
+@pytest.mark.parametrize("rows,plan", [(128, (8, 16)), (256, (8, 32)), (512, (8, 64)),
+                                       (1024, (8, 128)), (1000, (8, 125)), (1, (8, 1)),
+                                       (9640, (8, 1205)), (9641, (16, 603)),
+                                       (10_416, (16, 651)), (19_280, (16, 1205))])
+def test_table_cluster_plan_pinned(rows, plan):
+    """P2 on chip: the probe's 24-192 KB tables on a cluster of 8 blocks
+    (24 KB a block at 192 KB), the 2 MB table (10,416 rows) on 16, ragged
+    row counts rounded up a rank, each rank within TABLE_SMEM bytes."""
+    c, per = cp.table_cluster_plan(rows)
+    assert (c, per) == plan
+    assert c * per >= rows and per * cp.TABLE_W * 4 <= cp.TABLE_SMEM
+
+
+def test_table_sum_refuses_above_cluster_capacity():
+    """On the CPU too: a table of more rows than a cluster of 16 holds is
+    refused on chip and summed from device memory; one at the capacity is
+    taken; an on-chip table off a 16-byte boundary is refused."""
+    idx = torch.tensor([0, 5, 19_279], dtype=torch.int32)
+    fits = port_round2.table(cp.TABLE_ROWS_MAX, cp.TABLE_W, "cpu")
+    assert torch.equal(cp.table_sum(fits, idx, True), cp.table_sum_plain(fits, idx))
+    big = port_round2.table(cp.TABLE_ROWS_MAX + 1, cp.TABLE_W, "cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        cp.table_sum(big, idx, True)
+    assert torch.equal(cp.table_sum(big, idx, False), cp.table_sum_plain(big, idx))
+    off = torch.zeros(64 * cp.TABLE_W + 1)[1:].view(64, cp.TABLE_W)
+    with pytest.raises(ValueError, match="16-byte"):
+        cp.table_sum(off, idx[:2], True)
+    assert float(cp.table_sum(off, idx[:2], False)) == 0.0
+
+
+def _bits(x: float) -> int:
+    return int(np.float32(x).view(np.uint32))
+
+
+@pytest.mark.parametrize("first,count", [
+    (0, 1 << 22),                                # zero, denormals, the smallest normals
+    (_bits(0.9) - (1 << 21), 1 << 22),           # around the divisor
+    (_bits(1.0), 1 << 22),                       # [1, 2): q of 1 and 2
+    (_bits(16.0), 1 << 22),                      # the chain's dividends (< ~25)
+    (_bits(2048.0) - (1 << 21), 1 << 22),        # the short form's limit
+    (0x7F800000 - (1 << 20), (1 << 20) + (1 << 21)),   # the largest floats, Inf, NaN
+])
+def test_remainder_plain_matches_fmod(first, count):
+    """P3's remainder (csrc/probes.cu ``rem09``, op for op in
+    ``rem09_plain``) equals fmod by 0.9f on every bit pattern of each
+    range; the card checks all 2^31 (``remainder_check`` on CUDA)."""
+    assert cp.remainder_check(first, count, "cpu") == 0
+
+
+def test_schlick_chain_with_short_remainder_is_plain():
+    """The chain with ``rem09_plain`` in place of ``torch.fmod`` gives the
+    bits of ``schlick_chain_plain`` on the probe's input and on inputs of
+    either sign over 25 binades, zeros, ones and values past 2048: the
+    kernel's form computes the plain version's function."""
+    def chain(v):
+        acc = torch.zeros_like(v)
+        for _ in range(cp.SCHLICK_BLOCKS):
+            w = 1.0 - v
+            w2 = w * w
+            f = w2 * w2 * w
+            g = torch.sqrt(torch.abs(v * 0.9 + 0.05))
+            acc = acc + f * g + v * (1.0 - f)
+            v = cp.rem09_plain(torch.abs(acc * 0.3 + 0.1)) + 0.05
+        return acc
+
+    rng = np.random.default_rng(12)
+    wide = 2.0 ** rng.uniform(-20, 5, 8192) * rng.choice([-1.0, 1.0], 8192)
+    for x in (np.linspace(0.1, 0.9, 262144), np.concatenate(
+            [wide, [0.0, -0.0, 1.0, -1.0, 2048.0, 3000.0, -1e6, 1e30]])):
+        xt = torch.from_numpy(x.astype(np.float32))
+        got, want = chain(xt), cp.schlick_chain_plain(xt)
+        nan = want.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan])
+
+
 def test_scalar_reductions_counts_whole_tensor_reductions():
     """``k2_span.ScalarReductions``, by which phase 13 prices the main
     path's reductions a super-iteration: the ``.sum()`` and ``.any()`` of a
@@ -664,3 +750,31 @@ def test_diet_in_place_wrapper_matches_diet_step16(mode):
     assert bool((want.t[::7] < 2e5).all())             # every far lane improved
     with pytest.raises(ValueError):
         arrival_probe_cuda(args[0], s.ptr, *args[2:], s, act, mode)
+
+
+def test_schlick_short_remainder_bound():
+    """csrc/probes.cu's P3: where |acc| < 1000 after the chain's first block
+    (``REM_SAFE_ACC``), every later dividend |acc * 0.3 + 0.1| stays below
+    320, far under the short remainder's limit, so the 39 later blocks may
+    take it with no test.  Checked in the plain chain on the probe's input,
+    on inputs of either sign over 25 binades and on [-1, 2] with its edges,
+    where acc grows most."""
+    rng = np.random.default_rng(13)
+    x = np.concatenate([np.linspace(0.1, 0.9, 262144),
+                        2.0 ** rng.uniform(-20, 5, 8192) * rng.choice([-1.0, 1.0], 8192),
+                        np.linspace(-1.0, 2.0, 65537), [0.0, 1.0, 0.05, 0.95]])
+    v = torch.from_numpy(x.astype(np.float32))
+    acc = torch.zeros_like(v)
+    later = None
+    for k in range(cp.SCHLICK_BLOCKS):
+        w = 1.0 - v
+        w2 = w * w
+        f = w2 * w2 * w
+        acc = acc + f * torch.sqrt(torch.abs(v * 0.9 + 0.05)) + v * (1.0 - f)
+        a = torch.abs(acc * 0.3 + 0.1)
+        if k == 0:
+            safe = acc.abs() < 1000.0
+        else:
+            later = a[safe] if later is None else torch.maximum(later, a[safe])
+        v = torch.fmod(a, 0.9) + 0.05
+    assert int(safe.sum()) > 300_000 and float(later.max()) < 320.0

@@ -9,7 +9,9 @@
 // Entries (each returns a CUDA error code):
 //   ring_gather_launch      P1 experiments/round2_probe.py:125
 //   table_sum_launch        P2 experiments/round2_probe.py:177
+//   table_sum_max_clusters  P2's cluster placement (cudaOccupancyMaxActiveClusters)
 //   schlick_chain_launch    P3 experiments/round2_probe.py:271
+//   remainder_check_launch  P3's remainder against fmodf over bit patterns
 //   lobe_chain_launch       P6 experiments/round18_bf16_shade_probe.py:78
 //   cluster_gather_launch   P7 experiments/round18_vmem_tree_probe.py:63
 //   intrinsic_launch        P8 experiments/round18_mosaic_probe.py:35
@@ -18,7 +20,7 @@
 //   step_chain_launch       P10 experiments/round20_tile3d_probe.py:58
 //
 // Constants shared with Python (the intrinsic op numbers, P8's scan tile,
-// P9's plan) come as -D macros (ops/cuda_build.py).
+// P9's and P2's plans, P3's remainder) come as -D macros (ops/cuda_build.py).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -39,18 +41,80 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
 }
 
-// Sum of a block's values into out[0]: warp shuffles, then warp 0 over
-// the warps' partial sums.
-__device__ __forceinline__ void block_sum_to(float acc, float* out) {
-  __shared__ float partial[32];
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = acc;
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The sum of a block's values v, in thread 0: a shuffle tree in each warp
+// (lane l adds lane l + off), then one over the warps' sums in warp 0.
+template <int THREADS>
+__device__ __forceinline__ float block_tree(float v) {
+  constexpr int WARPS = THREADS / 32;
+  static_assert(THREADS % 32 == 0 && WARPS <= 32 && (WARPS & (WARPS - 1)) == 0,
+                "whole warps, a power of two of them");
+  __shared__ float warp_sum[WARPS];
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
   __syncthreads();
   if (threadIdx.x < 32) {
-    float v = threadIdx.x < (blockDim.x >> 5) ? partial[threadIdx.x] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (threadIdx.x == 0) out[0] = v;
+    v = threadIdx.x < WARPS ? warp_sum[threadIdx.x] : 0.0f;
+    for (int off = WARPS / 2; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   }
+  return v;
+}
+
+// The end of a one-launch sum over blocks (P2 in device memory, P9): each
+// block's threads hold their values `acc`, thread 0 the ticket it took from
+// ctl at the start.  Each block publishes the tree of its values in one
+// 64-bit word beside the call's tag, relaxed, with no fence: the block that
+// took the last ticket waits on each word's tag instead, sums the partials
+// in block order (thread t adds partials t, t + THREADS, ...; WORDS of
+// them) and the tree again, and writes out[0].  It took its ticket last, so
+// every block it waits on has started and waits on nothing.  The scratch
+// (ops/cuda_probes.py, one per kernel, device and stream, zeroed once) is a
+// control word (ticket low, epoch high), then a word a block.  It resets
+// itself as the scan's does, and a word's tag is the epoch plus one, so a
+// zeroed word never reads as published.  The order depends on the grid
+// alone, so every call on the same inputs gives the same bits.
+constexpr uint32_t SUM_EPOCH_MASK = 0x7FFFFFFFu;
+
+template <int THREADS, int WORDS>
+__device__ __forceinline__ void publish_and_sum(float acc, unsigned long long ticket,
+                                                float* __restrict__ out, unsigned long long* ctl,
+                                                unsigned long long* words) {
+  __shared__ uint32_t s_tag, s_last;
+  if (threadIdx.x == 0) {
+    const uint32_t epoch = (uint32_t)(ticket >> 32);
+    s_tag = epoch + 1;
+    s_last = (uint32_t)ticket == gridDim.x - 1;
+    // Every block has its ticket and epoch once the last ticket is taken.
+    if (s_last) atomicExch(ctl, (unsigned long long)((epoch + 1) & SUM_EPOCH_MASK) << 32);
+  }
+  const float total = block_tree<THREADS>(acc);   // its barrier publishes s_tag and s_last
+  const unsigned long long tag = s_tag;
+  if (threadIdx.x == 0) st_relaxed(&words[blockIdx.x], tag << 32 | __float_as_uint(total));
+  if (!s_last) return;
+  __syncthreads();   // warp 0 is done with warp_sum before block_tree fills it again
+  unsigned long long w[WORDS];
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    const int j = k * THREADS + threadIdx.x;
+    w[k] = j < (int)gridDim.x ? ld_relaxed(&words[j]) : tag << 32;
+  }
+  float part = 0.0f;
+#pragma unroll
+  for (int k = 0; k < WORDS; ++k) {
+    const int j = k * THREADS + threadIdx.x;
+    while ((w[k] >> 32) != tag) w[k] = ld_relaxed(&words[j]);
+    if (j < (int)gridDim.x) part += __uint_as_float((uint32_t)w[k]);
+  }
+  const float sum = block_tree<THREADS>(part);
+  if (threadIdx.x == 0) out[0] = sum;
 }
 
 // ---------------------------------------------------------------- P1
@@ -158,70 +222,265 @@ extern "C" int ring_gather_launch(const float* table, const int* idx, int chunk,
 
 // ---------------------------------------------------------------- P2
 // Dynamic row reads from a table held on chip (round2_probe.py
-// vmem_gather): out = sum_k table[idx[k], 0].  One block of 1,024 threads
-// stages the (N, 48) table into its dynamic shared memory (at most 227 KB;
-// the TPU's 2-24 MB tables run as the same reads from device memory, held
-// by the 50 MB L2), then spreads the reads over its threads and reduces.
-// Bound: bytes of the rows read and the index; the staging is the design's
-// own cost.
+// vmem_gather): out = sum_k table[idx[k], 0] over an (N, 48) f32 table.
+// Bound: bytes (the distinct rows' column 0, the index, the output), a few
+// kilobytes: far below what one launch costs, so what bounds a call on
+// this card is latency, the round trips it waits on one after another.
+// Both modes make one launch a call and put every row read of a thread in
+// flight before its first add.
+//
+// In device memory (the TPU's 2-24 MB tables, held by the 50 MB L2):
+// blocks of TABLE_THREADS, one index a thread a round, as many blocks as
+// the plan (cuda_probes.table_plan, cut by n_idx alone) gives: 32 blocks
+// at the probe's 4,096 indices.  A thread loads its index (coalesced),
+// then its row's word, then adds; the blocks' sums meet in
+// publish_and_sum (P9's design, its own scratch), so a call waits on an
+// index trip, a row trip and the partials' trip.
 constexpr int P2_W = 48;
+constexpr int TABLE_THREADS = UWPT_TABLE_THREADS;
+constexpr int TABLE_WORDS = UWPT_TABLE_MAX_BLOCKS / TABLE_THREADS;
+static_assert(TABLE_WORDS >= 1 && TABLE_WORDS * TABLE_THREADS == UWPT_TABLE_MAX_BLOCKS,
+              "the last block's threads read the partials in whole rounds");
 
-template <bool ON_CHIP>
-__global__ void table_sum_kernel(const float* __restrict__ table, int n_rows,
-                                 const int* __restrict__ idx, int n_idx, float* __restrict__ out) {
-  extern __shared__ float4 staged[];
-  const float* tab = table;
-  if (ON_CHIP) {
-    const float4* src = reinterpret_cast<const float4*>(table);
-    for (int k = threadIdx.x; k < n_rows * P2_W / 4; k += blockDim.x) staged[k] = src[k];
-    __syncthreads();
-    tab = reinterpret_cast<const float*>(staged);
-  }
+__global__ void __launch_bounds__(TABLE_THREADS)
+    table_sum_kernel(const float* __restrict__ table, const int* __restrict__ idx, int n_idx,
+                     int rounds, float* __restrict__ out, unsigned long long* ctl,
+                     unsigned long long* words) {
+  unsigned long long ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(ctl, 1ull);   // comes back while the loads fly
   float acc = 0.0f;
-  for (int k = threadIdx.x; k < n_idx; k += blockDim.x) acc += tab[(size_t)idx[k] * P2_W];
-  block_sum_to(acc, out);
+  for (int r = 0; r < rounds; ++r) {
+    const int i = (blockIdx.x * rounds + r) * TABLE_THREADS + threadIdx.x;
+    const int k = i < n_idx ? __ldg(idx + i) : 0;
+    const float v = __ldg(table + (size_t)k * P2_W);
+    if (i < n_idx) acc += v;
+  }
+  publish_and_sum<TABLE_THREADS, TABLE_WORDS>(acc, ticket, out, ctl, words);
 }
 
-extern "C" int table_sum_launch(const float* table, int n_rows, const int* idx, int n_idx,
-                                float* out, int on_chip, void* stream) {
-  const int threads = 1024;
-  if (on_chip) {
-    // Raised outside a graph capture: the first call at each size comes
-    // before any capture of it.
-    static int allowed = 0;
-    const int bytes = n_rows * P2_W * 4;
-    if (bytes > allowed) {
-      cudaError_t e = cudaFuncSetAttribute(table_sum_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      if (e != cudaSuccess) return (int)e;
-      allowed = bytes;
+// On chip: the table lives in the distributed shared memory of one thread
+// block cluster of C blocks (cuda_probes.table_cluster_plan: 8, the
+// portable maximum, or 16 where 8 blocks cannot hold it), rank r holding
+// rows [r * per, r * per + per).  A rank stages its rows with one bulk copy
+// (cp.async.bulk global -> shared) that completes on an mbarrier armed
+// with its bytes, while its threads load their indices.  After
+// cluster.sync(), rank r takes the r-th of C slices of the indices and
+// reads column 0 of each row from the owning rank (map_shared_rank), every
+// read of a round in flight before the adds.  Each rank writes the tree of
+// its values into rank 0's shared memory, and after a second cluster.sync()
+// rank 0 adds the C partials in rank order and writes out.  No rank leaves
+// before that barrier, so none leaves while another reads its rows; rank 0
+// then reads only its own memory.  Staging falls C-fold a block against a
+// one-block table (24 KB a block at 192 KB), and a 192-byte row keeps every
+// copy a whole number of 16-byte granules.
+constexpr int TABLE_CL_THREADS = 256, TABLE_CL_VEC = 2, TABLE_CL_MAX = 16;
+constexpr int TABLE_CL_STEP = TABLE_CL_THREADS * TABLE_CL_VEC;
+
+__global__ void __launch_bounds__(TABLE_CL_THREADS)
+    table_sum_cluster_kernel(const float* __restrict__ table, int n_rows, int per,
+                             const int* __restrict__ idx, int n_idx, float* __restrict__ out) {
+  extern __shared__ __align__(16) float rows[];
+  __shared__ alignas(8) uint64_t bar;
+  __shared__ float partial[TABLE_CL_MAX];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), c = (int)cluster.num_blocks();
+  const int mine = max(0, min(per, n_rows - rank * per));
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(&bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (mine > 0) {
+      const uint32_t bytes = (uint32_t)mine * P2_W * 4;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(&bar)),
+                   "r"(bytes)
+                   : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];" ::"r"(smem_addr(rows)),
+          "l"(table + (size_t)rank * per * P2_W), "r"(bytes), "r"(smem_addr(&bar))
+          : "memory");
     }
-    table_sum_kernel<true><<<1, threads, bytes, (cudaStream_t)stream>>>(table, n_rows, idx,
-                                                                         n_idx, out);
-  } else {
-    table_sum_kernel<false><<<1, threads, 0, (cudaStream_t)stream>>>(table, n_rows, idx, n_idx,
-                                                                      out);
   }
+  // This rank's slice of the indices, [lo, hi), TABLE_CL_STEP a round;
+  // the first round's indices are loaded while the rows land.  A slot past
+  // hi reads row 0 and adds nothing.
+  const int each = (n_idx + c - 1) / c, lo = min(n_idx, rank * each), hi = min(n_idx, lo + each);
+  int k[TABLE_CL_VEC];
+  auto load_idx = [&](int first) {
+#pragma unroll
+    for (int j = 0; j < TABLE_CL_VEC; ++j) {
+      const int i = first + j * TABLE_CL_THREADS + (int)threadIdx.x;
+      k[j] = i < hi ? __ldg(idx + i) : 0;
+    }
+  };
+  load_idx(lo);
+  __syncthreads();   // the barrier is initialised before any thread waits on it
+  if (mine > 0) mbar_wait(smem_addr(&bar), 0);
+  cluster.sync();    // every rank's rows have landed
+  float acc = 0.0f;
+  for (int first = lo; first < hi; first += TABLE_CL_STEP) {
+    float v[TABLE_CL_VEC];
+#pragma unroll
+    for (int j = 0; j < TABLE_CL_VEC; ++j)
+      v[j] = cluster.map_shared_rank(rows, k[j] / per)[(k[j] % per) * P2_W];
+    if (first + TABLE_CL_STEP < hi) load_idx(first + TABLE_CL_STEP);
+#pragma unroll
+    for (int j = 0; j < TABLE_CL_VEC; ++j)
+      if (first + j * TABLE_CL_THREADS + (int)threadIdx.x < hi) acc += v[j];
+  }
+  const float total = block_tree<TABLE_CL_THREADS>(acc);
+  if (threadIdx.x == 0) *cluster.map_shared_rank(&partial[rank], 0) = total;
+  cluster.sync();    // every partial is in rank 0; no rank reads another's rows after this
+  if (rank == 0 && threadIdx.x == 0) {
+    float sum = 0.0f;
+    for (int q = 0; q < c; ++q) sum += partial[q];
+    out[0] = sum;
+  }
+}
+
+// Raised once, at the first call of either entry (before any graph
+// capture): the largest staging a rank may take, and clusters of 16.
+static cudaError_t table_cluster_ready() {
+  static bool ready = false;
+  if (ready) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(table_sum_cluster_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       UWPT_TABLE_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(table_sum_cluster_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  ready = e == cudaSuccess;
+  return e;
+}
+
+static cudaLaunchConfig_t table_cluster_config(int c, int per, cudaLaunchAttribute* attr,
+                                               cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(c, 1, 1);
+  cfg.blockDim = dim3(TABLE_CL_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)per * P2_W * 4;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// on_chip: blocks = the cluster's C, per = rows a rank (scratch unused);
+// else: blocks and per = rounds a block, scratch the sum's (a control word,
+// then a word a block).  The plan is cuda_probes.table_plan's or
+// table_cluster_plan's; the entry checks that it covers the work.
+extern "C" int table_sum_launch(const float* table, int n_rows, const int* idx, int n_idx,
+                                float* out, int on_chip, int blocks, int per, void* scratch,
+                                int scratch_words, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (n_rows < 1 || n_idx < 0 || blocks < 1 || per < 1) return (int)cudaErrorInvalidValue;
+  if (on_chip) {
+    if (blocks > TABLE_CL_MAX || (long long)blocks * per < n_rows ||
+        (long long)per * P2_W * 4 > UWPT_TABLE_SMEM || (uintptr_t)table % 16)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = table_cluster_ready();
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = table_cluster_config(blocks, per, &attr, st);
+    e = cudaLaunchKernelEx(&cfg, table_sum_cluster_kernel, table, n_rows, per, idx, n_idx, out);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  if (blocks > UWPT_TABLE_MAX_BLOCKS ||
+      (long long)blocks * per * TABLE_THREADS < n_idx || scratch_words < 1 + blocks)
+    return (int)cudaErrorInvalidValue;
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  table_sum_kernel<<<blocks, TABLE_THREADS, 0, st>>>(table, idx, n_idx, per, out, words,
+                                                     words + 1);
   return (int)cudaGetLastError();
+}
+
+// How many clusters of c blocks, each staging per rows, the card can hold
+// at once (cudaOccupancyMaxActiveClusters), into *count; 0: none fits.
+extern "C" int table_sum_max_clusters(int c, int per, int* count) {
+  cudaError_t e = table_cluster_ready();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = table_cluster_config(c, per, &attr, 0);
+  return (int)cudaOccupancyMaxActiveClusters(count, table_sum_cluster_kernel, &cfg);
 }
 
 // ---------------------------------------------------------------- P3
 // A Schlick-like chain (round2_probe.py shade_pallas): 40 blocks of a pow
 // chain, sqrt, abs and remainder per element, one thread per element,
 // unrolled.  jnp.remainder of a non-negative value is fmodf.  Bound:
-// f32 operations (17 per block).
+// operations (17 f32 operations a block at the issue rate, sqrt and the
+// remainder one each): 262,144 lanes fill the card with ~62 warps an SM,
+// so latency is hidden and instruction issue binds (two lanes a thread
+// measured slower).  CUDA's fmodf is a general loop over the exponent
+// difference with special cases; the chain only divides |acc * 0.3 + 0.1|
+// by 0.9, so rem09_short takes a few instructions and is exact for
+// 0 <= a < REM_LIMIT: q is the nearest integer to a * INV (INV the
+// f32-rounded 1 / 0.9f; adding and taking away 1.5 * 2^23 rounds to an
+// integer, exactly below 2^22), so |a / 0.9f - q| < 1/2 + 2^-12 and
+// r = a - q * 0.9f lies in (-0.9f, 0.9f).  q = 0 gives r = a.  q >= 1
+// needs a > 0.44, and there a and 0.9f are multiples of 2^-25, so r is
+// too: where a >= 0.5 both are multiples of 2^-24 and |r| < 1, and where
+// a < 0.5, q = 1 and |r| = 0.9f - a lies in (0.4, 0.46], below 0.5.
+// Either way r is a float, which the explicit fma does not round.  One
+// correction (r < 0: r + 0.9f, again exact) lands on
+// fmod's result.  q = 0 gives a itself, denormals included (no flush to
+// zero in this build).  rem09 adds the general case (at or above
+// REM_LIMIT, Inf, NaN): fmodf, out of line (inlined in every block it
+// slowed every block).  remainder_check_launch holds rem09 against fmodf
+// on every non-negative bit pattern.
+//
+// The first block runs with rem09.  After it v lies in [0.05, 0.95), so
+// each later block adds to acc between 0 and 1.7 (f <= 0.95^5, g < 0.952);
+// where |acc| < REM_SAFE_ACC then, every later dividend stays below
+// 0.3 * (REM_SAFE_ACC + 39 * 1.7) + 0.1 < 320 < REM_LIMIT, and the 39 later
+// blocks take rem09_short with no test or branch.  Any other lane (an input
+// far outside [0, 1], Inf or NaN) runs them with rem09.  IEEE sqrtf stays
+// (torch.sqrt's rounding).
+constexpr float REM_D = UWPT_REM_DIVISOR, REM_INV = UWPT_REM_INV, REM_LIMIT = UWPT_REM_LIMIT;
+constexpr float REM_ROUND = 12582912.0f;   // 1.5 * 2^23
+constexpr float REM_SAFE_ACC = 1000.0f;
+
+__device__ __noinline__ float fmod_general(float a) { return fmodf(a, REM_D); }
+
+__device__ __forceinline__ float rem09_short(float a) {
+  const float q = (a * REM_INV + REM_ROUND) - REM_ROUND;
+  float r = __fmaf_rn(-q, REM_D, a);   // -fmad=false stops only contraction
+  if (r < 0.0f) r += REM_D;
+  return r;
+}
+
+__device__ __forceinline__ float rem09(float a) {
+  return a < REM_LIMIT ? rem09_short(a) : fmod_general(a);
+}
+
+// One block of the chain; CHECKED: its remainder by rem09, else by
+// rem09_short.
+template <bool CHECKED>
+__device__ __forceinline__ void schlick_block(float& v, float& acc) {
+  const float w = 1.0f - v;
+  const float w2 = w * w;
+  const float f = w2 * w2 * w;
+  const float g = sqrtf(fabsf(v * 0.9f + 0.05f));
+  acc = acc + f * g + v * (1.0f - f);
+  const float a = fabsf(acc * 0.3f + 0.1f);
+  v = (CHECKED ? rem09(a) : rem09_short(a)) + 0.05f;
+}
+
 __global__ void schlick_chain_kernel(const float* __restrict__ x, float* __restrict__ out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float v = x[i], acc = 0.0f;
+  schlick_block<true>(v, acc);
+  if (fabsf(acc) < REM_SAFE_ACC) {
 #pragma unroll
-  for (int k = 0; k < 40; ++k) {
-    const float w = 1.0f - v;
-    const float w2 = w * w;
-    const float f = w2 * w2 * w;
-    const float g = sqrtf(fabsf(v * 0.9f + 0.05f));
-    acc = acc + f * g + v * (1.0f - f);
-    v = fmodf(fabsf(acc * 0.3f + 0.1f), 0.9f) + 0.05f;
+    for (int k = 1; k < 40; ++k) schlick_block<false>(v, acc);
+  } else {
+#pragma unroll
+    for (int k = 1; k < 40; ++k) schlick_block<true>(v, acc);
   }
   out[i] = acc;
 }
@@ -231,6 +490,40 @@ extern "C" int schlick_chain_launch(const float* x, float* out, int n, void* str
   if (n > 0)
     schlick_chain_kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(x, out,
                                                                                            n);
+  return (int)cudaGetLastError();
+}
+
+// rem09 against fmodf(a, 0.9f) on the count bit patterns first, first + 1,
+// ... (as uint32; 2^31 from 0: every non-negative float, Inf and NaN
+// included): bits equal, or both NaN.  Adds the mismatches to *mismatches.
+constexpr int REM_CHECK_THREADS = 256, REM_CHECK_PER = 8;
+
+__global__ void __launch_bounds__(REM_CHECK_THREADS)
+    remainder_check_kernel(long long first, long long count,
+                           unsigned long long* __restrict__ mismatches) {
+  const long long start =
+      ((long long)blockIdx.x * REM_CHECK_THREADS * REM_CHECK_PER) + threadIdx.x;
+  unsigned bad = 0;
+#pragma unroll
+  for (int j = 0; j < REM_CHECK_PER; ++j) {
+    const long long i = start + (long long)j * REM_CHECK_THREADS;
+    if (i >= count) break;
+    const float a = __uint_as_float((uint32_t)(first + i));
+    const float r = rem09(a), f = fmodf(a, REM_D);
+    bad += !(__float_as_uint(r) == __float_as_uint(f) || (r != r && f != f));
+  }
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && bad) atomicAdd(mismatches, (unsigned long long)bad);
+}
+
+extern "C" int remainder_check_launch(long long first, long long count, void* mismatches,
+                                      void* stream) {
+  if (first < 0 || count < 0 || first + count > (1ll << 32)) return (int)cudaErrorInvalidValue;
+  const long long per_block = (long long)REM_CHECK_THREADS * REM_CHECK_PER;
+  const long long blocks = (count + per_block - 1) / per_block;
+  if (blocks > 0)
+    remainder_check_kernel<<<(unsigned)blocks, REM_CHECK_THREADS, 0, (cudaStream_t)stream>>>(
+        first, count, static_cast<unsigned long long*>(mismatches));
   return (int)cudaGetLastError();
 }
 
@@ -555,14 +848,6 @@ static_assert(SCAN_VEC >= 1 && SCAN_VEC * SCAN_THREADS * 4 == UWPT_SCAN_TILE,
               "a tile is a whole number of 16-byte vectors a thread");
 constexpr uint32_t SCAN_AGGREGATE = 1, SCAN_PREFIX = 2, SCAN_EPOCH_MASK = 0x3FFFFFFFu;
 
-__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
 // Bits 0-31 the value, 32-33 the status (0: not yet), 34-63 the epoch.
 __device__ __forceinline__ unsigned long long scan_word(uint32_t epoch, uint32_t status,
                                                         uint32_t value) {
@@ -706,42 +991,15 @@ extern "C" int cumsum_i32_launch(const int* x, int* out, int n, void* scratch, i
 // the b-th slice of the input, cut by n alone (cuda_probes.sum_plan): one
 // round of SUM_VEC 16-byte vectors a thread (4,096 elements a block) up to
 // UWPT_SUM_MAX_BLOCKS blocks, more rounds a block beyond that.  A thread
-// issues a round's loads together, then adds them in order; the block's
-// threads are summed by a shuffle tree in each warp and one over the
-// warps' sums (sum_tree).  Each block publishes its partial in one 64-bit
-// word beside the call's tag, relaxed, with no fence: the block that took
-// the last ticket waits on each word's tag instead, then sums the partials
-// in block order the same way and writes out.  It took its ticket last,
-// so every block it waits on has started and waits on nothing.  The order
-// depends on n alone, so every call gives the same bits, and the plain
-// version (cuda_probes.sum_scalar_plain) follows it op for op.  Tickets
-// are taken at the start, while the loads fly.  The scratch
-// (ops/cuda_probes.py, one per kernel, device and stream, zeroed once) is the
-// scan's layout: a control word (ticket low, epoch high), then a word a
-// block.  It resets itself as the scan's does, and a word's tag is the
-// epoch plus one, so a zeroed word never reads as published.
+// issues a round's loads together, then adds them in order; the blocks'
+// values are summed by publish_and_sum (above).  Tickets are taken at the
+// start, while the loads fly.  The order depends on n alone, so the plain
+// version (cuda_probes.sum_scalar_plain) follows it op for op.
 constexpr int SUM_THREADS = UWPT_SUM_THREADS, SUM_VEC = UWPT_SUM_VEC;
-constexpr int SUM_WARPS = SUM_THREADS / 32, SUM_SLICE = SUM_THREADS * SUM_VEC * 4;
+constexpr int SUM_SLICE = SUM_THREADS * SUM_VEC * 4;
 constexpr int SUM_WORDS = UWPT_SUM_MAX_BLOCKS / SUM_THREADS;   // the last block's, a thread
-constexpr uint32_t SUM_EPOCH_MASK = 0x7FFFFFFFu;
-static_assert(SUM_THREADS % 32 == 0 && SUM_WARPS <= 32 && (SUM_WARPS & (SUM_WARPS - 1)) == 0,
-              "whole warps, a power of two of them");
 static_assert(SUM_WORDS >= 1 && SUM_WORDS * SUM_THREADS == UWPT_SUM_MAX_BLOCKS,
               "the last block's threads read the partials in whole rounds");
-
-// The sum of the block's values v, in thread 0: a shuffle tree in each
-// warp (lane l adds lane l + off), then one over the warps' sums in warp 0.
-__device__ __forceinline__ float sum_tree(float v) {
-  __shared__ float warp_sum[SUM_WARPS];
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    v = threadIdx.x < SUM_WARPS ? warp_sum[threadIdx.x] : 0.0f;
-    for (int off = SUM_WARPS / 2; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
 
 __device__ __forceinline__ float4 load4_or_zero(const float* x, size_t i, int n) {
   if (i + 4 <= (size_t)n) return *reinterpret_cast<const float4*>(x + i);
@@ -752,7 +1010,6 @@ __device__ __forceinline__ float4 load4_or_zero(const float* x, size_t i, int n)
 __global__ void __launch_bounds__(SUM_THREADS)
     sum_scalar_kernel(const float* __restrict__ x, int n, int rounds, float* __restrict__ out,
                       unsigned long long* ctl, unsigned long long* words) {
-  __shared__ uint32_t s_tag, s_last;
   unsigned long long ticket = 0;
   if (threadIdx.x == 0) ticket = atomicAdd(ctl, 1ull);   // comes back while the loads fly
   float acc = 0.0f;
@@ -770,33 +1027,7 @@ __global__ void __launch_bounds__(SUM_THREADS)
       acc += q[v].w;
     }
   }
-  if (threadIdx.x == 0) {
-    const uint32_t epoch = (uint32_t)(ticket >> 32);
-    s_tag = epoch + 1;
-    s_last = (uint32_t)ticket == gridDim.x - 1;
-    // Every block has its ticket and epoch once the last ticket is taken.
-    if (s_last) atomicExch(ctl, (unsigned long long)((epoch + 1) & SUM_EPOCH_MASK) << 32);
-  }
-  const float total = sum_tree(acc);   // its barrier publishes s_tag and s_last
-  const unsigned long long tag = s_tag;
-  if (threadIdx.x == 0) st_relaxed(&words[blockIdx.x], tag << 32 | __float_as_uint(total));
-  if (!s_last) return;
-  __syncthreads();   // warp 0 is done with warp_sum before sum_tree fills it again
-  unsigned long long w[SUM_WORDS];
-#pragma unroll
-  for (int k = 0; k < SUM_WORDS; ++k) {
-    const int j = k * SUM_THREADS + threadIdx.x;
-    w[k] = j < (int)gridDim.x ? ld_relaxed(&words[j]) : tag << 32;
-  }
-  float part = 0.0f;
-#pragma unroll
-  for (int k = 0; k < SUM_WORDS; ++k) {
-    const int j = k * SUM_THREADS + threadIdx.x;
-    while ((w[k] >> 32) != tag) w[k] = ld_relaxed(&words[j]);
-    if (j < (int)gridDim.x) part += __uint_as_float((uint32_t)w[k]);
-  }
-  const float sum = sum_tree(part);
-  if (threadIdx.x == 0) out[0] = sum;
+  publish_and_sum<SUM_THREADS, SUM_WORDS>(acc, ticket, out, ctl, words);
 }
 
 extern "C" int sum_scalar_launch(const float* x, int n, int blocks, int rounds, float* out,

@@ -86,6 +86,13 @@ def time_ms(fn, reps: int = 100) -> float:
     return start.elapsed_time(end) / (replays * CALLS)
 
 
+def launch_floor_ms(device=None, reps: int = 100) -> float:
+    """``time_ms`` of the least kernel: one element incremented in place.
+    What a probe takes above it is what its own work costs."""
+    one = torch.zeros(1, device=cuda_device(device))
+    return time_ms(lambda: one.add_(1.0), reps)
+
+
 def time_ms_out(fn, reps: int = 100) -> tuple[float, object]:
     """``time_ms`` of ``fn``, and the output of the last captured call as
     the last replay left it: a check of it finds what one call leaves

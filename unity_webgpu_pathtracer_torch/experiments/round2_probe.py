@@ -9,13 +9,17 @@ gathers beside the PyTorch calls that compute what they compute:
   16-slot ring leaves it, checked after the first call and after the
   timed replays;
 * ``vmem_gather`` (P2): 4,096 dynamic row reads from a (N, 48) table held
-  in one block's shared memory.  One block holds at most 227 KB, so the
-  tables on chip are 24, 48, 96 and 192 KB; the original's 2-24 MB run as
-  the same reads from device memory (held by the 50 MB L2).  Its library
-  call is ``table_sum_library``, one ``embedding_bag`` that computes
-  sum_k table[idx[k], 0], checked exact against the plain version;
+  in the distributed shared memory of a thread block cluster (24, 48, 96
+  and 192 KB on 8 blocks, 2 MB on 16) or read from device memory (the
+  original's 2-24 MB, held by the 50 MB L2), each size beside the launch
+  floor (``_common.launch_floor_ms``).  Its library call is
+  ``table_sum_library``, one ``embedding_bag`` that computes sum_k
+  table[idx[k], 0], checked exact against the plain version;
   ``tab[li, 0].sum()``, two calls, is timed beside it;
-* ``shade`` (P3): 40 blocks of a Schlick-like chain over (2048, 128).
+* ``shade`` (P3): 40 blocks of a Schlick-like chain over (2048, 128),
+  bit for bit against its plain version, and its remainder by 0.9f
+  against fmodf on every non-negative f32 bit pattern
+  (``cuda_probes.remainder_check``).
 
     python -m unity_webgpu_pathtracer_torch.experiments.round2_probe
 """
@@ -26,13 +30,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device, max_err, row,
+from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device,
+                                                              launch_floor_ms, max_err, row,
                                                               time_ms, time_ms_out)
 from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
 
 DMA_MB, DMA_CHUNKS = (8, 87, 232), (1024, 8192)
 VMEM_MB = (2, 8, 12, 16, 24)
-SMEM_KB = (24, 48, 96, 192)
+SMEM_KB = (24, 48, 96, 192)   # tables on a cluster of 8 blocks
+CLUSTER_MB = (2,)             # tables on a cluster of 16 blocks
 VMEM_CHUNK = 4096
 SHADE_B = 262144
 SCHLICK_OPS = 17      # f32 operations per block and element (sqrt, fmod as one)
@@ -82,7 +88,9 @@ def dma_gather(dev) -> list[dict]:
 
 def vmem_gather(dev) -> list[dict]:
     rows = []
+    floor = launch_floor_ms(dev)
     sizes = [(kb * 1024 // (cp.TABLE_W * 4), f"{kb}KB on chip", True) for kb in SMEM_KB]
+    sizes += [(int(mb * 1e6 / (cp.TABLE_W * 4)), f"{mb}MB on chip", True) for mb in CLUSTER_MB]
     sizes += [(int(mb * 1e6 / (cp.TABLE_W * 4)), f"{mb}MB in device memory", False)
               for mb in VMEM_MB]
     for n, label, on_chip in sizes:
@@ -92,15 +100,18 @@ def vmem_gather(dev) -> list[dict]:
         got, want = cp.table_sum(tab, idx, on_chip), cp.table_sum_plain(tab, idx)
         if not torch.equal(table_sum_library(tab, li, bag), want):
             raise AssertionError(f"table_sum_library disagrees with table_sum_plain at {label}")
-        ms = time_ms(lambda: cp.table_sum(tab, idx, on_chip))
+        ms, again = time_ms_out(lambda: cp.table_sum(tab, idx, on_chip))
         distinct = int(torch.unique(idx).numel())
+        plan = (dict(cluster=cp.table_cluster_plan(n)[0]) if on_chip
+                else dict(blocks=cp.table_plan(VMEM_CHUNK)[0]))
         rows.append(row(f"vmem_gather table={label} chunk={VMEM_CHUNK}",
                         "table_sum_smem" if on_chip else "table_sum_global", ms,
                         time_ms(lambda: cp.table_sum_plain(tab, idx)), ms * 1e6 / VMEM_CHUNK,
                         "row", distinct * 4 + VMEM_CHUNK * 4 + 4, VMEM_CHUNK,
-                        max_err(got, want), bool(torch.equal(got, want)), "exact",
+                        max(max_err(got, want), max_err(again, want)),
+                        torch.equal(got, want) and torch.equal(again, want), "exact",
                         library_ms=time_ms(lambda: table_sum_library(tab, li, bag)),
-                        two_calls_ms=time_ms(lambda: tab[li, 0].sum())))
+                        two_calls_ms=time_ms(lambda: tab[li, 0].sum()), floor_ms=floor, **plan))
     return rows
 
 
@@ -108,12 +119,13 @@ def shade(dev) -> list[dict]:
     x = torch.from_numpy(np.linspace(0.1, 0.9, SHADE_B).astype(np.float32)
                          .reshape(SHADE_B // 128, 128)).to(dev)
     got, want = cp.schlick_chain(x), cp.schlick_chain_plain(x)
-    ok = torch.allclose(got, want, rtol=1e-5, atol=1e-6)
+    mismatches = cp.remainder_check(device=dev)
     ms = time_ms(lambda: cp.schlick_chain(x))
     return [row(f"shade 40-block chain B={SHADE_B}", "schlick_chain", ms,
                 time_ms(lambda: cp.schlick_chain_plain(x)), ms * 1e6 / SHADE_B, "lane",
                 2 * x.nbytes, SCHLICK_OPS * cp.SCHLICK_BLOCKS * SHADE_B, max_err(got, want),
-                bool(ok), "rtol 1e-5, atol 1e-6")]
+                torch.equal(got, want) and mismatches == 0, "exact",
+                remainder_mismatches=mismatches)]
 
 
 def run(device=None) -> list[dict]:
@@ -127,6 +139,10 @@ def main() -> None:
         lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
         if "two_calls_ms" in r:
             lib += f", tab[li, 0].sum() (two calls) {r['two_calls_ms']:.4f} ms"
+        if "floor_ms" in r:
+            lib += f"; launch floor {r['floor_ms']:.4f} ms"
+        if "remainder_mismatches" in r:
+            lib += f"; remainder vs fmodf: {r['remainder_mismatches']} mismatches of 2^31"
         print(f"{r['name']}: {r['ms']:.4f} ms ({r['ns_per']:.2f} ns/{r['per']}); plain "
               f"{r['plain_ms']:.4f} ms{lib}; bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
               f"max abs err {r['max_abs_err']:g} ({r['tol']})")

@@ -27,7 +27,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C entry points of each source and their argument types; every entry
 # returns a CUDA error code, and every library has ``cuda_error_string``.
 ENTRIES = {
@@ -50,8 +50,11 @@ ENTRIES = {
     },
     "probes": {                                          # the experiments/ probes
         "ring_gather_launch": [_P, _P, _I, _P, _P],      # table, idx, chunk, out, stream
-        "table_sum_launch": [_P, _I, _P, _I, _P, _I, _P],
+        # table, rows, idx, n_idx, out, on_chip, blocks, per, scratch, its words, stream
+        "table_sum_launch": [_P, _I, _P, _I, _P, _I, _I, _I, _P, _I, _P],
+        "table_sum_max_clusters": [_I, _I, _P],          # cluster, rows a rank, count out
         "schlick_chain_launch": [_P, _P, _I, _P],
+        "remainder_check_launch": [_L, _L, _P, _P],      # first, count, mismatches, stream
         "lobe_chain_launch": [_P, _P, _I, _I, _P],
         "cluster_gather_launch": [_P, _P, _I, _P, _P],
         "intrinsic_launch": [_I, _P, _P, _P, _I, _P],    # op, a, b, out, n, stream
@@ -84,11 +87,13 @@ def _defines() -> list[str]:
                 MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
                 K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS, K2_THREADS=ct.K2_THREADS,
                 SCAN_TILE=cp.SCAN_TILE, SUM_THREADS=cp.SUM_THREADS, SUM_VEC=cp.SUM_VEC,
-                SUM_MAX_BLOCKS=cp.SUM_MAX_BLOCKS,
+                SUM_MAX_BLOCKS=cp.SUM_MAX_BLOCKS, TABLE_THREADS=cp.TABLE_THREADS,
+                TABLE_MAX_BLOCKS=cp.TABLE_MAX_BLOCKS, TABLE_SMEM=cp.TABLE_SMEM,
                 **{f"PROBE_{m.upper()}": k for m, k in ca.PROBE_NUMBERS.items()},
                 **{f"OP_{op.upper()}": k for k, op in enumerate(cp.INTRINSICS)})
     floats = dict(FAR_PLANE=FAR_PLANE, DET_EPS=tw.DET_EPS, T_MIN=tw.T_MIN,
-                  SURF_EPSILON=EPSILON)
+                  SURF_EPSILON=EPSILON, REM_DIVISOR=cp.REM_DIVISOR, REM_INV=cp.REM_INV,
+                  REM_LIMIT=cp.REM_LIMIT)
     return ([f"-DUWPT_{k}={v}" for k, v in ints.items()]
             # double literal cast to float: the rounding numpy's float32() does
             + [f"-DUWPT_{k}=((float){float(v)!r})" for k, v in floats.items()])

@@ -11,6 +11,9 @@ bf16 leaf decode) are ``cuda_arrival.arrival_probe_cuda``.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.ops import cuda_build
@@ -25,7 +28,20 @@ SUM_THREADS, SUM_VEC = 256, 4         # P9: a block's threads, 16-byte vectors a
 SUM_MAX_BLOCKS = 1024                 # P9: blocks a call, beyond which a block takes more rounds
 SUM_SLICE = SUM_THREADS * SUM_VEC * 4   # P9: elements a block reads a round
 TABLE_W = 48                          # P2: row floats
-SMEM_BYTES = 232_448                  # P2: the most shared memory one block can use
+TABLE_THREADS = 128                   # P2 in device memory: a block's threads, one index each a round
+TABLE_MAX_BLOCKS = 1024               # P2 in device memory: blocks a call, beyond which more rounds
+# P2 on chip: a cluster of 8 blocks (the portable maximum), or 16 (a
+# non-portable size) where 8 cannot hold the table; each rank stages its
+# rows in at most TABLE_SMEM bytes of dynamic shared memory (the 232,448
+# bytes a block can use, less 1 KB for its static shared memory).
+TABLE_CLUSTERS = (8, 16)
+TABLE_SMEM = 232_448 - 1024
+TABLE_ROWS_MAX = TABLE_CLUSTERS[-1] * (TABLE_SMEM // (TABLE_W * 4))   # rows on chip at most
+# P3's remainder by 0.9f (csrc/probes.cu ``rem09``): the f32 divisor, its
+# f32-rounded reciprocal, and the dividend below which the short form runs.
+REM_DIVISOR = float(np.float32(0.9))
+REM_INV = float(np.float32(1.0) / np.float32(0.9))
+REM_LIMIT = 2048.0
 TREE_ROWS, TREE_COLS = 4096, 96       # P7: the table held on chip
 SCHLICK_BLOCKS, LOBE_REPEATS, STEPS = 40, 64, 32
 
@@ -86,21 +102,70 @@ def table_sum_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx.long(), 0].sum().reshape(1, 1)
 
 
+def table_plan(n_idx: int) -> tuple[int, int]:
+    """(blocks, rounds) of P2 in device memory over n_idx indices: slices
+    of ``TABLE_THREADS`` indices, at most ``TABLE_MAX_BLOCKS`` blocks of
+    whole rounds."""
+    slices = max(1, -(-n_idx // TABLE_THREADS))
+    rounds = -(-slices // TABLE_MAX_BLOCKS)
+    return -(-slices // rounds), rounds
+
+
+def table_cluster_plan(n_rows: int) -> tuple[int, int]:
+    """(blocks of the cluster, rows a rank stages) of P2 on chip: the first
+    cluster size of ``TABLE_CLUSTERS`` whose ranks hold the table in
+    ``TABLE_SMEM`` bytes each; raises if none does."""
+    for c in TABLE_CLUSTERS:
+        per = max(1, -(-n_rows // c))
+        if per * TABLE_W * 4 <= TABLE_SMEM:
+            return c, per
+    raise ValueError(f"a table of {n_rows} rows ({n_rows * TABLE_W * 4} bytes) does not fit "
+                     f"a cluster's shared memory ({TABLE_ROWS_MAX} rows at most)")
+
+
 def table_sum(table: torch.Tensor, idx: torch.Tensor, on_chip: bool) -> torch.Tensor:
-    """(1, 1): the sum of ``table[idx[k], 0]``, the (N, 48) table staged in
-    one block's shared memory (``on_chip``) or read from device memory."""
+    """(1, 1): the sum of ``table[idx[k], 0]`` (indices in [0, N)) in one
+    launch, the (N, 48) table held in a cluster's distributed shared memory
+    (``on_chip``; N at most ``TABLE_ROWS_MAX``, the table on a 16-byte
+    boundary) or read from device memory by blocks whose sums meet in the
+    last one; the same bits on every call."""
     dev = _device(table)
-    cuda_build.check_tensor(table, "table", torch.float32, (table.shape[0], TABLE_W), dev)
+    n = table.shape[0]
+    cuda_build.check_tensor(table, "table", torch.float32, (n, TABLE_W), dev)
     cuda_build.check_tensor(idx, "idx", torch.int32, (idx.shape[0],), dev)
-    if on_chip and table.nbytes > SMEM_BYTES - 1024:
-        raise ValueError(f"a {table.nbytes}-byte table does not fit one block's shared memory")
+    if n < 1:
+        raise ValueError("table_sum: an empty table")
+    if on_chip:
+        blocks, per = table_cluster_plan(n)
+        _check_aligned(table, "table")
+    else:
+        blocks, per = table_plan(idx.shape[0])
     if dev.type == "cpu":
         return table_sum_plain(table, idx)
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
-    name = "table_sum_smem" if on_chip else "table_sum_global"
-    _launch(name, "table_sum_launch", table, table.data_ptr(), table.shape[0], idx.data_ptr(),
-            idx.shape[0], out.data_ptr(), int(on_chip))
+    scratch = None if on_chip else _scratch("table", dev, 1 + blocks)
+    _launch("table_sum_smem" if on_chip else "table_sum_global", "table_sum_launch", table,
+            table.data_ptr(), n, idx.data_ptr(), idx.shape[0], out.data_ptr(), int(on_chip),
+            blocks, per, 0 if scratch is None else scratch.data_ptr(),
+            0 if scratch is None else scratch.numel())
     return out
+
+
+def table_max_clusters(n_rows: int, device=None) -> tuple[int, int, int]:
+    """(cluster size, rows a rank, clusters the card can hold at once) for
+    P2 on chip over an n_rows table: ``cudaOccupancyMaxActiveClusters`` of
+    the on-chip kernel at ``table_cluster_plan(n_rows)``; 0 clusters means
+    the card cannot place one."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"table_max_clusters asks a CUDA device, not {dev}")
+    c, per = table_cluster_plan(n_rows)
+    lib = cuda_build.load()["probes"]
+    count = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        cuda_build.check(lib, lib.table_sum_max_clusters(c, per, ctypes.byref(count)),
+                         "table_sum_max_clusters")
+    return c, per, count.value
 
 
 # ---- P3: Schlick-like chain (round2_probe.py:271) ----
@@ -125,6 +190,53 @@ def schlick_chain(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     _launch("schlick_chain", "schlick_chain_launch", x, x.data_ptr(), out.data_ptr(), x.numel())
     return out
+
+
+def rem09_plain(a: torch.Tensor) -> torch.Tensor:
+    """csrc/probes.cu ``rem09`` of non-negative f32 ``a`` op for op: below
+    ``REM_LIMIT`` q = (a * INV + 1.5 * 2^23) - 1.5 * 2^23 in f32, the fma
+    a - q * 0.9f in float64 (exact for these operands) rounded once to
+    f32, one correction; at or above it, and for Inf and NaN,
+    ``torch.fmod``."""
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    d, m = f32(REM_DIVISOR), f32(1.5 * 2**23)
+    q = (a * f32(REM_INV) + m) - m
+    r = (a.double() - q.double() * REM_DIVISOR).float()
+    r = torch.where(r < 0.0, r + d, r)
+    return torch.where(a < REM_LIMIT, r, torch.fmod(a, d))
+
+
+def remainder_check(first: int = 0, count: int = 2**31, device=None,
+                    chunk: int = 1 << 22) -> int:
+    """Mismatches between P3's remainder ``rem09`` and fmod by 0.9f over
+    the ``count`` f32 bit patterns from ``first`` (as uint32; by default
+    every non-negative float, Inf and NaN included): bits equal or both
+    NaN.  On a CUDA device one launch of ``remainder_check_kernel``; on the
+    CPU ``rem09_plain`` against ``torch.fmod``, ``chunk`` patterns at a
+    time."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if first < 0 or count < 0 or first + count > 2**32:
+        raise ValueError(f"remainder_check: patterns [{first}, {first + count}) outside uint32")
+    if dev.type == "cpu":
+        bad = 0
+        d = torch.tensor(REM_DIVISOR, dtype=torch.float32)
+        for lo in range(first, first + count, chunk):
+            bits = torch.arange(lo, min(lo + chunk, first + count), dtype=torch.int64)
+            a = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+            r, f = rem09_plain(a), torch.fmod(a, d)
+            same = (r.view(torch.int32) == f.view(torch.int32)) | (r.isnan() & f.isnan())
+            bad += int((~same).sum())
+        return bad
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    got = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = cuda_build.load()["probes"]
+    cuda_build.check(lib, lib.remainder_check_launch(first, count, got.data_ptr(),
+                                                     torch.cuda.current_stream(dev).cuda_stream),
+                     "remainder_check")
+    return int(got.item())
 
 
 # ---- P6: Disney lobe chain, f32 or bf16 (round18_bf16_shade_probe.py:78) ----
@@ -264,15 +376,15 @@ def intrinsic(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.
     return out
 
 
-# The scratch of the one-launch kernels (the scan, the sum) by kernel,
-# device and stream: an int64 control word (the ticket and the call's
-# epoch), then a word a tile or block.  Zeroed once; every call leaves it
-# ready for the next (csrc/probes.cu).  Calls on one stream are ordered by
-# it, so they may share a scratch; calls on two streams may run at once,
-# so they must not; the two kernels tag their words differently, so each
-# has its own.  A scratch outgrown by a larger call is kept, never freed:
-# a CUDA graph that captured a call holds its address for as long as it
-# replays.
+# The scratch of the one-launch kernels (the scan, the sum, P2 in device
+# memory) by kernel, device and stream: an int64 control word (the ticket
+# and the call's epoch), then a word a tile or block.  Zeroed once; every
+# call leaves it ready for the next (csrc/probes.cu).  Calls on one stream
+# are ordered by it, so they may share a scratch; calls on two streams may
+# run at once, so they must not; each kernel has its own, since one call's
+# words must never read as another kernel's.  A scratch outgrown by a
+# larger call is kept, never freed: a CUDA graph that captured a call holds
+# its address for as long as it replays.
 _SCRATCH: dict[tuple[str, torch.device, int], torch.Tensor] = {}
 _OUTGROWN: list[torch.Tensor] = []
 
@@ -298,7 +410,7 @@ def sum_plan(n: int) -> tuple[int, int]:
 
 
 def _sum_tree(v: torch.Tensor) -> torch.Tensor:
-    """csrc/probes.cu ``sum_tree`` over the last dimension (a block's
+    """csrc/probes.cu ``block_tree`` over the last dimension (a block's
     threads): lane l adds lane l + off within each warp, then the same
     over the warps' sums."""
     v = v.reshape(*v.shape[:-1], -1, 32)
