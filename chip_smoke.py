@@ -11,10 +11,12 @@ Phases, each printing one or more lines:
    (one nvcc per source, all at once);
 2. kernel K1 (wide16 arrival) against its plain twin, on the card, on a
    lane state captured from a real 1920x1080 pass over the 1M-triangle
-   benchmark scene (pool 98,304): the one-arrival kernel on the state of
-   the pass's 27th arrival, and the multi-arrival kernel (the one the
-   render paths launch: te arrivals, the state updated in place) on the
-   start state of super-iteration 4, max abs error 0 on every field;
+   benchmark scene (pool 98,304): one arrival out of place on the state
+   of the pass's 27th arrival (``arrival_step16_cuda``: a copy of the
+   state and one launch of the multi-arrival kernel at steps = 1), and the
+   multi-arrival kernel (the one the render paths launch: te arrivals, the
+   state updated in place) on the start state of super-iteration 4, max
+   abs error 0 on every field;
 3. kernel K2 (``transition16``: the env sample, the attribute and
    material fetch and the transition, in place) against its plain version
    on the states before the transitions of super-iterations 4, 150 and 151
@@ -83,16 +85,18 @@ Phases, each printing one or more lines:
     pool as a super-iteration calls
     them (``round18_mosaic_probe.reductions``, priced a super-iteration by
     the calls phase 4's profile counted), then K1's probe
-    modes (the kernel diet, in place, each mode bounded by its own bytes
-    and timed with the L2 flushed after each restore and warm; and the
-    bf16 leaf decode) on states of phase 2's pass at its 27th arrival (the third of
+    modes (in place, timed with the L2 flushed after each restore and
+    warm: the kernel diet, each mode bounded by its own bytes; and the
+    bf16 leaf decode, one arrival of the multi-arrival kernel on the row
+    plane, bounded by its in-place bytes, the out-of-place yardstick
+    logged beside it) on states of phase 2's pass at its 27th arrival (the third of
     super-iteration 4), its 1,200th (the last of super-iteration 150,
     about halfway, when most lanes have ended their segment) and its
     1,203rd (the third of super-iteration 151), each reached from the
-    captured start state of its super-iteration by the one-arrival kernel,
-    with the production kernel's time, distinct rows and bound on each;
+    captured start state of its super-iteration by the one-arrival
+    wrapper, with its time, distinct rows and bound on each;
     and the multi-arrival kernel on the start states of super-iterations
-    4, 150 and 151.
+    4, 150 and 151; P8's and P10's rows beside the launch floor.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -115,10 +119,12 @@ step, read and written once a launch; the rows of every arrival; 8 bytes
 a stack push or a pop from memory), and so does K2, whose bound is
 ``experiments/_common.py::transition_work`` (the state each lane's case
 reads, the field elements that change, each distinct attribute, material
-and env row once; operations counted from its source).  No render path
-launches the
-one-arrival kernels any more: their ``launches`` are 0, and their
-launches in the one-step turns stand in ``turn_launches``.  No
+and env row once; operations counted from its source).  The one-arrival
+entries (``arrival16``, ...) are the multi-arrival kernel at steps = 1
+on a copy of the state (K1's and K2's rows name their CUDA kernel as
+``kernel``); no render path
+calls them: their ``launches`` are 0, and their launches in the one-step
+turns stand in ``turn_launches``.  No
 single PyTorch call computes an arrival or a transition, so
 ``library_ms`` is null for K1 and K2; for a probe it
 is the one PyTorch call that computes the same function where there is
@@ -245,7 +251,7 @@ def main() -> int:
                                                                    arrival_state, arrival_work,
                                                                    arrivals_work, bound,
                                                                    capture_inputs, clone_state,
-                                                                   one_step_loop,
+                                                                   launch_floor_ms, one_step_loop,
                                                                    ptxas_registers,
                                                                    restore_penalty, running,
                                                                    time_in_place_ms, time_ms,
@@ -284,17 +290,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     kernels = {}
 
-    def record(name, source, replaces, err, ms, plain, work_bytes, ops):
+    def record(name, source, replaces, err, ms, plain, work_bytes, ops, kernel):
         b_ms, b_by = bound(work_bytes, ops)
         kernels[name] = {"name": name, "route": "cuda",
                          "source": f"unity_webgpu_pathtracer_torch/csrc/{source}",
-                         "replaces": replaces, "launches": 0, "max_abs_err": err, "ms": ms,
-                         "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-                         "library_ms": None}
+                         "kernel": kernel, "replaces": replaces, "launches": 0,
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": b_by, "library_ms": None}
         return f"bound {b_ms:.4f} ms ({b_by}, {work_bytes / 1e6:.2f} MB, {ops / 1e6:.2f} Mflop)"
 
     K1_SRC, K1_TPU = "arrival16.cu", "unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py:85"
     K2_SRC, K2_TPU = "transition16.cu", "unity_webgpu_pathtracer_tpu/ops/pallas_transition.py:579"
+    ONE_ARRIVAL = "arrival16_run_kernel (steps = 1, on a copy of the state)"
 
     def check_arrival(name, k1_in, has_instances, label):
         """K1 against its twin on a captured state; timing and bound."""
@@ -309,7 +316,7 @@ def main() -> int:
                                                has_instances))
         nbytes, ops, rows = arrival_work(nodes, s.ptr, oT, dT, invT, s, active, has_instances)
         live = int(((s.ptr >= 0) & active).sum())
-        b = record(name, K1_SRC, K1_TPU, err, ms, plain, nbytes, ops)
+        b = record(name, K1_SRC, K1_TPU, err, ms, plain, nbytes, ops, ONE_ARRIVAL)
         log(f"{label} K1 {name}: B={s.ptr.shape[0]} live={live} distinct rows={rows} "
             f"max_abs_err={err:g} (tol {FLOAT_TOL}); {ms:.4f} ms vs plain {plain:.4f} ms; {b}")
 
@@ -326,7 +333,7 @@ def main() -> int:
         super-iteration start state, max abs error 0 on every field; its
         time per launch (a graph of restore + flush + launch, minus a graph
         of restore + flush; warm: without the flush), the one-arrival
-        kernel's on the same arrivals, the plain version's, and the bound of
+        wrapper's on the same arrivals, the plain version's, and the bound of
         ``arrivals_work``; ``penalty``: ``restore_penalty`` of its restore."""
         nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
         out, ref = clone_state(s0), clone_state(s0)
@@ -353,7 +360,7 @@ def main() -> int:
             restore, cold=True)[0]
         if penalty:
             log_penalty(restore, f"{label} K1 {name}")
-        one, st = [], s0   # the one-arrival kernel on each of the same arrivals
+        one, st = [], s0   # the one-arrival wrapper on each of the same arrivals
         for _ in range(steps):
             act = running(live, stop, st)
             one.append(time_ms(lambda st=st, act=act: cuda_arrival.arrival_step16_cuda(
@@ -362,12 +369,12 @@ def main() -> int:
         nbytes, ops, rows, n = arrivals_work(nodes, oT, dT, invT, s0, steps, live, stop, hi)
         b_ms, b_by = bound(nbytes, ops)
         if record_it:
-            record(name, K1_SRC, K1_TPU, err, ms, plain_ms, nbytes, ops)
+            record(name, K1_SRC, K1_TPU, err, ms, plain_ms, nbytes, ops, "arrival16_run_kernel")
         log(f"{label} K1 {name} ({steps} arrivals, in place): B={s0.ptr.shape[0]} lanes "
             f"stepping={n['lanes']} distinct rows={rows} pushes={n['pushes']} pops from "
             f"memory={n['pops']} max_abs_err={err:g} (every field, stack planes included); "
             f"{ms:.4f} ms per launch (graph of restore + flush + launch {t_run:.4f} ms, "
-            f"restore + flush {t_restore:.4f} ms; warm {warm:.4f} ms); one-arrival kernel {steps} x {one[0]:.4f} = "
+            f"restore + flush {t_restore:.4f} ms; warm {warm:.4f} ms); one-arrival wrapper {steps} x {one[0]:.4f} = "
             f"{steps * one[0]:.4f} ms on the start state, {sum(one):.4f} ms summed over the "
             f"{steps} arrivals; plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
             f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
@@ -408,7 +415,7 @@ def main() -> int:
         nbytes, ops, n = transition_work(k2, ref, died_r)
         b_ms, b_by = bound(nbytes, ops)
         if record_it:
-            record(name, K2_SRC, K2_TPU, err, ms, plain_ms, nbytes, ops)
+            record(name, K2_SRC, K2_TPU, err, ms, plain_ms, nbytes, ops, "transition16_kernel")
         log(f"{label} K2 {name} (in place): B={st0.mode.shape[0]} lanes {n} died="
             f"{int(died.sum())} max_abs_err={err:g} (every field; rad_out where died); "
             f"{ms:.4f} ms per launch (graph of restore + flush + launch {t_run:.4f} ms, "
@@ -760,6 +767,8 @@ def main() -> int:
                 lib += f", cold L2 {r['cold_ms']:.4f} ms"
             if "warm_ms" in r:
                 lib += f", warm L2 {r['warm_ms']:.4f} ms (ms: cold L2)"
+            if "old_bound_ms" in r:
+                lib += f", out-of-place bound {r['old_bound_ms']:.5f} ms"
             if "two_calls_ms" in r:
                 lib += f", two calls {r['two_calls_ms']:.4f} ms"
             if "floor_ms" in r:
@@ -807,7 +816,7 @@ def main() -> int:
         "arrival16_f16leaf": "round16_bf16leaf_probe.py:75",
         "arrival16_bf16leaf": "round16_bf16leaf_probe.py:75",
         "lobe_chain": "round18_bf16_shade_probe.py:78",
-        "cluster_gather": "round18_vmem_tree_probe.py:63",
+        "tree_gather": "round18_vmem_tree_probe.py:63",
         "intrinsic": "round18_mosaic_probe.py:35", "sum_scalar": "round18_mosaic_probe.py:111",
         "step_chain": "round20_tile3d_probe.py:58"}
     probe_order = []
@@ -824,6 +833,14 @@ def main() -> int:
                          "max_abs_err": max(prev, r["max_abs_err"]), "ms": r["ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    floor = launch_floor_ms(dev)
+    last = {r["kernel"]: r for r in rows
+            if r["kernel"] == "step_chain" or r["kernel"].startswith("intrinsic")}
+    log(f"phase 13 launch floor (a graph-replayed one-element add) {floor:.4f} ms; P8 and P10 "
+        f"beside it (their last rows): " + ", ".join(
+            f"{k} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f}, {r['bound_by']})"
+            for k, r in last.items()) + f"; card: {card}")
 
     # K1's probe modes on real states, early and deep in phase 2's pass: the
     # starts of super-iterations 4, 150 and 151, and arrivals 27 (the third
@@ -860,11 +877,12 @@ def main() -> int:
             log(f"phase 13 K1 arrival {call} diet {line.strip()}")
         for r in mrows:
             if r["mode"] not in DIET_MODES:
-                log(f"phase 13 K1 arrival {call} {r['mode']}: {r['ms']:.4f} ms, plain "
-                    f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, max_abs_err "
-                    f"{r['max_abs_err']:g}")
+                log(f"phase 13 K1 arrival {call} {r['mode']} (in place): {r['ms']:.4f} ms cold, "
+                    f"{r['warm_ms']:.4f} warm, plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.5f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.3f} MB; out of "
+                    f"place {r['old_bound_ms']:.5f}), max_abs_err {r['max_abs_err']:g}")
         dt, share = round14_kernel_diet.savings(mrows, "f16leaf")["bf16leaf"]
-        log(f"phase 13 K1 arrival {call}: bf16 leaf decode saves {dt:.4f} ms "
+        log(f"phase 13 K1 arrival {call}: bf16 leaf decode saves {dt:.4f} ms cold "
             f"({share * 100:.1f}%); card: {card}")
         del nodes, oT, dT, invT, s, active, out, state
     del sd, caps

@@ -23,7 +23,7 @@ def _c_struct(source: str, name: str) -> list[tuple[str, bool]]:
 
 
 @pytest.mark.parametrize("source,cname,pystruct", [
-    ("arrival16.cu", "ArrivalArgs", cuda_arrival._ArrivalArgs),
+    ("arrival16.cu", "RunArgs", cuda_arrival._RunArgs),
     ("arrival16.cu", "InstArgs", cuda_arrival._InstArgs),
     ("transition16.cu", "TransitionArgs", cuda_transition._TransitionArgs),
 ])

@@ -77,7 +77,9 @@ def _assert_exact(got, want, name):
 
 def test_entries_match_sources():
     """The C entries of each source are exactly those ``cuda_build`` binds,
-    with as many arguments, and every kernel the wrappers name has one."""
+    with as many arguments, and every kernel the wrappers name has one.
+    The one-arrival kernel and its entries are gone: one arrival is the
+    multi-arrival kernel at steps = 1."""
     for name, entries in cuda_build.ENTRIES.items():
         with open(os.path.join(cuda_build.SRC_DIR, f"{name}.cu")) as f:
             text = f.read()
@@ -86,10 +88,16 @@ def test_entries_match_sources():
         for entry, args in found.items():
             assert len(args.split(",")) == len(entries[entry]), entry
         assert 'extern "C" const char* cuda_error_string' in text
-    launches = {f"{k}_launch" for k in (*cuda_arrival.KERNELS.values(),
-                                         *cuda_arrival.RUN_KERNELS.values(),
+    launches = {f"{k}_launch" for k in (*cuda_arrival.RUN_KERNELS.values(),
                                          *cuda_transition.KERNELS.values())}
     assert launches <= {e for entries in cuda_build.ENTRIES.values() for e in entries}
+    with open(os.path.join(cuda_build.SRC_DIR, "arrival16.cu")) as f:
+        k1 = f.read()
+    for gone in ("arrival16_kernel", "ArrivalArgs", "PlaneRay", "PlaneStack",
+                 "arrival16_probe_launch",
+                 *(f"{k}_launch" for k in cuda_arrival.KERNELS.values())):
+        assert re.search(rf"\b{gone}\b", k1) is None, gone
+        assert all(gone not in entries for entries in cuda_build.ENTRIES.values()), gone
     assert set(cuda_arrival.arrival_step16_cuda.launches) == set(cuda_arrival.KERNELS.values())
     assert set(cuda_arrival.arrival_steps16_cuda.launches) == set(
         cuda_arrival.RUN_KERNELS.values())
@@ -98,7 +106,7 @@ def test_entries_match_sources():
     assert set(cuda_transition.transition16_cuda.launches) == set(
         cuda_transition.KERNELS.values())
     # The probes: K1's probe modes behind two entries, the others in probes.cu.
-    assert {"arrival16_probe_launch", "arrival16_diet_launch"} <= set(
+    assert {"arrival16_run_probe_launch", "arrival16_diet_launch"} <= set(
         cuda_build.ENTRIES["arrival16"])
     assert set(cuda_arrival.arrival_probe_cuda.launches) == set(
         cuda_arrival.PROBE_KERNELS.values())
@@ -346,9 +354,11 @@ def test_wrappers_reject_bad_inputs(cuda, scene64k):
 @gpu
 @pytest.mark.parametrize("mode", cuda_arrival.PROBE_KERNELS)
 def test_probe_modes_match_twin(cuda, scene64k, monkeypatch, mode):
-    """K1's probe modes against the twin: on the kernel diet's synthetic
-    rows (each lane on its own row) and on a state captured from a pass.
-    The diet's modes run in place on a copy, exact."""
+    """K1's probe modes against the twin, in place on a copy: on the kernel
+    diet's synthetic rows (each lane on its own row) and on a state
+    captured from a pass, after one call and after replays of a CUDA graph
+    of restore + call.  The diet's modes exact, the leaf decodes integers
+    equal and floats within rtol 1e-5 / atol 1e-6."""
     from unity_webgpu_pathtracer_torch.experiments.round14_kernel_diet import synthetic_inputs
 
     sd, params = scene64k
@@ -362,22 +372,38 @@ def test_probe_modes_match_twin(cuda, scene64k, monkeypatch, mode):
         return cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, s, steps, live,
                                                  stop_on_found, has_instances)
 
+    def check(out, ref):
+        if mode in cuda_arrival.DIET_MODES:
+            _assert_exact(out, ref, mode)
+        else:
+            for name in cuda_arrival._FLAT_FIELDS:
+                _assert_same(getattr(out, name), getattr(ref, name), f"{mode}.{name}")
+
     monkeypatch.setattr(fused, "arrival_steps16_cuda", k1)
     fused.fused_pass_with_stats(sd, _config(), params, 0)
     before = cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]]
     for nodes, rows, oT, dT, invT, s, active in (synthetic_inputs(cuda, b=8192),
                                                   captured["k1"]):
         ref = cuda_arrival.arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
-        if mode not in cuda_arrival.DIET_MODES:
-            out = cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
-            for name in cuda_arrival._FLAT_FIELDS:
-                _assert_same(getattr(out, name), getattr(ref, name), f"{mode}.{name}")
-            continue
         work = _clone(s)
-        out = cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, work, active, mode)
-        assert out is work
-        _assert_exact(out, ref, mode)
-    assert cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]] == before + 2
+
+        def call():
+            for f in cuda_arrival._FLAT_FIELDS:
+                getattr(work, f).copy_(getattr(s, f))
+            return cuda_arrival.arrival_probe_cuda(nodes, rows, oT, dT, invT, work, active, mode)
+
+        assert call() is work
+        check(work, ref)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            call()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        check(work, ref)
+    assert cuda_arrival.arrival_probe_cuda.launches[cuda_arrival.PROBE_KERNELS[mode]] == before + 4
 
 
 @gpu
@@ -424,10 +450,16 @@ def test_probe_kernels_match_plain(cuda):
             torch.testing.assert_close(cuda_probes.lobe_chain(xl, dtype),
                                        cuda_probes.lobe_chain_plain(xl, dtype), rtol=0, atol=0,
                                        equal_nan=True, msg=lambda m, d=dtype: f"{d}: {m}")
+    # P7 at a ragged lane count (the last warp part full), and with indices
+    # outside the table, which give rows of zeros.
     table = torch.rand((cuda_probes.TREE_ROWS, cuda_probes.TREE_COLS), device=cuda).bfloat16()
-    rows = torch.randint(0, cuda_probes.TREE_ROWS, (5000,), dtype=torch.int32, device=cuda)
-    assert torch.equal(cuda_probes.cluster_gather(table, rows),
-                       cuda_probes.cluster_gather_plain(table, rows))
+    rows = torch.randint(0, cuda_probes.TREE_ROWS, (5001,), dtype=torch.int32, device=cuda)
+    rows[::5] = torch.tensor([-1, cuda_probes.TREE_ROWS, 2**31 - 1, -(2**31)],
+                             dtype=torch.int32, device=cuda).repeat(251)[:1001]
+    for n in (5001, 3, 1):
+        got = cuda_probes.tree_gather(table, rows[:n])
+        assert torch.equal(got, cuda_probes.tree_gather_plain(table, rows[:n])), n
+        assert not bool(got[::5].any()), n
     # Every op: whole vectors only, tails of 1-3 elements, the pool's size
     # less one.
     for n in (3000, 1, 3, 1025, 98_303):

@@ -229,22 +229,46 @@ def test_lobe_chain_matches_pallas(probes, monkeypatch, dtype):
     assert np.isclose(got, want, rtol=rtol, atol=0.0).mean() >= share
 
 
-def test_cluster_gather_matches_pallas(probes):
-    """round18_vmem_tree_probe.kernel (:47-53): the one-hot product of a
-    bf16 table is exact, as is the port's widening gather."""
-    mod = probes["round18_vmem_tree_probe"]
-    b = 2 * mod.BLK
-    idx = np.random.default_rng(0).integers(0, mod.ROWS, b).astype(np.int32)
-    table = np.random.default_rng(1).uniform(size=(mod.ROWS, mod.COLS)).astype(np.float32)
-    jt = jnp.asarray(table).astype(jnp.bfloat16)
-    want = pl.pallas_call(
-        mod.kernel, grid=(b // mod.BLK,),
+def _tree_pallas(mod, idx, table):
+    """round18_vmem_tree_probe.kernel (:47-53) in interpret mode over
+    len(idx) lanes (a multiple of its BLK)."""
+    return np.asarray(pl.pallas_call(
+        mod.kernel, grid=(idx.shape[0] // mod.BLK,),
         in_specs=[pl.BlockSpec((mod.BLK,), lambda i: (i,), memory_space=pltpu.VMEM),
                   pl.BlockSpec((mod.ROWS, mod.COLS), lambda i: (0, 0), memory_space=pltpu.VMEM)],
         out_specs=pl.BlockSpec((mod.BLK, mod.COLS), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((b, mod.COLS), jnp.float32), interpret=True)(idx, jt)
-    got = cp.cluster_gather(torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(idx))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        out_shape=jax.ShapeDtypeStruct((idx.shape[0], mod.COLS), jnp.float32),
+        interpret=True)(idx, jnp.asarray(table).astype(jnp.bfloat16)))
+
+
+def test_cluster_gather_matches_pallas(probes):
+    """round18_vmem_tree_probe.kernel (:47-53): the one-hot product of a
+    bf16 table is exact, as is the port's widening gather (P7,
+    ``tree_gather``)."""
+    mod = probes["round18_vmem_tree_probe"]
+    idx = np.random.default_rng(0).integers(0, mod.ROWS, 2 * mod.BLK).astype(np.int32)
+    table = np.random.default_rng(1).uniform(size=(mod.ROWS, mod.COLS)).astype(np.float32)
+    got = cp.tree_gather(torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), _tree_pallas(mod, idx, table))
+
+
+def test_tree_gather_outside_indices_match_pallas(probes):
+    """An index outside [0, 4096) matches no row of the one-hot product, so
+    the reference gives a row of zeros; so does P7's plain version (not a
+    wrapped or refused index), at -1, 4096, 2^31 - 1 and -2^31."""
+    mod = probes["round18_vmem_tree_probe"]
+    idx = np.random.default_rng(2).integers(0, mod.ROWS, mod.BLK).astype(np.int32)
+    outside = np.array([-1, mod.ROWS, 2**31 - 1, -(2**31)], dtype=np.int32)
+    idx[::9] = np.resize(outside, idx[::9].shape)
+    table = np.random.default_rng(3).uniform(size=(mod.ROWS, mod.COLS)).astype(np.float32)
+    want = _tree_pallas(mod, idx, table)
+    got = cp.tree_gather(torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[::9].any() and want[1::9].all()
+    from unity_webgpu_pathtracer_torch.experiments import round18_vmem_tree_probe as port
+
+    odd = port.with_outside(torch.from_numpy(idx[1::9].copy()))
+    assert set(odd[::7].tolist()) == set(outside.tolist())
 
 
 def test_step_chain_matches_pallas(probes):
@@ -750,6 +774,62 @@ def test_diet_in_place_wrapper_matches_diet_step16(mode):
     assert bool((want.t[::7] < 2e5).all())             # every far lane improved
     with pytest.raises(ValueError):
         arrival_probe_cuda(args[0], s.ptr, *args[2:], s, act, mode)
+
+
+@pytest.mark.parametrize("mode", ["f16leaf", "bf16leaf"])
+def test_leaf_decode_in_place_wrapper_matches_twin(mode):
+    """The leaf decodes (P5) in place: the wrapper (its plain path on the
+    CPU) leaves in ``s`` what the twin returns out of place with the row
+    plane, on every lane kind; it returns ``s`` and refuses a rows plane
+    that shares the state's storage."""
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_probe_plain
+
+    rows, o, d, inv, st, active = _k1_inputs(seed=9)
+    s = _torch_state(st)
+    args = [torch.from_numpy(x) for x in (rows, np.roll(st["ptr"], 5).copy(), o, d, inv)]
+    act = torch.from_numpy(active)
+    want = arrival_probe_plain(*args, s, act, mode)
+    before = {f: getattr(s, f) for f in ("ptr", "t", "stack_row")}
+    got = arrival_probe_cuda(*args, s, act, mode)
+    assert got is s and all(getattr(s, f) is x for f, x in before.items())
+    for f in ("ptr", "pend", "sp", "stack_row", "stack_mask", "t", "u", "v", "tri", "found"):
+        a, b = getattr(s, f), getattr(want, f)
+        assert torch.equal(a, b) or bool(((a == b) | (a.isnan() & b.isnan())).all()), f
+    assert bool((s.found & ~torch.from_numpy(st["found"])).any())   # some lane hit
+    assert bool((s.sp > torch.from_numpy(st["sp"])).any())          # some lane pushed
+    with pytest.raises(ValueError):
+        arrival_probe_cuda(args[0], s.ptr, *args[2:], s, act, mode)
+
+
+# ``arrivals_work`` on ``_diet_tiny`` (one arrival, counted by hand): ptr of
+# 3 lanes (12); per lane that steps 2 x 29 bytes of scalar state less ptr
+# and 36 of rays (90), 4 more with a row plane; 384 a distinct row; 8 for
+# lane 1's pop from memory (sp 1); 576 ops an inner row, 55 a leaf slot.
+# ptr: lane 0 on inner row 1, lane 1 on leaf row 2.  rows = [2, 2, 0]: both
+# on leaf row 2.  With active [1, 0, 1]: lane 0 alone, plus the mask (3).
+_ARRIVALS_TINY = {
+    "ptr": (12 + 2 * 90 + 2 * 384 + 8, 576 + 2 * 55),
+    "rows": (12 + 2 * 94 + 384 + 8, 2 * 2 * 55),
+    "rows, active": (12 + 3 + 94 + 384, 2 * 55),
+}
+
+
+@pytest.mark.parametrize("case", _ARRIVALS_TINY)
+def test_arrivals_work_counts_row_plane(case):
+    """``_common.arrivals_work`` with a probe's row plane (P5's in-place
+    bound) and without (the render path's): its bytes and operations on a
+    hand-built state, the rows a lane loads taken from the plane."""
+    from unity_webgpu_pathtracer_torch.experiments import _common
+
+    nodes, _rows, o, d, inv, s = _diet_tiny()
+    rows = None if case == "ptr" else torch.tensor([2, 2, 0], dtype=torch.int32)
+    active = torch.tensor([True, False, True]) if "active" in case else None
+    nbytes, ops, distinct, counts = _common.arrivals_work(nodes, o, d, inv, s, 1, active,
+                                                          rows=rows)
+    assert (nbytes, ops) == _ARRIVALS_TINY[case]
+    assert distinct == (2 if rows is None else 1)
+    assert counts == dict(lanes=1 if active is not None else 2, pushes=0,
+                          pops=0 if active is not None else 1)
 
 
 def test_schlick_short_remainder_bound():

@@ -1,47 +1,39 @@
-// wide16 BVH arrival step, one thread per lane, in four instantiations:
-// arrival16_launch (flat tables), arrival16_inst_launch (two-level tables
-// with TLAS instance rows), and the same two on leaf8 tables,
-// arrival16_leaf8_launch and arrival16_inst_leaf8_launch; the same four
-// running several arrivals per launch on state updated in place
-// (arrival16_run_launch, arrival16_inst_run_launch,
-// arrival16_leaf8_run_launch, arrival16_inst_leaf8_run_launch); and the
-// probe modes of the measurement probes behind arrival16_diet_launch and
-// arrival16_probe_launch (at the end).
+// wide16 BVH arrival steps on a lane state updated in place, one thread
+// per lane, in four instantiations: arrival16_run_launch (flat tables),
+// arrival16_inst_run_launch (two-level tables with TLAS instance rows), and
+// the same two on leaf8 tables, arrival16_leaf8_run_launch and
+// arrival16_inst_leaf8_run_launch; and the probe modes of the measurement
+// probes behind arrival16_run_probe_launch and arrival16_diet_launch (at
+// the end).
 //
 // Replaces: unity_webgpu_pathtracer_tpu/ops/pallas_arrival.py::_arrival_kernel
 // (reached from arrival_step16_pallas): has_inst off and on, leaf_slots
 // 16 (96-float rows) and 8 (48-float leaf8 rows).
 //
-// One arrival (arrival16_kernel): each live lane reads its own node row
-// (384 bytes, 192 on leaf8 tables) at a data-dependent address, and every
-// lane reads and writes its whole state, the (D, B) stack planes included,
-// out of place.  That copy is most of its bytes: with 2% of the lanes live
-// it still takes 81% of a full pool's time.  Lanes that do not run are
-// copied through unchanged.
+// arrival16_run_kernel runs up to a.steps arrivals a lane.  The reference's
+// one arrival out of place is this kernel at steps = 1 on a copy of the
+// state (ops/cuda_arrival.py::arrival_step16_cuda clones, then launches).
+// What bounds it on an H100 is the latency of each arrival's row load,
+// which depends on the previous arrival's result.  The design removes the
+// bytes around it: the lane state and rays are loaded into registers once
+// per launch, the stack is updated in place (a push writes one entry, a
+// pop reads one, and a pop that follows a push takes the entry from a
+// register), lanes that do not step return before they touch their state,
+// and a lane that steps writes its registers back once.  A lane leaves the
+// loop when its traversal ends or, with stop_on_found, at its first hit.
 //
-// Several arrivals (arrival16_run_kernel): what bounds it on an H100 is
-// the latency of each arrival's row load, which depends on the previous
-// arrival's result.  The design removes the bytes around it: the lane
-// state and rays are loaded into registers once per launch, the stack is
-// updated in place (a push writes one entry, a pop reads one, and a pop
-// that follows a push takes the entry from a register), lanes that do not
-// step return before they touch their state, and a lane that steps
-// writes its registers back once.  A lane leaves the loop when its
-// traversal ends or, with stop_on_found, at its first hit.
-//
-// Both kernels run one per-arrival body (arrive), so they round alike,
-// compiled with -fmad=false so it rounds op for op like the plain twin
-// (ops/traverse_wide16.py::arrival_step16).  The body reads the row as
-// 16-byte vectors through the read-only path: the header (anchor, meta)
-// first, then each word group of the section the row kind selects where
-// that section uses it (the leaf's in 4-word chunks); the table keeps the
-// reference's byte order.  Both kernels are compiled for UWPT_K1_MIN_BLOCKS
-// resident blocks of 256 threads per SM (ops/cuda_arrival.py); at 3, at
-// most 80 registers and a few hundred bytes spilled, and 98,304 lanes fit
-// the card in one wave.  Measured on the H100: loading words 0-31 or 0-47
-// before the branch on the row kind was slower than loading each group
-// where it is used; the blocks per SM are compared by
-// unity_webgpu_pathtracer_torch/experiments/k1_variants.py.
+// The per-arrival body (arrive) is compiled with -fmad=false so it rounds
+// op for op like the plain twin (ops/traverse_wide16.py::arrival_step16).
+// It reads the row as 16-byte vectors through the read-only path: the
+// header (anchor, meta) first, then each word group of the section the row
+// kind selects where that section uses it (the leaf's in 4-word chunks);
+// the table keeps the reference's byte order.  The kernels are compiled for
+// UWPT_K1_MIN_BLOCKS resident blocks of 256 threads per SM
+// (ops/cuda_arrival.py); at 3, at most 80 registers and a few hundred bytes
+// spilled, and 98,304 lanes fit the card in one wave.  Measured on the
+// H100: loading words 0-31 or 0-47 before the branch on the row kind was
+// slower than loading each group where it is used; the blocks per SM are
+// compared by unity_webgpu_pathtracer_torch/experiments/k1_variants.py.
 
 // leaf8 tables (ROWF = 48): rows are 48 floats; inner and instance rows
 // are unchanged (they use only words below 48), and a leaf holds up to 8
@@ -57,14 +49,17 @@
 // (InstArgs), read and written only by this instantiation, so the flat
 // kernel pays nothing for it.
 //
-// Probe modes, behind arrival16_diet_launch and arrival16_probe_launch, on
-// 96-float flat rows, with each lane's row index from a plane of its own
-// (the lane index on a probe's synthetic rows, ptr on a captured state):
+// Probe modes, on 96-float flat rows, with each lane's row index from a
+// plane of its own (the lane index on a probe's synthetic rows, ptr on a
+// captured state):
 // - UWPT_PROBE_F16LEAF and UWPT_PROBE_BF16LEAF replace
-//   experiments/round16_bf16leaf_probe.py: arrival16_kernel's third
-//   template parameter (default UWPT_PROBE_PROD, the production code) reads
-//   the row plane, and in BF16LEAF decodes the leaf halfwords as bf16,
-//   __uint_as_float(h << 16), in place of __half2float;
+//   experiments/round16_bf16leaf_probe.py: arrival16_run_kernel's third
+//   template parameter (default UWPT_PROBE_PROD, the production code), behind
+//   arrival16_run_probe_launch, one arrival in place; a lane loads row
+//   rowidx[i] where the production kernel loads ptr, and BF16LEAF decodes
+//   the leaf halfwords as bf16, __uint_as_float(h << 16), in place of
+//   __half2float.  Bound: bytes, the production kernel's
+//   (experiments/_common.py::arrivals_work with the row plane);
 // - the other six replace experiments/round14_kernel_diet.py::make_kernel
 //   (full, no_leaf, no_inner, no_stack, leaf_bf16, leaf_noint): a kernel
 //   of their own, arrival16_diet_kernel<MODE> behind
@@ -86,40 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-struct ArrivalArgs {
-  const float* nodes;           // (N, ROWF), 16-byte aligned
-  const float* o;               // (3, B) planes
-  const float* d;
-  const float* inv;
-  const unsigned char* active;  // (B,) bool, or null
-  // state in (Wide16State field order)
-  const int* ptr;
-  const int* pend;
-  const int* sp;
-  const int* stack_row;         // (D, B)
-  const int* stack_mask;        // (D, B)
-  const float* t;
-  const float* u;
-  const float* v;
-  const int* tri;
-  const unsigned char* found;
-  // state out
-  int* o_ptr;
-  int* o_pend;
-  int* o_sp;
-  int* o_stack_row;
-  int* o_stack_mask;
-  float* o_t;
-  float* o_u;
-  float* o_v;
-  int* o_tri;
-  unsigned char* o_found;
-  int b;
-  int depth;
-};
-
 // Instance registers of two-level tables (Wide16State's instance fields).
-// The multi-arrival kernel is passed the same planes as input and output.
+// The kernel is passed the same planes as input and output.
 struct InstArgs {
   const int* inst;              // (B,) -1 = world space
   const int* hit_inst;
@@ -184,26 +147,6 @@ struct Lane {
   int inst, hit_inst, sp_enter;   // HAS_INST only
 };
 
-// The rays of one arrival, read from their (3, B) planes where the body
-// uses them; an instance entry's local ray is kept for the caller to store.
-struct PlaneRay {
-  const float *o, *d, *inv, *lo, *ld, *li;
-  int i, b;
-  bool entered;
-  float lo3[3], ld3[3];
-  __device__ float org(bool local, int c) const { return (local ? lo : o)[c * b + i]; }
-  __device__ float dir(bool local, int c) const { return (local ? ld : d)[c * b + i]; }
-  __device__ float rcp(bool local, int c) const { return (local ? li : inv)[c * b + i]; }
-  __device__ void enter(const float (&o3)[3], const float (&d3)[3]) {
-    entered = true;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      lo3[c] = o3[c];
-      ld3[c] = d3[c];
-    }
-  }
-};
-
 // The rays held in registers across the arrivals of one launch.
 struct RegRay {
   float o[3], d[3], inv[3], lo[3], ld[3], li[3];
@@ -222,29 +165,10 @@ struct RegRay {
   }
 };
 
-// One arrival out of place: a push is kept for the caller's copy of the
-// planes, a pop reads the input planes.
-struct PlaneStack {
-  const int *row, *mask;
-  int i, b;
-  bool pushed;
-  int level, entry_row, entry_mask;
-  __device__ void push(int lev, int r, int m) {
-    pushed = true;
-    level = lev;
-    entry_row = r;
-    entry_mask = m;
-  }
-  __device__ void pop(int lev, int& r, int& m) const {
-    r = row[(size_t)lev * b + i];
-    m = mask[(size_t)lev * b + i];
-  }
-};
-
 // The stack planes updated in place: a push writes its level, a pop reads
 // one; the entry of the last push stays in registers, so a pop right after
 // it loads nothing.  (A push past the planes' depth is lost, as in the
-// one-arrival kernel.)
+// plain twin.)
 struct RegStack {
   int *row, *mask;
   int i, b, depth;
@@ -271,10 +195,10 @@ struct RegStack {
   }
 };
 
-// One arrival of a live lane on its row: updates the lane's registers, and
-// pushes or pops through the stack policy.
-template <bool HAS_INST, int ROWF, int MODE, class Ray, class Stack>
-__device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack& S) {
+// One arrival of a live lane on its row: updates the lane's registers and
+// pushes or pops the stack.
+template <bool HAS_INST, int ROWF, int MODE>
+__device__ __forceinline__ void arrive(Lane& L, const float* row, RegRay& R, RegStack& S) {
   static_assert(ROWF == 96 || ROWF == 48, "wide16 rows are 96 or 48 floats");
   constexpr int SLOTS = ROWF == 96 ? 16 : 8;   // triangles per leaf
   constexpr int HALF = SLOTS / 2;              // f16 words per component
@@ -485,69 +409,19 @@ __device__ __forceinline__ void arrive(Lane& L, const float* row, Ray& R, Stack&
   }
 }
 
+// Up to a.steps arrivals per lane, on the state in place.  Lane i runs
+// arrival k while ptr >= 0, live[i] and not (stop_on_found[i] and found):
+// the twin's one arrival (traverse_wide16.arrival_step16) applied a.steps
+// times with that active mask.  MODE is UWPT_PROBE_PROD on every render
+// path, where rowidx is unused and the lane loads row ptr; a leaf-decode
+// probe mode (flat 96-float rows) loads row rowidx[i] instead.
 template <bool HAS_INST, int ROWF, int MODE = UWPT_PROBE_PROD>
 __global__ void __launch_bounds__(256, UWPT_K1_MIN_BLOCKS)
-    arrival16_kernel(ArrivalArgs a, InstArgs n, const int* rowidx) {
+    arrival16_run_kernel(RunArgs a, InstArgs n, const int* __restrict__ rowidx) {
   static_assert(MODE == UWPT_PROBE_PROD || (!HAS_INST && ROWF == 96 &&
                                             (MODE == UWPT_PROBE_F16LEAF ||
                                              MODE == UWPT_PROBE_BF16LEAF)),
                 "the leaf-decode probes run on flat 96-float rows");
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.b) return;
-  const int B = a.b;
-  Lane L;
-  L.ptr = a.ptr[i];
-  L.pend = a.pend[i];
-  L.sp = a.sp[i];
-  L.t = a.t[i];
-  L.u = a.u[i];
-  L.v = a.v[i];
-  L.tri = a.tri[i];
-  L.found = a.found[i] != 0;
-  L.inst = HAS_INST ? n.inst[i] : -1;
-  L.hit_inst = HAS_INST ? n.hit_inst[i] : -1;
-  L.sp_enter = HAS_INST ? n.sp_enter[i] : 0;
-  PlaneRay R = {a.o, a.d, a.inv, n.local_o, n.local_d, n.local_inv, i, B, false, {}, {}};
-  PlaneStack S = {a.stack_row, a.stack_mask, i, B, false, 0, 0, 0};
-  const bool live = L.ptr >= 0 && (a.active == nullptr || a.active[i] != 0);
-  if (live) {
-    const int r = MODE == UWPT_PROBE_PROD ? L.ptr : rowidx[i];
-    arrive<HAS_INST, ROWF, MODE>(L, a.nodes + (size_t)r * ROWF, R, S);
-  }
-
-  for (int lev = 0; lev < a.depth; ++lev) {
-    const size_t k = (size_t)lev * B + i;
-    const bool at = S.pushed && lev == S.level;
-    a.o_stack_row[k] = at ? S.entry_row : a.stack_row[k];
-    a.o_stack_mask[k] = at ? S.entry_mask : a.stack_mask[k];
-  }
-  a.o_ptr[i] = L.ptr;
-  a.o_pend[i] = L.pend;
-  a.o_sp[i] = L.sp;
-  a.o_t[i] = L.t;
-  a.o_u[i] = L.u;
-  a.o_v[i] = L.v;
-  a.o_tri[i] = L.tri;
-  a.o_found[i] = L.found ? 1 : 0;
-  if (HAS_INST) {
-    n.o_inst[i] = L.inst;
-    n.o_hit_inst[i] = L.hit_inst;
-    n.o_sp_enter[i] = L.sp_enter;
-    for (int c = 0; c < 3; ++c) {
-      const size_t k = (size_t)c * B + i;
-      n.o_local_o[k] = R.entered ? R.lo3[c] : n.local_o[k];
-      n.o_local_d[k] = R.entered ? R.ld3[c] : n.local_d[k];
-      n.o_local_inv[k] = R.entered ? local_rcp(R.ld3[c]) : n.local_inv[k];
-    }
-  }
-}
-
-// Up to a.steps arrivals per lane, on the state in place.  Lane i runs
-// arrival k while ptr >= 0, live[i] and not (stop_on_found[i] and found):
-// the one-arrival kernel applied a.steps times with that active mask.
-template <bool HAS_INST, int ROWF>
-__global__ void __launch_bounds__(256, UWPT_K1_MIN_BLOCKS)
-    arrival16_run_kernel(RunArgs a, InstArgs n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.b) return;
   const int B = a.b;
@@ -582,7 +456,8 @@ __global__ void __launch_bounds__(256, UWPT_K1_MIN_BLOCKS)
   }
   RegStack S = {a.stack_row, a.stack_mask, i, B, a.depth, false, 0, 0};
   for (int k = 0; k < a.steps; ++k) {
-    arrive<HAS_INST, ROWF, UWPT_PROBE_PROD>(L, a.nodes + (size_t)L.ptr * ROWF, R, S);
+    const int r = MODE == UWPT_PROBE_PROD ? L.ptr : rowidx[i];
+    arrive<HAS_INST, ROWF, MODE>(L, a.nodes + (size_t)r * ROWF, R, S);
     if (L.ptr < 0 || (stop && L.found)) break;
   }
   a.ptr[i] = L.ptr;
@@ -609,47 +484,16 @@ __global__ void __launch_bounds__(256, UWPT_K1_MIN_BLOCKS)
 }
 
 template <bool HAS_INST, int ROWF, int MODE = UWPT_PROBE_PROD>
-static int launch(const ArrivalArgs* args, const InstArgs* inst, void* stream,
-                  const int* rowidx = nullptr) {
-  const int threads = 256;
-  const int blocks = (args->b + threads - 1) / threads;
-  if (blocks > 0) {
-    arrival16_kernel<HAS_INST, ROWF, MODE>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst, rowidx);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <bool HAS_INST, int ROWF>
-static int launch_run(const RunArgs* args, const InstArgs* inst, void* stream) {
+static int launch_run(const RunArgs* args, const InstArgs* inst, void* stream,
+                      const int* rowidx = nullptr) {
   const int threads = 256;
   const int blocks = (args->b + threads - 1) / threads;
   if (args->steps < 1) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
-    arrival16_run_kernel<HAS_INST, ROWF>
-        <<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst);
+    arrival16_run_kernel<HAS_INST, ROWF, MODE>
+        <<<blocks, threads, 0, (cudaStream_t)stream>>>(*args, *inst, rowidx);
   }
   return (int)cudaGetLastError();
-}
-
-extern "C" int arrival16_launch(const ArrivalArgs* args, void* stream) {
-  const InstArgs none = {};
-  return launch<false, 96>(args, &none, stream);
-}
-
-extern "C" int arrival16_inst_launch(const ArrivalArgs* args, const InstArgs* inst,
-                                     void* stream) {
-  return launch<true, 96>(args, inst, stream);
-}
-
-extern "C" int arrival16_leaf8_launch(const ArrivalArgs* args, void* stream) {
-  const InstArgs none = {};
-  return launch<false, 48>(args, &none, stream);
-}
-
-extern "C" int arrival16_inst_leaf8_launch(const ArrivalArgs* args, const InstArgs* inst,
-                                           void* stream) {
-  return launch<true, 48>(args, inst, stream);
 }
 
 extern "C" int arrival16_run_launch(const RunArgs* args, void* stream) {
@@ -954,17 +798,18 @@ extern "C" int arrival16_diet_launch(int mode, const RunArgs* args, const int* r
   }
 }
 
-// A leaf-decode probe mode (UWPT_PROBE_F16LEAF or UWPT_PROBE_BF16LEAF): the
-// one-arrival kernel on 96-float flat rows, out of place; lane i reads row
-// rowidx[i].
-extern "C" int arrival16_probe_launch(int mode, const ArrivalArgs* args, const int* rowidx,
-                                      void* stream) {
+// A leaf-decode probe mode (UWPT_PROBE_F16LEAF or UWPT_PROBE_BF16LEAF): one
+// arrival (args->steps must be 1) of the flat multi-arrival kernel on
+// 96-float rows, in place; lane i reads row rowidx[i].
+extern "C" int arrival16_run_probe_launch(int mode, const RunArgs* args, const int* rowidx,
+                                          void* stream) {
   const InstArgs none = {};
+  if (args->steps != 1 || rowidx == nullptr) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case UWPT_PROBE_F16LEAF:
-      return launch<false, 96, UWPT_PROBE_F16LEAF>(args, &none, stream, rowidx);
+      return launch_run<false, 96, UWPT_PROBE_F16LEAF>(args, &none, stream, rowidx);
     case UWPT_PROBE_BF16LEAF:
-      return launch<false, 96, UWPT_PROBE_BF16LEAF>(args, &none, stream, rowidx);
+      return launch_run<false, 96, UWPT_PROBE_BF16LEAF>(args, &none, stream, rowidx);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,7 +13,7 @@
 //   schlick_chain_launch    P3 experiments/round2_probe.py:271
 //   remainder_check_launch  P3's remainder against fmodf over bit patterns
 //   lobe_chain_launch       P6 experiments/round18_bf16_shade_probe.py:78
-//   cluster_gather_launch   P7 experiments/round18_vmem_tree_probe.py:63
+//   tree_gather_launch      P7 experiments/round18_vmem_tree_probe.py:63
 //   intrinsic_launch        P8 experiments/round18_mosaic_probe.py:35
 //   cumsum_i32_launch       P8 experiments/round18_mosaic_probe.py:35 (cumsum_i32)
 //   sum_scalar_launch       P9 experiments/round18_mosaic_probe.py:111
@@ -648,57 +648,77 @@ extern "C" int lobe_chain_launch(const float* x, float* out, int n, int bf16, vo
 
 // ---------------------------------------------------------------- P7
 // The upper tree held on chip (round18_vmem_tree_probe.py): out[k] =
-// float(table[idx[k]]) for a (4096, 96) bf16 table.  The TPU priced a
-// one-hot MXU product from VMEM; on Hopper a cluster of 4 blocks holds the
-// table in its distributed shared memory, 1,024 rows (192 KB) in each
-// block, and a thread reads 16 bytes (8 bf16) of a lane's row from the
-// owning block (cluster.map_shared_rank), widens them and writes 32 bytes.
-// Neighbouring threads take neighbouring 16-byte pieces of a row, so the
-// output is written coalesced.  4,096 rows of 96 f32 would need 8 blocks,
-// the portable cluster maximum.  Bound: bytes (the output, the index and
-// the distinct rows); every cluster also stages the whole table (768 KB)
-// from device memory or L2, the design's own cost, so the grid is 16
-// clusters.
-constexpr int VT_ROWS = 4096, VT_COLS = 96, VT_CLUSTER = 4;
-constexpr int VT_LOCAL = VT_ROWS / VT_CLUSTER, VT_PIECES = VT_COLS / 8;
-constexpr int VT_SMEM = VT_LOCAL * VT_PIECES * 16;   // 196,608 bytes
-constexpr int VT_CLUSTERS = 16;
+// float(table[idx[k]]) for a (4096, 96) bf16 table, and a row of zeros
+// where idx[k] lies outside [0, 4096), as the TPU's one-hot product gives.
+// The TPU priced a one-hot MXU product from VMEM.  On Hopper the table
+// (768 KB) stays in the 50 MB L2, which is on chip too: its loads carry an
+// L2 evict-last policy, and the output (384 bytes a lane, 12.6 MB at the
+// probe's 32,768 lanes) goes out by streaming stores, so that it does not
+// push the table out.  Bound: bytes (the output, the index and the
+// distinct rows), most of them the output.  The grid covers every SM: a
+// warp takes TG_LANES lanes, loads their indices once (a thread a lane)
+// and shuffles each to the threads that read its row; each thread has
+// TG_PER 8-byte pieces (4 bf16) in flight before it widens them, and each
+// piece leaves as one float4, so a warp's store writes 512 contiguous
+// bytes.  No staging and no barrier.  On an H100 (NVIDIA H100 80GB HBM3,
+// 700.00 W) it takes 0.0054-0.0056 ms with a cold L2 at the probe's size,
+// against a bound of 0.0040 and a launch floor of 0.0013.  Slower there,
+// in the same call: the previous design, the table in the distributed
+// shared memory of 16 clusters of 4 blocks (0.0216-0.0218 cold), and
+// clusters of 4, 8 or 16 over every SM staged by bulk copies
+// (0.0112-0.0141), each cluster staging the whole table (PERF.md section 6).
+constexpr int TG_ROWS = 4096, TG_COLS = 96, TG_PIECES = TG_COLS / 4;   // 8-byte pieces a row
+constexpr int TG_LANES = 4, TG_THREADS = 256;
+constexpr int TG_PER = TG_LANES * TG_PIECES / 32;                      // pieces a thread
+static_assert(TG_LANES * TG_PIECES % 32 == 0, "a warp's pieces fill its threads evenly");
 
-__global__ void __cluster_dims__(VT_CLUSTER, 1, 1)
-    cluster_gather_kernel(const uint4* __restrict__ table, const int* __restrict__ idx, int n,
-                          float* __restrict__ out) {
-  extern __shared__ uint4 part[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint4* src = table + (size_t)cluster.block_rank() * VT_LOCAL * VT_PIECES;
-  for (int k = threadIdx.x; k < VT_LOCAL * VT_PIECES; k += blockDim.x) part[k] = src[k];
-  cluster.sync();
-  const int total = n * VT_PIECES;
-  for (int it = blockIdx.x * blockDim.x + threadIdx.x; it < total; it += gridDim.x * blockDim.x) {
-    const int lane = it / VT_PIECES, piece = it % VT_PIECES;
-    const int r = idx[lane];
-    const uint4* owner = cluster.map_shared_rank(part, r / VT_LOCAL);
-    const uint4 q = owner[(r % VT_LOCAL) * VT_PIECES + piece];
-    // bf16 -> f32 is the halfword moved to the top; element 0 is the low half.
-    float4* dst = reinterpret_cast<float4*>(out + (size_t)lane * VT_COLS + piece * 8);
-    dst[0] = make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xFFFF0000u),
-                         __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xFFFF0000u));
-    dst[1] = make_float4(__uint_as_float(q.z << 16), __uint_as_float(q.z & 0xFFFF0000u),
-                         __uint_as_float(q.w << 16), __uint_as_float(q.w & 0xFFFF0000u));
-  }
-  cluster.sync();   // no block leaves while another still reads its rows
+__device__ __forceinline__ uint2 ld_evict_last(const uint2* p, uint64_t policy) {
+  uint2 v;
+  asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p), "l"(policy));
+  return v;
 }
 
-extern "C" int cluster_gather_launch(const void* table, const int* idx, int n, float* out,
-                                     void* stream) {
-  static bool allowed = false;   // set once, before any graph capture
-  if (!allowed) {
-    cudaError_t e = cudaFuncSetAttribute(cluster_gather_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, VT_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    allowed = true;
+// bf16 -> f32 is the halfword moved to the top; element 0 is the low half.
+__device__ __forceinline__ float4 widen_bf16x4(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xFFFF0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xFFFF0000u));
+}
+
+__global__ void __launch_bounds__(TG_THREADS)
+    tree_gather_kernel(const uint2* __restrict__ table, const int* __restrict__ idx, int n,
+                       float4* __restrict__ out) {
+  const int t = threadIdx.x & 31;
+  const int first = (int)((blockIdx.x * TG_THREADS + threadIdx.x) >> 5) * TG_LANES;
+  if (first >= n) return;   // the whole warp
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  const int mine = t < TG_LANES && first + t < n ? __ldg(idx + first + t) : -1;
+  uint2 q[TG_PER];
+#pragma unroll
+  for (int k = 0; k < TG_PER; ++k) {
+    const int e = 32 * k + t;   // piece e % TG_PIECES of lane first + e / TG_PIECES
+    const int r = __shfl_sync(0xffffffffu, mine, e / TG_PIECES);
+    q[k] = (unsigned)r < (unsigned)TG_ROWS
+               ? ld_evict_last(table + (size_t)r * TG_PIECES + e % TG_PIECES, policy)
+               : make_uint2(0u, 0u);
   }
-  cluster_gather_kernel<<<VT_CLUSTERS * VT_CLUSTER, 512, VT_SMEM, (cudaStream_t)stream>>>(
-      reinterpret_cast<const uint4*>(table), idx, n, out);
+#pragma unroll
+  for (int k = 0; k < TG_PER; ++k) {
+    const int e = 32 * k + t;
+    if (first + e / TG_PIECES < n) __stcs(out + (size_t)first * TG_PIECES + e, widen_bf16x4(q[k]));
+  }
+}
+
+extern "C" int tree_gather_launch(const void* table, const int* idx, int n, float* out,
+                                  void* stream) {
+  if (n < 0 || (uintptr_t)table % 8 || (uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
+  const long long warps = ((long long)n + TG_LANES - 1) / TG_LANES;
+  const int blocks = (int)((warps * 32 + TG_THREADS - 1) / TG_THREADS);
+  if (blocks > 0)
+    tree_gather_kernel<<<blocks, TG_THREADS, 0, (cudaStream_t)stream>>>(
+        static_cast<const uint2*>(table), idx, n, reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -213,10 +213,12 @@ def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> tuple[float, str]
 
 
 def arrival_work(nodes, rows, oT, dT, invT, s, active, has_instances: bool = False):
-    """(bytes, f32 operations, distinct rows) of one K1 arrival in which
-    live lane i reads row ``rows[i]`` (``s.ptr`` on the render path): each
-    distinct row the live lanes load, each distinct ray plane and the
-    active mask read once, and the state planes read and written once."""
+    """(bytes, f32 operations, distinct rows) of one K1 arrival out of
+    place (``cuda_arrival.arrival_step16_cuda``) in which live lane i reads
+    row ``rows[i]`` (``s.ptr``): each distinct row the live lanes load,
+    each distinct ray plane and the active mask read once, and the state
+    planes read and written once (the new state is a copy).  An arrival in
+    place is ``arrivals_work``'s."""
     live = s.ptr >= 0 if active is None else (s.ptr >= 0) & active
     r = rows[live].long()
     distinct = int(torch.unique(r).numel())
@@ -298,7 +300,7 @@ def _k1_ops(meta: torch.Tensor, slots: int, has_instances: bool) -> int:
 
 
 def arrivals_work(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=None,
-                  has_instances: bool = False):
+                  has_instances: bool = False, rows=None):
     """(bytes, f32 operations, distinct rows, counts) of one multi-arrival
     launch (``cuda_arrival.arrival_steps16_cuda``) on state ``s``, found by
     running the one-arrival plain version on its own outputs (``s`` is left
@@ -308,8 +310,12 @@ def arrivals_work(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=N
     planes read if it starts inside a BLAS, written if it enters one); each
     distinct row the lanes load over the ``steps`` arrivals; 8 bytes per
     stack push and per pop that reads memory (a pop right after a push
-    takes its entry from registers).  Operations: K1's, summed over the
-    arrivals.  ``counts``: lanes that step, pushes, pops from memory."""
+    takes its entry from registers).  ``rows`` (int32 (B,)), a probe's row
+    plane: lane i loads row ``rows[i]`` where the render path loads ``ptr``
+    (the leaf-decode probes, ``cuda_arrival.arrival_probe_cuda``), and
+    each lane that steps reads it, 4 bytes; the render path passes none.
+    Operations: K1's, summed over the arrivals.  ``counts``: lanes that
+    step, pushes, pops from memory."""
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16
 
     nodes_i = nodes.view(torch.int32)
@@ -322,15 +328,15 @@ def arrivals_work(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=N
     start = stepping(s)
     cached = torch.zeros_like(start)
     entered = torch.zeros_like(start)
-    rows, ops, pushes, pops = [], 0, 0, 0
+    loaded, ops, pushes, pops = [], 0, 0, 0
     cur = s
     for _ in range(steps):
         act = stepping(cur)
-        r = cur.ptr[act].long()
-        rows.append(r)
+        r = (cur.ptr if rows is None else rows)[act].long()
+        loaded.append(r)
         meta = nodes_i[r, 3]
         ops += _k1_ops(meta, slots, has_instances)
-        nxt = arrival_step16(nodes, oT.T, dT.T, invT.T, cur, act, has_instances)
+        nxt = arrival_step16(nodes, oT.T, dT.T, invT.T, cur, act, has_instances, rows=rows)
         pushed = act & (nxt.sp > cur.sp)
         popped = act & (nxt.sp < cur.sp)
         pushes += int(pushed.sum())
@@ -339,11 +345,12 @@ def arrivals_work(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=N
         if has_instances:
             entered[act] |= meta < 0
         cur = nxt
-    distinct = int(torch.unique(torch.cat(rows)).numel())
+    distinct = int(torch.unique(torch.cat(loaded)).numel())
     n = int(start.sum())
     scalar = sum(getattr(s, f).element_size() for f in _FLAT_FIELDS if getattr(s, f).dim() == 1)
     nbytes = (s.ptr.nbytes + sum(m.nbytes for m in (live, stop_on_found) if m is not None)
-              + n * (2 * scalar - 4 + 36) + distinct * nodes.shape[1] * 4 + 8 * (pushes + pops))
+              + n * (2 * scalar - 4 + 36 + (0 if rows is None else 4))
+              + distinct * nodes.shape[1] * 4 + 8 * (pushes + pops))
     if has_instances:
         nbytes += n * 2 * 12 + 36 * int((start & (s.inst >= 0)).sum() + entered.sum())
     return nbytes, ops, distinct, dict(lanes=n, pushes=pushes, pops=pops)
@@ -533,8 +540,9 @@ def running(live, stop_on_found, s):
 def one_step_loop(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
                   has_instances=False):
     """``steps`` arrivals as the pass ran them before the multi-arrival
-    kernel: one ``arrival_step16_cuda`` each (a launch of the one-arrival
-    kernel on CUDA tensors), a new state each time, ``s`` untouched.  It
+    kernel: one ``arrival_step16_cuda`` each (on CUDA tensors a copy of the
+    state and one launch at ``steps=1``), a new state each time, ``s``
+    untouched.  It
     takes ``arrival_steps16_cuda``'s arguments, so a caller can put it in
     that function's place."""
     from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
@@ -548,7 +556,7 @@ def one_step_loop(nodes, oT, dT, invT, s, steps, live=None, stop_on_found=None,
 def arrival_state(cap: K1Launch, k: int):
     """The one-arrival inputs ``(nodes, oT, dT, invT, state, active)`` of the
     k-th arrival (from 1) of a captured super-iteration: its start state
-    after k - 1 launches of the one-arrival kernel."""
+    after k - 1 calls of the one-arrival wrapper."""
     s = one_step_loop(cap.nodes, cap.oT, cap.dT, cap.invT, cap.s, k - 1, cap.live, cap.stop,
                       cap.has_instances)
     return cap.nodes, cap.oT, cap.dT, cap.invT, s, running(cap.live, cap.stop, s)

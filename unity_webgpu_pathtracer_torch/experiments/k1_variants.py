@@ -2,7 +2,7 @@
 render path's states, on the H100.
 
 ``csrc/arrival16.cu`` is built once per value of its one build constant,
-``K1_MIN_BLOCKS`` (``lbN``: both K1 kernels must fit N blocks of 256
+``K1_MIN_BLOCKS`` (``lbN``: K1 and the diet must fit N blocks of 256
 threads on an SM, so at most 65,536 / (256 N) registers a thread; the
 package builds ``cuda_arrival.K1_MIN_BLOCKS``).  Each build's multi-arrival
 entry is launched through ``cuda_arrival.launch_steps`` on the start state
@@ -80,7 +80,7 @@ def diet(libs, inputs, label: str, modes=("full", "no_inner")) -> list[dict]:
         ref = d.diet_step16(nodes, rows, oT.T, dT.T, invT.T, s, active, mode)
         for blocks, (lib, regs) in libs.items():
             def launch(w, lib=lib):
-                cuda_arrival.launch_diet(lib, nodes, rows, oT, dT, invT, w, active, mode)
+                cuda_arrival.launch_probe(lib, nodes, rows, oT, dT, invT, w, active, mode)
 
             work = clone_state(s)
             launch(work)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.accel.wide16 import OFF_IDX, WIDTH
-from unity_webgpu_pathtracer_torch.experiments._common import (arrival_work, check, clone_state,
+from unity_webgpu_pathtracer_torch.experiments._common import (arrival_work, arrivals_work,
+                                                              bound, check, clone_state,
                                                               cuda_device, diet_work, row,
                                                               time_in_place_ms, time_ms)
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import (_FLAT_FIELDS, DIET_MODES,
@@ -204,41 +205,43 @@ def restorer(inputs):
 
 def in_place_times(inputs, launch) -> tuple[float, float]:
     """(warm, cold) device ms of ``launch(state)``, one in-place arrival of
-    the diet, on a copy of the state restored from ``inputs`` before each
-    call (``cold``: the L2 flushed after the restore)."""
+    a probe mode, on a copy of the state restored from ``inputs`` before
+    each call (``cold``: the L2 flushed after the restore)."""
     work, restore = restorer(inputs)
     return (time_in_place_ms(lambda: launch(work), restore)[0],
             time_in_place_ms(lambda: launch(work), restore, cold=True)[0])
 
 
 def modes_on_state(inputs, label: str, modes) -> list[dict]:
-    """Each probe mode in ``modes`` on one state: kernel against the plain
-    version (the diet's modes exact, in place on a copy; the leaf decodes
-    integers equal, floats within FLOAT_TOL), kernel and plain times, the
-    bound (the diet's by mode, ``diet_work``; the leaf decodes'
-    ``arrival_work``), and the state's distinct rows.  A diet mode's ``ms``
-    is taken with the L2 flushed after each restore, and its row carries
-    the warm reading as ``warm_ms``."""
+    """Each probe mode in ``modes`` on one state, in place on a copy:
+    kernel against the plain version (the diet's modes exact; the leaf
+    decodes integers equal, floats within FLOAT_TOL), kernel and plain
+    times, the bound, and the state's distinct rows.  ``ms`` is taken with
+    the L2 flushed after each restore, and the row carries the warm
+    reading as ``warm_ms``.  Bounds: the diet's by mode (``diet_work``);
+    the leaf decodes' the production kernel's in-place one-arrival launch
+    on the row plane (``arrivals_work`` with ``rows``), with the
+    out-of-place yardstick they were held to before (``arrival_work``) as
+    ``old_bound_ms``."""
     nodes, rows, oT, dT, invT, s, active = inputs
-    k1_bytes, k1_ops, distinct = arrival_work(nodes, rows, oT, dT, invT, s, active)
+    k1_bytes, k1_ops, distinct, _ = arrivals_work(nodes, oT, dT, invT, s, 1, active,
+                                                  rows=rows)
+    old_bound_ms = bound(*arrival_work(nodes, rows, oT, dT, invT, s, active)[:2])[0]
     b = s.ptr.shape[0]
     out = []
     for mode in modes:
-        diet = mode in DIET_MODES
         ref = arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode)
+        got = arrival_probe_cuda(nodes, rows, oT, dT, invT, clone_state(s), active, mode)
         extra = {}
-        if diet:
-            got = arrival_probe_cuda(nodes, rows, oT, dT, invT, clone_state(s), active, mode)
+        extra["warm_ms"], ms = in_place_times(inputs, lambda w: arrival_probe_cuda(
+            nodes, rows, oT, dT, invT, w, active, mode))
+        if mode in DIET_MODES:
             ok, err = _same(got, ref, True)
-            extra["warm_ms"], ms = in_place_times(inputs, lambda w: arrival_probe_cuda(
-                nodes, rows, oT, dT, invT, w, active, mode))
             nbytes, ops, extra["counts"] = diet_work(nodes, rows, oT, dT, invT, s, active, mode)
             tol = "exact (max abs err 0)"
         else:
-            got = arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode)
             ok, err = _same(got, ref, False)
-            ms = time_ms(lambda: arrival_probe_cuda(nodes, rows, oT, dT, invT, s, active, mode))
-            nbytes, ops = k1_bytes, k1_ops
+            nbytes, ops, extra["old_bound_ms"] = k1_bytes, k1_ops, old_bound_ms
             tol = "integers equal, floats rtol 1e-5 / atol 1e-6"
         plain = time_ms(lambda: arrival_probe_plain(nodes, rows, oT, dT, invT, s, active, mode))
         out.append(row(f"{label} {mode}", PROBE_KERNELS[mode], ms, plain, ms * 1e6 / b, "lane",
@@ -249,7 +252,7 @@ def modes_on_state(inputs, label: str, modes) -> list[dict]:
 def savings(rows: list[dict], base: str = "full",
             key: str = "ms") -> dict[str, tuple[float, float]]:
     """ms and share each mode saves against the first ``base`` row, by
-    ``key`` (``ms``, or ``warm_ms`` of the diet's rows)."""
+    ``key`` (``ms``, cold, or ``warm_ms``)."""
     full = next(r[key] for r in rows if r["mode"] == base)
     return {r["mode"]: (full - r[key], (full - r[key]) / full) for r in rows
             if r["mode"] != base and key in r}

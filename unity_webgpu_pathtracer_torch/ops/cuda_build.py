@@ -32,15 +32,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # returns a CUDA error code, and every library has ``cuda_error_string``.
 ENTRIES = {
     "arrival16": {
-        "arrival16_launch": [_P, _P],                    # args struct, stream
-        "arrival16_leaf8_launch": [_P, _P],
-        "arrival16_inst_launch": [_P, _P, _P],           # args, instance args, stream
-        "arrival16_inst_leaf8_launch": [_P, _P, _P],
         "arrival16_run_launch": [_P, _P],                # run args struct, stream
         "arrival16_leaf8_run_launch": [_P, _P],
         "arrival16_inst_run_launch": [_P, _P, _P],       # run args, instance args, stream
         "arrival16_inst_leaf8_run_launch": [_P, _P, _P],
-        "arrival16_probe_launch": [_I, _P, _P, _P],      # mode, args, row plane, stream
+        "arrival16_run_probe_launch": [_I, _P, _P, _P],  # mode, run args (in place), rows, stream
         "arrival16_diet_launch": [_I, _P, _P, _P],       # mode, run args (in place), rows, stream
     },
     "transition16": {
@@ -56,7 +52,7 @@ ENTRIES = {
         "schlick_chain_launch": [_P, _P, _I, _P],
         "remainder_check_launch": [_L, _L, _P, _P],      # first, count, mismatches, stream
         "lobe_chain_launch": [_P, _P, _I, _I, _P],
-        "cluster_gather_launch": [_P, _P, _I, _P, _P],
+        "tree_gather_launch": [_P, _P, _I, _P, _P],       # table, idx, n, out, stream
         "intrinsic_launch": [_I, _P, _P, _P, _I, _P],    # op, a, b, out, n, stream
         "cumsum_i32_launch": [_P, _P, _I, _P, _I, _P],   # a, out, n, scratch, its words, stream
         # x, n, blocks, rounds, out, scratch, its words, stream

@@ -46,7 +46,7 @@ TREE_ROWS, TREE_COLS = 4096, 96       # P7: the table held on chip
 SCHLICK_BLOCKS, LOBE_REPEATS, STEPS = 40, 64, 32
 
 KERNELS = ("ring_gather", "table_sum_smem", "table_sum_global", "schlick_chain",
-           "lobe_chain_f32", "lobe_chain_bf16", "cluster_gather",
+           "lobe_chain_f32", "lobe_chain_bf16", "tree_gather",
            *(f"intrinsic_{op}" for op in INTRINSICS), "sum_scalar", "step_chain")
 # Launch count of each kernel.
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -292,22 +292,31 @@ def lobe_chain(xin: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return out
 
 
-# ---- P7: table held on chip, cluster gather (round18_vmem_tree_probe.py:63) ----
+# ---- P7: the upper tree held on chip (round18_vmem_tree_probe.py:63) ----
 
-def cluster_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return table.float()[idx.long()]
+def tree_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table.float()[idx]``, and a row of zeros where ``idx`` lies outside
+    [0, TREE_ROWS), as the reference's one-hot product gives."""
+    inside = (idx >= 0) & (idx < TREE_ROWS)
+    rows = table.float()[torch.where(inside, idx, 0).long()]
+    return torch.where(inside[:, None], rows, torch.zeros_like(rows))
 
 
-def cluster_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(B, 96) f32 rows ``table[idx]`` of a (4096, 96) bf16 table held in
-    a 4-block cluster's shared memory."""
+def tree_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, 96) f32 rows ``table[idx]`` of a (4096, 96) bf16 table on an
+    8-byte boundary (a row of zeros for an index outside [0, 4096)), the
+    table read through the L2 with an evict-last policy by blocks over
+    every SM."""
     dev = _device(table)
     cuda_build.check_tensor(table, "table", torch.bfloat16, (TREE_ROWS, TREE_COLS), dev)
     cuda_build.check_tensor(idx, "idx", torch.int32, (idx.shape[0],), dev)
+    if table.data_ptr() % 8:
+        raise ValueError(f"table must start on an 8-byte boundary (data_ptr % 8 = "
+                         f"{table.data_ptr() % 8})")
     if dev.type == "cpu":
-        return cluster_gather_plain(table, idx)
+        return tree_gather_plain(table, idx)
     out = torch.empty((idx.shape[0], TREE_COLS), dtype=torch.float32, device=dev)
-    _launch("cluster_gather", "cluster_gather_launch", table, table.data_ptr(), idx.data_ptr(),
+    _launch("tree_gather", "tree_gather_launch", table, table.data_ptr(), idx.data_ptr(),
             idx.shape[0], out.data_ptr())
     return out
 
