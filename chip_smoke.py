@@ -96,7 +96,25 @@ Phases, each printing one or more lines:
     captured start state of its super-iteration by the one-arrival
     wrapper, with its time, distinct rows and bound on each;
     and the multi-arrival kernel on the start states of super-iterations
-    4, 150 and 151; P8's and P10's rows beside the launch floor.
+    4, 150 and 151; P8's and P10's rows beside the launch floor;
+14. the renderer's user surface: (a) phase 4's film through
+    ``Renderer.save_png`` into ``chiprun_out/phase14/``, read back with the
+    port's ``read_png`` and held equal to ``Renderer.image()``, with the
+    write's seconds; (b) ``cli.main(["render", "builtin:<name>", ...])`` in
+    process for each of the nine builtins at the cli's defaults (512x512,
+    64 spp in passes of 4, 5 bounces, ACES), each pass timed by a local
+    hook around ``Renderer.step``, K1 launched once a super-iteration on
+    every scene and K2 on ``brdf`` and ``sponza_like`` only, the PNG read
+    back equal to ``Renderer.image()``; (c) the benchmark grid at 1920x1080
+    with the HDRI and ``lights_scene``'s three lights (``has_lights``: env
+    NEE and light NEE through the general transition's merged evaluation),
+    one pass of 2 spp through ``Renderer``, its launches per
+    super-iteration, a PNG; (d) every builtin but ``tlas`` (whose committed
+    golden saw only the sky) rendered on the card at the golden
+    configuration and held to its golden by
+    ``tests/golden_common.py::compare_to_golden``, loaded with
+    ``UWPT_GOLDEN_NATIVE_BACKEND=1`` so that it imports only numpy; JAX
+    must not have been imported.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -141,7 +159,9 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
+import os
 import subprocess
 import sys
 import time
@@ -153,6 +173,7 @@ TE = 8
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 TILE = 32        # film tile statistic of phases 7, 11 and 12
 K2_AT = (4, 150, 151)   # super-iterations whose transition state phase 3 captures
+CLI_ARGS = ()    # phase 14b's cli render runs at the cli's defaults (512x512, 64 spp, ACES)
 
 
 def log(msg: str) -> None:
@@ -233,6 +254,36 @@ def compare(out, ref, what: str) -> float:
     return worst
 
 
+def golden_passes(name: str, golden_common):
+    """The per-pass mean images of builtin ``name`` rendered on the card at
+    the golden configuration (``golden_common.build_scene``'s: 64x64, 32
+    spp, 4 bounces, pool 4096, the firefly clamp at luminance 2), one pass
+    for each seed of the test family."""
+    import numpy as np
+
+    from unity_webgpu_pathtracer_torch.config import RenderConfig
+    from unity_webgpu_pathtracer_torch.models.examples import EXAMPLES
+    from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
+    from unity_webgpu_pathtracer_torch.render.fused import fused_pass_with_stats
+
+    scene, cam, over = EXAMPLES[name]()
+    over = dict(over)
+    over.setdefault("has_lights", bool(scene.lights))
+    over.setdefault("has_textures", bool(scene.textures))
+    size, spp = golden_common.SIZE, golden_common.SPP
+    cfg = RenderConfig(width=size, height=size, samples_per_pass=spp, max_bounces=4,
+                       pool_size=4096, use_firefly_filter=True, **over)
+    sd = scene.build()
+    out = []
+    for seed in golden_common.seed_roots(golden_common.TEST_SEED_BASE,
+                                         golden_common.N_TEST_PASSES):
+        params = make_camera_params(width=size, height=size, **cam, seed_root=np.uint32(seed),
+                                    max_firefly_luminance=np.float32(2.0))
+        film, *_ = fused_pass_with_stats(sd, cfg, params, 0)
+        out.append(film.cpu().numpy().reshape(size, size, 3) / spp)
+    return np.stack(out)
+
+
 def main() -> int:
     import torch
 
@@ -243,6 +294,7 @@ def main() -> int:
 
     import numpy as np
 
+    from unity_webgpu_pathtracer_torch import api, cli
     from unity_webgpu_pathtracer_torch.accel import wide16 as w16
     from unity_webgpu_pathtracer_torch.api import Renderer
     from unity_webgpu_pathtracer_torch.config import RenderConfig
@@ -259,12 +311,13 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.models.benchmark import (
         instanced_million_triangle_scene, million_triangle_scene)
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
-    from unity_webgpu_pathtracer_torch.models.examples import tlas_scene
+    from unity_webgpu_pathtracer_torch.models.examples import EXAMPLES, lights_scene, tlas_scene
     from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16, arrival_steps16
     from unity_webgpu_pathtracer_torch.render import fused
     from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
     from unity_webgpu_pathtracer_torch.utils import rng as urng
+    from unity_webgpu_pathtracer_torch.utils.image import read_png
 
     dev = torch.device("cuda")
     card = gpu_line()
@@ -517,6 +570,7 @@ def main() -> int:
     kernels["arrival16_run"]["launches"] = got["arrival16_run"]
     kernels["transition16"]["launches"] = got["transition16"]
     flat_img = r.film.accum.clone()
+    main_film, flat_mean = r.film, float(flat_img.mean())   # presented in phase 14a
     check_film(flat_img, (h, w, 3), "phase 4")
     log(f"phase 4 main path: film mean {float(flat_img.mean()):.6f}, launches {got}, peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
@@ -524,6 +578,7 @@ def main() -> int:
     if main_si["reductions_per_si"]["any"] < 1:   # the loop's test, once a super-iteration
         raise AssertionError(f"phase 4: the profile saw no reduction: {main_si}")
     turns(r, "phase 4", "arrival16", "arrival16_run", TE)
+    main_r = r
     del r
 
     # ---- 5. slice with kernels vs slice with twins (CUDA) and CPU twins ----
@@ -886,6 +941,129 @@ def main() -> int:
             f"({share * 100:.1f}%); card: {card}")
         del nodes, oT, dT, invT, s, active, out, state
     del sd, caps
+
+    # ---- 14. the renderer's user surface: PNGs, the cli, lights, goldens ----
+    t14 = time.perf_counter()
+    out_dir = os.path.join("chiprun_out", "phase14")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # 14a: phase 4's film through Renderer.save_png, read back.
+    main_r.film = main_film
+    png = os.path.join(out_dir, "main_path_1080p.png")
+    t0 = time.perf_counter()
+    main_r.save_png(png)
+    png_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shown = main_r.image()
+    image_s = time.perf_counter() - t0
+    back = read_png(png)
+    if not np.array_equal(back, shown) or back.shape != (h, w, 3):
+        raise AssertionError(f"phase 14a: {png} read back differs from Renderer.image()")
+    log(f"phase 14a main path film ({main_r.sample_count} spp, {w}x{h}) -> {png}: save_png "
+        f"{png_s:.3f} s (Renderer.image {image_s:.3f} s, {os.path.getsize(png)} bytes), read "
+        f"back equal to Renderer.image(), PNG mean {back.mean():.3f}; card: {card}")
+    del main_r, main_film, shown, back
+
+    # 14b: cli render of every builtin at the cli's defaults, each pass
+    # timed by a local hook around Renderer.step.
+    passes = []
+    step = api.Renderer.step
+
+    def timed_step(self):
+        t0 = time.perf_counter()
+        step(self)
+        st = self.stats()   # reads device scalars, so the pass has ended
+        passes.append((time.perf_counter() - t0, st["super_iterations"]))
+
+    api.Renderer.step = timed_step
+    try:
+        for name in EXAMPLES:
+            passes.clear()
+            reset_counts()
+            png = os.path.join(out_dir, f"{name}.png")
+            t0 = time.perf_counter()
+            r = cli.main(["render", f"builtin:{name}", "--out", png, *CLI_ARGS])
+            wall = time.perf_counter() - t0
+            iters = sum(n for _, n in passes)
+            k1 = "arrival16_inst_run" if name == "tlas" else "arrival16_run"
+            want = {k1: iters, **({"transition16": iters} if name in ("brdf", "sponza_like")
+                                  else {})}
+            got = counts()
+            expect_only(got, want, f"phase 14b {name}")
+            back = read_png(png)
+            size = r.config.width
+            if back.shape != (size, size, 3) or not np.array_equal(back, r.image()) \
+                    or back.max() == 0:
+                raise AssertionError(f"phase 14b {name}: PNG {back.shape}, max {back.max()}, "
+                                     "or not Renderer.image()")
+            secs = [round(x, 3) for x, _ in passes]
+            log(f"phase 14b cli render builtin:{name} ({size}x{size}, {r.sample_count} spp, "
+                f"{len(passes)} passes of {r.config.samples_per_pass}): {wall:.2f} s in all, "
+                f"s/pass {min(secs)}-{max(secs)} (mean {sum(secs) / len(secs):.3f}), "
+                f"super-iterations {iters}, launches K1 {got[k1]}, K2 "
+                f"{got['transition16']}, PNG mean {back.mean():.3f}; card: {card}")
+    finally:
+        api.Renderer.step = step
+    del r
+
+    # 14c: the benchmark grid at 1080p with the HDRI and lights_scene's
+    # three lights: env NEE and light NEE through the merged evaluation.
+    scene, cam = million_triangle_scene(1_000_000)
+    for light in lights_scene()[0].lights:
+        scene.add_light(light)
+    lit_cfg = RenderConfig(width=w, height=h, samples_per_pass=SPP_INST, max_bounces=5,
+                           transition_every=TE, pool_size=POOL, has_lights=True)
+    t0 = time.perf_counter()
+    r = Renderer(scene, lit_cfg, make_camera_params(width=w, height=h, **cam))
+    setup = time.perf_counter() - t0
+    if fused._kernel_transition_supported(r.scene, lit_cfg):
+        raise AssertionError("phase 14c: a lit scene must take the general transition")
+    reset_counts()
+    _s, iters_l, _rays, _arr = run_passes(r, 1, "phase 14c")
+    got = counts()
+    expect_only(got, {"arrival16_run": iters_l}, "phase 14c")
+    img = r.film.accum
+    check_film(img, (h, w, 3), "phase 14c")
+    if not float(img.mean()) > flat_mean:
+        raise AssertionError(f"phase 14c: lights added no light ({float(img.mean())} against "
+                             f"phase 4's {flat_mean})")
+    launches_per_si(r.scene, lit_cfg, r.params, "phase 14c lit grid")
+    png = os.path.join(out_dir, "lit_grid_1080p.png")
+    t0 = time.perf_counter()
+    r.save_png(png)
+    log(f"phase 14c lit grid ({len(r.scene.lights)} lights + HDRI, {w}x{h}, "
+        f"{r.sample_count} spp): set-up {setup:.1f} s, film mean {float(img.mean()):.6f} "
+        f"(phase 4 without lights {flat_mean:.6f}), launches {got}, save_png "
+        f"{time.perf_counter() - t0:.3f} s -> {png}; card: {card}")
+    del r, img, scene
+
+    # 14d: the builtins' goldens on the card (tests/golden_common.py loads
+    # only numpy with the flag set; loaded from its file, since an
+    # installed package may own the name ``tests``); tlas's golden saw only
+    # the sky.
+    os.environ["UWPT_GOLDEN_NATIVE_BACKEND"] = "1"
+    spec = importlib.util.spec_from_file_location(
+        "golden_common", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                      "golden_common.py"))
+    golden_common = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(golden_common)
+
+    for name in golden_common.SCENES:
+        if name == "tlas":
+            continue
+        reset_counts()
+        t0 = time.perf_counter()
+        ok, stats = golden_common.compare_to_golden(golden_passes(name, golden_common), name)
+        launched = {k for k, v in counts().items() if v > 0}
+        want = {"arrival16_run"} | ({"transition16"} if name in ("brdf", "sponza_like")
+                                    else set())
+        if not ok or launched != want:
+            raise AssertionError(f"phase 14d {name}: golden {ok} {stats}, kernels {launched}")
+        log(f"phase 14d golden {name}: {stats}, kernels {sorted(launched)}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "jax" in sys.modules:
+        raise AssertionError("phase 14d: jax was imported")
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s; card: {card}")
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",

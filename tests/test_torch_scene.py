@@ -86,16 +86,23 @@ def test_cache_key_names_the_committed_table():
 
 
 @pytest.mark.parametrize("knob", [
-    # attr_compact=3 stores no uv: refused with textures, as the reference does.
+    # attr_compact=3 stores no uv: refused with textures or normal maps, as
+    # the reference does.
     dict(traversal="wide8"), dict(integrator="megakernel"),
     dict(attr_compact=3, has_textures=True),
-    dict(sky_mode=3), dict(attr_compact=1), dict(has_lights=True),
-    dict(has_textures=True), dict(has_normal_maps=True), dict(traversal="bvh2"),
-    dict(use_depth_of_field=True), dict(use_record_film=False), dict(use_lane_film=True),
+    dict(sky_mode=3), dict(attr_compact=1), dict(attr_compact=3, has_normal_maps=True),
+    dict(integrator="wavefront"), dict(traversal="wide"), dict(traversal="bvh2"),
+    dict(transition_every=0), dict(use_record_film=False), dict(use_lane_film=True),
 ])
 def test_config_refuses_unported_knobs(knob):
     with pytest.raises(ValueError):
         RenderConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", ["has_lights", "has_textures", "has_normal_maps",
+                                  "use_depth_of_field"])
+def test_config_admits_ported_features(knob):
+    assert getattr(RenderConfig(**{knob: True}), knob)
 
 
 def test_params_from_numpy_refuses_unported_fields():
@@ -103,8 +110,10 @@ def test_params_from_numpy_refuses_unported_fields():
                width=8, height=8)
     p = make_camera_params(**cam, seed_root=np.uint32(0xFFFFFFFF), device="cpu")
     assert p.seed_root.dtype == torch.int64 and int(p.seed_root) == 0xFFFFFFFF
-    with pytest.raises(ValueError, match="aperture"):
-        make_camera_params(**cam, aperture=0.1, device="cpu")
+    p = make_camera_params(**cam, aperture=0.1, focal_length=3.0, device="cpu")
+    assert float(p.aperture) == np.float32(0.1) and float(p.focal_length) == 3.0
+    with pytest.raises(ValueError, match="no_such_uniform"):
+        make_camera_params(**cam, no_such_uniform=0.1, device="cpu")
 
 
 def test_port_imports_no_jax():

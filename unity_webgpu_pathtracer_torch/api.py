@@ -13,6 +13,7 @@ Example::
     r = Renderer(scene, cfg, make_camera_params(width=1920, height=1080, **cam))
     r.render(passes=2)
     rgb = r.radiance()         # (H, W, 3) linear mean radiance, numpy
+    r.save_png("out.png")      # ACES, sRGB; row 0 = top
 """
 
 from __future__ import annotations
@@ -20,20 +21,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams
+from unity_webgpu_pathtracer_torch.config import PostParams, RenderConfig, RenderParams
 from unity_webgpu_pathtracer_torch.device import resolve_device
+from unity_webgpu_pathtracer_torch.post.tonemap import present
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.fused import fused_pass_and_accumulate
 from unity_webgpu_pathtracer_torch.scene.material import MaterialDesc, pack_materials
-from unity_webgpu_pathtracer_torch.scene.scene import Scene, SceneData, rebuild_tlas_rows
+from unity_webgpu_pathtracer_torch.scene.scene import (
+    Scene,
+    SceneData,
+    light_table,
+    rebuild_tlas_rows,
+)
+from unity_webgpu_pathtracer_torch.utils.image import write_png
 
 
 class Renderer:
-    """Owns the device scene, the film and the last pass's statistics.
-    Built from a host ``Scene``, it also takes the dynamic-scene edits
-    (``update_instance_transform``, ``update_material``), each of which
-    restarts accumulation as the reference's dirty tracking does
-    (``PathTracer.cs:169-180, 463-471``).  It runs on the CUDA device
+    """Owns the device scene, the film and the last pass's statistics, and
+    presents the film (``image``, ``save_png``).  Built from a host
+    ``Scene``, it also takes the dynamic-scene edits
+    (``update_instance_transform``, ``update_material``, ``update_lights``;
+    ``update_camera`` takes new uniforms), each of which restarts
+    accumulation as the reference's dirty tracking does
+    (``PathTracer.cs:169-180, 211-222, 463-471``).  It runs on the CUDA device
     unless ``device`` says otherwise (``device="cpu"``)."""
 
     def __init__(self, scene, config: RenderConfig, params: RenderParams,
@@ -88,6 +98,27 @@ class Renderer:
             materials=torch.from_numpy(pack_materials(host.materials)).to(self.device))
         self.reset()
 
+    def update_lights(self, lights) -> None:
+        """Replace the light table (``PathTracer.UpdateLights``, :367);
+        accumulation restarts."""
+        host = self._require_host_scene()
+        host.lights = list(lights)
+        self.scene = self.scene._replace(
+            lights=torch.from_numpy(light_table(host.lights)).to(self.device))
+        self.reset()
+
+    def update_camera(self, params: RenderParams, reproject: bool = False,
+                      max_history: int | None = None) -> None:
+        """New camera and uniforms (``PathTracer.cs:211-222``);
+        accumulation restarts.  The reference's ``reproject=True`` warps the
+        film through the camera move (``render/reproject.py``), which the
+        port does not have yet: it raises."""
+        if reproject or max_history is not None:
+            raise NotImplementedError("temporal reprojection (render/reproject.py) is not "
+                                      "ported; call update_camera without reproject")
+        self.params = params.to(self.device)
+        self.reset()
+
     def step(self) -> None:
         """Render one progressive pass (``samples_per_pass`` samples/pixel)."""
         self.film, *self._last = fused_pass_and_accumulate(
@@ -117,3 +148,13 @@ class Renderer:
     def radiance(self) -> np.ndarray:
         """Linear mean radiance (H, W, 3), row 0 = bottom."""
         return self.film.accum.cpu().numpy()
+
+    def image(self, post: PostParams = PostParams()) -> np.ndarray:
+        """Display-ready uint8 (H, W, 3), row 0 = top (the image
+        convention; the film's row 0 is the bottom).  The presentation chain
+        runs on the film's device; one host copy, of the uint8 result."""
+        out = torch.clamp(present(self.film.accum, post), 0.0, 1.0) * 255 + 0.5
+        return out.to(torch.uint8).flip(0).cpu().numpy()
+
+    def save_png(self, path: str, post: PostParams = PostParams()) -> None:
+        write_png(path, self.image(post))

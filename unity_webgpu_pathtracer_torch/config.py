@@ -9,9 +9,10 @@ the reference default selects a path this port does not implement
 Every knob the port does not implement raises ``ValueError`` at
 construction.
 
-:class:`RenderParams` is a dataclass of tensors (camera matrices and
-environment uniforms); ``params_from_numpy`` builds one from the
-reference's fields as numpy arrays.
+:class:`RenderParams` is a dataclass of tensors (camera matrices, the
+thin lens and environment uniforms); ``params_from_numpy`` builds one from
+the reference's fields as numpy arrays.  :class:`PostParams` configures the
+presentation chain (``post/tonemap.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,24 @@ SKY_MODE_ENVIRONMENT = 0
 SKY_MODE_BASIC = 1
 SKY_MODE_NONE = 2
 
+# Tonemap modes (Presentation.shader:42-56)
+TONEMAP_NONE = 0
+TONEMAP_ACES = 1
+TONEMAP_FILMIC = 2
+TONEMAP_REINHARD = 3
+TONEMAP_LOTTES = 4
+
+# Alpha modes (common.hlsl:88-90)
+ALPHA_MODE_OPAQUE = 0
+ALPHA_MODE_BLEND = 1
+ALPHA_MODE_MASK = 2
+
+# Light types (common.hlsl:137-145)
+LIGHT_TYPE_SPOT = 0
+LIGHT_TYPE_DIRECTIONAL = 1
+LIGHT_TYPE_POINT = 2
+LIGHT_TYPE_RECTANGLE = 3
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -39,9 +58,17 @@ class RenderConfig:
     reference's ``has_tlas`` is not a field: it reads it nowhere, and here
     as there the scene's instance table selects the two-level traversal.
 
+    ``has_lights`` turns on the analytic lights (their interception and
+    their NEE), ``has_textures`` the texture atlas (base colour, alpha,
+    metallic-roughness, emission, occlusion), ``has_normal_maps`` the
+    normal maps (they read the atlas, so they need ``has_textures``), and
+    ``use_depth_of_field`` the thin lens of ``RenderParams.aperture`` and
+    ``focal_length``.
+
     ``attr_compact`` picks the attribute rows the transitions read: 2, one
     32-byte row of f16 normals and uvs per triangle; 3, one 16-byte row of
-    oct-encoded normals (no uv, so untextured scenes only).
+    oct-encoded normals (no uv, so untextured scenes only: refused with
+    textures or normal maps, as the reference refuses it).
     ``attr_in_kernel`` is the reference's choice between decoding the
     mode-2 rows before its transition kernel and inside it.  The port's
     kernel K2 always reads and decodes each lane's row itself, so either
@@ -81,10 +108,6 @@ class RenderConfig:
             "attr_compact": self.attr_compact not in (2, 3),
             "sky_mode": self.sky_mode not in (SKY_MODE_ENVIRONMENT, SKY_MODE_BASIC,
                                               SKY_MODE_NONE),
-            "has_lights": self.has_lights,
-            "has_textures": self.has_textures,
-            "has_normal_maps": self.has_normal_maps,
-            "use_depth_of_field": self.use_depth_of_field,
             "use_record_film": not self.use_record_film,
             "use_lane_film": self.use_lane_film,
         }
@@ -93,8 +116,11 @@ class RenderConfig:
             raise ValueError(
                 "the PyTorch port implements only the fused wide16 integrator "
                 "(traversal='wide16', integrator='fused', attr_compact 2 or 3, "
-                "sky modes 0-2, record film, no lights/textures/normal maps/depth "
-                f"of field); unsupported settings: {bad}")
+                f"sky modes 0-2, record film); unsupported settings: {bad}")
+        if self.attr_compact == 3 and (self.has_textures or self.has_normal_maps):
+            raise ValueError("attr_compact=3 requires has_textures=False and "
+                             "has_normal_maps=False (no uv in the oct-normal rows); "
+                             "use attr_compact=2")
         if self.transition_every < 1 or self.max_bounces < 0:
             raise ValueError("transition_every must be >= 1 and "
                              "max_bounces >= 0")
@@ -111,14 +137,17 @@ def _scalar(x, dtype, device):
 class RenderParams:
     """Per-frame uniforms as tensors (the reference's ``RenderParams``).
 
-    Only the uniforms the port reads: the reference's depth-of-field fields
-    have no use while ``RenderConfig`` refuses that path.
-    ``environment_color`` (3,) is the constant environment's radiance.
+    ``aperture`` and ``focal_length`` are the thin lens's diameter and
+    focus distance (read with ``use_depth_of_field``; either 0 gives the
+    pinhole).  ``environment_color`` (3,) is the constant environment's
+    radiance.
     ``seed_root`` holds a uint32 value in an int64 tensor (the port's PCG
     arithmetic runs in int64 masked to 32 bits)."""
 
     cam_to_world: torch.Tensor          # (4, 4) float32
     cam_inv_proj: torch.Tensor          # (4, 4) float32
+    aperture: torch.Tensor
+    focal_length: torch.Tensor
     environment_intensity: torch.Tensor
     environment_rotation: torch.Tensor
     environment_color: torch.Tensor     # (3,) float32
@@ -131,7 +160,7 @@ class RenderParams:
 
 
 _PARAM_DEFAULTS = dict(
-    environment_intensity=1.0, environment_rotation=0.0,
+    aperture=0.0, focal_length=0.0, environment_intensity=1.0, environment_rotation=0.0,
     environment_color=(0.5, 0.5, 0.5), max_firefly_luminance=100.0, seed_root=0,
 )
 
@@ -144,8 +173,7 @@ def params_from_numpy(arrays: dict, device=None) -> RenderParams:
     device = resolve_device(device)
     extra = set(arrays) - {f.name for f in dataclasses.fields(RenderParams)}
     if extra:
-        raise ValueError(f"RenderParams has no fields {sorted(extra)} (the port "
-                         "does not implement depth of field)")
+        raise ValueError(f"RenderParams has no fields {sorted(extra)}")
     kw = {}
     for f in dataclasses.fields(RenderParams):
         val = arrays[f.name] if f.name in arrays else _PARAM_DEFAULTS[f.name]
@@ -155,3 +183,18 @@ def params_from_numpy(arrays: dict, device=None) -> RenderParams:
         else:
             kw[f.name] = _scalar(np.asarray(val, np.float32), torch.float32, device)
     return RenderParams(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class PostParams:
+    """Presentation parameters (``Presentation.shader:19-27``): the
+    tonemap operator, sRGB encoding, exposure, brightness (a gamma),
+    contrast, saturation and vignette strength."""
+
+    mode: int = TONEMAP_ACES
+    srgb: bool = True
+    exposure: float = 1.0
+    brightness: float = 1.0
+    contrast: float = 1.0
+    saturation: float = 1.0
+    vignette: float = 0.0

@@ -58,6 +58,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
 # -D macros from ops/cuda_build.py).
 MODE_PRIMARY = 0
 MODE_SHADOW_ENV = 1
+MODE_SHADOW_LIGHT = 2   # the general transition's light NEE; K2 never sees it
 MODE_DEAD = 3
 
 FULL16 = 0xFFFF

@@ -43,13 +43,15 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     vnormalize,
     vreflect,
     vrefract,
+    vscale,
     vwhere,
 )
 
 
 class Material(NamedTuple):
     """Runtime material record (``common.hlsl:106-135``), per lane; colours
-    are planes 3-tuples.  Untextured, so the occlusion factor is 1."""
+    are planes 3-tuples.  ``occlusion`` is the occlusion texture's factor
+    on ``f``; None (untextured) stands for 1."""
 
     base_color: tuple
     opacity: torch.Tensor
@@ -70,6 +72,7 @@ class Material(NamedTuple):
     ax: torch.Tensor
     ay: torch.Tensor
     eta: torch.Tensor              # hemisphere-relative IOR
+    occlusion: torch.Tensor | None = None
 
 
 def with_roughness(mat: Material, roughness: torch.Tensor) -> Material:
@@ -245,6 +248,8 @@ def eval_brdf_local(mat: Material, v, l, probs):
     f = vadd(f, _gate3(gate, fc, 0.25 * mat.clearcoat))
     pdf = pdf + torch.where(gate, pc * clearcoat_pr, zero)
 
+    if mat.occlusion is not None:
+        f = vscale(f, mat.occlusion)
     alz = torch.abs(lz)
     return (f[0] * alz, f[1] * alz, f[2] * alz), pdf
 

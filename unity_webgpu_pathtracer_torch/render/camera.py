@@ -1,7 +1,7 @@
 """Camera matrices and primary rays (``render/camera.py`` of the reference;
 ``camera.hlsl:13-42``).  Camera space looks down -Z; ``cam_to_world``
-columns are (right, up, back, eye).  Pinhole only: the port's config
-refuses depth of field.
+columns are (right, up, back, eye).  With ``use_depth_of_field`` the rays
+leave a thin lens of diameter ``aperture`` focused at ``focal_length``.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import torch
 
 from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams, params_from_numpy
 from unity_webgpu_pathtracer_torch.utils import rng as urng
-from unity_webgpu_pathtracer_torch.utils.math import TWO_PI, normalize
+from unity_webgpu_pathtracer_torch.utils.math import TWO_PI, concentric_sample_disk, normalize
 
 # AA jitter stddev in pixels (PathTracer.compute:25-31).
 ANTIALIASING_STD = 0.4246609
@@ -45,13 +45,15 @@ def perspective_inverse(fov_y_deg: float, aspect: float) -> np.ndarray:
 
 
 def make_camera_params(eye, target, fov_y_deg, width, height, up=(0, 1, 0),
-                       device=None, **kw) -> RenderParams:
+                       aperture=0.0, focal_length=0.0, device=None, **kw) -> RenderParams:
     """RenderParams on ``device`` (None: the CUDA device; ``"cpu"`` for
-    the CPU) for a look-at pinhole camera; ``kw`` sets the other uniforms
-    (environment intensity, seed_root, ...)."""
+    the CPU) for a look-at camera with a thin lens of diameter
+    ``aperture`` focused at ``focal_length`` (either 0: a pinhole); ``kw``
+    sets the other uniforms (environment intensity, seed_root, ...)."""
     return params_from_numpy(
         dict(cam_to_world=look_at(eye, target, up),
-             cam_inv_proj=perspective_inverse(fov_y_deg, width / height), **kw),
+             cam_inv_proj=perspective_inverse(fov_y_deg, width / height),
+             aperture=aperture, focal_length=focal_length, **kw),
         device)
 
 
@@ -75,8 +77,13 @@ def jittered_pixel_coords(pixel_index: torch.Tensor, config: RenderConfig,
 
 
 def get_screen_ray(pixel_coords: torch.Tensor, config: RenderConfig,
-                   params: RenderParams):
-    """World-space pinhole rays: ``(origin (B, 3), direction (B, 3))``."""
+                   params: RenderParams, state: torch.Tensor):
+    """World-space rays through the jittered pixel coordinates (B, 2):
+    ``(origin (B, 3), direction (B, 3), state)``.  With
+    ``use_depth_of_field`` a lens pair is drawn from ``state`` (after the
+    jitter's, as in the reference) and the ray leaves a concentric disk
+    sample on the lens toward the pinhole ray's point at ``focal_length``;
+    a zero aperture or focal length keeps the pinhole ray."""
     c2w = params.cam_to_world
     origin = c2w[:3, 3].expand(pixel_coords.shape[0], 3)
     u = pixel_coords[:, 0:1] / config.width * 2.0 - 1.0
@@ -87,4 +94,17 @@ def get_screen_ray(pixel_coords: torch.Tensor, config: RenderConfig,
     r = c2w[:3, :3]
     d = (dir_cam[:, 0:1] * r[:, 0] + dir_cam[:, 1:2] * r[:, 1]
          + dir_cam[:, 2:3] * r[:, 2])
-    return origin, normalize(d)
+    direction = normalize(d)
+    if config.use_depth_of_field:
+        (u1, u2), state = urng.random_floats(state, 2)
+        lens_u, lens_v = concentric_sample_disk(u1, u2)
+        lens_radius = params.aperture * 0.5
+        lens_u = lens_u * lens_radius
+        lens_v = lens_v * lens_radius
+        focal_point = origin + direction * params.focal_length
+        lens_pos = lens_u[:, None] * c2w[:3, 0] + lens_v[:, None] * c2w[:3, 1] + c2w[:3, 3]
+        dof_dir = normalize(focal_point - lens_pos)
+        use = (params.aperture > 0.0) & (params.focal_length > 0.0)
+        origin = torch.where(use, lens_pos, origin)
+        direction = torch.where(use, dof_dir, direction)
+    return origin, direction, state

@@ -10,13 +10,15 @@ RNG stream depends on it.
 
 The transition is routed per pass as the reference routes it
 (``_pallas_transition_supported``): the HDRI configuration on a flat
-scene runs kernel K2 (``ops/cuda_transition.py``), one launch that samples
-the environment, reads each lane's attribute and material rows and
-updates the lane state in place (``_transition_kernel_path``); every other
-configuration the port admits (the constant environment, the basic sky,
-no sky, instanced scenes) runs the general transition (``_transition``),
-plain PyTorch like the reference's XLA one.  Both end in the same
-record-film append and work-queue regeneration.  The hit's attribute row
+scene without analytic lights, textures or normal maps runs kernel K2
+(``ops/cuda_transition.py``), one launch that samples the environment,
+reads each lane's attribute and material rows and updates the lane state
+in place (``_transition_kernel_path``); every other configuration the
+port admits (the constant environment, the basic sky, no sky, instanced
+scenes, analytic lights, textures and normal maps) runs the general
+transition (``_transition``), plain PyTorch like the reference's XLA one.
+Both end in the same record-film append and work-queue regeneration (with
+the thin lens's sample when ``use_depth_of_field``).  The hit's attribute row
 is read from the paired f16 rows (``attr_compact=2``) or the oct-normal
 rows (``attr_compact=3``); ``attr_in_kernel`` changes nothing here, since
 K2 reads and decodes the rows itself on either setting.
@@ -39,6 +41,11 @@ import dataclasses
 import torch
 
 from unity_webgpu_pathtracer_torch.config import (
+    ALPHA_MODE_BLEND,
+    ALPHA_MODE_MASK,
+    LIGHT_TYPE_POINT,
+    LIGHT_TYPE_RECTANGLE,
+    LIGHT_TYPE_SPOT,
     SKY_MODE_ENVIRONMENT,
     RenderConfig,
     RenderParams,
@@ -49,6 +56,7 @@ from unity_webgpu_pathtracer_torch.ops.cuda_transition import (
     MODE_DEAD,
     MODE_PRIMARY,
     MODE_SHADOW_ENV,
+    MODE_SHADOW_LIGHT,
     TransitionState,
     attr_index,
     shade_rows,
@@ -61,16 +69,18 @@ from unity_webgpu_pathtracer_torch.render.hitinfo import (
     instance_material_override,
     instance_normal_to_world,
 )
+from unity_webgpu_pathtracer_torch.render.lights import _unity_falloff, spot_cone_fade
 from unity_webgpu_pathtracer_torch.render.sampling import power_heuristic, uniform_sample_sphere
 from unity_webgpu_pathtracer_torch.render.sky import sample_sky_radiance
 from unity_webgpu_pathtracer_torch.scene.envmap import sample_env_transition
-from unity_webgpu_pathtracer_torch.scene.material import derive_material
+from unity_webgpu_pathtracer_torch.scene.material import apply_normal_map, derive_material
 from unity_webgpu_pathtracer_torch.utils import rng as urng
 from unity_webgpu_pathtracer_torch.utils.math import (
     EPSILON,
     FAR_PLANE,
     PI,
     safe_rcp,
+    vcross,
     vdot,
     vluminance,
     vneg,
@@ -81,9 +91,6 @@ from unity_webgpu_pathtracer_torch.utils.math import (
 
 # Sort key of record rows never written in a pass (behind every pixel).
 _UNWRITTEN_KEY = 1 << 30
-# Alpha modes (common.hlsl:88-90).
-_ALPHA_BLEND = 1
-_ALPHA_MASK = 2
 
 
 @dataclasses.dataclass
@@ -125,10 +132,13 @@ def _stack(v) -> torch.Tensor:
     return torch.stack([v[0], v[1], v[2]])
 
 
-def _set_trav(s: FusedState, mask: torch.Tensor, o, d) -> None:
+def _set_trav(s: FusedState, mask: torch.Tensor, o, d, t_max=None) -> None:
     """Start masked lanes on a fresh world-space segment along ``(o, d)``
-    ((3, B) planes) at the root, registers reset."""
+    ((3, B) planes) at the root, registers reset; the segment ends at
+    ``t_max`` ((B,), or the far plane when None)."""
     tr = s.trav
+    if t_max is None:
+        t_max = torch.full_like(tr.t, FAR_PLANE)
     zi = torch.zeros_like(tr.ptr)
     zf = torch.zeros_like(tr.t)
     minus1 = torch.full_like(tr.tri, -1)
@@ -136,7 +146,7 @@ def _set_trav(s: FusedState, mask: torch.Tensor, o, d) -> None:
         ptr=torch.where(mask, zi, tr.ptr),
         pend=torch.where(mask, torch.full_like(tr.pend, tw16.FULL), tr.pend),
         sp=torch.where(mask, zi, tr.sp),
-        t=torch.where(mask, torch.full_like(tr.t, FAR_PLANE), tr.t),
+        t=torch.where(mask, t_max, tr.t),
         u=torch.where(mask, zf, tr.u),
         v=torch.where(mask, zf, tr.v),
         tri=torch.where(mask, minus1, tr.tri),
@@ -148,13 +158,21 @@ def _set_trav(s: FusedState, mask: torch.Tensor, o, d) -> None:
     s.trav_d = torch.where(mask, d, s.trav_d)
 
 
+def _light_nee(scene, config: RenderConfig) -> bool:
+    """Analytic-light NEE runs: the config asks for it and the scene has
+    lights."""
+    return config.has_lights and scene.lights.shape[0] > 0
+
+
 def _kernel_transition_supported(scene, config: RenderConfig) -> bool:
     """The reference's ``_pallas_transition_supported`` on what the port
-    admits: the HDRI with its NEE, on a flat scene.  (Its other conditions,
-    wide16, attribute rows of mode 2 or 3, no lights, textures or normal
-    maps, the record film and at most 65536 materials, hold for every
-    scene and config the port builds.)"""
+    admits: the HDRI with its NEE, on a flat scene, with no analytic
+    lights, textures or normal maps.  (Its other conditions, wide16,
+    attribute rows of mode 2 or 3, the record film and at most 65536
+    materials, hold for every scene and config the port builds.)"""
     return (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
+            and not _light_nee(scene, config)
+            and not (config.has_textures or config.has_normal_maps)
             and scene.inst_w2l.shape[0] == 0)
 
 
@@ -193,7 +211,7 @@ def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedS
 
     rng_new = urng.seed(pixel_new, sample_new, params.seed_root)
     coords, rng_new = ucamera.jittered_pixel_coords(pixel_new, config, rng_new)
-    o_new, d_new = ucamera.get_screen_ray(coords, config, params)
+    o_new, d_new, rng_new = ucamera.get_screen_ray(coords, config, params, rng_new)
     s.mode = torch.where(take, torch.full_like(s.mode, MODE_PRIMARY), s.mode)
     # (3, B) planes: the kernels take contiguous planes, and torch.where
     # keeps a transposed operand's strides.
@@ -231,18 +249,51 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
     _record_and_regenerate(config, params, s, budget, current_sample, died, rad_out)
 
 
+def _analytic_light_hit(lights: torch.Tensor, o, d, t: torch.Tensor):
+    """The closest rect-light hit before ``t`` along ``(o, d)`` (planes)
+    (``intersect.hlsl:29-54``): ``(hit (B,), t_light (B,), index (B,)
+    int32)``.  The reference tests the lights in index order, each taking
+    the lane when strictly nearer than the best so far; here every light
+    is tested at once on (L, B) planes, and the first index of the
+    nearest hit wins, which is the same light (the lowest index wins a
+    tie, as there)."""
+    b = t.shape[0]
+    idx = torch.full((b,), -1, dtype=torch.int32, device=t.device)
+    if lights.shape[0] == 0:
+        return idx >= 0, t, idx
+    rec = lights[:, :, None]                                     # (L, 16, 1)
+    pos, u, v = (rec[:, 0], rec[:, 1], rec[:, 2]), (rec[:, 8], rec[:, 9], rec[:, 10]), \
+        (rec[:, 12], rec[:, 13], rec[:, 14])
+    n = vnormalize(vcross(u, v))
+    dt = vdot(d, n)                                              # (L, B)
+    tt = (vdot(n, pos) - vdot(o, n)) / torch.where(dt == 0, torch.full_like(dt, 1e-20), dt)
+    vi = tuple(o[c] + d[c] * tt - pos[c] for c in range(3))
+    uu, vv = torch.clamp_min(vdot(u, u), 1e-20), torch.clamp_min(vdot(v, v), 1e-20)
+    a1 = vdot(tuple(u[c] / uu for c in range(3)), vi)
+    a2 = vdot(tuple(v[c] / vv for c in range(3)), vi)
+    hit = ((rec[:, 3] == 3.0) & (tt > EPSILON) & (tt < t) & (a1 >= 0) & (a1 <= 1)
+           & (a2 >= 0) & (a2 <= 1) & (dt < 0))
+    t_all = torch.where(hit, tt, torch.full_like(tt, float("inf")))
+    t_min, first = torch.min(t_all, dim=0)    # ties: the first index (PyTorch's min)
+    lhit = hit.any(dim=0)
+    return lhit, torch.where(lhit, t_min, t), torch.where(lhit, first.to(torch.int32), idx)
+
+
 def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState,
                 budget: int, current_sample: int) -> None:
-    """The general transition (the reference's ``_transition``, the
-    branches the port admits): miss -> sky with MIS; hit -> shade with the
-    instance hooks, emission, alpha passthrough; shadow result -> pending
-    contribution; environment NEE (HDRI or constant colour) for sky mode
-    0; BSDF sample, Russian roulette, firefly clamp, NaN canary, lane cap;
-    then the record-film append and regeneration.  The uniforms are drawn
-    in the reference's order: the env sample, the alpha draw (every
-    lane), the constant-env pair, the BSDF triple, the RR draw.  Updates
-    ``s`` in place."""
+    """The general transition (the reference's ``_transition``): miss ->
+    sky with MIS; a primary ray that meets an analytic light first ->
+    the light's emission, and the path ends; hit -> shade (textured
+    material and normal map, instance hooks), emission, alpha passthrough;
+    shadow result -> pending contribution; environment NEE (HDRI or
+    constant colour) for sky mode 0, then analytic-light NEE (one light
+    picked uniformly); BSDF sample, Russian roulette, firefly clamp, NaN
+    canary, lane cap; then the record-film append and regeneration.  The
+    uniforms are drawn in the reference's order: the env sample, the alpha
+    draw (every lane), the constant-env pair, the light pick, the light
+    pair, the BSDF triple, the RR draw.  Updates ``s`` in place."""
     env_nee = config.sky_mode == SKY_MODE_ENVIRONMENT
+    light_nee = _light_nee(scene, config)
     tr = s.trav
     trav_done = tr.ptr < 0
     shadow_done = trav_done | tr.found
@@ -252,6 +303,12 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     zero = torch.zeros_like(tr.t)
     z3 = (zero, zero, zero)
     path_o, path_d, throughput = s.path_o, s.path_d, s.throughput
+
+    # --- analytic light interception (may be nearer than the triangle) ---
+    if light_nee:
+        lhit, _t_light, lidx = _analytic_light_hit(scene.lights, path_o, path_d, tr.t)
+    else:
+        lhit = torch.zeros_like(a)
 
     # --- miss -> sky with MIS (the HDRI's sky and NEE share one gather) ---
     if env_nee and config.has_environment_texture:
@@ -266,11 +323,18 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
         sky_color, sky_pdf = sample_sky_radiance(config, params, path_d.T, s.depth)
         sky_color = sky_color.T
     mis = torch.where(s.depth > 0, power_heuristic(s.prev_pdf, sky_pdf), torch.ones_like(zero))
-    miss = a & ~hit_valid
+    miss = a & ~hit_valid & ~lhit
     g_miss = miss & (mis > 0)
     radiance = tuple(s.radiance[c] + torch.where(g_miss, mis * sky_color[c] * throughput[c],
                                                  zero) for c in range(3))
-    shade = a & hit_valid
+
+    # --- analytic light hit -> emission, the path ends ---
+    light_hit = a & lhit
+    if light_nee:
+        l_em = scene.lights[torch.clamp_min(lidx, 0).long(), 4:7].T
+        radiance = tuple(radiance[c] + torch.where(light_hit, l_em[c] * throughput[c], zero)
+                         for c in range(3))
+    shade = a & hit_valid & ~lhit
 
     # --- hit frame: one attribute + material fetch serves the lanes that
     # just hit (their fresh registers) and the shadow lanes (saved ones) ---
@@ -278,18 +342,30 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     b1 = torch.where(a, tr.v, s.hit_uv_bary[1])
     sel_t = torch.where(a, tr.t, s.hit_t)
     env_done = (s.mode == MODE_SHADOW_ENV) & shadow_done
-    sr, mat_idx = shade_rows(scene, config.attr_compact,
-                             attr_index(a, (a & hit_valid) | env_done, tr.tri, s.hit_tri))
+    light_done = (s.mode == MODE_SHADOW_LIGHT) & shadow_done
+    attr = attr_index(a, (a & hit_valid) | env_done | light_done, tr.tri, s.hit_tri)
+    sr, mat_idx = shade_rows(scene, config.attr_compact, attr)
     w0 = 1.0 - b0 - b1
     normal = vnormalize((sr[0] * w0 + sr[3] * b0 + sr[6] * b1,
                          sr[1] * w0 + sr[4] * b0 + sr[7] * b1,
                          sr[2] * w0 + sr[5] * b0 + sr[8] * b1))
+    uv = (sr[9] * w0 + sr[11] * b0 + sr[13] * b1, sr[10] * w0 + sr[12] * b0 + sr[14] * b1)
+    if config.has_normal_maps:
+        tg = scene.attr_tangents[attr].T                         # (9, B)
+        tangent = vnormalize((tg[0] * w0 + tg[3] * b0 + tg[6] * b1,
+                              tg[1] * w0 + tg[4] * b0 + tg[7] * b1,
+                              tg[2] * w0 + tg[5] * b0 + tg[8] * b1))
     if scene.inst_w2l.shape[0] > 0:
         sel_inst = torch.where(a, tr.hit_inst, s.hit_inst)
         normal = instance_normal_to_world(scene, sel_inst, normal)
+        if config.has_normal_maps:
+            tangent = instance_normal_to_world(scene, sel_inst, tangent)
         mat_idx = instance_material_override(scene, sel_inst, mat_idx)
     mdataT = scene.materials[torch.clamp_min(mat_idx, 0).long()].T
-    mat = derive_material(mdataT, path_d, normal)
+    if config.has_normal_maps:
+        normal = apply_normal_map(mdataT, uv, normal, tangent, scene.texture_data,
+                                  config.has_textures)
+    mat = derive_material(mdataT, path_d, normal, uv, scene.texture_data, config.has_textures)
     max_roughness = torch.where(shade, torch.maximum(s.max_roughness, mat.roughness),
                                 s.max_roughness)
     mat = bsdf.with_roughness(mat, max_roughness)
@@ -305,34 +381,90 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
 
     # --- alpha passthrough (pathtrace.hlsl:84-89) ---
     u_alpha, rng = urng.random_float(rng)
-    passthrough = shade & (((mat.alpha_mode == _ALPHA_MASK) & (mat.opacity < mat.alpha_cutoff))
-                           | ((mat.alpha_mode == _ALPHA_BLEND) & (u_alpha > mat.opacity)))
+    passthrough = shade & (
+        ((mat.alpha_mode == ALPHA_MODE_MASK) & (mat.opacity < mat.alpha_cutoff))
+        | ((mat.alpha_mode == ALPHA_MODE_BLEND) & (u_alpha > mat.opacity)))
     shade = shade & ~passthrough
 
     # --- shadow traversal finished -> apply the pending contribution ---
-    g_app = env_done & ~tr.found
+    g_app = (env_done | light_done) & ~tr.found
     radiance = tuple(radiance[c] + torch.where(g_app, s.pending[c] * throughput[c], zero)
                      for c in range(3))
+    # Lanes entering each NEE stage, and those ready for the BSDF sample.
     to_env = shade if env_nee else torch.zeros_like(shade)
-    to_bsdf = env_done if env_nee else shade
+    to_light = (env_done if env_nee else shade) if light_nee else torch.zeros_like(shade)
+    to_bsdf = light_done if light_nee else (env_done if env_nee else shade)
     pending = s.pending
     new_mode = s.mode
 
-    # --- env NEE direction/Li and evaluation (light.hlsl:125-158) ---
-    if env_nee:
-        if not config.has_environment_texture:
-            (r1, r2), rng = urng.random_floats(rng, 2)
-            env_dir = uniform_sample_sphere(r1, r2)
-            env_pdf = torch.full_like(zero, 1.0 / (4.0 * PI))
-            env_li = (params.environment_color * params.environment_intensity)[:, None] \
-                .expand(3, zero.shape[0])
+    # --- env NEE direction/Li (light.hlsl:125-158) ---
+    if env_nee and not config.has_environment_texture:
+        (r1, r2), rng = urng.random_floats(rng, 2)
+        env_dir = uniform_sample_sphere(r1, r2)
+        env_pdf = torch.full_like(zero, 1.0 / (4.0 * PI))
+        env_li = (params.environment_color * params.environment_intensity)[:, None] \
+            .expand(3, zero.shape[0])
+
+    # --- analytic light NEE direction/Li (light.hlsl:117-173) ---
+    if light_nee:
+        lcount = scene.lights.shape[0]
+        u_pick, rng = urng.random_float(rng)
+        li_idx = torch.clamp((u_pick * lcount).to(torch.int32), 0, lcount - 1)
+        rec = scene.lights[li_idx.long()].T                      # (16, B)
+        ltype = rec[3].to(torch.int32)
+        lpos, lu, lv = (rec[0], rec[1], rec[2]), (rec[8], rec[9], rec[10]), \
+            (rec[12], rec[13], rec[14])
+        emission = vscale((rec[4], rec[5], rec[6]), float(lcount))
+        lrange, larea = rec[7], rec[11]
+        (r1, r2), rng = urng.random_floats(rng, 2)
+        to_rect = tuple(lpos[c] + lu[c] * r1 + lv[c] * r2 - scatter_pos[c] for c in range(3))
+        rect_dist = torch.sqrt(torch.clamp_min(vdot(to_rect, to_rect), 0.0))
+        rect_den = torch.clamp_min(rect_dist, 1e-20)
+        rect_dir = tuple(to_rect[c] / rect_den for c in range(3))
+        rect_normal = vnormalize(vcross(lu, lv))
+        rect_pdf = rect_dist * rect_dist / torch.clamp_min(
+            larea * torch.abs(vdot(rect_normal, rect_dir)), 1e-20)
+        to_l = tuple(lpos[c] - scatter_pos[c] for c in range(3))
+        delta_dist = torch.sqrt(torch.clamp_min(vdot(to_l, to_l), 0.0))
+        delta_den = torch.clamp_min(delta_dist, 1e-20)
+        delta_dir = tuple(to_l[c] / delta_den for c in range(3))
+        is_rect = ltype == LIGHT_TYPE_RECTANGLE
+        is_spot = ltype == LIGHT_TYPE_SPOT
+        is_point = ltype == LIGHT_TYPE_POINT
+        light_dir = vwhere(is_rect, rect_dir, delta_dir)
+        ldist = torch.where(is_rect, rect_dist, delta_dist)
+        lnormal = vwhere(is_rect, rect_normal, vwhere(is_spot, vnormalize(lu), vneg(delta_dir)))
+        lpdf2 = torch.where(is_rect, rect_pdf, zero)
+        falloff = _unity_falloff(ldist, lrange)
+        cos_t = vdot(vneg(light_dir), vnormalize(lnormal))
+        falloff = torch.where(is_rect & (cos_t < 0), zero, falloff)
+        spot_fade = spot_cone_fade(cos_t, rec[12], rec[13])
+        falloff = torch.where(is_spot, falloff * spot_fade, falloff)
+
+    # --- NEE evaluation: the env and light lanes are disjoint, so one
+    # eval_brdf serves both (env about ffnormal, lights about the raw
+    # normal, the reference's asymmetry, light.hlsl:105/134) ---
+    if env_nee and light_nee:
+        f_u, bpdf_u = bsdf.eval_brdf(mat, vneg(path_d), vwhere(to_light, normal, ffnormal),
+                                     vwhere(to_light, light_dir, env_dir))
+    elif env_nee:
         f_u, bpdf_u = bsdf.eval_brdf(mat, vneg(path_d), ffnormal, env_dir)
+    elif light_nee:
+        f_u, bpdf_u = bsdf.eval_brdf(mat, vneg(path_d), normal, light_dir)
+
+    if env_nee:
         mis_e = power_heuristic(env_pdf, bpdf_u)
         epdf_den = torch.clamp_min(env_pdf, 1e-20)
         contrib = tuple(mis_e * env_li[c] * f_u[c] / epdf_den for c in range(3))
         ok = (bpdf_u > 0) & (env_pdf > 0) & (mis_e > 0)
         pending = vwhere(to_env, vwhere(ok, contrib, z3), pending)
         new_mode = torch.where(to_env, torch.full_like(new_mode, MODE_SHADOW_ENV), new_mode)
+    if light_nee:
+        lpdf_den = torch.where(lpdf2 > 0, lpdf2, torch.ones_like(lpdf2))
+        contrib_l = tuple(emission[c] * falloff * f_u[c] / lpdf_den for c in range(3))
+        ok_l = (is_rect | is_spot | is_point) & (falloff > 0)
+        pending = vwhere(to_light, vwhere(ok_l, contrib_l, z3), pending)
+        new_mode = torch.where(to_light, torch.full_like(new_mode, MODE_SHADOW_LIGHT), new_mode)
 
     # --- BSDF sample + Russian roulette -> next bounce or death ---
     f_s, l_s, pdf_s, rng = bsdf.sample_brdf(mat, vneg(path_d), ffnormal, rng)
@@ -354,9 +486,9 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
 
     # The lane cap counts processed stage transitions (it stops endless
     # alpha passthrough); lanes waiting in traversal spend none.
-    processed = a | env_done
+    processed = a | env_done | light_done
     cap_exhausted = processed & (s.lane_cap <= 0)
-    died = miss | ended_budget | (to_bsdf & ~continue_ray) | cap_exhausted
+    died = miss | light_hit | ended_budget | (to_bsdf & ~continue_ray) | cap_exhausted
     rad_out = radiance
     if config.use_firefly_filter:
         lum = vluminance(rad_out)
@@ -393,8 +525,10 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     s.lane_cap = torch.where(processed, s.lane_cap - 1, s.lane_cap)
     if env_nee:
         _set_trav(s, to_env, _stack(scatter_pos), _stack(env_dir))
+    if light_nee:
+        _set_trav(s, to_light, _stack(scatter_pos), _stack(light_dir), ldist - EPSILON)
     _set_trav(s, bounce, s.path_o, s.path_d)
-    s.rays = s.rays + bounce.sum() + to_env.sum()
+    s.rays = s.rays + bounce.sum() + to_env.sum() + to_light.sum()
     _record_and_regenerate(config, params, s, budget, current_sample, died,
                            _stack(rad_out))
 
@@ -466,7 +600,7 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         iters += 1
         inv = safe_rcp(s.trav_d)
         live = s.mode != MODE_DEAD
-        shadowing = s.mode == MODE_SHADOW_ENV
+        shadowing = (s.mode == MODE_SHADOW_ENV) | (s.mode == MODE_SHADOW_LIGHT)
         stepping = live & (s.trav.ptr >= 0)   # before the arrivals update ptr in place
         # te arrivals; a shadow lane stops at its first hit.
         s.trav = arrival_steps16_cuda(nodes, s.trav_o, s.trav_d, inv, s.trav, te, live,

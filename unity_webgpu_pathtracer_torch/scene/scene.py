@@ -11,7 +11,9 @@ moving an instance re-emits only the TLAS rows (``rebuild_tlas_rows``).
 ``SceneData`` holds what the fused integrator reads: the wide16 node table
 and its root slot table, the stack depth, the attribute rows (paired f16,
 ``attr_compact=2``, and oct-encoded normals, ``attr_compact=3``), the
-material records, the instance transforms and the environment tables.
+per-vertex tangents (normal maps), the material records, the texture
+atlas, the analytic lights, the instance transforms and the environment
+tables.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import torch
 
 from unity_webgpu_pathtracer_torch.accel import wide16 as w16
 from unity_webgpu_pathtracer_torch.device import resolve_device
+from unity_webgpu_pathtracer_torch.scene import lights as ulights
 from unity_webgpu_pathtracer_torch.scene import material as umaterial
+from unity_webgpu_pathtracer_torch.scene import texture as utexture
 from unity_webgpu_pathtracer_torch.scene.envmap import EnvMap, build_envmap, empty_envmap
 from unity_webgpu_pathtracer_torch.scene.mesh import FlatTriangles, Mesh, concat_flat, flatten_mesh
 
@@ -78,7 +82,8 @@ def _attr_tables(flat: FlatTriangles) -> dict:
     m = flat.count
     return dict(attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
                                                 flat.uvs.reshape(m, 6), flat.material),
-                attr_shade_o=_pack_attr_shade_o(flat.normals.reshape(m, 9), flat.material))
+                attr_shade_o=_pack_attr_shade_o(flat.normals.reshape(m, 9), flat.material),
+                attr_tangents=flat.tangents.reshape(m, 9))
 
 
 class SceneData(NamedTuple):
@@ -89,7 +94,10 @@ class SceneData(NamedTuple):
     stack_depth: int             # register-stack planes (tree depth + 1; +4 instanced)
     attr_shade_c: torch.Tensor   # (T_pad, 8) int32 view of the uint32 rows
     attr_shade_o: torch.Tensor   # (T_pad4, 4) int32 view of the oct rows; (0, 4) absent
+    attr_tangents: torch.Tensor  # (T, 9) float32 per-vertex tangents; (0, 9) absent
     materials: torch.Tensor      # (NM, 32) float32
+    texture_data: torch.Tensor   # (K,) int32 view of the uint32 atlas; (0,) none
+    lights: torch.Tensor         # (L, 16) float32 light records; (0, 16) none
     env: EnvMap
     inst_l2w: torch.Tensor       # (I, 12) float32 row-major 3x4; (0, 12) flat
     inst_w2l: torch.Tensor       # (I, 12)
@@ -101,12 +109,19 @@ def _env_arrays(image) -> dict:
     return dict(env._asdict())
 
 
+def light_table(lights: list) -> np.ndarray:
+    """The (L, 16) light records of ``lights``; (0, 16) when there are none."""
+    return ulights.pack_lights(lights) if lights else np.zeros((0, 16), np.float32)
+
+
 @dataclasses.dataclass
 class Scene:
     """Host-side scene under construction."""
 
     meshes: list = dataclasses.field(default_factory=list)      # (Mesh, transform|None)
     materials: list = dataclasses.field(default_factory=list)   # MaterialDesc
+    lights: list = dataclasses.field(default_factory=list)      # LightDesc
+    textures: list = dataclasses.field(default_factory=list)    # (H, W, 3|4) images
     env_image: np.ndarray | None = None
     # (mesh id, 4x4 transform, material index or None) per instance.
     instances: list = dataclasses.field(default_factory=list)
@@ -119,9 +134,17 @@ class Scene:
         self.materials.append(desc)
         return len(self.materials) - 1
 
+    def add_texture(self, image: np.ndarray) -> int:
+        self.textures.append(image)
+        return len(self.textures) - 1
+
     def add_mesh(self, mesh: Mesh, transform: np.ndarray | None = None) -> int:
         self.meshes.append((mesh, transform))
         return len(self.meshes) - 1
+
+    def add_light(self, desc: ulights.LightDesc) -> int:
+        self.lights.append(desc)
+        return len(self.lights) - 1
 
     def add_instance(self, mesh_id: int, transform: np.ndarray,
                      material_index: int | None = None) -> int:
@@ -137,6 +160,35 @@ class Scene:
 
     def set_environment(self, image: np.ndarray) -> None:
         self.env_image = np.asarray(image, np.float32)
+
+    def world_bounds(self) -> tuple[np.ndarray, np.ndarray]:
+        """World-space AABB over meshes and instances (camera framing)."""
+        los, his = [], []
+
+        def acc(mesh, xf):
+            v = mesh.vertices
+            if xf is not None:
+                v = v @ np.asarray(xf, np.float32)[:3, :3].T + xf[:3, 3]
+            los.append(v.min(axis=0))
+            his.append(v.max(axis=0))
+
+        for mesh, xf in self.meshes:
+            acc(mesh, xf)
+        for mesh_id, xf, _mat in self.instances:
+            acc(self.meshes[mesh_id][0], xf)
+        if not los:
+            return np.zeros(3, np.float32), np.ones(3, np.float32)
+        return (np.min(los, axis=0).astype(np.float32),
+                np.max(his, axis=0).astype(np.float32))
+
+    def _shading_arrays(self) -> dict:
+        """Materials, texture atlas, lights and environment tables."""
+        return dict(
+            materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
+            texture_data=utexture.build_atlas(self.textures),
+            lights=light_table(self.lights),
+            env=_env_arrays(self.env_image),
+        )
 
     def flatten(self) -> FlatTriangles:
         """World-space flattened triangle soup."""
@@ -161,8 +213,7 @@ class Scene:
             wide16_top=top if top is not None else np.zeros((1, w16.TOP_COLS), np.float32),
             stack_levels=np.zeros((w.depth + 1,), np.int32),
             **_attr_tables(flat),
-            materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
-            env=_env_arrays(self.env_image),
+            **self._shading_arrays(),
         )
 
     def _build_instanced_arrays(self, leaf8: bool) -> dict:
@@ -198,8 +249,7 @@ class Scene:
             # +4 planes: a TLAS-only refresh may deepen the tree a little.
             stack_levels=np.zeros((w.depth + 4,), np.int32),
             **_attr_tables(flat),
-            materials=umaterial.pack_materials(self.materials or [umaterial.MaterialDesc()]),
-            env=_env_arrays(self.env_image),
+            **self._shading_arrays(),
             inst_l2w=l2w, inst_w2l=w2l, inst_offsets=offsets,
         )
 
@@ -237,7 +287,8 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
     arrays keyed by the reference's ``SceneData`` field names:
     ``wide16_nodes``, ``wide16_top``, ``stack_levels`` (only its length is
     read), ``attr_shade_c``, ``materials``, ``env`` (a dict of the
-    ``EnvMap`` fields) and, optional, ``attr_shade_o`` and, for instanced
+    ``EnvMap`` fields) and, optional, ``attr_shade_o``, ``attr_tangents``,
+    ``texture_data`` (the uint32 atlas), ``lights`` and, for instanced
     scenes, ``inst_l2w``, ``inst_w2l`` and ``inst_offsets`` (empty when
     absent).  Tests feed it ``np.asarray`` of the JAX fields, so both
     packages trace the same tables."""
@@ -255,7 +306,10 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
         stack_depth=int(np.asarray(arrays["stack_levels"]).shape[0]),
         attr_shade_c=t(arrays["attr_shade_c"], np.int32),
         attr_shade_o=t(arrays.get("attr_shade_o", np.zeros((0, 4), np.uint32)), np.int32),
+        attr_tangents=t(arrays.get("attr_tangents", np.zeros((0, 9), np.float32))),
         materials=t(arrays["materials"]),
+        texture_data=t(arrays.get("texture_data", np.zeros((0,), np.uint32)), np.int32),
+        lights=t(arrays.get("lights", np.zeros((0, 16), np.float32))),
         env=env,
         inst_l2w=t(arrays.get("inst_l2w", np.zeros((0, 12), np.float32))),
         inst_w2l=t(arrays.get("inst_w2l", np.zeros((0, 12), np.float32))),
@@ -264,7 +318,8 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
 
 
 def scene_to_numpy(scene: SceneData) -> dict:
-    """Inverse of ``scene_from_numpy`` (attribute rows as uint32)."""
+    """Inverse of ``scene_from_numpy`` (attribute rows and the atlas as
+    uint32)."""
     def n(x):
         return x.detach().cpu().numpy()
 
@@ -274,7 +329,10 @@ def scene_to_numpy(scene: SceneData) -> dict:
         stack_levels=np.zeros((scene.stack_depth,), np.int32),
         attr_shade_c=n(scene.attr_shade_c).view(np.uint32),
         attr_shade_o=n(scene.attr_shade_o).view(np.uint32),
+        attr_tangents=n(scene.attr_tangents),
         materials=n(scene.materials),
+        texture_data=n(scene.texture_data).view(np.uint32),
+        lights=n(scene.lights),
         env={f: n(getattr(scene.env, f)) for f in EnvMap._fields},
         inst_l2w=n(scene.inst_l2w), inst_w2l=n(scene.inst_w2l),
         inst_offsets=n(scene.inst_offsets),

@@ -37,6 +37,37 @@ def luminance(color: torch.Tensor) -> torch.Tensor:
     return color[..., 0] * 0.299 + color[..., 1] * 0.587 + color[..., 2] * 0.114
 
 
+def length(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean length over the last axis."""
+    return torch.sqrt(torch.clamp_min(dot(v, v), 0.0))
+
+
+def concentric_sample_disk(u1: torch.Tensor, u2: torch.Tensor):
+    """Concentric square -> disk map (``common.hlsl:285-341``), branch-free
+    as in the reference; returns ``(dx, dy)`` on the unit disk (the thin
+    lens's sample)."""
+    sx = 2.0 * u1 - 1.0
+    sy = 2.0 * u2 - 1.0
+    one = torch.ones_like(sx)
+
+    def nz(r):
+        return torch.where(r == 0, one, r)
+
+    r1_cond = sx >= -sy
+    r_a = torch.where(sx > sy, sx, sy)                     # regions 1/2
+    theta_a = torch.where(sx > sy,
+                          torch.where(sy > 0.0, sy / nz(r_a), 8.0 + sy / nz(r_a)),
+                          2.0 - sx / nz(r_a))
+    r_b = torch.where(sx <= sy, -sx, -sy)                  # regions 3/4
+    theta_b = torch.where(sx <= sy, 4.0 - sy / nz(r_b), 6.0 + sx / nz(r_b))
+    r = torch.where(r1_cond, r_a, r_b)
+    theta = torch.where(r1_cond, theta_a, theta_b) * (PI / 4.0)
+    degenerate = (sx == 0.0) & (sy == 0.0)
+    zero = torch.zeros_like(sx)
+    return (torch.where(degenerate, zero, r * torch.cos(theta)),
+            torch.where(degenerate, zero, r * torch.sin(theta)))
+
+
 def safe_rcp(v: torch.Tensor) -> torch.Tensor:
     """``1 / v`` with exact zeros nudged to 1e-30 (``common.hlsl:205``)."""
     return 1.0 / torch.where(v == 0.0, torch.full_like(v, 1.0e-30), v)
