@@ -102,8 +102,8 @@ Phases, each printing one or more lines:
     port's ``read_png`` and held equal to ``Renderer.image()``, with the
     write's seconds; (b) ``cli.main(["render", "builtin:<name>", ...])`` in
     process for each of the nine builtins at the cli's defaults (512x512,
-    64 spp in passes of 4, 5 bounces, ACES), each pass timed by a local
-    hook around ``Renderer.step``, K1 launched once a super-iteration on
+    passes of 4 spp, 5 bounces, ACES) but 16 spp, each pass timed by a
+    local hook around ``Renderer.step``, K1 launched once a super-iteration on
     every scene and K2 on ``brdf`` and ``sponza_like`` only, the PNG read
     back equal to ``Renderer.image()``; (c) the benchmark grid at 1920x1080
     with the HDRI and ``lights_scene``'s three lights (``has_lights``: env
@@ -114,7 +114,33 @@ Phases, each printing one or more lines:
     configuration and held to its golden by
     ``tests/golden_common.py::compare_to_golden``, loaded with
     ``UWPT_GOLDEN_NATIVE_BACKEND=1`` so that it imports only numpy; JAX
-    must not have been imported.
+    must not have been imported;
+15. the reference's other integrators, loaders and checkpoints: (a) the
+    megakernel (``integrator="megakernel"``) on phase 4's scene at
+    1920x1080, 1 spp (2,073,600 lanes a bounce), 5 bounces, the HDRI,
+    two passes through ``Renderer``, only K1 launched (its flat kernel,
+    through ``closest_hit``/``occluded``), each pass's s/pass, rays (a hook
+    around ``integrator.render_pass`` passes ``trace_bounce``'s
+    ``with_stats`` counts), K1 launches and host reads, peak memory; the
+    film held to phase 4's as path A is; K1's first launch of the pass
+    (every lane at the root) against its twin, timed, at that width;
+    (f) a checkpoint after pass 1, loaded into a new ``Renderer``: pass 2
+    gives the uninterrupted film bit for bit; (b) the wavefront
+    (``integrator="wavefront"``, pool 65,536) on the same scene, twice with
+    one seed (bit-equal films; at 1 spp it equals the megakernel's first
+    pass), held to phase 4's film; (e) the grid written as OBJ + MTL (a
+    PNG ``map_Kd``, floats as ``%.9g``) and as GLB (an embedded PNG) into
+    ``chiprun_out/phase15/``, loaded by the port's loaders (the flattened
+    positions equal the written ones bit for bit) and rendered by
+    ``cli.main(["render", <file>, "--size", "512", "--spp", "8"])``, with
+    the seconds to load, build and render (the model files are deleted
+    after, keeping the output directory small); (d) the
+    megakernel on the goldens of every builtin but ``tlas`` under
+    ``tests/golden_gen.py``'s cross-check gate (four passes,
+    ``golden_common.dual_flags`` at z 8: bad fraction below 1%, or below
+    3% with the mean within 0.5%, and the mean within 2%), and Cornell on
+    the brute-force oracle.  Phase 5 also holds a megakernel and a
+    wavefront slice of the 2,000-triangle grid.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -149,7 +175,11 @@ is the one PyTorch call that computes the same function where there is
 one (``table[idx]`` for P1's and P7's gathers, ``embedding_bag`` for P2,
 whose two calls ``tab[li, 0].sum()`` are logged beside it,
 ``torch.sum``, ``torch.sin`` and the others); a probe measured at
-several sizes reports its last row.
+several sizes reports its last row.  ``arrival16_run``'s ``launches``
+sums its launches on the three render paths that use it whole (phase 4's
+fused pass, 15a's megakernel, 15b's wavefront), given one by one in
+``launches_by_path``; ``megakernel_launch`` gives its time, bound and
+error on 15a's first launch (B = 2,073,600).
 
 Every failure raises (non-zero exit).  The last two lines are the
 kernels' JSON summary line and the device line; without a CUDA device it
@@ -173,7 +203,10 @@ TE = 8
 FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 TILE = 32        # film tile statistic of phases 7, 11 and 12
 K2_AT = (4, 150, 151)   # super-iterations whose transition state phase 3 captures
-CLI_ARGS = ()    # phase 14b's cli render runs at the cli's defaults (512x512, 64 spp, ACES)
+# Phase 14b's cli render: the cli's defaults (512x512, passes of 4 spp, ACES)
+# but 16 spp, not 64: four passes a builtin keep the smoke within half its
+# time limit since phase 15 joined it.
+CLI_ARGS = ("--spp", "16")
 
 
 def log(msg: str) -> None:
@@ -254,6 +287,119 @@ def compare(out, ref, what: str) -> float:
     return worst
 
 
+def write_obj_model(path: str, positions, indices, normals, uvs, texture) -> None:
+    """Write one indexed mesh as ``path`` (OBJ, 1-based ``v/vt/vn``
+    corners, floats as ``%.9g`` so the text round trip of every float32 is
+    exact) with a ``.mtl`` beside it whose one material binds ``texture``
+    ((H, W, 3|4) uint8) as a PNG ``map_Kd``."""
+    import numpy as np
+
+    from unity_webgpu_pathtracer_torch.utils.image import write_png
+
+    base = os.path.splitext(path)[0]
+    stem = os.path.basename(base)
+    write_png(base + "_kd.png", texture)
+    with open(base + ".mtl", "w") as f:
+        f.write(f"newmtl grid\nKd 1 1 1\nNs 250\nmap_Kd {stem}_kd.png\n")
+
+    def rows(tag, a):
+        a = np.asarray(a, np.float32)
+        fmt = " ".join(["%.9g"] * a.shape[1])
+        return "\n".join(f"{tag} " + fmt % tuple(r) for r in a.tolist()) + "\n"
+
+    idx = np.asarray(indices, np.int64) + 1
+    faces = "\n".join(f"f {a}/{a}/{a} {b}/{b}/{b} {c}/{c}/{c}" for a, b, c in idx.tolist())
+    with open(path, "w") as f:
+        f.write(f"mtllib {stem}.mtl\n")
+        f.write(rows("v", positions))
+        f.write(rows("vt", uvs))
+        f.write(rows("vn", normals))
+        f.write("usemtl grid\n" + faces + "\n")
+
+
+def write_glb_model(path: str, positions, indices, normals, uvs, texture) -> None:
+    """Write one indexed mesh as a binary glTF: float32 POSITION, NORMAL
+    and TEXCOORD_0, uint32 indices, one node without a transform, one
+    material whose base colour texture is ``texture`` embedded as PNG."""
+    import struct
+
+    import numpy as np
+
+    from unity_webgpu_pathtracer_torch.utils.image import encode_png
+
+    parts = [np.ascontiguousarray(positions, np.float32).tobytes(),
+             np.ascontiguousarray(normals, np.float32).tobytes(),
+             np.ascontiguousarray(uvs, np.float32).tobytes(),
+             np.ascontiguousarray(indices, np.uint32).tobytes(), encode_png(texture)]
+    views, blob = [], b""
+    for p in parts:
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(p)})
+        blob += p + b"\x00" * ((4 - len(p) % 4) % 4)
+    n, m = len(positions), len(indices)
+    pos = np.asarray(positions, np.float32)
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1,
+                                                   "TEXCOORD_0": 2},
+                                    "indices": 3, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                                "roughnessFactor": 0.6}}],
+        "textures": [{"source": 0}], "images": [{"bufferView": 4, "mimeType": "image/png"}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": n, "type": "VEC3",
+             "min": pos.min(0).tolist(), "max": pos.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5126, "count": n, "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": n, "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5125, "count": 3 * m, "type": "SCALAR"}],
+        "bufferViews": views, "buffers": [{"byteLength": len(blob)}],
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((4 - len(js) % 4) % 4)
+    with open(path, "wb") as f:
+        f.write(b"glTF" + struct.pack("<II", 2, 28 + len(js) + len(blob)))
+        f.write(struct.pack("<II", len(js), 0x4E4F534A) + js)
+        f.write(struct.pack("<II", len(blob), 0x004E4942) + blob)
+
+
+def model_of(scene):
+    """One indexed mesh of a flat scene's meshes in world space, in the
+    order ``Scene.flatten`` emits their triangles: ``(positions, indices,
+    normals, uvs)``."""
+    import numpy as np
+
+    from unity_webgpu_pathtracer_torch.scene.mesh import flatten_mesh
+
+    pos, idx, nrm, uv, base = [], [], [], [], 0
+    for mesh, xf in scene.meshes:
+        flat = flatten_mesh(mesh, xf)
+        p = mesh.vertices
+        n = mesh.normals if mesh.normals is not None else mesh.compute_vertex_normals()
+        if xf is not None:
+            m = np.asarray(xf, np.float64)
+            p = (p @ m[:3, :3].T + m[:3, 3]).astype(np.float32)
+            n = n @ np.linalg.inv(m[:3, :3])
+            n = (n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-20))
+        if not np.array_equal(p[mesh.indices], flat.positions):
+            raise AssertionError("model_of: world positions differ from Scene.flatten's")
+        pos.append(p)
+        nrm.append(np.asarray(n, np.float32))
+        uv.append(mesh.uvs if mesh.uvs is not None else np.zeros((len(p), 2), np.float32))
+        idx.append(mesh.indices + base)
+        base += len(p)
+    return (np.concatenate(pos), np.concatenate(idx), np.concatenate(nrm),
+            np.concatenate(uv).astype(np.float32))
+
+
+def checker_texture(size: int = 64):
+    """(size, size, 4) uint8 checker: the model files' base colour map."""
+    import numpy as np
+
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    c = (((xx // 8) + (yy // 8)) % 2 * 120 + 100).astype(np.uint8)
+    return np.stack([c, 255 - c, np.full_like(c, 140), np.full_like(c, 255)], -1)
+
+
 def golden_passes(name: str, golden_common):
     """The per-pass mean images of builtin ``name`` rendered on the card at
     the golden configuration (``golden_common.build_scene``'s: 64x64, 32
@@ -281,6 +427,37 @@ def golden_passes(name: str, golden_common):
                                     max_firefly_luminance=np.float32(2.0))
         film, *_ = fused_pass_with_stats(sd, cfg, params, 0)
         out.append(film.cpu().numpy().reshape(size, size, 3) / spp)
+    return np.stack(out)
+
+
+def golden_megakernel_passes(name: str, golden_common, traversal: str = "wide16"):
+    """``tests/golden_gen.py``'s megakernel cross-check passes of builtin
+    ``name`` rendered on the card: the golden configuration (64x64, 32 spp,
+    4 bounces, the firefly clamp at luminance 2) with the megakernel on
+    ``traversal``, one pass for each of its four seeds (``GEN_SEED_BASE +
+    100 + i * 1000003``), as per-pass mean images."""
+    import numpy as np
+
+    from unity_webgpu_pathtracer_torch.config import RenderConfig
+    from unity_webgpu_pathtracer_torch.models.examples import EXAMPLES
+    from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
+    from unity_webgpu_pathtracer_torch.render.integrator import render_pass
+
+    scene, cam, over = EXAMPLES[name]()
+    over = dict(over)
+    over.setdefault("has_lights", bool(scene.lights))
+    over.setdefault("has_textures", bool(scene.textures))
+    size, spp = golden_common.SIZE, golden_common.SPP
+    cfg = RenderConfig(width=size, height=size, samples_per_pass=spp, max_bounces=4,
+                       pool_size=4096, use_firefly_filter=True, integrator="megakernel",
+                       traversal=traversal, **over)
+    sd = scene.build(traversal)
+    out = []
+    for i in range(4):
+        params = make_camera_params(
+            width=size, height=size, **cam, max_firefly_luminance=np.float32(2.0),
+            seed_root=np.uint32(golden_common.GEN_SEED_BASE + 100 + i * 1000003))
+        out.append(render_pass(sd, cfg, params, 0).cpu().numpy().reshape(size, size, 3) / spp)
     return np.stack(out)
 
 
@@ -313,8 +490,9 @@ def main() -> int:
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
     from unity_webgpu_pathtracer_torch.models.examples import EXAMPLES, lights_scene, tlas_scene
     from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw16
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16, arrival_steps16
-    from unity_webgpu_pathtracer_torch.render import fused
+    from unity_webgpu_pathtracer_torch.render import fused, integrator, wavefront
     from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
     from unity_webgpu_pathtracer_torch.utils import rng as urng
     from unity_webgpu_pathtracer_torch.utils.image import read_png
@@ -423,6 +601,8 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, ops)
         if record_it:
             record(name, K1_SRC, K1_TPU, err, ms, plain_ms, nbytes, ops, "arrival16_run_kernel")
+        result = {"lanes": s0.ptr.shape[0], "max_abs_err": err, "ms": ms, "warm_ms": warm,
+                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
         log(f"{label} K1 {name} ({steps} arrivals, in place): B={s0.ptr.shape[0]} lanes "
             f"stepping={n['lanes']} distinct rows={rows} pushes={n['pushes']} pops from "
             f"memory={n['pops']} max_abs_err={err:g} (every field, stack planes included); "
@@ -431,7 +611,7 @@ def main() -> int:
             f"{steps * one[0]:.4f} ms on the start state, {sum(one):.4f} ms summed over the "
             f"{steps} arrivals; plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, "
             f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.2f} Mflop); card: {card}")
-        return err
+        return result
 
     def check_transition(name, k2: K2Launch, label, record_it=True):
         """K2 against its plain version on a captured pre-transition state,
@@ -585,6 +765,23 @@ def main() -> int:
     def twin_arrivals(n, o, d, i, s, steps, live=None, stop=None, has_instances=False):
         return arrival_steps16(n, o.T, d.T, i.T, s, steps, live, stop, has_instances)
 
+    def run_slice(sd, cfg_, pr):
+        """One pass of ``cfg_``'s integrator: (film, rays, arrivals); the
+        megakernel and the wavefront count the host reads of their
+        traversals' loop test (8 arrivals each) for arrivals."""
+        if cfg_.integrator == "fused":
+            film, _occ, rays, arr, _it = fused.fused_pass_with_stats(sd, cfg_, pr, 0)
+            return film, rays, arr
+        tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
+        if cfg_.integrator == "megakernel":
+            st = {}
+            film = integrator.render_pass(sd, cfg_, pr, 0, stats=st)
+            rays = st["closest"] + st["shadow"]
+        else:
+            film, _occ, closest, shadow = wavefront.wavefront_pass_with_stats(sd, cfg_, pr, 0)
+            rays = closest + shadow
+        return film, rays, tw16.TRAVERSE_STATS["host_reads"]
+
     scene, cam = million_triangle_scene(2000)
     tscene, tcam, tover = tlas_scene(n=4)
     cscene, ccam = cornell_box()
@@ -605,6 +802,12 @@ def main() -> int:
         ("cornell", cscene, ccam, RenderConfig(**box), False, ("arrival16_run",)),
         ("cornell attr_compact=3", cscene, ccam, RenderConfig(**box, attr_compact=3), False,
          ("arrival16_run",)),
+        ("bench2k megakernel", scene, cam, RenderConfig(**dict(bench, samples_per_pass=2),
+                                                        integrator="megakernel"),
+         False, ("arrival16_run",)),
+        ("bench2k wavefront", scene, cam, RenderConfig(**dict(bench, pool_size=333),
+                                                       integrator="wavefront"),
+         False, ("arrival16_run",)),
     )
     for case, sc, cm, small, leaf8, used in cases:
         films = {}
@@ -615,11 +818,13 @@ def main() -> int:
             if name == "twins":
                 fused.arrival_steps16_cuda = twin_arrivals
                 fused.transition16_cuda = cuda_transition.transition16_plain
+                cuda_arrival.arrival_steps16_cuda = twin_arrivals
             reset_counts()
             try:
-                film, _occ, rays, arr, _it = fused.fused_pass_with_stats(sd, small, pr, 0)
+                film, rays, arr = run_slice(sd, small, pr)
             finally:
                 fused.arrival_steps16_cuda, fused.transition16_cuda = arrive, trans
+                cuda_arrival.arrival_steps16_cuda = arrive
             if name == "kernels":
                 launched = {k for k, v in counts().items() if v > 0}
                 if launched != set(used):
@@ -793,7 +998,7 @@ def main() -> int:
     log(f"phase 12 instanced leaf8: film mean {float(img.mean()):.6f} (rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}; card: {card}")
     turns(r, "phase 12", "arrival16_inst_leaf8", "arrival16_inst_leaf8_run", TE)
-    del r, isd, img, flat_img
+    del r, isd, img   # flat_img: phase 15 holds its films to it
 
     # ---- 13. the probes of experiments/ ----
     from unity_webgpu_pathtracer_torch.experiments import (round2_probe, round14_kernel_diet,
@@ -964,7 +1169,7 @@ def main() -> int:
         f"back equal to Renderer.image(), PNG mean {back.mean():.3f}; card: {card}")
     del main_r, main_film, shown, back
 
-    # 14b: cli render of every builtin at the cli's defaults, each pass
+    # 14b: cli render of every builtin at the cli's defaults but 16 spp, each pass
     # timed by a local hook around Renderer.step.
     passes = []
     step = api.Renderer.step
@@ -1064,6 +1269,237 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("phase 14d: jax was imported")
     log(f"phase 14: {time.perf_counter() - t14:.1f} s; card: {card}")
+
+    # ---- 15. the megakernel and wavefront integrators, loaders, checkpoints ----
+    t15 = time.perf_counter()
+    out15 = os.path.join("chiprun_out", "phase15")
+    os.makedirs(out15, exist_ok=True)
+    path_launches = {"fused": kernels["arrival16_run"]["launches"]}
+
+    def k1_only(label):
+        """K1's flat kernel, and only it, launched since the last reset."""
+        got = counts()
+        expect_only(got, {"arrival16_run": got["arrival16_run"]}, label)
+        return got["arrival16_run"]
+
+    # 15a: the megakernel at full width through Renderer, each pass's rays
+    # counted by trace_bounce(with_stats=True) through a local hook.
+    render_pass = integrator.render_pass
+    pass_stats = {}
+
+    def counted_pass(*a, **k):
+        return render_pass(*a, stats=pass_stats, **k)
+
+    scene, cam = million_triangle_scene(1_000_000)
+    mk_cfg = RenderConfig(width=w, height=h, samples_per_pass=1, max_bounces=5,
+                          integrator="megakernel")
+    mk_params = make_camera_params(width=w, height=h, **cam)
+    t0 = time.perf_counter()
+    r = Renderer(scene, mk_cfg, mk_params)
+    log(f"phase 15a set-up: {time.perf_counter() - t0:.1f} s ({r.scene.tris.shape[0]} "
+        f"triangles, megakernel tables {sum(t.nbytes for t in (r.scene.tris, r.scene.tri_index, r.scene.attr_normals, r.scene.attr_uvs, r.scene.attr_material)) / 2**20:.1f} MiB)")
+    ckpt = os.path.join(out15, "megakernel_pass1.npz")
+    # The first K1 launch of the first pass (every lane at the root of its
+    # closest-hit traversal), kept to time K1 at B = 2,073,600.
+    arrive, k1_caps = cuda_arrival.arrival_steps16_cuda, []
+
+    def capture_first(nodes, oT, dT, invT, s, steps, live=None, stop=None, hi=False):
+        if not k1_caps:
+            k1_caps.append(K1Launch(nodes, oT.clone(), dT.clone(), invT.clone(), clone_state(s),
+                                    steps, None if live is None else live.clone(),
+                                    None if stop is None else stop.clone(), hi))
+        return arrive(nodes, oT, dT, invT, s, steps, live, stop, hi)
+
+    capture_first.launches = arrive.launches   # the wrapper counts through its module name
+    cuda_arrival.arrival_steps16_cuda = capture_first
+    integrator.render_pass = counted_pass
+    mk_launches, mk_rows = 0, []
+    try:
+        for p in range(2):
+            pass_stats.clear()
+            tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            r.render(passes=1)   # ends in a synchronize
+            dt = time.perf_counter() - t0
+            launches = k1_only(f"phase 15a pass {p}")
+            mk_launches += launches
+            closest, shadow = int(pass_stats["closest"]), int(pass_stats["shadow"])
+            bounces = pass_stats["bounces"]
+            mk_rows.append((dt, closest + shadow))
+            log(f"phase 15a megakernel pass {p} ({w}x{h}, 1 spp, {w * h} lanes): {dt:.3f} "
+                f"s/pass, {(closest + shadow) / dt / 1e6:.3f} Mrays/s, rays {closest + shadow} "
+                f"(closest {closest}, shadow {shadow}), bounces {bounces}, K1 launches "
+                f"{launches} ({launches / bounces:.2f} a bounce), traversals "
+                f"{tw16.TRAVERSE_STATS['calls']}, host reads {tw16.TRAVERSE_STATS['host_reads']} "
+                f"+ {bounces} loop tests, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+            if p == 0:
+                cuda_arrival.arrival_steps16_cuda = arrive
+                r.save_checkpoint(ckpt)
+                mk_first = r.film.accum.clone()
+    finally:
+        integrator.render_pass = render_pass
+        cuda_arrival.arrival_steps16_cuda = arrive
+    if r.stats() != {}:
+        raise AssertionError(f"phase 15a: stats after a megakernel pass {r.stats()}")
+    img = r.film.accum
+    check_film(img, (h, w, 3), "phase 15a")
+    mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 15a")
+    log(f"phase 15a megakernel: {r.sample_count} spp, film mean {float(img.mean()):.6f} (phase "
+        f"4 {float(flat_img.mean()):.6f}, rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic "
+        f"{tile_stat:.5f}, K1 launches {mk_launches}; card: {card}")
+    path_launches["megakernel"] = mk_launches
+    k1_mk = check_run("arrival16_run", k1_caps[0], "phase 15a (the megakernel's first launch)",
+                      record_it=False)
+    kernels["arrival16_run"]["megakernel_launch"] = k1_mk
+    del k1_caps
+
+    # 15f: checkpoint after pass 1, resumed in a new Renderer: pass 2 gives
+    # the uninterrupted run's film bit for bit.
+    r2 = Renderer(r.scene, mk_cfg, mk_params)
+    r2.load_checkpoint(ckpt)
+    if r2.sample_count != 1 or not torch.equal(r2.film.accum, mk_first):
+        raise AssertionError("phase 15f: the checkpoint did not load the pass-1 film")
+    r2.render(passes=1)
+    if not torch.equal(r2.film.accum, r.film.accum):
+        bad = int((r2.film.accum != r.film.accum).sum())
+        raise AssertionError(f"phase 15f: resumed film differs in {bad} values")
+    log(f"phase 15f checkpoint {ckpt} ({os.path.getsize(ckpt)} bytes) after pass 1, loaded "
+        f"into a new Renderer, pass 2: film equal to the uninterrupted run's bit for bit")
+    os.remove(ckpt)   # 25 MB: the output directory stays small
+    del r2
+
+    # 15b: the wavefront on the same scene, pool on auto, twice with one
+    # seed: bit-equal films.  At 1 spp its work items carry the
+    # megakernel's first-pass seeds, so its film is that pass's film.
+    wf_cfg = dataclasses.replace(mk_cfg, integrator="wavefront")
+    films = []
+    for run in range(2):
+        rw = Renderer(r.scene, wf_cfg, mk_params)
+        tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        total, occ, closest, shadow = wavefront.wavefront_pass_with_stats(
+            rw.scene, wf_cfg, rw.params, 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = k1_only(f"phase 15b run {run}")
+        rays = int(closest) + int(shadow)
+        films.append(total.reshape(h, w, 3).clone())
+        log(f"phase 15b wavefront run {run} ({w}x{h}, 1 spp, pool {min(w * h, 1 << 16)}): "
+            f"{dt:.3f} s/pass, {rays / dt / 1e6:.3f} Mrays/s, rays {rays} (closest "
+            f"{int(closest)}, shadow {int(shadow)}), occupancy {float(occ):.4f}, K1 launches "
+            f"{launches}, traversals {tw16.TRAVERSE_STATS['calls']}, host reads "
+            f"{tw16.TRAVERSE_STATS['host_reads']}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+    path_launches["wavefront"] = launches
+    if not torch.equal(films[0], films[1]):
+        raise AssertionError(f"phase 15b: two runs differ in "
+                             f"{int((films[0] != films[1]).sum())} values")
+    # The same film through Renderer.step.
+    rw.step()
+    if not torch.equal(rw.film.accum, films[0]) or rw.stats() != {}:
+        raise AssertionError("phase 15b: Renderer's wavefront pass differs from the pass")
+    check_film(films[0], (h, w, 3), "phase 15b")
+    mean_rel, tile_stat = film_vs_flat(films[0], flat_img, "phase 15b")
+    vs_mk = float((films[0] - mk_first).abs().max())
+    log(f"phase 15b wavefront: two runs bit-equal; film mean {float(films[0].mean()):.6f} "
+        f"(phase 4 rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic {tile_stat:.5f}; max abs "
+        f"difference from the megakernel's first pass {vs_mk:g}; card: {card}")
+    del r, rw, films, total, mk_first, img
+
+    # 15e: the benchmark mesh written as OBJ + MTL (PNG map_Kd) and as GLB
+    # (embedded PNG), loaded by the port's loaders (positions exact), and
+    # rendered by the cli (512x512, 8 spp), load, build and passes timed.
+    t0 = time.perf_counter()
+    model = model_of(scene)
+    want_pos = model[0][model[1]]
+    files = {"obj": os.path.join(out15, "grid.obj"), "glb": os.path.join(out15, "grid.glb")}
+    write_obj_model(files["obj"], *model, checker_texture())
+    write_glb_model(files["glb"], *model, checker_texture())
+    log(f"phase 15e wrote {len(model[0])} vertices, {len(model[1])} triangles: "
+        + ", ".join(f"{k} {os.path.getsize(v) / 2**20:.1f} MiB" for k, v in files.items())
+        + f" in {time.perf_counter() - t0:.1f} s")
+    del scene
+    load_scene, init = cli._load_scene, api.Renderer.__init__
+    timing = {}
+
+    def timed_load(spec):
+        t0 = time.perf_counter()
+        out = load_scene(spec)
+        timing["load"], timing["scene"] = time.perf_counter() - t0, out[0]
+        return out
+
+    def timed_init(self, *a, **k):
+        t0 = time.perf_counter()
+        init(self, *a, **k)
+        timing["build"] = time.perf_counter() - t0
+
+    passes = []
+    cli._load_scene, api.Renderer.__init__, api.Renderer.step = timed_load, timed_init, timed_step
+    try:
+        for fmt, path in files.items():
+            passes.clear()
+            reset_counts()
+            png = os.path.join(out15, f"grid_{fmt}.png")
+            t0 = time.perf_counter()
+            r = cli.main(["render", path, "--size", "512", "--spp", "8", "--out", png])
+            wall = time.perf_counter() - t0
+            got_pos = timing.pop("scene").flatten().positions
+            if got_pos.tobytes() != want_pos.tobytes():
+                raise AssertionError(f"phase 15e {fmt}: loaded positions differ from the written")
+            launches = k1_only(f"phase 15e {fmt}")
+            back = read_png(png)
+            if back.shape != (512, 512, 3) or not np.array_equal(back, r.image()) \
+                    or back.max() == 0:
+                raise AssertionError(f"phase 15e {fmt}: PNG {back.shape} or not Renderer.image()")
+            log(f"phase 15e cli render {path} (512x512, {r.sample_count} spp, textures "
+                f"{len(r._host_scene.textures)}): load {timing['load']:.2f} s, build "
+                f"{timing['build']:.2f} s, passes {[round(x, 3) for x, _ in passes]} s, "
+                f"{wall:.2f} s in all; positions equal to the written bit for bit; K1 launches "
+                f"{launches}; PNG mean {back.mean():.3f}; card: {card}")
+    finally:
+        cli._load_scene, api.Renderer.__init__, api.Renderer.step = load_scene, init, step
+        # The model files (~140 MB) do not stay in the output directory.
+        for name in ("grid.obj", "grid.mtl", "grid_kd.png", "grid.glb"):
+            if os.path.exists(os.path.join(out15, name)):
+                os.remove(os.path.join(out15, name))
+    del r, model, want_pos, got_pos
+
+    # 15d: the megakernel on the goldens under golden_gen's cross-check gate
+    # (tests/golden_gen.py: four passes, dual flags at z 8 against the
+    # fixture), and Cornell on the brute-force oracle.
+    for name, trav in [(n, "wide16") for n in golden_common.SCENES if n != "tlas"] \
+            + [("cornell", "bruteforce")]:
+        reset_counts()
+        t0 = time.perf_counter()
+        mk = golden_megakernel_passes(name, golden_common, trav)
+        g = golden_common.load_golden(name)
+        bad, mk_mean = golden_common.dual_flags(mk, g, z_thresh=8.0)
+        bad_frac = float(bad.mean())
+        shift = abs(float(mk_mean.mean() - g["mean"].mean())) / max(float(g["mean"].mean()),
+                                                                    1e-6)
+        ok = (bad_frac < 0.01 or (bad_frac < 0.03 and shift < 0.005)) and shift < 0.02
+        launched = {k for k, v in counts().items() if v > 0}
+        want = {"arrival16_run"} if trav == "wide16" else set()
+        if not ok or launched != want:
+            raise AssertionError(f"phase 15d {name} ({trav}): bad_frac {bad_frac:.4%} shift "
+                                 f"{shift:.4%}, kernels {launched}")
+        log(f"phase 15d golden {name} megakernel ({trav}): bad_frac {bad_frac:.4%} mean_shift "
+            f"{shift:.4%} (golden_gen's gate), kernels {sorted(launched)}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    if "jax" in sys.modules:
+        raise AssertionError("phase 15: jax was imported")
+    kernels["arrival16_run"]["launches_by_path"] = path_launches
+    kernels["arrival16_run"]["launches"] = sum(path_launches.values())
+    del flat_img
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s; K1 launches by path {path_launches}; "
+        f"card: {card}")
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",

@@ -145,7 +145,11 @@ def test_cli_examples_and_refusals(capsys):
     assert capsys.readouterr().out.split() == [f"builtin:{n}" for n in EXAMPLES]
     assert set(EXAMPLES) == {"cornell", "quad", "texture", "lights", "rect_lights", "aperture",
                              "brdf", "tlas", "sponza_like"}
-    with pytest.raises(SystemExit, match="not ported"):
-        tcli.main(["render", "model.glb", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unrecognized scene spec"):
+        tcli.main(["render", "model.ply", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unsupported settings"):
+        tcli.main(["render", "builtin:quad", "--traversal", "wide8", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="unsupported settings"):
+        tcli.main(["render", "builtin:quad", "--traversal", "bruteforce", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown builtin"):
         tcli.main(["render", "builtin:nope", "--device", "cpu"])

@@ -88,10 +88,12 @@ def test_cache_key_names_the_committed_table():
 @pytest.mark.parametrize("knob", [
     # attr_compact=3 stores no uv: refused with textures or normal maps, as
     # the reference does.
-    dict(traversal="wide8"), dict(integrator="megakernel"),
+    dict(traversal="wide8"), dict(integrator="megakernel", traversal="wide8"),
     dict(attr_compact=3, has_textures=True),
     dict(sky_mode=3), dict(attr_compact=1), dict(attr_compact=3, has_normal_maps=True),
-    dict(integrator="wavefront"), dict(traversal="wide"), dict(traversal="bvh2"),
+    dict(integrator="fused", traversal="bruteforce"), dict(traversal="wide"),
+    dict(traversal="bvh2"), dict(integrator="wavefront", traversal="mbvh"),
+    dict(integrator="pallas"),
     dict(transition_every=0), dict(use_record_film=False), dict(use_lane_film=True),
 ])
 def test_config_refuses_unported_knobs(knob):
@@ -126,6 +128,9 @@ def test_port_imports_no_jax():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert len(mods) >= 20, mods\n"
+        "new = ('render.integrator', 'render.wavefront', 'render.hitinfo', 'render.lights',\n"
+        "       'scene.obj', 'scene.gltf', 'ops')\n"
+        "assert all(p.__name__ + '.' + m in mods for m in new), mods\n"
         "assert 'jax' not in sys.modules\n"
         "print(len(mods))\n")
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}

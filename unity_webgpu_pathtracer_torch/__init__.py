@@ -12,7 +12,10 @@ The main path ported so far: ``models.benchmark.million_triangle_scene``
 -> ``Scene.build("wide16")`` -> ``render.fused.fused_pass_with_stats``
 (wide16 traversal + gather-free prestep, HDRI environment NEE, paired f16
 attribute rows, record film, Russian roulette), driven by
-:class:`unity_webgpu_pathtracer_torch.api.Renderer`.
+:class:`unity_webgpu_pathtracer_torch.api.Renderer`; beside it the
+reference's megakernel and wavefront integrators (``render/integrator.py``,
+``render/wavefront.py``, tracing through K1), its OBJ and glTF loaders and
+film checkpoints.
 """
 
 __version__ = "0.1.0"

@@ -26,6 +26,8 @@ from unity_webgpu_pathtracer_torch.device import resolve_device
 from unity_webgpu_pathtracer_torch.post.tonemap import present
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.fused import fused_pass_and_accumulate
+from unity_webgpu_pathtracer_torch.render.integrator import megakernel_pass_and_accumulate
+from unity_webgpu_pathtracer_torch.render.wavefront import wavefront_pass_and_accumulate
 from unity_webgpu_pathtracer_torch.scene.material import MaterialDesc, pack_materials
 from unity_webgpu_pathtracer_torch.scene.scene import (
     Scene,
@@ -54,8 +56,8 @@ class Renderer:
             scene = scene.build(config.traversal, device=self.device)
         if not isinstance(scene, SceneData):
             raise TypeError("scene must be a Scene or SceneData")
-        if scene.wide16_nodes.device != self.device:
-            raise ValueError(f"SceneData lies on {scene.wide16_nodes.device}, "
+        if scene.materials.device != self.device:
+            raise ValueError(f"SceneData lies on {scene.materials.device}, "
                              f"the renderer on {self.device}")
         self.scene = scene
         self.config = config
@@ -120,9 +122,16 @@ class Renderer:
         self.reset()
 
     def step(self) -> None:
-        """Render one progressive pass (``samples_per_pass`` samples/pixel)."""
-        self.film, *self._last = fused_pass_and_accumulate(
-            self.scene, self.config, self.params, self.film)
+        """Render one progressive pass (``samples_per_pass`` samples/pixel)
+        with ``config.integrator``."""
+        if self.config.integrator == "fused":
+            self.film, *self._last = fused_pass_and_accumulate(
+                self.scene, self.config, self.params, self.film)
+            return
+        step = (wavefront_pass_and_accumulate if self.config.integrator == "wavefront"
+                else megakernel_pass_and_accumulate)
+        self.film = step(self.scene, self.config, self.params, self.film)
+        self._last = None
 
     def render(self, passes: int = 1) -> ufilm.Film:
         for _ in range(passes):
@@ -132,9 +141,11 @@ class Renderer:
         return self.film
 
     def stats(self) -> dict:
-        """The last pass's lane occupancy, rays traced (closest + shadow),
-        arrivals and super-iterations; ``{}`` before the first pass and
-        after ``reset``.  Reads device scalars, so it waits for the pass."""
+        """The last fused pass's lane occupancy, rays traced (closest +
+        shadow), arrivals and super-iterations; ``{}`` before the first
+        pass, after ``reset`` and after a megakernel or wavefront pass (as
+        in the reference).  Reads device scalars, so it waits for the
+        pass."""
         if self._last is None:
             return {}
         occ, rays, arrivals, iters = self._last
@@ -158,3 +169,18 @@ class Renderer:
 
     def save_png(self, path: str, post: PostParams = PostParams()) -> None:
         write_png(path, self.image(post))
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the film (the reference's npz layout)."""
+        ufilm.save(path, self.film)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Resume from a film written by ``save_checkpoint`` (of either
+        package); its size must be the config's."""
+        film = ufilm.load(path, self.device)
+        want = (self.config.height, self.config.width, 3)
+        if tuple(film.accum.shape) != want:
+            raise ValueError(f"{path}: film of {tuple(film.accum.shape)}, the renderer's is "
+                             f"{want}")
+        self.film = film
+        self._last = None

@@ -6,14 +6,20 @@ Examples::
     python -m unity_webgpu_pathtracer_torch.cli render builtin:cornell \
         --spp 256 --size 512 --out cornell.png
     python -m unity_webgpu_pathtracer_torch.cli render builtin:brdf --env sky.hdr
+    python -m unity_webgpu_pathtracer_torch.cli render model.glb --spp 64 \
+        --integrator megakernel
     python -m unity_webgpu_pathtracer_torch.cli render builtin:quad --size 32 \
         --spp 4 --device cpu --out quad.png
     python -m unity_webgpu_pathtracer_torch.cli examples
 
-It renders on the CUDA device unless ``--device`` names another (``cpu``
-for the CPU); without a CUDA device it exits with an error.  The OBJ and
-glTF loaders, the ``view`` and ``animate`` commands and the reference's
-other integrators and traversal backends are not ported yet.
+A scene is a builtin (``builtin:<name>``) or a model file (``.obj`` with
+its ``.mtl``, ``.glb`` or ``.gltf``), framed by a camera fitted to its
+bounds.  It renders on the CUDA device unless ``--device`` names another
+(``cpu`` for the CPU); without a CUDA device it exits with an error.
+``--integrator`` picks fused (the default), megakernel or wavefront;
+``--traversal`` wide16 or, for the last two, the brute-force oracle.  The
+``view`` and ``animate`` commands and the reference's other traversal
+backends are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+from unity_webgpu_pathtracer_torch.config import SKY_MODE_BASIC
 
 TONEMAPS = {"none": 0, "aces": 1, "filmic": 2, "reinhard": 3, "lottes": 4}
 
@@ -33,10 +41,34 @@ def _load_scene(spec: str):
         if name not in EXAMPLES:
             raise SystemExit(f"unknown builtin '{name}'; try: {', '.join(EXAMPLES)}")
         return EXAMPLES[name]()
-    if spec.endswith((".obj", ".glb", ".gltf")):
-        raise SystemExit(f"{spec}: the OBJ and glTF loaders (scene/obj.py, scene/gltf.py) are "
-                         "not ported to the PyTorch package yet; render a builtin:<name> scene")
+    # A model renders under the reference config's default sky (the basic
+    # gradient; --env sets the HDRI).
+    model_sky = dict(sky_mode=SKY_MODE_BASIC, has_environment_texture=False)
+    if spec.endswith(".obj"):
+        from unity_webgpu_pathtracer_torch.scene.obj import load_obj
+
+        scene = load_obj(spec)
+        return scene, _frame_camera(scene), model_sky
+    if spec.endswith((".glb", ".gltf")):
+        from unity_webgpu_pathtracer_torch.scene.gltf import load_gltf
+
+        scene = load_gltf(spec)
+        return scene, _frame_camera(scene), model_sky
     raise SystemExit(f"unrecognized scene spec: {spec}")
+
+
+def _frame_camera(scene) -> dict:
+    """Frame a loaded model from its world AABB (a 3/4 view that fits the
+    whole bounding sphere at 40 deg vfov), overridable by --eye/--target."""
+    import numpy as np
+
+    lo, hi = scene.world_bounds()
+    center = (lo + hi) / 2
+    radius = float(np.linalg.norm(hi - lo)) / 2 or 1.0
+    dist = radius / np.sin(np.radians(40.0) / 2) * 1.1
+    d = np.array([0.55, 0.35, 0.76])
+    d /= np.linalg.norm(d)
+    return dict(eye=tuple(center + d * dist), target=tuple(center), fov_y_deg=40.0)
 
 
 def cmd_render(args):
@@ -59,16 +91,22 @@ def cmd_render(args):
         cam["fov_y_deg"] = args.fov
 
     overrides = dict(overrides)
+    overrides.setdefault("traversal", args.traversal)
     overrides["has_lights"] = bool(scene.lights) or overrides.get("has_lights", False)
     overrides["has_textures"] = bool(scene.textures) or overrides.get("has_textures", False)
     overrides["has_normal_maps"] = (
         overrides["has_textures"] and any(m.normal_texture >= 0 for m in scene.materials)
     ) or overrides.get("has_normal_maps", False)
-    # The production cadence: 8 arrivals a transition.
-    overrides.setdefault("transition_every", 8)
-    config = RenderConfig(width=args.size, height=args.size,
-                          samples_per_pass=min(args.spp, args.spp_per_pass),
-                          max_bounces=args.bounces, **overrides)
+    # The fused integrator's production cadence: 8 arrivals a transition.
+    if args.integrator == "fused":
+        overrides.setdefault("transition_every", 8)
+    try:
+        config = RenderConfig(width=args.size, height=args.size,
+                              samples_per_pass=min(args.spp, args.spp_per_pass),
+                              max_bounces=args.bounces, integrator=args.integrator,
+                              **overrides)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     params = make_camera_params(width=config.width, height=config.height, device=args.device,
                                 **cam)
     r = Renderer(scene, config, params, device=args.device)
@@ -103,12 +141,16 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pr = sub.add_parser("render", help="render a scene to PNG")
-    pr.add_argument("scene", help="builtin:<name>")
+    pr.add_argument("scene", help="builtin:<name> | path.obj | path.glb | path.gltf")
     pr.add_argument("--out", default="render.png")
     pr.add_argument("--size", type=int, default=512)
     pr.add_argument("--spp", type=int, default=64)
     pr.add_argument("--spp-per-pass", type=int, default=4)
     pr.add_argument("--bounces", type=int, default=5)
+    pr.add_argument("--integrator", default="fused",
+                    choices=["megakernel", "wavefront", "fused"])
+    pr.add_argument("--traversal", default="wide16",
+                    help="wide16, or bruteforce (megakernel and wavefront only)")
     pr.add_argument("--env", help="HDRI .hdr environment map")
     pr.add_argument("--tonemap", default="aces", choices=list(TONEMAPS))
     pr.add_argument("--exposure", type=float, default=1.0)

@@ -1,11 +1,11 @@
-"""Render configuration of the ported fused wide16 integrator.
+"""Render configuration of the ported integrators.
 
 :class:`RenderConfig` keeps the fields of the reference's ``RenderConfig``
-(``unity_webgpu_pathtracer_tpu/config.py``) that the fused wide16 path
-reads, under the same names.  Defaults follow the reference except where
-the reference default selects a path this port does not implement
-(``traversal``, ``integrator``) or is not the main path's (``sky_mode``,
-``has_environment_texture``): those default to the main path's values.
+(``unity_webgpu_pathtracer_tpu/config.py``) that the port's integrators
+read, under the same names.  Defaults follow the reference except where
+the reference default is not the main path's (``traversal``,
+``integrator``, ``sky_mode``, ``has_environment_texture``): those default
+to the main path's values (the fused wide16 integrator with the HDRI).
 Every knob the port does not implement raises ``ValueError`` at
 construction.
 
@@ -50,7 +50,15 @@ LIGHT_TYPE_RECTANGLE = 3
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Static render configuration of the fused wide16 integrator.
+    """Static render configuration.
+
+    ``integrator`` is ``"fused"`` (``render/fused.py``, wide16 only),
+    ``"megakernel"`` (``render/integrator.py``: every lane of a sample
+    steps through the bounces together) or ``"wavefront"``
+    (``render/wavefront.py``: a pool of ``pool_size`` lanes refilled from
+    the pass's work queue; 0 = ``min(pixels, 65536)``); the last two run
+    on ``traversal`` ``"wide16"`` or the brute-force oracle
+    ``"bruteforce"``.
 
     ``sky_mode`` 0 is the environment (the HDRI when
     ``has_environment_texture``, else the constant ``environment_color``),
@@ -91,8 +99,9 @@ class RenderConfig:
     use_depth_of_field: bool = False
     traversal: str = "wide16"
     integrator: str = "fused"
-    # Lanes resident in the pass; 0 = min(pixels * spp, 96K), rounded up
-    # to a multiple of 1024.
+    # Lanes resident in the pass; 0 = the integrator's own choice (fused:
+    # min(pixels * spp, 96K), rounded up to a multiple of 1024; wavefront:
+    # min(pixels, 65536)).
     pool_size: int = 0
     # Arrivals per transition step.
     transition_every: int = 4
@@ -103,8 +112,9 @@ class RenderConfig:
 
     def __post_init__(self):
         unsupported = {
-            "traversal": self.traversal != "wide16",
-            "integrator": self.integrator != "fused",
+            "traversal": self.traversal not in (
+                ("wide16",) if self.integrator == "fused" else ("wide16", "bruteforce")),
+            "integrator": self.integrator not in ("fused", "megakernel", "wavefront"),
             "attr_compact": self.attr_compact not in (2, 3),
             "sky_mode": self.sky_mode not in (SKY_MODE_ENVIRONMENT, SKY_MODE_BASIC,
                                               SKY_MODE_NONE),
@@ -114,9 +124,9 @@ class RenderConfig:
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise ValueError(
-                "the PyTorch port implements only the fused wide16 integrator "
-                "(traversal='wide16', integrator='fused', attr_compact 2 or 3, "
-                f"sky modes 0-2, record film); unsupported settings: {bad}")
+                "the PyTorch port implements integrator 'fused' on traversal 'wide16' and "
+                "'megakernel' or 'wavefront' on 'wide16' or 'bruteforce' (attr_compact 2 "
+                f"or 3, sky modes 0-2, record film); unsupported settings: {bad}")
         if self.attr_compact == 3 and (self.has_textures or self.has_normal_maps):
             raise ValueError("attr_compact=3 requires has_textures=False and "
                              "has_normal_maps=False (no uv in the oct-normal rows); "

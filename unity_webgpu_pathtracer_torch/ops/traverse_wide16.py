@@ -381,10 +381,13 @@ def prestep16(nodes: torch.Tensor, top: torch.Tensor, o: torch.Tensor,
 
 
 def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
-              t_max, depth: int, has_instances: bool, any_hit: bool) -> Wide16State:
-    """Arrivals until every lane is done (or, with ``any_hit``, has found a
-    hit), ``CHECK_EVERY`` to a launch, the test read on the host after
-    each; the arrivals past a lane's end leave it unchanged."""
+              t_max, depth: int, has_instances: bool, any_hit: bool,
+              live: torch.Tensor | None = None) -> Wide16State:
+    """Arrivals until every lane in ``live`` (None: every lane) is done
+    (or, with ``any_hit``, has found a hit), ``CHECK_EVERY`` to a launch,
+    the test read on the host after each (counted in ``TRAVERSE_STATS``);
+    the arrivals past a lane's end leave it unchanged, and lanes outside
+    ``live`` keep their initial registers (a miss)."""
     from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
 
     b, dev = origins.shape[0], origins.device
@@ -393,25 +396,37 @@ def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tens
     s = init_state16(b, 0.0, depth=depth, device=dev)
     s.t.copy_(torch.as_tensor(t_max, dtype=torch.float32, device=dev))
     stop = torch.ones((b,), dtype=torch.bool, device=dev) if any_hit else None
+    TRAVERSE_STATS["calls"] += 1
     while True:
-        arrival_steps16_cuda(nodes, oT, dT, invT, s, CHECK_EVERY, None, stop, has_instances)
-        live = s.ptr >= 0
+        arrival_steps16_cuda(nodes, oT, dT, invT, s, CHECK_EVERY, live, stop, has_instances)
+        running = s.ptr >= 0
         if any_hit:
-            live = live & ~s.found
-        if not bool(live.any()):
+            running = running & ~s.found
+        if live is not None:
+            running = running & live
+        TRAVERSE_STATS["host_reads"] += 1
+        if not bool(running.any()):
             return s
 
 
 def closest_hit(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
-                depth: int, has_instances: bool = False):
+                depth: int, has_instances: bool = False, live: torch.Tensor | None = None):
     """Closest hit of (B, 3) rays against a wide16 table with ``depth``
     stack planes: ``(t, bary (B, 2), attribute row (-1 miss), instance)``
-    (the reference's ``traverse_wide16.closest_hit``)."""
-    s = _traverse(nodes, origins, directions, FAR_PLANE, depth, has_instances, False)
+    (the reference's ``traverse_wide16.closest_hit``); lanes outside
+    ``live`` (None: every lane) are not traced and come back as misses."""
+    s = _traverse(nodes, origins, directions, FAR_PLANE, depth, has_instances, False, live)
     return s.t, torch.stack([s.u, s.v], dim=-1), s.tri, s.hit_inst
 
 
 def occluded(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,
-             t_max: torch.Tensor, depth: int, has_instances: bool = False) -> torch.Tensor:
-    """Whether each ray hits anything before its ``t_max`` (B,)."""
-    return _traverse(nodes, origins, directions, t_max, depth, has_instances, True).found
+             t_max: torch.Tensor, depth: int, has_instances: bool = False,
+             live: torch.Tensor | None = None) -> torch.Tensor:
+    """Whether each ray hits anything before its ``t_max`` (B,); lanes
+    outside ``live`` are not traced (False)."""
+    return _traverse(nodes, origins, directions, t_max, depth, has_instances, True, live).found
+
+
+# Traversals run by ``closest_hit``/``occluded`` and host reads of their
+# loop test in this process (reset by the caller).
+TRAVERSE_STATS = {"calls": 0, "host_reads": 0}

@@ -66,6 +66,7 @@ from unity_webgpu_pathtracer_torch.render import bsdf
 from unity_webgpu_pathtracer_torch.render import camera as ucamera
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.hitinfo import (
+    _analytic_light_hit,
     instance_material_override,
     instance_normal_to_world,
 )
@@ -247,36 +248,6 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
     record-film append and regeneration (updates ``s`` in place)."""
     died, rad_out = transition16_cuda(scene, config, params, transition_state(s))
     _record_and_regenerate(config, params, s, budget, current_sample, died, rad_out)
-
-
-def _analytic_light_hit(lights: torch.Tensor, o, d, t: torch.Tensor):
-    """The closest rect-light hit before ``t`` along ``(o, d)`` (planes)
-    (``intersect.hlsl:29-54``): ``(hit (B,), t_light (B,), index (B,)
-    int32)``.  The reference tests the lights in index order, each taking
-    the lane when strictly nearer than the best so far; here every light
-    is tested at once on (L, B) planes, and the first index of the
-    nearest hit wins, which is the same light (the lowest index wins a
-    tie, as there)."""
-    b = t.shape[0]
-    idx = torch.full((b,), -1, dtype=torch.int32, device=t.device)
-    if lights.shape[0] == 0:
-        return idx >= 0, t, idx
-    rec = lights[:, :, None]                                     # (L, 16, 1)
-    pos, u, v = (rec[:, 0], rec[:, 1], rec[:, 2]), (rec[:, 8], rec[:, 9], rec[:, 10]), \
-        (rec[:, 12], rec[:, 13], rec[:, 14])
-    n = vnormalize(vcross(u, v))
-    dt = vdot(d, n)                                              # (L, B)
-    tt = (vdot(n, pos) - vdot(o, n)) / torch.where(dt == 0, torch.full_like(dt, 1e-20), dt)
-    vi = tuple(o[c] + d[c] * tt - pos[c] for c in range(3))
-    uu, vv = torch.clamp_min(vdot(u, u), 1e-20), torch.clamp_min(vdot(v, v), 1e-20)
-    a1 = vdot(tuple(u[c] / uu for c in range(3)), vi)
-    a2 = vdot(tuple(v[c] / vv for c in range(3)), vi)
-    hit = ((rec[:, 3] == 3.0) & (tt > EPSILON) & (tt < t) & (a1 >= 0) & (a1 <= 1)
-           & (a2 >= 0) & (a2 <= 1) & (dt < 0))
-    t_all = torch.where(hit, tt, torch.full_like(tt, float("inf")))
-    t_min, first = torch.min(t_all, dim=0)    # ties: the first index (PyTorch's min)
-    lhit = hit.any(dim=0)
-    return lhit, torch.where(lhit, t_min, t), torch.where(lhit, first.to(torch.int32), idx)
 
 
 def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState,

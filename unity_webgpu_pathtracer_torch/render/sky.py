@@ -1,9 +1,11 @@
 """Sky radiance for escaped rays (``render/sky.py`` of the reference;
 ``sky.hlsl``), the modes the general transition reads: the constant
-environment colour, the basic gradient sky and no sky.  The HDRI is read
-through ``scene/envmap.py::sample_env_transition`` instead (one merged
-row gather serves both its sky and its NEE sample).  Directions and
-colours are (B, 3), as in the reference."""
+environment colour, the basic gradient sky and no sky; and, given the
+scene's environment tables, the HDRI (``eval_env_map``), as the megakernel
+reads it.  The fused transition reads the HDRI through
+``scene/envmap.py::sample_env_transition`` instead (one merged row gather
+serves both its sky and its NEE sample).  Directions and colours are
+(B, 3), as in the reference."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from unity_webgpu_pathtracer_torch.config import (
     RenderConfig,
     RenderParams,
 )
+from unity_webgpu_pathtracer_torch.scene.envmap import eval_env_map
 from unity_webgpu_pathtracer_torch.utils.math import PI
 
 
@@ -31,14 +34,18 @@ def basic_sky(directions: torch.Tensor, intensity: torch.Tensor):
 
 
 def sample_sky_radiance(config: RenderConfig, params: RenderParams,
-                        directions: torch.Tensor, ray_depth: torch.Tensor):
-    """Sky radiance and its pdf for every sky but the HDRI
-    (``sky.hlsl:110-129``).  Primary rays (depth 0) see the sky at
+                        directions: torch.Tensor, ray_depth: torch.Tensor, env=None):
+    """Sky radiance and its pdf (``sky.hlsl:110-129``); the HDRI needs the
+    scene's ``env`` tables.  Primary rays (depth 0) see the sky at
     intensity 1, secondary rays at ``environment_intensity``."""
-    if config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture:
-        raise ValueError("the HDRI is sampled by sample_env_transition")
+    hdri = config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
+    if hdri and env is None:
+        raise ValueError("the HDRI needs the scene's env tables (the fused transition "
+                         "samples it by sample_env_transition)")
     intensity = torch.where(ray_depth > 0, params.environment_intensity,
                             torch.ones_like(params.environment_intensity))
+    if hdri:
+        return eval_env_map(env, directions, intensity, params.environment_rotation)
     if config.sky_mode == SKY_MODE_ENVIRONMENT:
         color = params.environment_color * intensity[..., None]
         pdf = torch.full(directions.shape[:-1], 1.0 / (4.0 * PI), dtype=directions.dtype,

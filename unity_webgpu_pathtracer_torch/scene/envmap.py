@@ -6,7 +6,9 @@ Host side (numpy): the Vose alias table and the merged per-texel rows
 interaction in one row gather — miss lanes read the bilinear footprint at
 their direction's texel, env-NEE lanes the alias row of their sampled bin.
 ``acos``/``atan2`` run here, outside the transition kernel, as in the
-reference.
+reference.  The megakernel integrator reads the environment as the
+reference's does: ``eval_env_map`` (the bilinear sky and its pdf) and
+``sample_env_map`` (the inverse-CDF sample, one uniform a lane).
 """
 
 from __future__ import annotations
@@ -126,6 +128,18 @@ def _bilerp_coords(h: int, w: int, uv: torch.Tensor):
     return x0i, y0i, fx, fy
 
 
+def _bilinear_wrap(image: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """GPU-style bilinear sample with wrap addressing, texel centres at .5."""
+    h, w = image.shape[0], image.shape[1]
+    x0i, y0i, fx, fy = _bilerp_coords(h, w, uv)
+    x1i = torch.remainder(x0i + 1, w)
+    y1i = torch.remainder(y0i + 1, h)
+    y0l, y1l, x0l, x1l = y0i.long(), y1i.long(), x0i.long(), x1i.long()
+    p00, p10 = image[y0l, x0l], image[y0l, x1l]
+    p01, p11 = image[y1l, x0l], image[y1l, x1l]
+    return (p00 * (1 - fx) + p10 * fx) * (1 - fy) + (p01 * (1 - fx) + p11 * fx) * fy
+
+
 def _bilinear_quad(env: EnvMap, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear sky lookup through the pre-baked 2x2 footprint rows."""
     h, w = env.image.shape[0], env.image.shape[1]
@@ -134,6 +148,53 @@ def _bilinear_quad(env: EnvMap, uv: torch.Tensor) -> torch.Tensor:
     p00, p10 = row[..., 0:3], row[..., 3:6]
     p01, p11 = row[..., 6:9], row[..., 9:12]
     return (p00 * (1 - fx) + p10 * fx) * (1 - fy) + (p01 * (1 - fx) + p11 * fx) * fy
+
+
+def env_bilinear(env: EnvMap, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear env fetch (B, 3) through the footprint rows when built."""
+    h, w = env.image.shape[0], env.image.shape[1]
+    if env.quad_rows.shape[0] == h * w:
+        return _bilinear_quad(env, uv)
+    return _bilinear_wrap(env.image, uv)
+
+
+def eval_env_map(env: EnvMap, directions: torch.Tensor, intensity, rotation):
+    """Radiance and pdf of (B, 3) directions that reach the sky
+    (``sky.hlsl:43-64``): ``(color * intensity (B, 3), pdf (B,))``."""
+    h, w = env.image.shape[0], env.image.shape[1]
+    d = directions
+    theta = torch.acos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi_atan = torch.atan2(d[..., 2], d[..., 0])
+    uv = torch.stack([(PI + phi_atan) * INV_TWO_PI + rotation, 1.0 - theta * INV_PI], dim=-1)
+    color = env_bilinear(env, uv)
+    sin_theta = torch.sin(theta)
+    pdf = (luminance(color) / torch.clamp_min(env.cdf_sum, 1e-20) * (w * h)
+           / torch.clamp_min((TWO_PI * PI) * sin_theta, 1e-8))
+    pdf = torch.where(sin_theta <= 0.0, torch.zeros_like(pdf), pdf)
+    return color * torch.as_tensor(intensity)[..., None], pdf
+
+
+def sample_env_map(env: EnvMap, rotation, state: torch.Tensor):
+    """Inverse-CDF direction sample (``sky.hlsl:66-88``): one uniform a
+    lane, the first texel whose inclusive luminance prefix exceeds it.
+    Returns ``(direction (B, 3), color (B, 3), pdf (B,), state)``."""
+    h, w = env.image.shape[0], env.image.shape[1]
+    u, state = urng.random_float(state)
+    target = u * env.cdf_sum
+    idx = torch.clamp(torch.searchsorted(env.cdf, target, right=True), 0, w * h - 1)
+    x = (idx % w).to(torch.float32)
+    y = (idx // w).to(torch.float32)
+    uv = torch.stack([(x + 0.5) / w, (y + 0.5) / h], dim=-1)
+    color = _bilinear_wrap(env.image, uv)
+    pdf = luminance(color) / torch.clamp_min(env.cdf_sum, 1e-20)
+    theta = (1.0 - uv[..., 1]) * PI
+    phi = (uv[..., 0] - rotation) * TWO_PI
+    sin_theta = torch.sin(theta)
+    direction = torch.stack(
+        [-sin_theta * torch.cos(phi), torch.cos(theta), -sin_theta * torch.sin(phi)], dim=-1)
+    pdf = pdf * (w * h) / torch.clamp_min((TWO_PI * PI) * sin_theta, 1e-8)
+    pdf = torch.where(sin_theta <= 0.0, torch.zeros_like(pdf), pdf)
+    return direction, color, pdf, state
 
 
 def _texel_direction(h: int, w: int, idx: torch.Tensor, rotation):

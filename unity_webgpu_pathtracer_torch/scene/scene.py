@@ -8,12 +8,18 @@ boxes, joined in one table (``accel/wide16.py::build_tlas_wide16``);
 moving an instance re-emits only the TLAS rows (``rebuild_tlas_rows``).
 ``leaf8`` builds every table with 48-float rows and 8-triangle leaves.
 
-``SceneData`` holds what the fused integrator reads: the wide16 node table
+``SceneData`` holds what the integrators read: the wide16 node table
 and its root slot table, the stack depth, the attribute rows (paired f16,
 ``attr_compact=2``, and oct-encoded normals, ``attr_compact=3``), the
 per-vertex tangents (normal maps), the material records, the texture
 atlas, the analytic lights, the instance transforms and the environment
-tables.
+tables.  The megakernel and wavefront integrators (``render/integrator.py``)
+read the f32 per-triangle tables instead of the packed rows: ``tris``
+(``[e2, e1, v0]`` records, the brute-force backend's input), ``tri_index``
+and ``attr_normals``/``attr_uvs``/``attr_material``, all in BVH order, as
+the reference lays them out (``tri_index`` is the identity there).
+``build("bruteforce")`` keeps the triangles in scene order and builds no
+node table (a (1, 96) placeholder), as the reference's does.
 """
 
 from __future__ import annotations
@@ -79,15 +85,20 @@ def _pack_attr_shade_o(normals9: np.ndarray, material: np.ndarray) -> np.ndarray
 
 
 def _attr_tables(flat: FlatTriangles) -> dict:
+    """The packed rows of the fused integrator and the f32 tables of the
+    megakernel, from triangles already in the order the leaves index."""
     m = flat.count
     return dict(attr_shade_c=_pack_attr_shade_c(flat.normals.reshape(m, 9),
                                                 flat.uvs.reshape(m, 6), flat.material),
                 attr_shade_o=_pack_attr_shade_o(flat.normals.reshape(m, 9), flat.material),
-                attr_tangents=flat.tangents.reshape(m, 9))
+                attr_tangents=flat.tangents.reshape(m, 9),
+                tris=flat.tri_records(), tri_index=np.arange(m, dtype=np.int32),
+                attr_normals=flat.normals.reshape(m, 9), attr_uvs=flat.uvs.reshape(m, 6),
+                attr_material=flat.material)
 
 
 class SceneData(NamedTuple):
-    """Device tables of the fused integrator."""
+    """Device tables of the integrators."""
 
     wide16_nodes: torch.Tensor   # (N16, 96), or leaf8 (N16, 48), float32 (ints bitcast)
     wide16_top: torch.Tensor     # (16, 119) root slot table, or (1, 119) placeholder
@@ -102,6 +113,12 @@ class SceneData(NamedTuple):
     inst_l2w: torch.Tensor       # (I, 12) float32 row-major 3x4; (0, 12) flat
     inst_w2l: torch.Tensor       # (I, 12)
     inst_offsets: torch.Tensor   # (I, 4) int32, [:, 3] material override (-1 none)
+    # The megakernel's tables (empty when absent).
+    tris: torch.Tensor           # (T, 9) float32 [e2, e1, v0] records
+    tri_index: torch.Tensor      # (T,) int32 triangle -> attribute row
+    attr_normals: torch.Tensor   # (T, 9) float32 per-vertex normals
+    attr_uvs: torch.Tensor       # (T, 6) float32 per-vertex uvs
+    attr_material: torch.Tensor  # (T,) int32
 
 
 def _env_arrays(image) -> dict:
@@ -196,10 +213,24 @@ class Scene:
             raise ValueError("scene has no meshes")
         return concat_flat([flatten_mesh(m, xf) for m, xf in self.meshes])
 
-    def build_arrays(self, leaf8: bool | None = None) -> dict:
+    def build_arrays(self, leaf8: bool | None = None, traversal: str = "wide16") -> dict:
         """Host build of the device tables as numpy arrays (the layout of
         ``scene_from_numpy``'s input); ``leaf8`` as in
-        ``accel/wide16.py::build_scene_wide16``."""
+        ``accel/wide16.py::build_scene_wide16``.  ``traversal="bruteforce"``
+        builds no node table and keeps the triangles in scene order."""
+        if traversal not in ("wide16", "bruteforce"):
+            raise ValueError(f"the PyTorch port builds 'wide16' or 'bruteforce', "
+                             f"not {traversal!r}")
+        if traversal == "bruteforce":
+            if self.instances:
+                raise ValueError("instanced scenes need traversal='wide16'")
+            return dict(
+                wide16_nodes=np.zeros((1, w16.ROW), np.float32),
+                wide16_top=np.zeros((1, w16.TOP_COLS), np.float32),
+                stack_levels=np.zeros((24,), np.int32),
+                **_attr_tables(self.flatten()),
+                **self._shading_arrays(),
+            )
         leaf8 = w16.resolve_leaf8(leaf8)
         if self.instances:
             return self._build_instanced_arrays(leaf8)
@@ -255,13 +286,12 @@ class Scene:
 
     def build(self, traversal: str = "wide16", device=None,
               leaf8: bool | None = None) -> SceneData:
-        """Build the wide16 tables and move them to ``device`` (None: the
-        CUDA device; ``"cpu"`` for the CPU).  ``leaf8`` selects 48-float
-        rows with 8-triangle leaves (``accel/wide16.py::resolve_leaf8``)."""
-        if traversal != "wide16":
-            raise ValueError(f"the PyTorch port builds only 'wide16', not {traversal!r}")
-        device = resolve_device(device)
-        return scene_from_numpy(self.build_arrays(leaf8), device)
+        """Build the tables of ``traversal`` (``"wide16"`` or
+        ``"bruteforce"``) and move them to ``device`` (None: the CUDA
+        device; ``"cpu"`` for the CPU).  ``leaf8`` selects 48-float rows
+        with 8-triangle leaves (``accel/wide16.py::resolve_leaf8``)."""
+        arrays = self.build_arrays(leaf8, traversal)
+        return scene_from_numpy(arrays, resolve_device(device))
 
 
 def rebuild_tlas_rows(scene: Scene):
@@ -288,9 +318,10 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
     ``wide16_nodes``, ``wide16_top``, ``stack_levels`` (only its length is
     read), ``attr_shade_c``, ``materials``, ``env`` (a dict of the
     ``EnvMap`` fields) and, optional, ``attr_shade_o``, ``attr_tangents``,
-    ``texture_data`` (the uint32 atlas), ``lights`` and, for instanced
-    scenes, ``inst_l2w``, ``inst_w2l`` and ``inst_offsets`` (empty when
-    absent).  Tests feed it ``np.asarray`` of the JAX fields, so both
+    ``texture_data`` (the uint32 atlas), ``lights``, for instanced
+    scenes ``inst_l2w``, ``inst_w2l`` and ``inst_offsets``, and the
+    megakernel's ``tris``, ``tri_index``, ``attr_normals``, ``attr_uvs``
+    and ``attr_material`` (each empty when absent).  Tests feed it ``np.asarray`` of the JAX fields, so both
     packages trace the same tables."""
     device = resolve_device(device)
 
@@ -314,6 +345,11 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
         inst_l2w=t(arrays.get("inst_l2w", np.zeros((0, 12), np.float32))),
         inst_w2l=t(arrays.get("inst_w2l", np.zeros((0, 12), np.float32))),
         inst_offsets=t(arrays.get("inst_offsets", np.zeros((0, 4), np.int32))),
+        tris=t(arrays.get("tris", np.zeros((0, 9), np.float32))),
+        tri_index=t(arrays.get("tri_index", np.zeros((0,), np.int32))),
+        attr_normals=t(arrays.get("attr_normals", np.zeros((0, 9), np.float32))),
+        attr_uvs=t(arrays.get("attr_uvs", np.zeros((0, 6), np.float32))),
+        attr_material=t(arrays.get("attr_material", np.zeros((0,), np.int32))),
     )
 
 
@@ -336,4 +372,6 @@ def scene_to_numpy(scene: SceneData) -> dict:
         env={f: n(getattr(scene.env, f)) for f in EnvMap._fields},
         inst_l2w=n(scene.inst_l2w), inst_w2l=n(scene.inst_w2l),
         inst_offsets=n(scene.inst_offsets),
+        tris=n(scene.tris), tri_index=n(scene.tri_index), attr_normals=n(scene.attr_normals),
+        attr_uvs=n(scene.attr_uvs), attr_material=n(scene.attr_material),
     )

@@ -54,7 +54,11 @@ def write_png(path: str, image: np.ndarray) -> None:
 def read_png(path: str) -> np.ndarray:
     """Minimal PNG reader: 8-bit RGB/RGBA/gray, filters 0-4. Returns uint8."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """``read_png`` on the file's bytes."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("not a PNG file")
     pos, idat, meta = 8, b"", None
