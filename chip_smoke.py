@@ -140,7 +140,30 @@ Phases, each printing one or more lines:
     ``golden_common.dual_flags`` at z 8: bad fraction below 1%, or below
     3% with the mean within 0.5%, and the mean within 2%), and Cornell on
     the brute-force oracle.  Phase 5 also holds a megakernel and a
-    wavefront slice of the 2,000-triangle grid.
+    wavefront slice of the 2,000-triangle grid;
+16. the interactive surface: (a) phase 4's film (1920x1080, 8 spp)
+    reprojected on phase 4's ``Renderer``: the identity (exact: counts 8,
+    accum within rtol/atol 1e-5), ``update_camera(reproject=True)`` on a
+    move of 0.2% of the view distance (> 70% of pixels kept), the camera
+    turned round (> 90% dropped), each timed, with their K1 launches (one
+    per host read of the two traversals) and the warp's PyTorch launches
+    (``torch.profiler``); the next pass from the per-pixel film, its
+    checkpoint round trip bit for bit; K1 on ``primary_depth``'s first
+    launch against its twin (max abs error 0); ``reproject_film`` on the
+    card against the CPU on Cornell at 128x128 (counts equal, accum within
+    1e-6); (b) ``preview`` at 1080p (seconds, K1 launches, a finite image,
+    a PNG), K1 on its first launch against its twin, Cornell at 128x128
+    against the CPU (>= 99% of pixels within rtol/atol 1e-4); (c) ``cli
+    view builtin:cornell --port 0`` in a thread (256x256), driven over HTTP
+    (``GET /``, ``/state``, ``/frame.png``, ``POST /camera`` without and
+    with reprojection, ``POST /material``), then ``builtin:tlas`` with
+    ``POST /bounce``: passes per second, seconds per request, K1 launches
+    equal to the loop's super-iterations plus the reprojection's host
+    reads (counted from the render and handler threads); it fails if the
+    loop died; (d) ``cli animate builtin:cornell --orbit``, ``builtin:tlas
+    --orbit --bounce`` (8 frames each) and ``builtin:brdf --orbit`` (2
+    frames, K2) at 256x256: seconds per frame, launches, consecutive
+    frames differing (two unlit frames of the box's outside excepted).
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -176,10 +199,14 @@ one (``table[idx]`` for P1's and P7's gathers, ``embedding_bag`` for P2,
 whose two calls ``tab[li, 0].sum()`` are logged beside it,
 ``torch.sum``, ``torch.sin`` and the others); a probe measured at
 several sizes reports its last row.  ``arrival16_run``'s ``launches``
-sums its launches on the three render paths that use it whole (phase 4's
+sums its launches on the render paths that use it whole (phase 4's
 fused pass, 15a's megakernel, 15b's wavefront), given one by one in
-``launches_by_path``; ``megakernel_launch`` gives its time, bound and
-error on 15a's first launch (B = 2,073,600).
+``launches_by_path``, with phase 16's ``reproject``, ``preview``,
+``viewer`` and ``animate`` (``arrival16_inst_run`` and ``transition16``
+likewise add the viewer's and animate's launches);
+``megakernel_launch`` gives its time, bound and error on 15a's first
+launch (B = 2,073,600), ``primary_depth_launch`` and ``preview_launch``
+on 16a's and 16b's.
 
 Every failure raises (non-zero exit).  The last two lines are the
 kernels' JSON summary line and the device line; without a CUDA device it
@@ -188,13 +215,16 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 SPP = 4          # samples per pass in phases 4 and 11 (two passes)
 SPP_INST = 2     # samples per pass in phases 7 and 12
@@ -559,13 +589,9 @@ def main() -> int:
             f"{p['in_place_cold_ms'] - p['read_cold_ms']:.4f} cold; restore cold - warm "
             f"{p['restore_cold_ms'] - p['restore_ms']:.4f} ms; card: {card}")
 
-    def check_run(name, cap: K1Launch, label, record_it=True, penalty=False):
+    def k1_exact(cap: K1Launch, name) -> float:
         """The multi-arrival kernel against its plain version on a captured
-        super-iteration start state, max abs error 0 on every field; its
-        time per launch (a graph of restore + flush + launch, minus a graph
-        of restore + flush; warm: without the flush), the one-arrival
-        wrapper's on the same arrivals, the plain version's, and the bound of
-        ``arrivals_work``; ``penalty``: ``restore_penalty`` of its restore."""
+        start state: max abs error 0 on every field, or it raises."""
         nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
         out, ref = clone_state(s0), clone_state(s0)
         cuda_arrival.arrival_steps16_cuda(nodes, oT, dT, invT, out, steps, live, stop, hi)
@@ -574,6 +600,38 @@ def main() -> int:
         err = compare(out, ref, name)
         if err != 0.0:
             raise AssertionError(f"{name}: max abs error {err:g}, expected 0")
+        return err
+
+    @contextlib.contextmanager
+    def first_k1(caps: list):
+        """Keep the inputs of the first K1 launch made through
+        ``cuda_arrival.arrival_steps16_cuda`` (``closest_hit``/``occluded``
+        read it at call time) in ``caps``."""
+        arrive = cuda_arrival.arrival_steps16_cuda
+
+        def capture(nodes, oT, dT, invT, s, steps, live=None, stop=None, hi=False):
+            if not caps:
+                caps.append(K1Launch(nodes, oT.clone(), dT.clone(), invT.clone(), clone_state(s),
+                                     steps, None if live is None else live.clone(),
+                                     None if stop is None else stop.clone(), hi))
+            return arrive(nodes, oT, dT, invT, s, steps, live, stop, hi)
+
+        capture.launches = arrive.launches   # the wrapper counts through its module name
+        cuda_arrival.arrival_steps16_cuda = capture
+        try:
+            yield caps
+        finally:
+            cuda_arrival.arrival_steps16_cuda = arrive
+
+    def check_run(name, cap: K1Launch, label, record_it=True, penalty=False):
+        """The multi-arrival kernel against its plain version on a captured
+        super-iteration start state, max abs error 0 on every field; its
+        time per launch (a graph of restore + flush + launch, minus a graph
+        of restore + flush; warm: without the flush), the one-arrival
+        wrapper's on the same arrivals, the plain version's, and the bound of
+        ``arrivals_work``; ``penalty``: ``restore_penalty`` of its restore."""
+        nodes, oT, dT, invT, s0, steps, live, stop, hi = cap
+        err = k1_exact(cap, name)
         fields = cuda_arrival._FLAT_FIELDS + (cuda_arrival._INST_FIELDS if hi else ())
         work = clone_state(s0)
 
@@ -758,7 +816,7 @@ def main() -> int:
     if main_si["reductions_per_si"]["any"] < 1:   # the loop's test, once a super-iteration
         raise AssertionError(f"phase 4: the profile saw no reduction: {main_si}")
     turns(r, "phase 4", "arrival16", "arrival16_run", TE)
-    main_r = r
+    main_r, main_cam = r, dict(cam)   # phase 16 reprojects phase 4's film
     del r
 
     # ---- 5. slice with kernels vs slice with twins (CUDA) and CPU twins ----
@@ -1167,7 +1225,7 @@ def main() -> int:
     log(f"phase 14a main path film ({main_r.sample_count} spp, {w}x{h}) -> {png}: save_png "
         f"{png_s:.3f} s (Renderer.image {image_s:.3f} s, {os.path.getsize(png)} bytes), read "
         f"back equal to Renderer.image(), PNG mean {back.mean():.3f}; card: {card}")
-    del main_r, main_film, shown, back
+    del main_film, shown, back
 
     # 14b: cli render of every builtin at the cli's defaults but 16 spp, each pass
     # timed by a local hook around Renderer.step.
@@ -1301,48 +1359,37 @@ def main() -> int:
     ckpt = os.path.join(out15, "megakernel_pass1.npz")
     # The first K1 launch of the first pass (every lane at the root of its
     # closest-hit traversal), kept to time K1 at B = 2,073,600.
-    arrive, k1_caps = cuda_arrival.arrival_steps16_cuda, []
-
-    def capture_first(nodes, oT, dT, invT, s, steps, live=None, stop=None, hi=False):
-        if not k1_caps:
-            k1_caps.append(K1Launch(nodes, oT.clone(), dT.clone(), invT.clone(), clone_state(s),
-                                    steps, None if live is None else live.clone(),
-                                    None if stop is None else stop.clone(), hi))
-        return arrive(nodes, oT, dT, invT, s, steps, live, stop, hi)
-
-    capture_first.launches = arrive.launches   # the wrapper counts through its module name
-    cuda_arrival.arrival_steps16_cuda = capture_first
+    k1_caps = []
     integrator.render_pass = counted_pass
     mk_launches, mk_rows = 0, []
     try:
-        for p in range(2):
-            pass_stats.clear()
-            tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_counts()
-            t0 = time.perf_counter()
-            r.render(passes=1)   # ends in a synchronize
-            dt = time.perf_counter() - t0
-            launches = k1_only(f"phase 15a pass {p}")
-            mk_launches += launches
-            closest, shadow = int(pass_stats["closest"]), int(pass_stats["shadow"])
-            bounces = pass_stats["bounces"]
-            mk_rows.append((dt, closest + shadow))
-            log(f"phase 15a megakernel pass {p} ({w}x{h}, 1 spp, {w * h} lanes): {dt:.3f} "
-                f"s/pass, {(closest + shadow) / dt / 1e6:.3f} Mrays/s, rays {closest + shadow} "
-                f"(closest {closest}, shadow {shadow}), bounces {bounces}, K1 launches "
-                f"{launches} ({launches / bounces:.2f} a bounce), traversals "
-                f"{tw16.TRAVERSE_STATS['calls']}, host reads {tw16.TRAVERSE_STATS['host_reads']} "
-                f"+ {bounces} loop tests, peak memory "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-            if p == 0:
-                cuda_arrival.arrival_steps16_cuda = arrive
-                r.save_checkpoint(ckpt)
-                mk_first = r.film.accum.clone()
+        with first_k1(k1_caps):
+            for p in range(2):
+                pass_stats.clear()
+                tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                r.render(passes=1)   # ends in a synchronize
+                dt = time.perf_counter() - t0
+                launches = k1_only(f"phase 15a pass {p}")
+                mk_launches += launches
+                closest, shadow = int(pass_stats["closest"]), int(pass_stats["shadow"])
+                bounces = pass_stats["bounces"]
+                mk_rows.append((dt, closest + shadow))
+                log(f"phase 15a megakernel pass {p} ({w}x{h}, 1 spp, {w * h} lanes): {dt:.3f} "
+                    f"s/pass, {(closest + shadow) / dt / 1e6:.3f} Mrays/s, rays {closest + shadow} "
+                    f"(closest {closest}, shadow {shadow}), bounces {bounces}, K1 launches "
+                    f"{launches} ({launches / bounces:.2f} a bounce), traversals "
+                    f"{tw16.TRAVERSE_STATS['calls']}, host reads {tw16.TRAVERSE_STATS['host_reads']} "
+                    f"+ {bounces} loop tests, peak memory "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+                if p == 0:
+                    r.save_checkpoint(ckpt)
+                    mk_first = r.film.accum.clone()
     finally:
         integrator.render_pass = render_pass
-        cuda_arrival.arrival_steps16_cuda = arrive
     if r.stats() != {}:
         raise AssertionError(f"phase 15a: stats after a megakernel pass {r.stats()}")
     img = r.film.accum
@@ -1499,6 +1546,385 @@ def main() -> int:
     kernels["arrival16_run"]["launches"] = sum(path_launches.values())
     del flat_img
     log(f"phase 15: {time.perf_counter() - t15:.1f} s; K1 launches by path {path_launches}; "
+        f"card: {card}")
+
+    # ---- 16. the interactive surface: reprojection, preview, viewer, animate ----
+    t16 = time.perf_counter()
+    out16 = os.path.join("chiprun_out", "phase16")
+    os.makedirs(out16, exist_ok=True)
+    from unity_webgpu_pathtracer_torch import viewer as uviewer
+    from unity_webgpu_pathtracer_torch.render import film as ufilm
+    from unity_webgpu_pathtracer_torch.render.preview import preview
+    from unity_webgpu_pathtracer_torch.config import PostParams
+    from unity_webgpu_pathtracer_torch.post.tonemap import present
+    from unity_webgpu_pathtracer_torch.render.reproject import primary_depth, reproject_film
+    from unity_webgpu_pathtracer_torch.utils.image import decode_png, write_png
+
+    def traversal_launches(label):
+        """K1's flat kernel launched once per host read of the traversals
+        since the last reset, and nothing else."""
+        reads = tw16.TRAVERSE_STATS["host_reads"]
+        expect_only(counts(), {"arrival16_run": reads}, label)
+        return reads
+
+    def reset_all():
+        torch.cuda.synchronize()
+        reset_counts()
+        tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
+
+    def local_range(accum):
+        """Each pixel's 3x3 neighbourhood's max - min, per channel."""
+        planes = accum.permute(2, 0, 1)[None]
+        return (torch.nn.functional.max_pool2d(planes, 3, 1, 1)
+                + torch.nn.functional.max_pool2d(-planes, 3, 1, 1))[0].permute(1, 2, 0)
+
+    def cam_params(cam_, width, height, device=dev, **kw):
+        return make_camera_params(width=width, height=height, device=device, **dict(cam_, **kw))
+
+    # 16a: reprojection of phase 4's film (1080p, 8 spp) on phase 4's scene.
+    r = main_r
+    eye, target = (np.asarray(main_cam[k], np.float64) for k in ("eye", "target"))
+    right = np.cross(target - eye, (0.0, 1.0, 0.0))
+    right /= np.linalg.norm(right)
+    moved_eye = tuple(eye + right * 0.002 * np.linalg.norm(target - eye))
+    p_id, p_move = r.params, cam_params(main_cam, w, h, eye=moved_eye)
+    # Turned round: the same eye looking away from the grid.
+    p_away = cam_params(main_cam, w, h, target=tuple(2 * eye - target))
+    n0 = r.sample_count
+    reset_all()
+    t0 = time.perf_counter()
+    same = reproject_film(r.scene, r.config, r.film, p_id, p_id)
+    torch.cuda.synchronize()
+    id_s = time.perf_counter() - t0
+    id_k1 = traversal_launches("phase 16a identity")
+    id_diff = (same.accum - r.film.accum).abs()
+    # A pixel centre projects a few ulps of ~1000 off itself, so its
+    # neighbour taps leak that share of the 3x3 neighbourhood's range:
+    # held to 1e-3 of the range + 1e-5 (tests/test_reproject.py: 1e-5 at
+    # 24x24, where the ulps are ~50x smaller).
+    span = local_range(r.film.accum)
+    id_err, id_far = float(id_diff.max()), int((id_diff.amax(-1) > 1e-5).sum())
+    leak = id_diff > 1e-5
+    id_share = float((id_diff[leak] / span[leak]).max()) if bool(leak.any()) else 0.0
+    if not (int(same.pixel_counts.min()) == same.sample_count == n0
+            and bool((id_diff <= 1e-5 + 1e-3 * span).all())
+            and tw16.TRAVERSE_STATS["calls"] == 2):
+        raise AssertionError(f"phase 16a identity: counts {int(same.pixel_counts.min())}-"
+                             f"{same.sample_count} (film {n0}), max abs {id_err:g}, "
+                             f"{id_far} pixels beyond 1e-5, worst leak / range {id_share:g}")
+    away = reproject_film(r.scene, r.config, r.film, p_id, p_away)
+    dropped = float((away.pixel_counts == 0).float().mean())
+    del same, away
+    reset_all()
+    prof = k2_span._profile(lambda: reproject_film(r.scene, r.config, r.film, p_id, p_move))
+    prof_k1 = counts()["arrival16_run"]
+    reset_all()
+    t0 = time.perf_counter()
+    r.update_camera(p_move, reproject=True)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    reproj_k1 = traversal_launches("phase 16a update_camera(reproject=True)")
+    kept = float((r.film.pixel_counts > 0).float().mean())
+    if kept <= 0.7 or dropped <= 0.9:
+        raise AssertionError(f"phase 16a: small move kept {kept:.4f}, turned round dropped "
+                             f"{dropped:.4f}")
+    before = r.sample_count
+    reset_counts()
+    t0 = time.perf_counter()
+    r.step()
+    st = r.stats()   # reads device scalars: the pass has ended
+    step_s = time.perf_counter() - t0
+    expect_only(counts(), {"arrival16_run": st["super_iterations"],
+                           "transition16": st["super_iterations"]}, "phase 16a step")
+    check_film(r.film.accum, (h, w, 3), "phase 16a step")
+    if r.sample_count != before + SPP or int(r.film.pixel_counts.max()) != before + SPP:
+        raise AssertionError(f"phase 16a: {r.sample_count} spp after a pass from {before}")
+    ckpt = os.path.join(out16, "reprojected.npz")
+    r.save_checkpoint(ckpt)
+    r2 = Renderer(r.scene, r.config, r.params)
+    r2.load_checkpoint(ckpt)
+    if not (torch.equal(r2.film.accum, r.film.accum)
+            and torch.equal(r2.film.pixel_counts, r.film.pixel_counts)
+            and r2.sample_count == r.sample_count):
+        raise AssertionError("phase 16a: the per-pixel checkpoint did not round-trip")
+    ckpt_bytes = os.path.getsize(ckpt)
+    os.remove(ckpt)
+    del r2
+    log(f"phase 16a reprojection of phase 4's film ({w}x{h}, {n0} spp): identity "
+        f"{id_s:.3f} s, counts all {n0}, accum max abs {id_err:g} ({id_far} pixels beyond "
+        f"1e-5, film max {float(r.film.accum.max()):g}; leak at most {id_share:.3g} of the "
+        f"3x3 range), K1 launches {id_k1} (2 "
+        f"traversals); update_camera(reproject=True) on a move of 0.2% of the view distance "
+        f"{move_s:.3f} s, K1 launches {reproj_k1}, PyTorch launches {prof['kernels'] - prof_k1} "
+        f"(+ {prof['memcpy_memset']} memcpy/memset; torch.profiler, K1 excluded), pixels kept "
+        f"{kept:.4f}; turned round: dropped {dropped:.4f}; the next pass {step_s:.3f} s "
+        f"({st['super_iterations']} super-iterations) -> {r.sample_count} spp at most; "
+        f"per-pixel checkpoint ({ckpt_bytes} bytes) round trip bit for bit; card: {card}")
+    with first_k1([]) as caps:
+        primary_depth(r.scene, r.config, p_move)
+    kernels["arrival16_run"]["primary_depth_launch"] = check_run(
+        "arrival16_run", caps[0], "phase 16a (primary_depth's first launch)", record_it=False)
+    del caps
+
+    # The reprojection on the card against the CPU: Cornell at 128x128.
+    scene_c, cam_c = cornell_box()
+    cfg_c = RenderConfig(width=128, height=128, samples_per_pass=4, max_bounces=3, sky_mode=2,
+                         pool_size=16384)
+    rc = Renderer(scene_c, cfg_c, cam_params(cam_c, 128, 128))
+    rc.render(passes=2)
+    sd_cpu = cornell_box()[0].build("wide16", device="cpu")
+    c_eye = np.asarray(cam_c["eye"], np.float64)
+    c_move = dict(eye=tuple(c_eye + np.array([0.02, 0.01, 0.0])))
+    on_card = reproject_film(rc.scene, cfg_c, rc.film, rc.params,
+                             cam_params(cam_c, 128, 128, **c_move))
+    on_cpu = reproject_film(sd_cpu, cfg_c, ufilm.Film(rc.film.accum.cpu(), rc.sample_count),
+                            cam_params(cam_c, 128, 128, device="cpu"),
+                            cam_params(cam_c, 128, 128, device="cpu", **c_move))
+    c_diff = (on_card.accum.cpu() - on_cpu.accum).abs()
+    c_err, c_span = float(c_diff.max()), local_range(on_cpu.accum)
+    c_share = float((c_diff / (c_span + 1e-30))[c_diff > 1e-6].max()) \
+        if bool((c_diff > 1e-6).any()) else 0.0
+    c_bad = int((on_card.pixel_counts.cpu() != on_cpu.pixel_counts).sum())
+    t_card = primary_depth(rc.scene, cfg_c, cam_params(cam_c, 128, 128, **c_move)).cpu()
+    t_cpu = primary_depth(sd_cpu, cfg_c, cam_params(cam_c, 128, 128, device="cpu", **c_move))
+    # K1 equals its twin on the card; the twin on the CPU rounds a few
+    # lanes' t differently (phase 5's tolerance), which moves a pixel's
+    # taps by ~1e-5 pixel and so its value by that share of its
+    # neighbourhood's range: held to 1e-4 of the range + 1e-6.
+    if c_bad or not bool((c_diff <= 1e-6 + 1e-4 * c_span).all()):
+        raise AssertionError(f"phase 16a Cornell card vs CPU: {c_bad} counts differ, max abs "
+                             f"{c_err:g}, worst difference / range {c_share:g}")
+    log(f"phase 16a reproject_film on the card against the CPU (Cornell 128x128, 8 spp, a "
+        f"move): counts equal, accum max abs {c_err:g}, at most {c_share:.3g} of the 3x3 "
+        f"range (bound 1e-4 + 1e-6); t differs in "
+        f"{int((t_card != t_cpu).sum())} of {t_cpu.numel()} lanes, max rel "
+        f"{float(((t_card - t_cpu).abs() / t_cpu).max()):g}; kept "
+        f"{float((on_cpu.pixel_counts > 0).float().mean()):.4f}")
+
+    # 16b: the preview at 1080p on phase 4's scene; Cornell against the CPU.
+    reset_all()
+    with first_k1([]) as caps:
+        t0 = time.perf_counter()
+        img = preview(r.scene, r.config, p_id)
+        torch.cuda.synchronize()
+        prev_s = time.perf_counter() - t0
+    prev_k1 = traversal_launches("phase 16b preview")
+    check_film(img, (h, w, 3), "phase 16b")
+    t0 = time.perf_counter()
+    img2 = preview(r.scene, r.config, p_id)
+    torch.cuda.synchronize()
+    prev2_s = time.perf_counter() - t0
+    if not torch.equal(img, img2):
+        raise AssertionError("phase 16b: two previews differ")
+    shown = (torch.clamp(present(img, PostParams()), 0, 1) * 255 + 0.5).to(torch.uint8)
+    write_png(os.path.join(out16, "preview_1080p.png"), shown.flip(0).cpu().numpy())
+    # Held exact, untimed: its state is primary_depth's but for the jitter.
+    prev_err = k1_exact(caps[0], "phase 16b K1 (the preview's first launch)")
+    kernels["arrival16_run"]["preview_launch"] = {"lanes": caps[0].s.ptr.shape[0],
+                                                  "max_abs_err": prev_err}
+    del caps
+    c_card = preview(rc.scene, cfg_c, rc.params).cpu()
+    c_cpu = preview(sd_cpu, cfg_c, cam_params(cam_c, 128, 128, device="cpu"))
+    close = torch.isclose(c_card, c_cpu, rtol=1e-4, atol=1e-4).all(-1)
+    rel = abs(float(c_card.mean()) - float(c_cpu.mean())) / float(c_cpu.mean())
+    if float(close.float().mean()) < 0.99 or rel > 1e-4:
+        raise AssertionError(f"phase 16b Cornell card vs CPU: {int((~close).sum())} pixels "
+                             f"beyond 1e-4, mean rel {rel:g}")
+    log(f"phase 16b preview ({w}x{h}): {prev_s:.3f} s (again {prev2_s:.3f} s, equal), K1 "
+        f"launches {prev_k1} (the first against its twin: max abs error {prev_err:g}), "
+        f"image mean {float(img.mean()):.6f}, finite; Cornell 128x128 on "
+        f"the card against the CPU: {int((~close).sum())} of {close.numel()} pixels beyond "
+        f"rtol/atol 1e-4, max abs {float((c_card - c_cpu).abs().max()):g}, mean rel {rel:g}; "
+        f"card: {card}")
+    del img, img2, shown, rc, sd_cpu, on_card, on_cpu
+    path_launches.update(reproject=reproj_k1, preview=prev_k1)
+
+    # 16c: the viewer on the card, through cli view and HTTP.
+    serve, made = uviewer.serve, {}
+
+    def spy(v, **kw):
+        made["server"] = serve(v, **kw)
+        made["viewer"] = v
+        return made["server"]
+
+    def request(base, path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                base + path, data=data, method="GET" if body is None else "POST"),
+                timeout=300) as resp:
+            out = resp.read()
+        return out, time.perf_counter() - t0
+
+    def until(v, cond, what, timeout=120):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if v.error is not None:
+                raise AssertionError(f"phase 16c: the render loop died: {v.error!r}")
+            with v.lock:
+                if cond():
+                    return
+            time.sleep(0.02)
+        raise AssertionError(f"phase 16c: timed out waiting for {what}")
+
+    def view(spec, drive):
+        """``cli view <spec> --port 0`` in a thread, driven by ``drive(v,
+        base, secs)``; returns (viewer, seconds per request, passes/s)."""
+        made.clear()
+        box = {}
+
+        def run():
+            try:
+                box["v"] = cli.main(["view", spec, "--port", "0"])
+            except BaseException as e:   # re-raised below
+                box["error"] = e
+
+        reset_all()
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        deadline = time.time() + 300
+        while "viewer" not in made and "error" not in box and time.time() < deadline:
+            time.sleep(0.02)
+        if "viewer" not in made:
+            raise AssertionError(f"phase 16c {spec}: the viewer did not start: {box}")
+        v = made["viewer"]
+        base = f"http://127.0.0.1:{made['server'].server_address[1]}"
+        secs = {}
+        until(v, lambda: v.passes >= 2, "two passes")
+        p0, t0 = v.passes, time.perf_counter()
+        until(v, lambda: v.passes >= p0 + 5, "five more passes")
+        rate = (v.passes - p0) / (time.perf_counter() - t0)
+        drive(v, base, secs)
+        if v.error is not None or not v._thread.is_alive():
+            raise AssertionError(f"phase 16c {spec}: the render loop died: {v.error!r}")
+        v.stop()
+        th.join(timeout=60)
+        if th.is_alive() or box.get("v") is not v:
+            raise AssertionError(f"phase 16c {spec}: cli view did not end: {box}")
+        return v, secs, rate
+
+    def drive_cornell(v, base, secs):
+        page, secs["GET /"] = request(base, "/")
+        state, secs["GET /state"] = request(base, "/state")
+        png, secs["GET /frame.png"] = request(base, "/frame.png")
+        frame = decode_png(png)
+        if b"tpu pathtracer" not in page or frame.shape != (256, 256, 3) or frame.max() == 0 \
+                or "tier" not in json.loads(state)["stats"]:
+            raise AssertionError(f"phase 16c: page, state or frame wrong ({frame.shape})")
+        c = np.asarray(v.cam["eye"], np.float64)
+        _, secs["POST /camera"] = request(base, "/camera", {"eye": list(c + [0.05, 0, 0])})
+        until(v, lambda: v.passes >= 1 and v.r.sample_count >= 2, "a pass after the move")
+        with v.lock:
+            v.reproject = True
+        _, secs["POST /camera (reproject)"] = request(base, "/camera",
+                                                      {"eye": list(c + [0.06, 0, 0])})
+        with v.lock:
+            if v.r.film.pixel_counts is None:
+                raise AssertionError("phase 16c: the reprojecting move left no per-pixel film")
+            kept_v = float((v.r.film.pixel_counts > 0).float().mean())
+        secs["kept"] = kept_v
+        _, secs["POST /material"] = request(base, "/material", {"id": 0, "roughness": 0.3})
+        p = v.passes
+        until(v, lambda: v.passes >= p + 2, "two passes after the edits")
+        if abs(v.r._host_scene.materials[0].roughness - 0.3) > 1e-6:
+            raise AssertionError("phase 16c: the material edit did not reach the scene")
+
+    def drive_tlas(v, base, secs):
+        y0 = float(v.r._host_scene.instances[0][1][1, 3])
+        _, secs["POST /bounce"] = request(base, "/bounce", {"on": True})
+        p = v.passes
+        until(v, lambda: v.passes >= p + 3, "three bouncing passes")
+        _, secs["POST /bounce (off)"] = request(base, "/bounce", {"on": False})
+        with v.lock:
+            if float(v.r._host_scene.instances[0][1][1, 3]) == y0:
+                raise AssertionError("phase 16c: the bounce moved no instance")
+        _, secs["GET /frame.png"] = request(base, "/frame.png")
+
+    uviewer.serve = spy
+    try:
+        viewer_rows = {}
+        for spec, drive, k1 in (("builtin:cornell", drive_cornell, "arrival16_run"),
+                                ("builtin:tlas", drive_tlas, "arrival16_inst_run")):
+            v, secs, rate = view(spec, drive)
+            got = counts()
+            reads = tw16.TRAVERSE_STATS["host_reads"]
+            # The fused pass launches K1 once a super-iteration; the
+            # reprojection once a host read of its traversals.
+            expect_only(got, {k1: v.super_iterations + (reads if k1 == "arrival16_run" else 0)},
+                        f"phase 16c {spec}")
+            viewer_rows[spec] = got[k1]
+            log(f"phase 16c cli view {spec} (256x256, passes of 2 spp, 4 bounces): "
+                f"{rate:.2f} passes/s ({v.pass_s:.3f} s/pass EMA, "
+                f"{v.rays_per_s / 1e6:.2f} Mrays/s), {v.passes} passes, "
+                f"{v.super_iterations} super-iterations, K1 launches {got[k1]} "
+                f"({reads} by the reprojection), K2 {got['transition16']}; seconds per "
+                f"request {({k: round(x, 4) for k, x in secs.items()})}; loop alive until "
+                f"stop(); card: {card}")
+    finally:
+        uviewer.serve = serve
+    path_launches["viewer"] = viewer_rows["builtin:cornell"]
+
+    # 16d: cli animate, each pass timed by a local hook on Renderer.render.
+    render, frame_rows = api.Renderer.render, []
+
+    def timed_render(self, passes=1):
+        t0 = time.perf_counter()
+        out = render(self, passes)
+        frame_rows.append((time.perf_counter() - t0, self.stats()["super_iterations"]))
+        return out
+
+    anim = {}
+    api.Renderer.render = timed_render
+    try:
+        for spec, extra, want_k in (
+                ("builtin:cornell", ["--orbit"], ("arrival16_run",)),
+                ("builtin:tlas", ["--orbit", "--bounce"], ("arrival16_inst_run",)),
+                ("builtin:brdf", ["--orbit", "--frames", "2"], ("arrival16_run", "transition16"))):
+            name = spec.split(":")[1]
+            frame_rows.clear()
+            reset_counts()
+            stem = os.path.join(out16, f"{name}.png")
+            t0 = time.perf_counter()
+            r = cli.main(["animate", spec, *extra, "--out", stem])
+            wall = time.perf_counter() - t0
+            iters = sum(n for _, n in frame_rows)
+            got = counts()
+            expect_only(got, dict.fromkeys(want_k, iters), f"phase 16d {spec}")
+            frames = [read_png(os.path.join(out16, f"{name}-{i:04d}.png"))
+                      for i in range(len(frame_rows))]
+            lit = [f.max() > 0 for f in frames]
+            differ = [not np.array_equal(a, b) for a, b in zip(frames, frames[1:])]
+            # Under sky mode none the Cornell box's outside is black: two
+            # unlit frames in a row are equal.
+            if not all(d or not (la or lb) for d, la, lb in zip(differ, lit, lit[1:])) \
+                    or not any(lit):
+                raise AssertionError(f"phase 16d {spec}: consecutive frames equal {differ}, "
+                                     f"lit {lit}")
+            anim[name] = {k: got[k] for k in want_k}
+            secs = [round(x, 3) for x, _ in frame_rows]
+            log(f"phase 16d cli animate {spec} {' '.join(extra)} (256x256, 8 spp a frame): "
+                f"{len(frames)} frames in {wall:.2f} s, s/frame {secs}, super-iterations "
+                f"{iters}, launches {anim[name]}, lit frames {sum(lit)}, consecutive frames "
+                f"differ {sum(differ)} of {len(differ)}; card: {card}")
+            for i in range(len(frames)):
+                os.remove(os.path.join(out16, f"{name}-{i:04d}.png"))
+    finally:
+        api.Renderer.render = render
+    del r, main_r
+    path_launches["animate"] = anim["cornell"]["arrival16_run"] + anim["brdf"]["arrival16_run"]
+    kernels["arrival16_run"]["launches_by_path"] = path_launches
+    kernels["arrival16_run"]["launches"] = sum(path_launches.values())
+    inst = kernels["arrival16_inst_run"]
+    inst["launches_by_path"] = {"path_a": inst["launches"],
+                                "viewer": viewer_rows["builtin:tlas"],
+                                "animate": anim["tlas"]["arrival16_inst_run"]}
+    inst["launches"] = sum(inst["launches_by_path"].values())
+    k2 = kernels["transition16"]
+    k2["launches_by_path"] = {"fused": k2["launches"], "animate": anim["brdf"]["transition16"]}
+    k2["launches"] = sum(k2["launches_by_path"].values())
+    if "jax" in sys.modules:
+        raise AssertionError("phase 16: jax was imported")
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s; K1 launches by path {path_launches}; "
         f"card: {card}")
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",

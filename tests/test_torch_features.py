@@ -167,8 +167,8 @@ def test_normal_map(bumpy):
 def test_update_lights_and_camera():
     """``Renderer.update_lights`` replaces the light table and restarts
     accumulation (no lights, no light under sky mode 2); ``update_camera``
-    takes new uniforms and restarts; reprojection is not ported and
-    raises."""
+    takes new uniforms and restarts, or, with ``reproject=True``, warps
+    the film to a per-pixel count."""
     scene, cam, over = lights_scene()
     size = 24
     config = RenderConfig(width=size, height=size, samples_per_pass=4, max_bounces=2,
@@ -189,5 +189,7 @@ def test_update_lights_and_camera():
                                   device="cpu")
     r.update_camera(moved)
     assert r.sample_count == 0 and torch.equal(r.params.cam_to_world, moved.cam_to_world)
-    with pytest.raises(NotImplementedError, match="reproject"):
-        r.update_camera(moved, reproject=True)
+    r.render(1)
+    r.update_camera(moved, reproject=True)
+    assert tuple(r.film.pixel_counts.shape) == (size, size, 1)
+    assert r.sample_count == int(r.film.pixel_counts.max()) == 4

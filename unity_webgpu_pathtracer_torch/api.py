@@ -27,6 +27,7 @@ from unity_webgpu_pathtracer_torch.post.tonemap import present
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.fused import fused_pass_and_accumulate
 from unity_webgpu_pathtracer_torch.render.integrator import megakernel_pass_and_accumulate
+from unity_webgpu_pathtracer_torch.render.reproject import reproject_film
 from unity_webgpu_pathtracer_torch.render.wavefront import wavefront_pass_and_accumulate
 from unity_webgpu_pathtracer_torch.scene.material import MaterialDesc, pack_materials
 from unity_webgpu_pathtracer_torch.scene.scene import (
@@ -45,7 +46,8 @@ class Renderer:
     (``update_instance_transform``, ``update_material``, ``update_lights``;
     ``update_camera`` takes new uniforms), each of which restarts
     accumulation as the reference's dirty tracking does
-    (``PathTracer.cs:169-180, 211-222, 463-471``).  It runs on the CUDA device
+    (``PathTracer.cs:169-180, 211-222, 463-471``), unless a camera move
+    reprojects the film.  It runs on the CUDA device
     unless ``device`` says otherwise (``device="cpu"``)."""
 
     def __init__(self, scene, config: RenderConfig, params: RenderParams,
@@ -112,13 +114,17 @@ class Renderer:
     def update_camera(self, params: RenderParams, reproject: bool = False,
                       max_history: int | None = None) -> None:
         """New camera and uniforms (``PathTracer.cs:211-222``);
-        accumulation restarts.  The reference's ``reproject=True`` warps the
-        film through the camera move (``render/reproject.py``), which the
-        port does not have yet: it raises."""
-        if reproject or max_history is not None:
-            raise NotImplementedError("temporal reprojection (render/reproject.py) is not "
-                                      "ported; call update_camera without reproject")
-        self.params = params.to(self.device)
+        accumulation restarts.  With ``reproject=True`` the film is warped
+        through the camera move instead (``render/reproject.py``): pixels
+        that stay visible keep their radiance with a per-pixel sample
+        count, clamped to ``max_history``; disoccluded pixels restart."""
+        params = params.to(self.device)
+        if reproject:
+            self.film = reproject_film(self.scene, self.config, self.film, self.params, params,
+                                       max_history=max_history)
+            self.params = params
+            return
+        self.params = params
         self.reset()
 
     def step(self) -> None:
@@ -154,6 +160,7 @@ class Renderer:
 
     @property
     def sample_count(self) -> int:
+        """Samples per pixel; after a reprojection, the largest count."""
         return self.film.sample_count
 
     def radiance(self) -> np.ndarray:
@@ -176,7 +183,8 @@ class Renderer:
 
     def load_checkpoint(self, path: str) -> None:
         """Resume from a film written by ``save_checkpoint`` (of either
-        package); its size must be the config's."""
+        package), with its per-pixel counts if it has them; its size must
+        be the config's."""
         film = ufilm.load(path, self.device)
         want = (self.config.height, self.config.width, 3)
         if tuple(film.accum.shape) != want:

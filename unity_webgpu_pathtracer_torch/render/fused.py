@@ -595,7 +595,8 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
 
 def fused_pass_and_accumulate(scene, config: RenderConfig, params: RenderParams,
                               film: ufilm.Film):
-    """One progressive pass accumulated into ``film``; returns
+    """One progressive pass accumulated into ``film``, seeded from its
+    largest sample count (per-pixel counts after a reprojection); returns
     ``(film, occupancy, rays, arrivals, super_iterations)``."""
     total, occ, rays, arr, iters = fused_pass_with_stats(
         scene, config, params, film.sample_count)

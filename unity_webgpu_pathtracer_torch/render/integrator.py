@@ -254,7 +254,8 @@ def render_pass(scene, config: RenderConfig, params: RenderParams, current_sampl
 
 def megakernel_pass_and_accumulate(scene, config: RenderConfig, params: RenderParams,
                                    film: ufilm.Film) -> ufilm.Film:
-    """One pass of ``render_pass`` accumulated into ``film``."""
+    """One pass of ``render_pass`` accumulated into ``film``, seeded from
+    its largest sample count (per-pixel counts after a reprojection)."""
     total = render_pass(scene, config, params, film.sample_count)
     total = total.reshape(config.height, config.width, 3)
     return ufilm.accumulate(film, total, config.samples_per_pass)

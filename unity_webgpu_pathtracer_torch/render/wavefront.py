@@ -163,7 +163,8 @@ def wavefront_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
 
 def wavefront_pass_and_accumulate(scene, config: RenderConfig, params: RenderParams,
                                   film: ufilm.Film) -> ufilm.Film:
-    """One wavefront pass accumulated into ``film``."""
+    """One wavefront pass accumulated into ``film``, seeded from its
+    largest sample count (per-pixel counts after a reprojection)."""
     total, _occ = wavefront_pass(scene, config, params, film.sample_count)
     total = total.reshape(config.height, config.width, 3)
     return ufilm.accumulate(film, total, config.samples_per_pass)
