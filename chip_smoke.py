@@ -44,7 +44,7 @@ Phases, each printing one or more lines:
    (one 5,040-triangle sphere BLAS, 196 sphere instances and the ground
    as one more, 987,842 instanced triangles, same HDRI and camera);
 7. path A through ``Renderer``: that instanced scene at 1920x1080, 5
-   bounces, HDRI, pool 98,304, te=8, two passes of 2 spp, held against
+   bounces, HDRI, pool 98,304, te=8, one pass of 2 spp, held against
    the flat film of phase 4 (global mean within 3%; 32x32-pixel tiles,
    mean |difference| / (flat + 0.05) below 5%); then the turns;
 8. path B, the Cornell box at the reference bench's configuration
@@ -163,7 +163,26 @@ Phases, each printing one or more lines:
     loop died; (d) ``cli animate builtin:cornell --orbit``, ``builtin:tlas
     --orbit --bounce`` (8 frames each) and ``builtin:brdf --orbit`` (2
     frames, K2) at 256x256: seconds per frame, launches, consecutive
-    frames differing (two unlit frames of the box's outside excepted).
+    frames differing (two unlit frames of the box's outside excepted);
+17. multi-GPU (``parallel/film_tiling.py``): two rank processes of
+    ``unity_webgpu_pathtracer_torch/experiments/multigpu.py`` share the
+    card over gloo (NCCL refuses two ranks on one device, so this measures
+    the program, not scaling), started with ``subprocess`` after phase 1
+    built the kernels (they only load them), with a ``file://``
+    rendezvous in a temporary directory outside the repository and a
+    process-group timeout; each builds the benchmark scene from the
+    ``.bvh_cache`` and runs (a) the main path sharded, 1920x1080, 4 spp,
+    on a (tile=2, spp=1) and a (tile=1, spp=2) grid, (b) the megakernel on
+    the tile grid at 1 spp, (c) BASELINE's config 5 at 3840x2160 (a
+    sharded pass of 1 spp a rank, ``reproject_film`` across a move of
+    0.2% of the view distance, a second sharded pass), (d) the 1080p and
+    4K films' all-reduce and all-gather alone; each rank reports its
+    seconds, super-iterations, K1/K2 launches (counts set to 0 before
+    each step and read after), peak memory and collective seconds, and
+    rank 0 holds every film against one rank's pass of the same samples
+    (rtol 1e-6, atol 1e-7, rays equal; the share bitwise equal printed).
+    A rank that exits non-zero or outlives ``RANK_LIMIT_S`` fails the
+    phase with its stderr, and the other is killed.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -202,8 +221,9 @@ several sizes reports its last row.  ``arrival16_run``'s ``launches``
 sums its launches on the render paths that use it whole (phase 4's
 fused pass, 15a's megakernel, 15b's wavefront), given one by one in
 ``launches_by_path``, with phase 16's ``reproject``, ``preview``,
-``viewer`` and ``animate`` (``arrival16_inst_run`` and ``transition16``
-likewise add the viewer's and animate's launches);
+``viewer`` and ``animate`` and phase 17's ``multigpu`` (both ranks'
+launches) (``arrival16_inst_run`` and ``transition16`` likewise add the
+viewer's and animate's launches, and ``transition16`` phase 17's);
 ``megakernel_launch`` gives its time, bound and error on 15a's first
 launch (B = 2,073,600), ``primary_depth_launch`` and ``preview_launch``
 on 16a's and 16b's.
@@ -237,6 +257,8 @@ K2_AT = (4, 150, 151)   # super-iterations whose transition state phase 3 captur
 # but 16 spp, not 64: four passes a builtin keep the smoke within half its
 # time limit since phase 15 joined it.
 CLI_ARGS = ("--spp", "16")
+RANKS = 2           # phase 17's rank processes, sharing the one card over gloo
+RANK_LIMIT_S = 420  # phase 17 fails if a rank has not ended by then
 
 
 def log(msg: str) -> None:
@@ -248,6 +270,56 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def run_ranks(world: int, limit: float) -> list[dict]:
+    """Start ``world`` rank processes of ``experiments/multigpu.py`` on the
+    card (gloo, a ``file://`` rendezvous in a temporary directory outside
+    the repository) and wait for them at most ``limit`` seconds.  A rank
+    that exits non-zero, or outlives the limit, fails the phase with its
+    stderr, and every rank still running is killed.  Returns the ranks'
+    reports, by rank."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory(prefix="uwpt_multigpu_") as tmp:
+        procs = []
+        try:
+            for rank in range(world):
+                err = open(os.path.join(tmp, f"rank{rank}.err"), "w+")
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-m", "unity_webgpu_pathtracer_torch.experiments.multigpu",
+                     "--rank", str(rank), "--world", str(world), "--backend", "gloo",
+                     "--init", f"file://{tmp}/rendezvous", "--out", tmp],
+                    cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=err), err))
+            deadline = time.monotonic() + limit
+            while True:
+                codes = [p.poll() for p, _ in procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                late = time.monotonic() > deadline and None in codes
+                if bad or late:
+                    rank = bad[0] if bad else codes.index(None)
+                    why = f"exited {codes[rank]}" if bad else f"still running after {limit} s"
+                    err = procs[rank][1]
+                    err.seek(0)
+                    raise AssertionError(f"phase 17: rank {rank} {why}; its stderr:\n"
+                                         f"{err.read()[-6000:]}")
+                if all(c == 0 for c in codes):
+                    break
+                time.sleep(0.5)
+            reports = []
+            for rank in range(world):
+                with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                    reports.append(json.load(f))
+            return reports
+        finally:
+            for p, err in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                err.close()
 
 
 def run_passes(r, passes: int, label: str) -> tuple[float, int, int, int]:
@@ -802,7 +874,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    _s, iters_4, rays_4, arr_4 = run_passes(r, 2, "phase 4")
+    secs_4, iters_4, rays_4, arr_4 = run_passes(r, 2, "phase 4")
     got = counts()
     expect_only(got, {"arrival16_run": iters_4, "transition16": iters_4}, "phase 4")
     kernels["arrival16_run"]["launches"] = got["arrival16_run"]
@@ -928,7 +1000,9 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    _s, iters_a, _rays, _arr = run_passes(r, 2, "phase 7")
+    # One pass (two before phase 17 joined the smoke): its 2 spp hold
+    # the flat film within the same bounds as phase 12's one pass.
+    _s, iters_a, _rays, _arr = run_passes(r, 1, "phase 7")
     got = counts()
     expect_only(got, {"arrival16_inst_run": iters_a}, "phase 7")
     kernels["arrival16_inst_run"]["launches"] = got["arrival16_inst_run"]
@@ -1926,6 +2000,61 @@ def main() -> int:
         raise AssertionError("phase 16: jax was imported")
     log(f"phase 16: {time.perf_counter() - t16:.1f} s; K1 launches by path {path_launches}; "
         f"card: {card}")
+
+    # ---- 17. multi-GPU: two gloo ranks share the card ----
+    # NCCL refuses two ranks on one device, so the ranks share it over
+    # gloo: this measures the program (sharding, collectives, the film's
+    # assembly), not scaling.  They start after phase 1 built the kernels,
+    # so they only load them.
+    from unity_webgpu_pathtracer_torch.experiments import multigpu as multigpu_exp
+
+    t17 = time.perf_counter()
+    reports = run_ranks(RANKS, RANK_LIMIT_S)
+    multigpu = {"arrival16_run": 0, "transition16": 0}
+    for rep in reports:
+        if rep["build_s"] != 0.0 or rep["jax_imported"]:
+            raise AssertionError(f"phase 17 rank {rep['rank']}: built kernels for "
+                                 f"{rep['build_s']} s, or imported jax")
+        for k in multigpu:
+            multigpu[k] += rep["launches"][k]
+        log(f"phase 17 rank {rep['rank']} of {rep['world']} on {rep['device']} ({rep['card']}): "
+            f"set-up {rep['setup_s']:.1f} s (kernels loaded, not built); launches "
+            f"{rep['launches']}; gloo took CUDA tensors for {rep['collectives_on_device']}")
+        for step in ("fused_tile", "fused_spp", "megakernel_tile", "config5_pass0",
+                     "config5_reproject", "config5_pass1"):
+            row = rep[step]
+            extra = {k: v for k, v in row.items()
+                     if k not in ("s", "local_pass_s", "collectives_s", "peak_gib")}
+            log(f"phase 17 rank {rep['rank']} {step}: {row['s']:.3f} s (local pass "
+                f"{row['local_pass_s']:.3f} s, collectives {row['collectives_s']:.4f} s with the "
+                f"wait for the slower rank), peak {row['peak_gib']:.3f} GiB; {extra}")
+        for size in ("1080p", "4k"):
+            c = rep[f"collectives_{size}"]
+            log(f"phase 17 rank {rep['rank']} collectives alone, {size} film ({c['bytes']} "
+                f"bytes): all_reduce {c['all_reduce_s']:.4f} s, all_gather of the tiles "
+                f"{c['all_gather_s']:.4f} s")
+    r0 = reports[0]
+    for step in ("fused_tile", "fused_spp", "megakernel_tile", "config5_pass0"):
+        v = r0[step]["vs_single"]
+        log(f"phase 17 {step} against one rank's pass: within rtol/atol "
+            f"{multigpu_exp.FILM_TOL}, bitwise equal {v['bitwise_share']:.6f}, max abs "
+            f"{v['max_abs']:g}"
+            + (f"; rays {r0[step]['rays']} (single {v['single_rays']}), arrivals "
+               f"{r0[step]['arrivals']} (single {v['single_arrivals']})"
+               if "single_rays" in v else ""))
+    log(f"phase 17 one rank's passes (rank 0 alone, after the others ended): 1080p "
+        f"{r0['single_1080p']['s']:.3f} s ({r0['single_1080p']['super_iterations']} "
+        f"super-iterations), 4K {r0['single_4k']['s']:.3f} s "
+        f"({r0['single_4k']['super_iterations']})")
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s; config 5 at 3840x2160 kept "
+        f"{r0['config5_reproject']['kept']:.4f} of the pixels, film {r0['config5_film']}; "
+        f"phase 4's single-rank passes {secs_4 / 2:.3f} s/pass; K1/K2 launches of the ranks "
+        f"{multigpu}; card: {card}")
+    if not all(multigpu.values()):
+        raise AssertionError(f"phase 17: the ranks launched {multigpu}")
+    for k in multigpu:
+        kernels[k]["launches_by_path"]["multigpu"] = multigpu[k]
+        kernels[k]["launches"] += multigpu[k]
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",

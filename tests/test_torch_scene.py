@@ -130,7 +130,7 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 20, mods\n"
         "new = ('render.integrator', 'render.wavefront', 'render.hitinfo', 'render.lights',\n"
         "       'scene.obj', 'scene.gltf', 'ops', 'render.reproject', 'render.preview',\n"
-        "       'viewer')\n"
+        "       'viewer', 'parallel.film_tiling', 'utils.profiling', 'experiments.multigpu')\n"
         "assert all(p.__name__ + '.' + m in mods for m in new), mods\n"
         "assert 'jax' not in sys.modules\n"
         "print(len(mods))\n")

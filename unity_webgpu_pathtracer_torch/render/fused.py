@@ -23,11 +23,12 @@ is read from the paired f16 rows (``attr_compact=2``) or the oct-normal
 rows (``attr_compact=3``); ``attr_in_kernel`` changes nothing here, since
 K2 reads and decodes the rows itself on either setting.
 
-Dead lanes pull (pixel, sample) work items off a pixel-major queue.  Each
-path's radiance is appended once, keyed by pixel, to a pass-lifetime
-record buffer; the end-of-pass stable sort groups the records by pixel
-and a reshape-sum resolves the film, so each pixel's samples are summed
-in the reference's order.
+Dead lanes pull (pixel, sample) work items off a pixel-major queue, over
+the whole film or over a shard of its pixels and samples (the multi-GPU
+passes of ``parallel/film_tiling.py``).  Each path's radiance is appended
+once, keyed by pixel, to a pass-lifetime record buffer; the end-of-pass
+stable sort groups the records by pixel and a reshape-sum resolves the
+film, so each pixel's samples are summed in the reference's order.
 
 The loop test reads two device values per super-iteration (one
 device->host sync), and the pass returns its super-iteration count.
@@ -126,6 +127,10 @@ class FusedState:
     rec_keys: torch.Tensor        # (C,) int32
     rec_rgb: torch.Tensor         # (3, C) float32
     rec_cursor: torch.Tensor      # () int64
+    # The work queue's share of the film and the samples, host ints:
+    # (pixel_base, npix_l, sample_base, spp_l); the whole film is
+    # (0, npix, 0, samples_per_pass).
+    shard: tuple
 
 
 def _stack(v) -> torch.Tensor:
@@ -184,16 +189,19 @@ def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedS
     dying lanes' records, then start queued work items in the dead lanes
     (updates ``s`` in place).
 
-    Every lane's record is keyed by its pixel if the lane died and past
-    every pixel otherwise, stably sorted (each pixel keeps its order) and
-    written at the cursor; only the dead lanes' records advance it, so
-    the tail is overwritten by the next append.  All deaths are taken at
-    once (the reference's default ``film_k_shift = 0``), so no lane ever
-    waits with a pending record."""
+    Every lane's record is keyed by its shard-local pixel if the lane died
+    and past every pixel of the shard otherwise, stably sorted (each pixel
+    keeps its order) and written at the cursor; only the dead lanes'
+    records advance it, so the tail is overwritten by the next append.
+    All deaths are taken at once (the reference's default
+    ``film_k_shift = 0``), so no lane ever waits with a pending record.
+    Work item ``i`` is the shard's pixel ``i % npix_l`` and sample
+    ``i // npix_l``; its seed and camera ray are keyed by the global
+    (pixel, sample), so a shard's samples are the single pass's."""
     b = s.mode.shape[0]
-    npix = config.pixel_count()
+    pixel_base, npix_l, sample_base, _spp_l = s.shard
     lane = torch.arange(b, device=s.mode.device)
-    key = torch.where(died, s.pixel, (npix + lane).to(torch.int32))
+    key = torch.where(died, s.pixel - pixel_base, (npix_l + lane).to(torch.int32))
     ks, perm = torch.sort(key, stable=True)
     at = s.rec_cursor + lane
     s.rec_keys[at] = ks
@@ -205,8 +213,9 @@ def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedS
     rank = torch.cumsum(avail.to(torch.int64), 0) - 1
     work_id = s.queue_head + rank
     take = avail & (rank < remaining)
-    pixel_new = torch.remainder(work_id, npix)
-    sample_new = torch.div(work_id, npix, rounding_mode="floor") + current_sample
+    pixel_new = torch.remainder(work_id, npix_l) + pixel_base
+    sample_new = torch.div(work_id, npix_l, rounding_mode="floor") + (current_sample
+                                                                      + sample_base)
     s.queue_head = s.queue_head + torch.minimum(avail.sum(), remaining)
     s.radiance = torch.where(died | take, torch.zeros_like(s.radiance), s.radiance)
 
@@ -504,7 +513,7 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
                            _stack(rad_out))
 
 
-def _initial_state(b: int, depth: int, budget: int, dev) -> FusedState:
+def _initial_state(b: int, depth: int, shard: tuple, dev) -> FusedState:
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     z3 = torch.zeros((3, b), **f32)
@@ -515,7 +524,7 @@ def _initial_state(b: int, depth: int, budget: int, dev) -> FusedState:
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     # budget rows of records + one pool-sized block for the last append's
     # garbage tail; never-written rows sort behind every pixel.
-    cap = budget + b
+    cap = shard[1] * shard[3] + b
     return FusedState(
         mode=torch.full((b,), MODE_DEAD, **i32),
         trav=tw16.init_state16(b, 0.0, ptr0=tw16.DONE, depth=depth, device=dev),
@@ -531,19 +540,27 @@ def _initial_state(b: int, depth: int, budget: int, dev) -> FusedState:
         rec_keys=torch.full((cap,), _UNWRITTEN_KEY, **i32),
         rec_rgb=torch.zeros((3, cap), **f32),
         rec_cursor=zero.clone(),
+        shard=shard,
     )
 
 
 def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
-                          current_sample: int):
+                          current_sample: int, pool_size: int | None = None, shard=None):
     """Render one pass of ``samples_per_pass`` samples per pixel.
 
-    Returns ``(film_sum (npix, 3), occupancy, rays, arrivals,
+    ``pool_size`` overrides ``config.pool_size``.  ``shard`` (multi-GPU,
+    ``parallel/film_tiling.py``): ``(pixel_base, npix_local, sample_base,
+    spp_local)``, host ints; the pass renders pixels ``[pixel_base,
+    pixel_base + npix_local)``, ``spp_local`` samples each, offset by
+    ``sample_base``, and its film rows are shard-local.  Seeds stay keyed
+    by the global (pixel, sample), so every sample is the single pass's.
+
+    Returns ``(film_sum (npix_local, 3), occupancy, rays, arrivals,
     super_iterations)``: the first four as in the reference (device
     tensors), the last a host int.  Raises ``ValueError`` when the
     configuration samples the HDRI of a scene that has none (its 1x1
-    placeholder table), or reads oct attribute rows (``attr_compact=3``)
-    that the scene does not have."""
+    placeholder table), reads oct attribute rows (``attr_compact=3``)
+    that the scene does not have, or gets a shard off the film."""
     if (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
             and tuple(scene.env.image.shape[:2]) == (1, 1)):
         raise ValueError("sky_mode 0 with has_environment_texture samples the scene's HDRI, "
@@ -552,19 +569,25 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
     if config.attr_compact == 3 and scene.attr_shade_o.shape[0] == 0:
         raise ValueError("attr_compact=3 reads the oct attribute rows, and this SceneData "
                          "has none (build it with Scene.build, or pass attr_shade_o)")
-    npix = config.pixel_count()
-    spp = config.samples_per_pass
-    budget = npix * spp
-    # Pool: configured or min(budget, 96K) lanes, rounded up to a multiple
-    # of 1024 as the reference does whenever its kernels run.
-    b = ((config.pool_size or min(budget, 3 << 15)) + 1023) & ~1023
+    if shard is None:
+        shard = (0, config.pixel_count(), 0, config.samples_per_pass)
+    pixel_base, npix_l, sample_base, spp_l = (int(x) for x in shard)
+    if not (0 <= pixel_base and npix_l > 0 and pixel_base + npix_l <= config.pixel_count()
+            and sample_base >= 0 and spp_l > 0):
+        raise ValueError(f"shard {tuple(shard)} is off the film of {config.pixel_count()} "
+                         "pixels: (pixel_base, npix_local, sample_base, spp_local)")
+    shard = (pixel_base, npix_l, sample_base, spp_l)
+    budget = npix_l * spp_l
+    # Pool: given, configured or min(budget, 96K) lanes, rounded up to a
+    # multiple of 1024 as the reference does whenever its kernels run.
+    b = ((pool_size or config.pool_size or min(budget, 3 << 15)) + 1023) & ~1023
     dev = scene.wide16_nodes.device
     nodes = scene.wide16_nodes
     te = config.transition_every
     has_instances = scene.inst_w2l.shape[0] > 0
     transition = (_transition_kernel_path if _kernel_transition_supported(scene, config)
                   else _transition)
-    s = _initial_state(b, scene.stack_depth, budget, dev)
+    s = _initial_state(b, scene.stack_depth, shard, dev)
 
     iters = 0
     while bool(((s.mode != MODE_DEAD).any() | (s.queue_head < budget)).item()):
@@ -585,10 +608,10 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         s.trav = tw16.prestep16(nodes, scene.wide16_top, s.trav_o.T, s.trav_d.T,
                                 safe_rcp(s.trav_d).T, s.trav, fresh)
 
-    # Resolve: one stable sort by pixel; every pixel owns exactly spp
-    # records, so a reshape-sum makes the film.
+    # Resolve: one stable sort by shard-local pixel; every pixel owns
+    # exactly spp_l records, so a reshape-sum makes the film.
     _, order = torch.sort(s.rec_keys, stable=True)
-    film = s.rec_rgb[:, order[:budget]].reshape(3, npix, spp).sum(dim=2).T
+    film = s.rec_rgb[:, order[:budget]].reshape(3, npix_l, spp_l).sum(dim=2).T
     occupancy = s.busy.to(torch.float32) / torch.clamp_min(s.ticks.to(torch.float32), 1.0)
     return film, occupancy, s.rays, s.arrivals, iters
 
