@@ -182,7 +182,39 @@ Phases, each printing one or more lines:
     rank 0 holds every film against one rank's pass of the same samples
     (rtol 1e-6, atol 1e-7, rays equal; the share bitwise equal printed).
     A rank that exits non-zero or outlives ``RANK_LIMIT_S`` fails the
-    phase with its stderr, and the other is killed.
+    phase with its stderr, and the other is killed;
+18. the rest of the reference: (a) ``utils/math.py::sqrt`` on the card
+    equals the correctly rounded f32 root of the CPU helper bit for bit
+    on 2^24 values over [0, 1e6] with 0, -0, subnormals, inf and NaN;
+    (b) the main path's scene and settings (1080p, 4 spp, one pass each)
+    at ``attr_compact=0`` and at
+    ``attr_compact=1``: the general transition, so K1 once a
+    super-iteration and K2 never; mode 1 against the mode-2 pass of the
+    same samples (K2; >= 99% of pixels within rtol 1e-3 / atol 1e-5, mean
+    within 0.5%) and, with mode 0, against phase 4's film
+    (``film_vs_flat``); (c) the grid with 65,537 materials (the five
+    repeated round-robin; the meshes' indices reach 65,536): the build
+    warns with the reference's text, the megakernel renders it bit for bit
+    as it renders the grid's own materials, the fused pass at mode 0
+    renders it bit for bit as (b)'s mode-0 pass, and a mode-2 pass is refused with
+    the reference's message; (d) one pass each of the legacy film, the
+    sorted film at ``film_k_shift`` 0 and 1 (the general transition) and
+    the record film at shift 1 (K2): rays and arrivals equal, and films
+    within rtol 3e-7 / atol 1e-7 of, the record film at shift 0 on the
+    same transition (mode 1's pass of (b), the mode-2 pass); launches;
+    whether two legacy passes (480x270) are bitwise equal (their adds are
+    atomic); (e) wide8: the megakernel (480x270, 1 spp) on the grid's wide8
+    table, the 1080p primary rays' hits held to K1's on the wide16 table (the
+    share with the same triangle record, and t), a fused pass at 480x270
+    held to the wide16 one (film means within 2%), and the instanced grid's wide8 megakernel
+    render held to its two-level wide16 render at 640x360, each timed; (f)
+    with the
+    native library disabled, the numpy wide16 build of an 80,642-triangle
+    grid (timed, validated, the only numpy build of the smoke; the
+    scene build, also with the library disabled, loads it from the numpy
+    builder's own cache key, which the native key does not name), one fused
+    pass on it through K1 and K2, and K1 on a captured state against its
+    twin (``check_run``).
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -1130,7 +1162,7 @@ def main() -> int:
     log(f"phase 12 instanced leaf8: film mean {float(img.mean()):.6f} (rel {mean_rel:.5f}), "
         f"{TILE}x{TILE} tile statistic {tile_stat:.5f}, launches {got}; card: {card}")
     turns(r, "phase 12", "arrival16_inst_leaf8", "arrival16_inst_leaf8_run", TE)
-    del r, isd, img   # flat_img: phase 15 holds its films to it
+    del r, isd, img   # flat_img: phases 15 and 18 hold their films to it
 
     # ---- 13. the probes of experiments/ ----
     from unity_webgpu_pathtracer_torch.experiments import (round2_probe, round14_kernel_diet,
@@ -1618,7 +1650,6 @@ def main() -> int:
         raise AssertionError("phase 15: jax was imported")
     kernels["arrival16_run"]["launches_by_path"] = path_launches
     kernels["arrival16_run"]["launches"] = sum(path_launches.values())
-    del flat_img
     log(f"phase 15: {time.perf_counter() - t15:.1f} s; K1 launches by path {path_launches}; "
         f"card: {card}")
 
@@ -2055,6 +2086,312 @@ def main() -> int:
     for k in multigpu:
         kernels[k]["launches_by_path"]["multigpu"] = multigpu[k]
         kernels[k]["launches"] += multigpu[k]
+
+    # ---- 18. the rest of the reference: attribute modes, materials past
+    # 65,536, the three films, wide8, the numpy builder ----
+    import tempfile
+    import warnings
+
+    from unity_webgpu_pathtracer_torch.accel import native
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide8 as tw8
+    from unity_webgpu_pathtracer_torch.render import camera as ucamera
+    from unity_webgpu_pathtracer_torch.scene.scene import scene_from_numpy
+    from unity_webgpu_pathtracer_torch.utils import math as umath
+
+    t18 = time.perf_counter()
+    # launches by path of this phase
+    p18 = {"arrival16_run": {}, "arrival16_inst_run": {}, "transition16": {}}
+    if w16.CACHE_STATS["numpy"] != 0:
+        raise AssertionError(f"phase 18: a numpy BVH build before 18f: {w16.CACHE_STATS}")
+
+    def path_pass(label, fn, want, path):
+        """Run ``fn`` with the counts at 0 and read them after: exactly the
+        kernels of ``want(result, counts)`` launched, that many times."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        want = want(out, got)
+        expect_only(got, want, label)
+        for k, v in want.items():
+            p18[k][path] = p18[k].get(path, 0) + v
+        return out, dt, got
+
+    def fused_18(sd_, cfg_, params_, label, path, k2=False):
+        (film, _occ, rays, arr, iters), dt, got = path_pass(
+            label, lambda: fused.fused_pass_with_stats(sd_, cfg_, params_, 0),
+            lambda o, _g: ({} if cfg_.traversal == "wide8"      # plain PyTorch, no kernel
+                           else {"arrival16_run": o[4], "transition16": o[4]} if k2
+                           else {"arrival16_run": o[4]}), path)
+        img = film.reshape(cfg_.height, cfg_.width, 3) / cfg_.samples_per_pass
+        check_film(img, (cfg_.height, cfg_.width, 3), label)
+        log(f"{label}: {dt:.3f} s/pass, {int(rays) / dt / 1e6:.3f} Mrays/s, rays {int(rays)}, "
+            f"arrivals {int(arr)}, super-iterations {iters}, launches {got} "
+            f"({sum(got.values()) / iters:.2f} kernel launches a super-iteration); card: {card}")
+        return img, int(rays), int(arr)
+
+    # 18a: the premise of the plain twins' sqrt: the card's IEEE sqrtf is
+    # the root the CPU helper rounds from f64.
+    xs = torch.cat([torch.linspace(0.0, 1e6, 1 << 24, device=dev),
+                    torch.tensor([0.0, -0.0, 1e-45, 1e-40, 1.1754942e-38, 3e-39,
+                                  float("inf"), float("nan"), -1.0], device=dev)])
+    on_card, on_cpu = umath.sqrt(xs).cpu(), umath.sqrt(xs.cpu())
+    nan = on_cpu.isnan()
+    if not (torch.equal(on_card.isnan(), nan)
+            and torch.equal(on_card.view(torch.int32)[~nan], on_cpu.view(torch.int32)[~nan])):
+        bad = int((on_card.view(torch.int32)[~nan] != on_cpu.view(torch.int32)[~nan]).sum())
+        raise AssertionError(f"phase 18a: sqrt on the card differs from the CPU helper in "
+                             f"{bad} of {xs.numel()} values")
+    log(f"phase 18a sqrt: the card's torch.sqrt equals utils/math.py::sqrt on the CPU (f64, "
+        f"rounded once) bit for bit on {xs.numel()} f32 values over [0, 1e6] with 0, -0, "
+        f"subnormals, inf and NaN")
+    del xs, on_card, on_cpu
+
+    # 18b: the main path's scene and settings on the f32 rows and mode 1.
+    scene, cam = million_triangle_scene(1_000_000)
+    sd = scene.build("wide16", device=dev)
+    pr18 = make_camera_params(width=w, height=h, device=dev, **cam)
+    imgs, stats18 = {}, {}
+    for label, over in (("mode2", {}), ("mode0", dict(attr_compact=0)),
+                        ("mode1", dict(attr_compact=1))):
+        img, rays, arr = fused_18(sd, dataclasses.replace(cfg, **over), pr18,
+                                  f"phase 18b {label}", "attr_modes", k2=label == "mode2")
+        imgs[label], stats18[label] = img, (rays, arr)
+
+    def share_close(a, b, rtol, atol):
+        return float(torch.isclose(a, b, rtol=rtol, atol=atol).all(-1).float().mean())
+
+    m1_share = share_close(imgs["mode1"], imgs["mode2"], 1e-3, 1e-5)
+    m1_mean = abs(float(imgs["mode1"].mean()) / float(imgs["mode2"].mean()) - 1.0)
+    m0_mean = abs(float(imgs["mode0"].mean()) / float(imgs["mode2"].mean()) - 1.0)
+    if m1_share < 0.99 or m1_mean > 0.005:
+        raise AssertionError(f"phase 18b: mode 1 against mode 2 (K2): {m1_share:.6f} of pixels "
+                             f"within rtol 1e-3 / atol 1e-5, mean rel {m1_mean:g}")
+    flat_rel = {k: film_vs_flat(imgs[k], flat_img, f"phase 18b {k}")
+                for k in ("mode0", "mode1")}
+    log(f"phase 18b: mode 1 against the mode-2 pass "
+        f"of the same samples (K2): {m1_share:.6f} of pixels within rtol 1e-3 / atol 1e-5, "
+        f"bitwise {share_close(imgs['mode1'], imgs['mode2'], 0, 0):.6f}, mean rel {m1_mean:.3e}, "
+        f"rays {stats18['mode1'][0]} / {stats18['mode2'][0]}; mode 0 (f32 normals) against "
+        f"mode 2: mean rel {m0_mean:.3e}; against phase 4's film (mean rel, tile statistic): "
+        f"{flat_rel}")
+
+    # 18c: 65,537 materials, the five repeated round-robin (index 65,536 is
+    # the first mesh's); each mesh keeps its material's record under an
+    # index near the top, the first mesh's 65,536.
+    mscene, _mcam = million_triangle_scene(1_000_000)
+    five = list(mscene.materials)
+    m0 = mscene.meshes[0][0].material_index
+    mscene.materials = [five[(j + m0 - 65_536) % len(five)] for j in range(65_537)]
+    for k, (mesh, _xf) in enumerate(mscene.meshes):
+        m = mesh.material_index
+        mesh.material_index = 65_536 - (m0 - m) % len(five) - len(five) * (k % 97)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        msd = mscene.build("wide16", device=dev)
+    placeholder = [str(c.message) for c in caught
+                   if "attr_compact supports at most 65536 materials; compact attr table "
+                      "degraded to placeholder" in str(c.message)]
+    top_index = int(msd.attr_material.max())
+    if len(placeholder) != 2 or top_index != 65_536 or msd.attr_shade_c.shape[0] != 2:
+        raise AssertionError(f"phase 18c: warnings {[str(c.message) for c in caught]}, top "
+                             f"index {top_index}, attr_shade_c {tuple(msd.attr_shade_c.shape)}")
+    log(f"phase 18c build of the grid with {msd.materials.shape[0]} materials (indices to "
+        f"{top_index}): {time.perf_counter() - t0:.1f} s; it warned {placeholder[0]!r} for "
+        f"the f16 and the oct rows")
+    mk1 = RenderConfig(width=w, height=h, samples_per_pass=1, max_bounces=5,
+                       integrator="megakernel")
+    films_mk = {}
+    for label, sd_ in (("grid", sd), ("65537", msd)):
+        films_mk[label], dt, got = path_pass(
+            f"phase 18c megakernel {label}", lambda sd_=sd_: integrator.render_pass(
+                sd_, mk1, pr18, 0), lambda o, g: {"arrival16_run": g["arrival16_run"]},
+            "many_materials")
+        log(f"phase 18c megakernel on the {label} materials: {dt:.3f} s/pass (1080p, 1 spp), "
+            f"launches {got}")
+    if not torch.equal(films_mk["grid"], films_mk["65537"]):
+        raise AssertionError("phase 18c: the megakernel renders the 65,537 materials "
+                             "differently")
+    # 18b's mode-0 pass on these tables: its film is 18b's (the grid's five
+    # materials) bit for bit.
+    img_m, _rays, _arr = fused_18(
+        msd, dataclasses.replace(cfg, attr_compact=0), pr18,
+        "phase 18c fused mode 0, 65,537 materials", "attr_modes")
+    if not torch.equal(img_m, imgs["mode0"]):
+        raise AssertionError("phase 18c: the mode-0 film on the 65,537 materials differs from "
+                             "18b's on the grid's five")
+    try:
+        fused.fused_pass_with_stats(msd, cfg, pr18, 0)
+        raise AssertionError("phase 18c: a mode-2 pass on 65,537 materials was not refused")
+    except ValueError as e:
+        if "config.attr_compact requires <= 65536 materials" not in str(e):
+            raise
+        refusal = str(e)
+    log(f"phase 18c: the megakernel and fused mode 0 render the 65,537 materials bit for bit "
+        f"as the grid's five; mode 2 refused: {refusal!r}")
+    del msd, mscene, films_mk
+
+    # 18d: the films.  The legacy and sorted films take the general
+    # transition (K2 serves the record film only), so they are held to the
+    # record film on it (18b's mode 1: the same f16 bytes as mode 2); the
+    # record film at shift 1 takes K2 and is held to 18b's mode-2 pass.
+    legacy = dict(use_record_film=False, use_sorted_film=False)
+    film_cases = (("legacy", legacy, "mode1"),
+                  ("sorted_k0", dict(use_record_film=False, film_k_shift=0), "mode1"),
+                  ("sorted_k1", dict(use_record_film=False, film_k_shift=1), "mode1"),
+                  ("record_k1", dict(film_k_shift=1), "mode2"))
+    for label, over, ref in film_cases:
+        img, rays, arr = fused_18(sd, dataclasses.replace(cfg, **over), pr18,
+                                  f"phase 18d {label}", "films", k2=ref == "mode2")
+        imgs[label] = img
+        if (rays, arr) != stats18[ref]:
+            raise AssertionError(f"phase 18d {label}: rays/arrivals {(rays, arr)}, the record "
+                                 f"film's {stats18[ref]}")
+        torch.testing.assert_close(img * SPP, imgs[ref] * SPP, rtol=3e-7, atol=1e-7,
+                                   msg=lambda m, label=label: f"phase 18d {label}: {m}")
+    small = dataclasses.replace(cfg, width=480, height=270, **legacy)
+    twice = [fused_18(sd, small, make_camera_params(width=480, height=270, device=dev, **cam),
+                      f"phase 18d legacy 480x270 ({k})", "films")[0] for k in ("a", "b")]
+    log(f"phase 18d films: legacy, sorted (shift 0, 1) and record (shift 1) within rtol 3e-7 "
+        f"/ atol 1e-7 of the record film at shift 0, rays and arrivals equal; two legacy "
+        f"passes (480x270) bitwise equal: {torch.equal(twice[0], twice[1])} (share "
+        f"{float((twice[0] == twice[1]).float().mean()):.6f}); card: {card}")
+
+    # 18e: wide8, the cross-check backend (plain PyTorch, no kernel).
+    t0 = time.perf_counter()
+    sd8 = scene.build("wide8", device=dev)
+    log(f"phase 18e wide8 table: {sd8.wide8_nodes.shape[0]} rows, depth {sd8.stack_depth}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    # The megakernel renders 480x270 (plain PyTorch, 13 s a pass at 1080p);
+    # the hits are held to K1's on the 1080p primary rays.
+    small = dataclasses.replace(cfg, width=480, height=270)
+    ps = make_camera_params(width=480, height=270, device=dev, **cam)
+    mk8 = dataclasses.replace(mk1, width=480, height=270, traversal="wide8")
+    (film8, dt8, _got) = path_pass("phase 18e megakernel wide8",
+                                   lambda: integrator.render_pass(sd8, mk8, ps, 0),
+                                   lambda o, g: {}, "wide8")
+    img8 = film8.reshape(270, 480, 3)
+    check_film(img8, (270, 480, 3), "phase 18e megakernel wide8")
+    pix = torch.arange(w * h, device=dev, dtype=torch.int64)
+    rng0 = urng.seed(pix, torch.zeros_like(pix), pr18.seed_root)
+    coords, rng0 = ucamera.jittered_pixel_coords(pix, mk1, rng0)
+    o, d, _ = ucamera.get_screen_ray(coords, mk1, pr18, rng0)
+    t8, _b8, tri8, _i8 = tw8.closest_hit(sd8.wide8_nodes, o, d, sd8.stack_depth)
+    (hit16, _dt, got16) = path_pass(
+        "phase 18e K1 primary rays", lambda: tw16.closest_hit(sd.wide16_nodes, o, d,
+                                                              sd.stack_depth),
+        lambda o_, g: {"arrival16_run": g["arrival16_run"]}, "wide8_check")
+    t16, _b16, tri16, _i16 = hit16
+    h8, h16 = tri8 >= 0, tri16 >= 0
+    same_rec = (sd8.tris[tri8.clamp_min(0).long()] == sd.tris[tri16.clamp_min(0).long()]).all(-1)
+    same = (h8 == h16) & (~h8 | same_rec)
+    both = h8 & h16 & same_rec
+    t_rel = ((t8 - t16).abs() / t16.clamp_min(1e-3))[both]
+    share = float(same.float().mean())
+    if share < 0.99:
+        raise AssertionError(f"phase 18e: wide8 and K1 agree on {share:.6f} of primary rays")
+    log(f"phase 18e megakernel wide8 (480x270, 1 spp): {dt8:.3f} s/pass, film mean "
+        f"{float(img8.mean()):.6f}; 1080p primary rays: {share:.6f} of {w * h} with the same hit "
+        f"(triangle record, or miss) on wide8 and on wide16 (K1, {got16['arrival16_run']} "
+        f"launches), t rel diff on the same hits max {float(t_rel.max()):.3e}, median "
+        f"{float(t_rel.median()):.3e}, bitwise share {float((t8 == t16)[both].float().mean()):.6f}")
+    img_s8, rays_s8, _ = fused_18(sd8, dataclasses.replace(small, traversal="wide8"), ps,
+                                  "phase 18e fused wide8 480x270", "wide8")
+    img_s16, rays_s16, _ = fused_18(sd, small, ps, "phase 18e fused wide16 480x270",
+                                    "wide8_check", k2=True)
+    rel_s = abs(float(img_s8.mean()) / float(img_s16.mean()) - 1.0)
+    if rel_s > 0.02:
+        raise AssertionError(f"phase 18e: fused wide8 film mean off wide16's by {rel_s:g}")
+    log(f"phase 18e fused 480x270 4 spp: wide8 film mean within {rel_s:.3e} of wide16's "
+        f"(rays {rays_s8} / {rays_s16}; the traversals finish segments on other "
+        f"super-iterations, so the samples pair otherwise)")
+    del sd8, film8, img8, o, d, t8, t16, tri8, tri16, hit16
+    iscene, icam = instanced_million_triangle_scene()
+    ipr = make_camera_params(width=640, height=360, device=dev, **icam)
+    imk = RenderConfig(width=640, height=360, samples_per_pass=1, max_bounces=5,
+                       integrator="megakernel")
+    inst_imgs = {}
+    for trav in ("wide8", "wide16"):
+        t0 = time.perf_counter()
+        isd_ = iscene.build(trav, device=dev)
+        setup = time.perf_counter() - t0
+        film_i, dt_i, got_i = path_pass(
+            f"phase 18e instanced {trav}",
+            lambda isd_=isd_, trav=trav: integrator.render_pass(
+                isd_, dataclasses.replace(imk, traversal=trav), ipr, 0),
+            lambda o_, g, trav=trav: ({} if trav == "wide8" else
+                                      {"arrival16_inst_run": g["arrival16_inst_run"]}),
+            "wide8" if trav == "wide8" else "wide8_check")
+        inst_imgs[trav] = film_i.reshape(360, 640, 3)
+        check_film(inst_imgs[trav], (360, 640, 3), f"phase 18e instanced {trav}")
+        log(f"phase 18e instanced grid on {trav} (megakernel, 640x360, 1 spp): set-up "
+            f"{setup:.1f} s, {dt_i:.3f} s/pass, launches {got_i}")
+        del isd_
+    a, b = inst_imgs["wide8"], inst_imgs["wide16"]
+    rel_i = abs(float(a.mean()) / float(b.mean()) - 1.0)
+    close_i = share_close(a, b, 0.05, 0.02)
+    if rel_i > 0.02 or close_i < 0.95:
+        raise AssertionError(f"phase 18e: instanced wide8 against two-level wide16: mean rel "
+                             f"{rel_i:g}, {close_i:.4f} of pixels within rtol 0.05 / atol 0.02")
+    log(f"phase 18e instanced: wide8 against the two-level wide16 render: mean rel "
+        f"{rel_i:.3e}, {close_i:.6f} of pixels within rtol 0.05 / atol 0.02, bitwise "
+        f"{share_close(a, b, 0, 0):.6f}")
+    del iscene, inst_imgs, a, b
+
+    # 18f: the numpy wide16 build, with the native library disabled for
+    # this build only, into a cache of its own.
+    nscene, ncam = million_triangle_scene(100_000)
+    flat = nscene.flatten()
+    cache_env = os.environ.get("UWPT_BVH_CACHE_DIR")
+    with tempfile.TemporaryDirectory() as cache_dir:
+        os.environ["UWPT_BVH_CACHE_DIR"] = cache_dir
+        try:
+            with native.disabled(), warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                wn = w16.build_scene_wide16(flat.positions, flat.tri_records(), False)
+                build_s = time.perf_counter() - t0
+            if w16.CACHE_STATS["numpy"] != 1 or not any(
+                    "native BVH builder is unavailable" in str(c.message) for c in caught):
+                raise AssertionError(f"phase 18f: numpy builds {w16.CACHE_STATS}, warnings "
+                                     f"{[str(c.message) for c in caught]}")
+            w16.validate_wide16(wn, flat.count)
+            # The scene build loads that table from the numpy builder's key;
+            # the native builder's key does not name it.
+            hits = w16.CACHE_STATS["hit"]
+            with native.disabled():
+                nsd = nscene.build("wide16", device=dev)
+            native_key = os.path.exists(w16.bvh_cache_path(
+                flat.positions, flat.tri_records(), False, native_built=True))
+        finally:
+            if cache_env is None:
+                os.environ.pop("UWPT_BVH_CACHE_DIR", None)
+            else:
+                os.environ["UWPT_BVH_CACHE_DIR"] = cache_env
+    if (w16.CACHE_STATS["numpy"] != 1 or w16.CACHE_STATS["hit"] != hits + 1 or native_key
+            or nsd.wide16_nodes.shape[0] != wn.nodes.shape[0]):
+        raise AssertionError(f"phase 18f: the scene build did not load the numpy table from "
+                             f"its own key: {w16.CACHE_STATS}, native key present {native_key}")
+    log(f"phase 18f numpy wide16 build of {flat.count} triangles (native library disabled): "
+        f"{build_s:.2f} s, {wn.nodes.shape[0]} rows, depth {wn.depth}, validated; warned "
+        f"{[str(c.message) for c in caught][0]!r}")
+    ncfg = dataclasses.replace(cfg, width=960, height=540)
+    npr = make_camera_params(width=960, height=540, device=dev, **ncam)
+    fused_18(nsd, ncfg, npr, "phase 18f fused pass on the numpy tables (960x540, 4 spp)",
+             "numpy_build", k2=True)
+    (ncap,), _ = capture_inputs(nsd, ncfg, npr, k1_calls=(4,))
+    check_run("arrival16_run", ncap, "phase 18f (numpy tables)", record_it=False)
+    del nsd, nscene, ncap, sd, flat_img
+    for k, by_path in p18.items():
+        for path, n in by_path.items():
+            kernels[k]["launches_by_path"][path] = n
+            kernels[k]["launches"] += n
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s; K1/K2 launches by path {p18}; numpy BVH "
+        f"builds {w16.CACHE_STATS['numpy']}; card: {card}")
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",

@@ -148,7 +148,7 @@ def test_cli_examples_and_refusals(capsys):
     with pytest.raises(SystemExit, match="unrecognized scene spec"):
         tcli.main(["render", "model.ply", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unsupported settings"):
-        tcli.main(["render", "builtin:quad", "--traversal", "wide8", "--device", "cpu"])
+        tcli.main(["render", "builtin:quad", "--traversal", "wide2", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unsupported settings"):
         tcli.main(["render", "builtin:quad", "--traversal", "bruteforce", "--device", "cpu"])
     with pytest.raises(SystemExit, match="unknown builtin"):

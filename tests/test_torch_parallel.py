@@ -18,8 +18,9 @@ and ``tests/test_config5.py``):
   tile-sharded 256x256 pass is bitwise the single pass;
 * over gloo, four CPU processes (``tests/torch_parallel_worker.py``, a
   ``file://`` rendezvous under ``tmp_path``) on a (tile=2, spp=2) grid:
-  ``multichip_fused_pass`` and ``multichip_render_pass`` equal the
-  single-device passes and are the same on every rank; the config-5
+  ``multichip_fused_pass`` (on wide16 and on wide8) and
+  ``multichip_render_pass`` equal the single-device passes and are the
+  same on every rank; the config-5
   composition (sharded pass, ``reproject_film``, sharded pass) equals the
   single-device flow (counts exact, accum rtol 1e-4, atol 1e-5).
 """
@@ -269,6 +270,20 @@ def test_gloo_fused_equals_single_pass(gloo_ranks):
     blocks = [tfused.fused_pass_with_stats(sd, worker.config(2), worker.camera(cam), cur)[0]
               for cur in (0, 2)]
     _close_bitwise(film.numpy(), (blocks[0] + blocks[1]).numpy())
+
+
+def test_gloo_wide8_fused_equals_single_pass(gloo_ranks):
+    """The wide8 cross-check backend on the (tile=2, spp=2) grid (the
+    reference's ``tests/test_multichip.py`` shards its fused pass on
+    wide8): the single wide8 pass, and the same on every rank."""
+    sd, cam = worker.cornell(traversal="wide8")
+    film, _occ, rays, _arr, _iters = gloo_ranks[0]["fused_wide8"]
+    single, _socc, srays, _sarr, _it = tfused.fused_pass_with_stats(
+        sd, worker.config(4, traversal="wide8"), worker.camera(cam), 0)
+    assert int(rays) == int(srays)
+    _close(film.numpy(), single.numpy())
+    for r in gloo_ranks[1:]:
+        assert _same(r["fused_wide8"][:4], gloo_ranks[0]["fused_wide8"][:4])
 
 
 def test_gloo_megakernel_tile_is_bitwise(gloo_ranks):

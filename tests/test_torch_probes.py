@@ -34,6 +34,7 @@ from unity_webgpu_pathtracer_torch.experiments import round18_mosaic_probe as po
 from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import DIET_MODES, arrival_probe_cuda
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import FULL, Wide16State
+from unity_webgpu_pathtracer_torch.utils import math as umath
 from unity_webgpu_pathtracer_tpu.ops import pallas_arrival as pa
 from unity_webgpu_pathtracer_tpu.ops import traverse_wide16 as jtw
 
@@ -436,7 +437,7 @@ def test_schlick_chain_with_short_remainder_is_plain():
             w = 1.0 - v
             w2 = w * w
             f = w2 * w2 * w
-            g = torch.sqrt(torch.abs(v * 0.9 + 0.05))
+            g = umath.sqrt(torch.abs(v * 0.9 + 0.05))
             acc = acc + f * g + v * (1.0 - f)
             v = cp.rem09_plain(torch.abs(acc * 0.3 + 0.1)) + 0.05
         return acc
@@ -850,7 +851,7 @@ def test_schlick_short_remainder_bound():
         w = 1.0 - v
         w2 = w * w
         f = w2 * w2 * w
-        acc = acc + f * torch.sqrt(torch.abs(v * 0.9 + 0.05)) + v * (1.0 - f)
+        acc = acc + f * umath.sqrt(torch.abs(v * 0.9 + 0.05)) + v * (1.0 - f)
         a = torch.abs(acc * 0.3 + 0.1)
         if k == 0:
             safe = acc.abs() < 1000.0

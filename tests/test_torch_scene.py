@@ -88,13 +88,13 @@ def test_cache_key_names_the_committed_table():
 @pytest.mark.parametrize("knob", [
     # attr_compact=3 stores no uv: refused with textures or normal maps, as
     # the reference does.
-    dict(traversal="wide8"), dict(integrator="megakernel", traversal="wide8"),
+    dict(traversal="wide2"), dict(integrator="megakernel", traversal="skip"),
     dict(attr_compact=3, has_textures=True),
-    dict(sky_mode=3), dict(attr_compact=1), dict(attr_compact=3, has_normal_maps=True),
+    dict(sky_mode=3), dict(attr_compact=4), dict(attr_compact=3, has_normal_maps=True),
     dict(integrator="fused", traversal="bruteforce"), dict(traversal="wide"),
     dict(traversal="bvh2"), dict(integrator="wavefront", traversal="mbvh"),
     dict(integrator="pallas"),
-    dict(transition_every=0), dict(use_record_film=False), dict(use_lane_film=True),
+    dict(transition_every=0), dict(film_k_shift=-1), dict(use_lane_film=True),
 ])
 def test_config_refuses_unported_knobs(knob):
     with pytest.raises(ValueError):
@@ -130,7 +130,8 @@ def test_port_imports_no_jax():
         "assert len(mods) >= 20, mods\n"
         "new = ('render.integrator', 'render.wavefront', 'render.hitinfo', 'render.lights',\n"
         "       'scene.obj', 'scene.gltf', 'ops', 'render.reproject', 'render.preview',\n"
-        "       'viewer', 'parallel.film_tiling', 'utils.profiling', 'experiments.multigpu')\n"
+        "       'viewer', 'parallel.film_tiling', 'utils.profiling', 'experiments.multigpu',\n"
+        "       'accel.wide8', 'accel.cwbvh', 'accel.mbvh', 'ops.traverse_wide8')\n"
         "assert all(p.__name__ + '.' + m in mods for m in new), mods\n"
         "assert 'jax' not in sys.modules\n"
         "print(len(mods))\n")

@@ -23,19 +23,19 @@ SIZE = 16          # Cornell at SIZE x SIZE, 3 bounces, no sky
 POOL = 1024
 
 
-def cornell(size: int = SIZE):
+def cornell(size: int = SIZE, traversal: str = "wide16"):
     """(SceneData, camera dict) of the Cornell box on the CPU."""
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
 
     scene, cam = cornell_box()
-    return scene.build("wide16", device="cpu"), cam
+    return scene.build(traversal, device="cpu"), cam
 
 
-def config(spp: int, size: int = SIZE):
+def config(spp: int, size: int = SIZE, traversal: str = "wide16"):
     from unity_webgpu_pathtracer_torch.config import RenderConfig
 
     return RenderConfig(width=size, height=size, samples_per_pass=spp, max_bounces=3,
-                        sky_mode=2, pool_size=POOL)
+                        sky_mode=2, pool_size=POOL, traversal=traversal)
 
 
 def camera(cam: dict, moved: bool = False, size: int = SIZE):
@@ -73,6 +73,9 @@ def main(rank: int, world: int, init: str, out_dir: str) -> None:
         cfg2 = config(2)
         out = {"coords": (mesh22.tile, mesh22.spp, mesh41.tile, mesh21 is None)}
         out["fused"] = ft.multichip_fused_pass(sd, cfg2, p0, 0, mesh22, pool_size=POOL)
+        sd8, _ = cornell(traversal="wide8")
+        out["fused_wide8"] = ft.multichip_fused_pass(sd8, config(2, traversal="wide8"), p0, 0,
+                                                     mesh22, pool_size=POOL)
         out["megakernel_tile_spp"] = ft.multichip_render_pass(sd, config(1), p0, 0, mesh22)
         out["megakernel_tile"] = ft.multichip_render_pass(sd, config(1), p0, 0, mesh41)
         spp_pass = ft.multichip_samples_per_pass(cfg2, mesh22)

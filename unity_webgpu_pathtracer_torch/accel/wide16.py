@@ -32,7 +32,10 @@ at 4:40 (word w = slot w low, slot ``w + 4`` high: ``PERM_H8_POS``) and
 Tables are built by the native SBVH builder and cached on disk under
 ``UWPT_BVH_CACHE_DIR`` (default: the repository's ``.bvh_cache``), keyed
 exactly as the reference keys them, so a table committed there for the
-benchmark scene is loaded instead of rebuilt.
+benchmark scene is loaded instead of rebuilt.  When the native library
+cannot be built or loaded, ``build_wide16`` emits the table in numpy from
+a binned-SAH BVH2 (no spatial splits), with a warning, and the cache
+stores it under the same key, as the reference does.
 
 Two-level (instanced) tables put a 16-wide TLAS over the instance boxes in
 rows ``[0, tlas_cap)`` and the per-mesh BLAS tables at fixed offsets after
@@ -47,7 +50,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import sys
 import tempfile
+import warnings
 
 import numpy as np
 
@@ -56,6 +61,7 @@ from unity_webgpu_pathtracer_torch.accel.bvh2 import BVH2, build_bvh2
 
 ROW = 96
 WIDTH = 16
+MAX_LEAF = 16
 MAX_DEPTH = 20   # the builder's stack-depth bound
 
 OFF_META = 3
@@ -88,8 +94,9 @@ LEAF_SIZE = 4
 # Bump with the reference's _BVH_CACHE_VERSION (shared cache files).
 _BVH_CACHE_VERSION = 1
 
-# Disk-cache hits/misses of build_scene_wide16 in this process.
-CACHE_STATS = {"hit": 0, "miss": 0}
+# Disk-cache hits/misses of build_scene_wide16 in this process, and the
+# misses that the numpy builder served (the native library missing).
+CACHE_STATS = {"hit": 0, "miss": 0, "numpy": 0}
 
 
 @dataclasses.dataclass
@@ -139,16 +146,21 @@ def derive_top16(nodes: np.ndarray) -> np.ndarray | None:
 
 
 def bvh_cache_path(positions: np.ndarray, tri_records: np.ndarray,
-                   leaf8: bool = False) -> str:
+                   leaf8: bool = False, native_built: bool = True) -> str:
     """Content-keyed cache path, computed exactly as the reference's
-    ``_bvh_cache_path`` with the native builder present: geometry bytes,
-    build options (leaf8 among them), the builder's
-    ``UWPT_COLLAPSE_CNODE`` knob and the sha1 of ``native/bvh_builder.cpp``."""
+    ``_bvh_cache_path``: geometry bytes, build options (leaf8 among them),
+    the builder's ``UWPT_COLLAPSE_CNODE`` knob and the builder's identity,
+    the sha1 of ``native/bvh_builder.cpp`` or, for a table the numpy
+    builder made (``native_built`` False), ``numpy-fallback``.  So a numpy
+    table never answers for the native builder, nor the other way round."""
     c_node = os.environ.get("UWPT_COLLAPSE_CNODE", "")
     cache_dir = os.environ.get("UWPT_BVH_CACHE_DIR") or os.path.join(
         os.path.dirname(native.NATIVE_DIR), ".bvh_cache")
-    with open(native.SRC_PATH, "rb") as f:
-        lib_id = "src:" + hashlib.sha1(f.read()).hexdigest()[:16]
+    if native_built:
+        with open(native.SRC_PATH, "rb") as f:
+            lib_id = "src:" + hashlib.sha1(f.read()).hexdigest()[:16]
+    else:
+        lib_id = "numpy-fallback"
     h = hashlib.sha1()
     h.update(np.ascontiguousarray(positions, np.float32).tobytes())
     h.update(np.ascontiguousarray(tri_records, np.float32).tobytes())
@@ -165,22 +177,34 @@ def resolve_leaf8(leaf8: bool | None) -> bool:
 
 def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
                        leaf8: bool | None = None) -> Wide16:
-    """Load the table from the disk cache, or build it natively and store
-    it there.  ``leaf8`` selects 48-float rows with 8-triangle leaves
+    """Load the table from the disk cache, or build it and store it there:
+    natively, or in numpy with a warning when the native library cannot be
+    built or loaded (each builder under its own key, ``bvh_cache_path``).
+    ``leaf8`` selects 48-float rows with 8-triangle leaves
     (``resolve_leaf8``)."""
     leaf8 = resolve_leaf8(leaf8)
-    path = bvh_cache_path(positions, tri_records, leaf8)
+    native_ok = native.available()
+    path = bvh_cache_path(positions, tri_records, leaf8, native_ok)
     if os.path.exists(path):
         with np.load(path) as z:
             w = Wide16(nodes=z["nodes"], depth=int(z["depth"]), order=z["order"])
         CACHE_STATS["hit"] += 1
         return w
     CACHE_STATS["miss"] += 1
-    rows, depth, order = native.native_wide16(positions, tri_records,
-                                              LEAF_SIZE, QUALITY, leaf8)
-    if depth >= MAX_DEPTH:
-        raise ValueError(f"tree depth {depth} >= {MAX_DEPTH}")
-    w = Wide16(nodes=rows, depth=depth, order=order)
+    if native_ok:
+        rows, depth, order = native.native_wide16(positions, tri_records, LEAF_SIZE, QUALITY,
+                                                  leaf8)
+        if depth >= MAX_DEPTH:
+            raise ValueError(f"tree depth {depth} >= {MAX_DEPTH}")
+        w = Wide16(nodes=rows, depth=depth, order=order)
+    else:
+        warnings.warn("the native BVH builder is unavailable (native/libtpubvh.so could not "
+                      "be built or loaded); building the wide16 table in numpy (binned SAH, "
+                      "no spatial splits)", stacklevel=2)
+        CACHE_STATS["numpy"] += 1
+        bvh = build_bvh2(positions, leaf_size=LEAF_SIZE)
+        w = build_wide16(bvh, tri_records, np.arange(positions.shape[0], dtype=np.int32),
+                         leaf8=leaf8)
     _cache_store(path, w)
     return w
 
@@ -271,6 +295,90 @@ def _quantize_node(row: np.ndarray, nmin, nmax, boxes: list) -> None:
     # comp-major: qlo x, y, z then qhi x, y, z, SPLIT byte order in each.
     row[OFF_QBOX : OFF_QBOX + 24] = np.concatenate(
         [_pack_u8_t(arr[:, c]) for arr in (qlo, qhi) for c in range(3)])
+
+
+def _canon_f16(h: np.ndarray) -> np.ndarray:
+    """f16 bit patterns under the table contract: subnormals and -0 flush
+    to +0, inf and nan clamp to +-65504 (the native builder's ``f2h``)."""
+    hb = h.view(np.uint16)
+    hb = np.where((hb & 0x7C00) == 0, np.uint16(0), hb)
+    hb = np.where((hb & 0x7C00) == 0x7C00, (hb & np.uint16(0x8000)) | np.uint16(0x7BFF), hb)
+    return hb
+
+
+def _pack_f16_split(vals: np.ndarray) -> np.ndarray:
+    """(2k,) floats -> (k,) f32 words in SPLIT order: word w = slot w (low
+    half) | slot w + k (high half); k = 8 for 16-slot leaves, 4 for leaf8."""
+    h = _canon_f16(np.asarray(vals, np.float16))
+    k = h.shape[0] // 2
+    words = h[0:k].astype(np.uint32) | (h[k:2 * k].astype(np.uint32) << 16)
+    return words.view(np.int32).view(np.float32)
+
+
+def _leaf_row(row: np.ndarray, nmin, recs: np.ndarray, idx: np.ndarray,
+              slots: int = WIDTH) -> None:
+    """A leaf of ``recs`` ((cnt, 9) [e2, e1, v0] f32; v0 stored relative
+    to the anchor) with attribute indices ``idx``, in f16."""
+    cnt = recs.shape[0]
+    anchor = np.asarray(nmin, np.float32)
+    row[0:3] = anchor
+    row[OFF_META] = _f32(cnt)
+    comps = np.zeros((9, slots), np.float32)
+    comps[:, :cnt] = recs.T
+    comps[6:9, :cnt] -= anchor[:, None]
+    nw = 9 * slots // 2
+    row[OFF_TRIS : OFF_TRIS + nw] = np.concatenate([_pack_f16_split(comps[c])
+                                                    for c in range(9)])
+    ints = np.full(slots, -1, np.int32)
+    ints[:cnt] = idx
+    off_idx = OFF_IDX if slots == WIDTH else OFF_IDX8
+    row[off_idx : off_idx + slots] = ints.view(np.float32)
+
+
+def build_wide16(bvh: BVH2, tri_records: np.ndarray, attr_index: np.ndarray,
+                 leaf8: bool = False) -> Wide16:
+    """The numpy emitter (the reference's ``build_wide16``): the quantized
+    16-wide table of a BVH2, 96-float rows with 16-triangle leaves, or
+    48-float rows with 8-triangle leaves for ``leaf8``.  Children take
+    slots in decreasing surface area."""
+    row_f = ROW8 if leaf8 else ROW
+    max_leaf = LEAF8 if leaf8 else MAX_LEAF
+    starts, counts = _subtree_ranges(bvh)
+    rows: list[np.ndarray] = []
+    max_depth = 0
+
+    def emit(node: int, depth: int) -> int:
+        nonlocal max_depth
+        max_depth = max(max_depth, depth)
+        my = len(rows)
+        row = np.zeros(row_f, np.float32)
+        rows.append(row)
+        if counts[node] <= max_leaf:
+            lo, cnt = int(starts[node]), int(counts[node])
+            _leaf_row(row, bvh.nmin[node], tri_records[bvh.order[lo : lo + cnt]],
+                      attr_index[lo : lo + cnt], slots=max_leaf)
+            return my
+        kids = _collapse16(bvh, node, counts, max_leaf)
+        slots = (sorted(kids, key=lambda c: _area(bvh, c), reverse=True)
+                 + [None] * (WIDTH - len(kids)))
+        _quantize_node(row, bvh.nmin[node], bvh.nmax[node],
+                       [None if c is None else (bvh.nmin[c], bvh.nmax[c]) for c in slots])
+        ptrs = np.full(WIDTH, -1, np.int32)
+        for k, c in enumerate(slots):
+            if c is not None:
+                ptrs[k] = emit(c, depth + 1)
+        row[OFF_PTRS : OFF_PTRS + 16] = ptrs.view(np.float32)
+        return my
+
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old, 100000))
+    try:
+        emit(0, 1)
+    finally:
+        sys.setrecursionlimit(old)
+    if max_depth >= MAX_DEPTH:
+        raise ValueError(f"tree depth {max_depth} >= {MAX_DEPTH}")
+    return Wide16(nodes=np.stack(rows), depth=max_depth, order=np.array(bvh.order, np.int32))
 
 
 @dataclasses.dataclass

@@ -86,8 +86,9 @@ class Renderer:
         accumulation restarts."""
         host = self._require_host_scene()
         host.set_instance_transform(instance_id, transform)
-        rows, l2w, w2l = rebuild_tlas_rows(host)
-        self.scene.wide16_nodes[: rows.shape[0]].copy_(torch.from_numpy(rows))
+        fmt = "wide8" if self.config.traversal == "wide8" else "wide16"
+        rows, l2w, w2l = rebuild_tlas_rows(host, fmt)
+        getattr(self.scene, f"{fmt}_nodes")[: rows.shape[0]].copy_(torch.from_numpy(rows))
         self.scene = self.scene._replace(
             inst_l2w=torch.from_numpy(l2w).to(self.device),
             inst_w2l=torch.from_numpy(w2l).to(self.device))

@@ -20,16 +20,17 @@ its ``.mtl``, ``.glb`` or ``.gltf``), framed by a camera fitted to its
 bounds.  It renders on the CUDA device unless ``--device`` names another
 (``cpu`` for the CPU); without a CUDA device it exits with an error.
 ``render``'s ``--integrator`` picks fused (the default), megakernel or
-wavefront; ``--traversal`` wide16 or, for the last two, the brute-force
-oracle.  ``view`` serves the browser viewer (``viewer.py``: fly camera,
+wavefront; ``--traversal`` wide16, the wide8 cross-check (plain PyTorch,
+no kernel) or, for the last two, the brute-force oracle.  ``view`` serves the browser viewer (``viewer.py``: fly camera,
 material sliders, ``--reproject`` to carry the film through camera moves)
 on ``--host``/``--port`` (0: an ephemeral port; the URL is printed) until
 interrupted; ``animate`` writes ``stem-0000.png`` ... with an orbiting
 camera (``--orbit``) and, on a TLAS scene, bouncing instances
 (``--bounce``, ``Renderer.update_instance_transform``).  Both run the fused
-integrator on wide16.  Every command sets ``has_normal_maps`` from the
-scene's materials (the reference's ``view`` and ``animate`` leave it
-off).  The reference's other traversal backends are not ported.
+integrator on wide16 or wide8.  Every command sets ``has_normal_maps`` from
+the scene's materials (the reference's ``view`` and ``animate`` leave it
+off).  The reference's frozen traversal backends (``skip``, ``mbvh``,
+``wide``, ``wide2``) are not ported.
 """
 
 from __future__ import annotations
@@ -241,7 +242,7 @@ def main(argv=None):
     pr.add_argument("--integrator", default="fused",
                     choices=["megakernel", "wavefront", "fused"])
     pr.add_argument("--traversal", default="wide16",
-                    help="wide16, or bruteforce (megakernel and wavefront only)")
+                    help="wide16, wide8, or bruteforce (megakernel and wavefront only)")
     pr.add_argument("--env", help="HDRI .hdr environment map")
     pr.add_argument("--tonemap", default="aces", choices=list(TONEMAPS))
     pr.add_argument("--exposure", type=float, default=1.0)
@@ -263,7 +264,7 @@ def main(argv=None):
     pv.add_argument("--spp-per-pass", type=int, default=2)
     pv.add_argument("--max-spp", type=int, default=4096)
     pv.add_argument("--bounces", type=int, default=4)
-    pv.add_argument("--traversal", default="wide16", choices=["wide16"])
+    pv.add_argument("--traversal", default="wide16", choices=["wide16", "wide8"])
     pv.add_argument("--tonemap", default="aces", choices=list(TONEMAPS))
     pv.add_argument("--reproject", action="store_true",
                     help="fly-cam moves warp accumulated history "
@@ -283,7 +284,7 @@ def main(argv=None):
     pa.add_argument("--size", type=int, default=256)
     pa.add_argument("--spp", type=int, default=8)
     pa.add_argument("--bounces", type=int, default=4)
-    pa.add_argument("--traversal", default="wide16", choices=["wide16"])
+    pa.add_argument("--traversal", default="wide16", choices=["wide16", "wide8"])
     pa.add_argument("--orbit", action="store_true",
                     help="orbit the camera around the target per frame")
     pa.add_argument("--bounce", action="store_true",

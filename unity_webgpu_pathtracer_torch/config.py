@@ -52,13 +52,14 @@ LIGHT_TYPE_RECTANGLE = 3
 class RenderConfig:
     """Static render configuration.
 
-    ``integrator`` is ``"fused"`` (``render/fused.py``, wide16 only),
+    ``integrator`` is ``"fused"`` (``render/fused.py``),
     ``"megakernel"`` (``render/integrator.py``: every lane of a sample
     steps through the bounces together) or ``"wavefront"``
     (``render/wavefront.py``: a pool of ``pool_size`` lanes refilled from
-    the pass's work queue; 0 = ``min(pixels, 65536)``); the last two run
-    on ``traversal`` ``"wide16"`` or the brute-force oracle
-    ``"bruteforce"``.
+    the pass's work queue; 0 = ``min(pixels, 65536)``).  Each runs on
+    ``traversal`` ``"wide16"`` (kernel K1) or ``"wide8"`` (the reference's
+    cross-check backend, plain PyTorch); the last two also on the
+    brute-force oracle ``"bruteforce"``.
 
     ``sky_mode`` 0 is the environment (the HDRI when
     ``has_environment_texture``, else the constant ``environment_color``),
@@ -73,16 +74,36 @@ class RenderConfig:
     ``use_depth_of_field`` the thin lens of ``RenderParams.aperture`` and
     ``focal_length``.
 
-    ``attr_compact`` picks the attribute rows the transitions read: 2, one
-    32-byte row of f16 normals and uvs per triangle; 3, one 16-byte row of
-    oct-encoded normals (no uv, so untextured scenes only: refused with
-    textures or normal maps, as the reference refuses it).
+    ``attr_compact`` picks the attribute rows the transitions read: 0, the
+    f32 normals, uvs and material of each triangle (the bytes of the
+    reference's 48-float ``attr_shade`` rows, read from the megakernel's
+    per-triangle tables); 1 and 2, one 32-byte row of f16
+    normals and uvs per triangle (the reference pairs two rows a gather in
+    mode 2 and not in mode 1; here both read the same row, bit for bit);
+    3, one 16-byte row of oct-encoded normals (no uv, so untextured scenes
+    only: refused with textures or normal maps, as the reference refuses
+    it).  The compact modes 1-3 hold a u16 material index: a scene past
+    65,536 materials renders with mode 0 or the other integrators.
     ``attr_in_kernel`` is the reference's choice between decoding the
     mode-2 rows before its transition kernel and inside it.  The port's
     kernel K2 always reads and decodes each lane's row itself, so either
     value selects the same kernel (``transition16``) and gives the same
     film, bit for bit; mode 3 and the general transition ignore it, as in
-    the reference."""
+    the reference.  ``attr_direct`` is the reference's choice between two
+    gathers of the same mode-0 bytes (a (3T, 16) view or a 48-float row
+    and a select), whose films are bit-identical; the port reads each
+    triangle's f32 values once either way, so it is accepted and ignored.
+
+    The fused pass's film (``render/fused.py``): the record film
+    (``use_record_film``, the default) appends each dying lane's record
+    and resolves the film with one sort at the end of the pass; with it
+    off, the sorted-prefix film (``use_sorted_film``) scatter-adds a
+    sorted prefix of the records each transition, and the legacy film (both
+    off) scatter-adds every lane's.  The record and sorted films accept at
+    most K = pool >> ``film_k_shift`` records a transition; the others
+    wait in their lanes with their radiance and retry.  Only the scatter
+    order differs between the three: the per-sample radiance is the
+    same."""
 
     width: int = 512
     height: int = 512
@@ -106,27 +127,32 @@ class RenderConfig:
     # Arrivals per transition step.
     transition_every: int = 4
     use_record_film: bool = True
+    use_sorted_film: bool = True
+    film_k_shift: int = 0
     use_lane_film: bool = False
     attr_compact: int = 2
+    attr_direct: bool = True
     attr_in_kernel: bool = False
 
     def __post_init__(self):
         unsupported = {
             "traversal": self.traversal not in (
-                ("wide16",) if self.integrator == "fused" else ("wide16", "bruteforce")),
+                ("wide16", "wide8") if self.integrator == "fused"
+                else ("wide16", "wide8", "bruteforce")),
             "integrator": self.integrator not in ("fused", "megakernel", "wavefront"),
-            "attr_compact": self.attr_compact not in (2, 3),
+            "attr_compact": self.attr_compact not in (0, 1, 2, 3),
             "sky_mode": self.sky_mode not in (SKY_MODE_ENVIRONMENT, SKY_MODE_BASIC,
                                               SKY_MODE_NONE),
-            "use_record_film": not self.use_record_film,
+            "film_k_shift": self.film_k_shift < 0,
             "use_lane_film": self.use_lane_film,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise ValueError(
-                "the PyTorch port implements integrator 'fused' on traversal 'wide16' and "
-                "'megakernel' or 'wavefront' on 'wide16' or 'bruteforce' (attr_compact 2 "
-                f"or 3, sky modes 0-2, record film); unsupported settings: {bad}")
+                "the PyTorch port implements integrator 'fused' on traversal 'wide16' or "
+                "'wide8' and 'megakernel' or 'wavefront' on 'wide16', 'wide8' or "
+                "'bruteforce' (attr_compact 0-3, sky modes 0-2, the record, sorted and "
+                f"legacy films, film_k_shift >= 0); unsupported settings: {bad}")
         if self.attr_compact == 3 and (self.has_textures or self.has_normal_maps):
             raise ValueError("attr_compact=3 requires has_textures=False and "
                              "has_normal_maps=False (no uv in the oct-normal rows); "

@@ -20,10 +20,12 @@ itself.  The script prints:
   launch calls; the ctypes kernels appear as device kernels only), and
   the main path's reductions of a whole tensor to one value
   (``ScalarReductions``);
-- with ``--passes N``, only this: N passes of that configuration through
-  ``Renderer`` after one warm-up pass, the seconds of each (the same work
-  every pass), so two checkouts can be timed in turns in one machine
-  session.
+- with ``--passes N``, only this: the set-up seconds (the scene's
+  generation, its table build or cache load and the upload, to a
+  synchronize), then N passes of that configuration through ``Renderer``
+  after one warm-up pass, the seconds of each (the same work every pass),
+  so two checkouts can be timed in turns in one machine session (run this
+  file by its path from the other checkout, with ``PYTHONPATH`` there).
 """
 
 from __future__ import annotations
@@ -247,7 +249,10 @@ def main() -> None:
     cuda_build.load()
     regs = ptxas_registers(cuda_build.BUILD_INFO["log"], "transition16")
     print(f"card: {card}; K2 registers (ptxas): {regs}", flush=True)
+    t0 = time.perf_counter()
     sd, cfg, params = _setup(dev)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
     if "--passes" in sys.argv:
         from unity_webgpu_pathtracer_torch.api import Renderer
 
@@ -259,7 +264,8 @@ def main() -> None:
             t0 = time.perf_counter()
             r.render(passes=1)   # ends in a synchronize
             secs.append(time.perf_counter() - t0)
-        print(f"passes: {secs} s/pass; {r.stats()}; card: {card}", flush=True)
+        print(f"set-up: {setup_s} s; passes: {secs} s/pass; {r.stats()}; card: {card}",
+              flush=True)
         return
     for si, cap in zip(SPAN_AT, capture_spans(sd, cfg, params)):
         span, restore = _span_fns(cap)

@@ -30,12 +30,13 @@ import torch
 from unity_webgpu_pathtracer_torch.experiments._common import (check, cuda_device, max_err, row,
                                                               time_ms, time_ms_out)
 from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
+from unity_webgpu_pathtracer_torch.utils import math as umath
 
 B, B_TIMED = 1024, 98_304
 RAGGED, LARGE = (1, 1025, 98_303), 4_194_304   # the scan's and the sum's further sizes
 EXACT = ("pcg_uint32", "cumsum_i32")
 LIBRARY = {"sin": torch.sin, "cos": torch.cos, "log": torch.log, "exp": torch.exp,
-           "sqrt": torch.sqrt, "arccos": torch.acos, "arctan": torch.atan,
+           "sqrt": umath.sqrt, "arccos": torch.acos, "arctan": torch.atan,
            "arctan2": torch.atan2, "power": torch.pow,
            "cumsum_i32": lambda a: torch.cumsum(a, 0, dtype=torch.int32)}
 

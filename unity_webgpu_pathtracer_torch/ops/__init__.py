@@ -13,8 +13,10 @@ builds), -1 on a miss, where ``t`` is the far plane.  ``live`` (None: every
 lane) names the lanes whose result is read: the others may come back as
 misses.  ``wide16`` runs kernel K1 (``ops/cuda_arrival.py``) through
 ``traverse_wide16.closest_hit``/``occluded`` on CUDA tensors and its
-plain twin on CPU tensors; ``bruteforce`` tests every ray against every
-triangle (``ops/intersect.py``).
+plain twin on CPU tensors; ``wide8`` runs the reference's cross-check
+traversal in plain PyTorch (``traverse_wide8``, no kernel);
+``bruteforce`` tests every ray against every triangle
+(``ops/intersect.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,20 @@ def _occluded_wide16(scene, origins, directions, t_max, live=None):
                          scene.inst_w2l.shape[0] > 0, live)
 
 
+def _closest_wide8(scene, origins, directions, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide8 as tw8
+
+    return tw8.closest_hit(scene.wide8_nodes, origins, directions, scene.stack_depth,
+                           scene.inst_w2l.shape[0] > 0, live)
+
+
+def _occluded_wide8(scene, origins, directions, t_max, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide8 as tw8
+
+    return tw8.occluded(scene.wide8_nodes, origins, directions, t_max, scene.stack_depth,
+                        scene.inst_w2l.shape[0] > 0, live)
+
+
 def _closest_bruteforce(scene, origins, directions, live=None):
     from unity_webgpu_pathtracer_torch.ops import intersect
 
@@ -49,6 +65,8 @@ def _occluded_bruteforce(scene, origins, directions, t_max, live=None):
 def get_intersectors(config):
     if config.traversal == "wide16":
         return _closest_wide16, _occluded_wide16
+    if config.traversal == "wide8":
+        return _closest_wide8, _occluded_wide8
     if config.traversal == "bruteforce":
         return _closest_bruteforce, _occluded_bruteforce
     raise ValueError(f"the PyTorch port has no traversal backend {config.traversal!r}")

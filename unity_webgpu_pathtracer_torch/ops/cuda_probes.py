@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from unity_webgpu_pathtracer_torch.ops import cuda_build
+from unity_webgpu_pathtracer_torch.utils import math as umath
 
 # Ops of ``intrinsic`` (round18_mosaic_probe.py), in the numbers the kernel
 # takes (``cuda_build`` passes them as UWPT_OP_* macros).
@@ -176,7 +177,7 @@ def schlick_chain_plain(x: torch.Tensor) -> torch.Tensor:
         w = 1.0 - v
         w2 = w * w
         f = w2 * w2 * w
-        g = torch.sqrt(torch.abs(v * 0.9 + 0.05))
+        g = umath.sqrt(torch.abs(v * 0.9 + 0.05))
         acc = acc + f * g + v * (1.0 - f)
         v = torch.fmod(torch.abs(acc * 0.3 + 0.1), 0.9) + 0.05
     return acc
@@ -252,10 +253,10 @@ def _lobe_step(x, y, z, c):
     b = y * c(0.7) + c(0.001)
     cc = a * a + b * b + z * z
     d = one / (c(3.14159265) * a * b * cc * cc)
-    g1 = (c(2.0) * z) / (z + torch.sqrt(torch.maximum(a * a + z * z - a * a * z * z, zero)))
+    g1 = (c(2.0) * z) / (z + umath.sqrt(torch.maximum(a * a + z * z - a * a * z * z, zero)))
     eta = c(1.5)
     s2 = eta * eta * (one - x * x)
-    ct = torch.sqrt(torch.maximum(one - s2, zero))
+    ct = umath.sqrt(torch.maximum(one - s2, zero))
     rs = (eta * ct - x) / (eta * ct + x + c(1e-6))
     rp = (eta * x - ct) / (eta * x + ct + c(1e-6))
     fres = c(0.5) * (rs * rs + rp * rp)
@@ -335,7 +336,7 @@ def _i32_bits(x: torch.Tensor) -> torch.Tensor:
 
 _INV_U32 = torch.tensor(1.0 / 4294967295.0, dtype=torch.float32).item()
 _UNARY = {"sin": torch.sin, "cos": torch.cos, "log": torch.log, "exp": torch.exp,
-          "sqrt": torch.sqrt, "arccos": torch.acos, "arctan": torch.atan}
+          "sqrt": umath.sqrt, "arccos": torch.acos, "arctan": torch.atan}
 
 
 def intrinsic_plain(op: str, a: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:

@@ -221,7 +221,12 @@ def shade_rows(scene, attr_compact: int, attr: torch.Tensor):
     """Rows ``attr`` of the attribute table of ``attr_compact`` as (15, B)
     f32 planes (3 vertex normals, 3 uvs; mode 3 stores no uv, so those
     planes are 0 there, and its oct normals are normalized per vertex as in
-    the reference) and their u16 material index."""
+    the reference) and their material index.  Mode 0 reads the f32
+    per-triangle tables (the values of the reference's f32 rows); modes 1
+    and 2 read the same f16 row."""
+    if attr_compact == 0:
+        rowT = torch.cat([scene.attr_normals[attr], scene.attr_uvs[attr]], dim=1).T
+        return rowT.contiguous(), scene.attr_material[attr]
     if attr_compact == 3:
         rows = scene.attr_shade_o[attr]                          # (B, 4) int32
         normals = [normalize(oct_decode(rows[:, v])) for v in range(3)]

@@ -34,6 +34,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     INV_PI,
     build_onb,
     safe_div,
+    sqrt,
     to_local,
     to_world,
     vadd,
@@ -78,7 +79,7 @@ class Material(NamedTuple):
 def with_roughness(mat: Material, roughness: torch.Tensor) -> Material:
     """``mat`` with its roughness (and the anisotropic ``ax``/``ay`` split)
     replaced, as the transitions do with the path's running maximum."""
-    aspect = torch.sqrt(1.0 - mat.anisotropic * 0.9)
+    aspect = sqrt(1.0 - mat.anisotropic * 0.9)
     return mat._replace(roughness=roughness,
                         ax=torch.clamp_min(roughness / aspect, 0.001),
                         ay=torch.clamp_min(roughness * aspect, 0.001))
@@ -172,7 +173,7 @@ def eval_microfacet_refraction(mat: Material, eta, v, l, h, f_term):
     pdf = safe_div(g1 * torch.clamp_min(v_dot_h, 0.0) * d * jacobian, vz)
     coef1 = d * g2 * torch.abs(v_dot_h) * jacobian * eta2
     coef2 = safe_div(torch.ones_like(lz), torch.abs(lz * vz))
-    f = tuple(torch.sqrt(torch.clamp_min(mat.base_color[c], 0.0)) * (1.0 - f_term)
+    f = tuple(sqrt(torch.clamp_min(mat.base_color[c], 0.0)) * (1.0 - f_term)
               * coef1 * coef2 for c in range(3))
     valid = lz < 0.0
     zero = torch.zeros_like(lz)

@@ -11,7 +11,7 @@ import torch
 
 from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams, params_from_numpy
 from unity_webgpu_pathtracer_torch.utils import rng as urng
-from unity_webgpu_pathtracer_torch.utils.math import TWO_PI, concentric_sample_disk, normalize
+from unity_webgpu_pathtracer_torch.utils.math import TWO_PI, concentric_sample_disk, normalize, sqrt
 
 # AA jitter stddev in pixels (PathTracer.compute:25-31).
 ANTIALIASING_STD = 0.4246609
@@ -59,7 +59,7 @@ def make_camera_params(eye, target, fov_y_deg, width, height, up=(0, 1, 0),
 
 def sample_gaussian(u: torch.Tensor, v: torch.Tensor):
     """Box-Muller 2D Gaussian (``PathTracer.compute:33-38``)."""
-    r = torch.sqrt(-2.0 * torch.log(torch.clamp_min(u, 1e-38)))
+    r = sqrt(-2.0 * torch.log(torch.clamp_min(u, 1e-38)))
     theta = TWO_PI * v
     return r * torch.cos(theta), r * torch.sin(theta)
 

@@ -1,34 +1,43 @@
-"""Fused wavefront integrator over wide16 tables with the record film
-(``render/fused.py`` of the reference).
+"""Fused wavefront integrator (``render/fused.py`` of the reference).
 
 One pass is a loop of super-iterations over a pool of B lanes.  Each
-super-iteration runs ``transition_every`` arrivals (kernel K1,
-``ops/cuda_arrival.py``, one launch that updates the traversal state in
-place; its instanced variant on two-level tables), one transition, and
-the gather-free prestep on fresh lanes, in the reference's order: the
-RNG stream depends on it.
+super-iteration runs ``transition_every`` arrivals (on wide16 tables
+kernel K1, ``ops/cuda_arrival.py``, one launch that updates the traversal
+state in place, its instanced variant on two-level tables; on wide8 tables
+the reference's cross-check traversal in plain PyTorch), one transition,
+and on wide16 the gather-free prestep on fresh lanes, in the reference's
+order: the RNG stream depends on it.
 
 The transition is routed per pass as the reference routes it
 (``_pallas_transition_supported``): the HDRI configuration on a flat
 scene without analytic lights, textures or normal maps runs kernel K2
 (``ops/cuda_transition.py``), one launch that samples the environment,
 reads each lane's attribute and material rows and updates the lane state
-in place (``_transition_kernel_path``); every other configuration the
-port admits (the constant environment, the basic sky, no sky, instanced
-scenes, analytic lights, textures and normal maps) runs the general
+in place (``_transition_kernel_path``), on wide16 tables with the f16 or
+oct rows (``attr_compact`` 2 or 3) and the record film; every other
+configuration the port admits (the constant environment, the basic sky,
+no sky, instanced scenes, analytic lights, textures and normal maps, the
+f32 rows of mode 0 and the f16 rows of mode 1, wide8 tables, the sorted
+and legacy films, scenes past 65,536 materials) runs the general
 transition (``_transition``), plain PyTorch like the reference's XLA one.
-Both end in the same record-film append and work-queue regeneration (with
-the thin lens's sample when ``use_depth_of_field``).  The hit's attribute row
-is read from the paired f16 rows (``attr_compact=2``) or the oct-normal
-rows (``attr_compact=3``); ``attr_in_kernel`` changes nothing here, since
-K2 reads and decodes the rows itself on either setting.
+Both end in the same film append and work-queue regeneration (with the
+thin lens's sample when ``use_depth_of_field``).  ``attr_in_kernel``
+changes nothing here, since K2 reads and decodes the rows itself on
+either setting.
 
 Dead lanes pull (pixel, sample) work items off a pixel-major queue, over
 the whole film or over a shard of its pixels and samples (the multi-GPU
-passes of ``parallel/film_tiling.py``).  Each path's radiance is appended
-once, keyed by pixel, to a pass-lifetime record buffer; the end-of-pass
-stable sort groups the records by pixel and a reshape-sum resolves the
-film, so each pixel's samples are summed in the reference's order.
+passes of ``parallel/film_tiling.py``).  With the record film each path's
+radiance is appended once, keyed by pixel, to a pass-lifetime record
+buffer; the end-of-pass stable sort groups the records by pixel and a
+reshape-sum resolves the film, so each pixel's samples are summed in the
+reference's order.  The sorted-prefix film scatter-adds the accepted
+records, sorted by pixel, each transition, and the legacy film every
+dying lane's; on the card those adds are atomic, so their order, and the
+film's last bits, may change from run to run.  With ``film_k_shift > 0``
+a transition accepts at most K = B >> shift records: the others stay in
+their lanes, dead with their radiance, and retry before the lane takes new
+work; the pass flushes the last of them after the loop.
 
 The loop test reads two device values per super-iteration (one
 device->host sync), and the pass returns its super-iteration count.
@@ -51,6 +60,7 @@ from unity_webgpu_pathtracer_torch.config import (
     RenderConfig,
     RenderParams,
 )
+from unity_webgpu_pathtracer_torch.ops import traverse_wide8 as tw8
 from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw16
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
 from unity_webgpu_pathtracer_torch.ops.cuda_transition import (
@@ -82,6 +92,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     FAR_PLANE,
     PI,
     safe_rcp,
+    sqrt,
     vcross,
     vdot,
     vluminance,
@@ -98,7 +109,7 @@ _UNWRITTEN_KEY = 1 << 30
 @dataclasses.dataclass
 class FusedState:
     mode: torch.Tensor            # (B,) int32
-    trav: tw16.Wide16State        # active traversal registers
+    trav: tw16.Wide16State | tw8.Wide8State   # active traversal registers
     trav_o: torch.Tensor          # (3, B) active ray origin
     trav_d: torch.Tensor          # (3, B) active ray direction
     # Primary-path registers (survive across shadow traversals).
@@ -127,6 +138,11 @@ class FusedState:
     rec_keys: torch.Tensor        # (C,) int32
     rec_rgb: torch.Tensor         # (3, C) float32
     rec_cursor: torch.Tensor      # () int64
+    # Lanes whose record waits for a later transition (film_k_shift > 0).
+    rec_pending: torch.Tensor     # (B,) bool
+    # Sorted and legacy films: (npix_local + B, 3); rows past the film take
+    # the adds of lanes that add nothing (one row each, dropped at the end).
+    film: torch.Tensor
     # The work queue's share of the film and the samples, host ints:
     # (pixel_base, npix_l, sample_base, spp_l); the whole film is
     # (0, npix, 0, samples_per_pass).
@@ -148,9 +164,10 @@ def _set_trav(s: FusedState, mask: torch.Tensor, o, d, t_max=None) -> None:
     zi = torch.zeros_like(tr.ptr)
     zf = torch.zeros_like(tr.t)
     minus1 = torch.full_like(tr.tri, -1)
+    full = tw8.FULL if isinstance(tr, tw8.Wide8State) else tw16.FULL
     s.trav = tr._replace(
         ptr=torch.where(mask, zi, tr.ptr),
-        pend=torch.where(mask, torch.full_like(tr.pend, tw16.FULL), tr.pend),
+        pend=torch.where(mask, torch.full_like(tr.pend, full), tr.pend),
         sp=torch.where(mask, zi, tr.sp),
         t=torch.where(mask, t_max, tr.t),
         u=torch.where(mask, zf, tr.u),
@@ -171,44 +188,80 @@ def _light_nee(scene, config: RenderConfig) -> bool:
 
 
 def _kernel_transition_supported(scene, config: RenderConfig) -> bool:
-    """The reference's ``_pallas_transition_supported`` on what the port
-    admits: the HDRI with its NEE, on a flat scene, with no analytic
-    lights, textures or normal maps.  (Its other conditions, wide16,
-    attribute rows of mode 2 or 3, the record film and at most 65536
-    materials, hold for every scene and config the port builds.)"""
-    return (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
+    """The reference's ``_pallas_transition_supported``: wide16 tables,
+    attribute rows of mode 2 or 3, the HDRI with its NEE over merged rows
+    that cover the image, on a flat scene, with no analytic lights,
+    textures or normal maps, the record film (at any ``film_k_shift``) and
+    at most 65,536 materials."""
+    env = scene.env
+    return (config.traversal == "wide16" and config.attr_compact in (2, 3)
+            and config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
+            and env.merged_rows.shape[0] == env.image.shape[0] * env.image.shape[1]
             and not _light_nee(scene, config)
             and not (config.has_textures or config.has_normal_maps)
-            and scene.inst_w2l.shape[0] == 0)
+            and scene.inst_w2l.shape[0] == 0
+            and config.use_record_film
+            and scene.materials.shape[0] <= 0x10000)
+
+
+def _append_film(config: RenderConfig, s: FusedState, died: torch.Tensor,
+                 rad_out: torch.Tensor) -> torch.Tensor | None:
+    """The film half of the end of a transition: take the dying lanes'
+    records (``rad_out`` (3, B)) into the pass's film, and return the lanes
+    whose records wait, or None where no record ever waits (the legacy
+    film, and ``film_k_shift`` 0) (updates ``s`` in place).
+
+    The record and sorted films accept the dying and the waiting lanes up
+    to K = B >> ``film_k_shift`` (all the dying ones at shift 0), key every
+    lane by its shard-local pixel if accepted and past every pixel
+    otherwise, and sort the keys stably (each pixel keeps its order).  The
+    record film writes the first K sorted records at the cursor, which only
+    the accepted advance, so the tail is overwritten by the next append;
+    the sorted film adds them to its rows.  The legacy film adds every
+    dying lane's record, the others going to rows past the film."""
+    b = s.mode.shape[0]
+    pixel_base, npix_l, _sample_base, _spp_l = s.shard
+    lane = torch.arange(b, device=s.mode.device)
+    pix_local = s.pixel - pixel_base
+    if not (config.use_record_film or config.use_sorted_film):
+        s.film.index_add_(0, torch.where(died, pix_local, (npix_l + lane).to(torch.int32)),
+                          rad_out.T)
+        return None
+    k_slots = max(b >> config.film_k_shift, 1)
+    if config.film_k_shift == 0:
+        emit = accepted = died
+    else:
+        emit = died | s.rec_pending
+        rank = torch.cumsum(emit.to(torch.int64), 0) - 1
+        accepted = emit & (rank < k_slots)
+    key = torch.where(accepted, pix_local, (npix_l + lane).to(torch.int32))
+    ks, perm = torch.sort(key, stable=True)
+    if config.use_record_film:
+        at = s.rec_cursor + lane[:k_slots]
+        s.rec_keys[at] = ks[:k_slots]
+        s.rec_rgb[:, at] = rad_out[:, perm[:k_slots]]
+        s.rec_cursor = s.rec_cursor + accepted.sum()
+    else:
+        s.film.index_add_(0, ks[:k_slots], rad_out[:, perm[:k_slots]].T)
+    return None if config.film_k_shift == 0 else emit & ~accepted
 
 
 def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedState,
                            budget: int, current_sample: int, died: torch.Tensor,
                            rad_out: torch.Tensor) -> None:
-    """The end of every transition, on ``s`` already shaded: append the
-    dying lanes' records, then start queued work items in the dead lanes
-    (updates ``s`` in place).
-
-    Every lane's record is keyed by its shard-local pixel if the lane died
-    and past every pixel of the shard otherwise, stably sorted (each pixel
-    keeps its order) and written at the cursor; only the dead lanes'
-    records advance it, so the tail is overwritten by the next append.
-    All deaths are taken at once (the reference's default
-    ``film_k_shift = 0``), so no lane ever waits with a pending record.
+    """The end of every transition, on ``s`` already shaded: take the
+    dying lanes' records into the film (``_append_film``), then start
+    queued work items in the dead lanes whose records are taken (updates
+    ``s`` in place); a lane whose record waits keeps it as its radiance.
     Work item ``i`` is the shard's pixel ``i % npix_l`` and sample
     ``i // npix_l``; its seed and camera ray are keyed by the global
     (pixel, sample), so a shard's samples are the single pass's."""
-    b = s.mode.shape[0]
     pixel_base, npix_l, sample_base, _spp_l = s.shard
-    lane = torch.arange(b, device=s.mode.device)
-    key = torch.where(died, s.pixel - pixel_base, (npix_l + lane).to(torch.int32))
-    ks, perm = torch.sort(key, stable=True)
-    at = s.rec_cursor + lane
-    s.rec_keys[at] = ks
-    s.rec_rgb[:, at] = rad_out[:, perm]
-    s.rec_cursor = s.rec_cursor + died.sum()
-
+    rec_pending = _append_film(config, s, died, rad_out)
     avail = s.mode == MODE_DEAD
+    if rec_pending is not None:
+        taken = (died | s.rec_pending) & ~rec_pending
+        avail = avail & ~rec_pending
     remaining = budget - s.queue_head
     rank = torch.cumsum(avail.to(torch.int64), 0) - 1
     work_id = s.queue_head + rank
@@ -217,7 +270,12 @@ def _record_and_regenerate(config: RenderConfig, params: RenderParams, s: FusedS
     sample_new = torch.div(work_id, npix_l, rounding_mode="floor") + (current_sample
                                                                       + sample_base)
     s.queue_head = s.queue_head + torch.minimum(avail.sum(), remaining)
-    s.radiance = torch.where(died | take, torch.zeros_like(s.radiance), s.radiance)
+    if rec_pending is None:
+        s.radiance = torch.where(died | take, torch.zeros_like(s.radiance), s.radiance)
+    else:
+        s.radiance = torch.where(taken | take, torch.zeros_like(s.radiance),
+                                 torch.where(rec_pending, rad_out, s.radiance))
+        s.rec_pending = rec_pending
 
     rng_new = urng.seed(pixel_new, sample_new, params.seed_root)
     coords, rng_new = ucamera.jittered_pixel_coords(pixel_new, config, rng_new)
@@ -256,6 +314,10 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
     arrivals' ``ptr`` and adds its ray starts to ``s.rays``), then the
     record-film append and regeneration (updates ``s`` in place)."""
     died, rad_out = transition16_cuda(scene, config, params, transition_state(s))
+    if config.film_k_shift > 0:
+        # K2 writes rad_out where a lane died; a waiting lane's record is
+        # the radiance it keeps.
+        rad_out = torch.where(died, rad_out, s.radiance)
     _record_and_regenerate(config, params, s, budget, current_sample, died, rad_out)
 
 
@@ -398,14 +460,14 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
         lrange, larea = rec[7], rec[11]
         (r1, r2), rng = urng.random_floats(rng, 2)
         to_rect = tuple(lpos[c] + lu[c] * r1 + lv[c] * r2 - scatter_pos[c] for c in range(3))
-        rect_dist = torch.sqrt(torch.clamp_min(vdot(to_rect, to_rect), 0.0))
+        rect_dist = sqrt(torch.clamp_min(vdot(to_rect, to_rect), 0.0))
         rect_den = torch.clamp_min(rect_dist, 1e-20)
         rect_dir = tuple(to_rect[c] / rect_den for c in range(3))
         rect_normal = vnormalize(vcross(lu, lv))
         rect_pdf = rect_dist * rect_dist / torch.clamp_min(
             larea * torch.abs(vdot(rect_normal, rect_dir)), 1e-20)
         to_l = tuple(lpos[c] - scatter_pos[c] for c in range(3))
-        delta_dist = torch.sqrt(torch.clamp_min(vdot(to_l, to_l), 0.0))
+        delta_dist = sqrt(torch.clamp_min(vdot(to_l, to_l), 0.0))
         delta_den = torch.clamp_min(delta_dist, 1e-20)
         delta_dir = tuple(to_l[c] / delta_den for c in range(3))
         is_rect = ltype == LIGHT_TYPE_RECTANGLE
@@ -513,7 +575,8 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
                            _stack(rad_out))
 
 
-def _initial_state(b: int, depth: int, shard: tuple, dev) -> FusedState:
+def _initial_state(b: int, depth: int, shard: tuple, dev, traversal: str = "wide16",
+                   scatter_film: bool = False) -> FusedState:
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     z3 = torch.zeros((3, b), **f32)
@@ -522,12 +585,16 @@ def _initial_state(b: int, depth: int, shard: tuple, dev) -> FusedState:
     zf = torch.zeros((b,), **f32)
     zi = torch.zeros((b,), **i32)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    # budget rows of records + one pool-sized block for the last append's
-    # garbage tail; never-written rows sort behind every pixel.
-    cap = shard[1] * shard[3] + b
+    # Record film: budget rows of records + one pool-sized block for the
+    # last append's garbage tail; never-written rows sort behind every
+    # pixel.  The scatter films keep none.
+    cap = 0 if scatter_film else shard[1] * shard[3] + b
+    trav = (tw8.init_state8(b, 0.0, ptr0=tw8.DONE, depth=depth, device=dev)
+            if traversal == "wide8" else
+            tw16.init_state16(b, 0.0, ptr0=tw16.DONE, depth=depth, device=dev))
     return FusedState(
         mode=torch.full((b,), MODE_DEAD, **i32),
-        trav=tw16.init_state16(b, 0.0, ptr0=tw16.DONE, depth=depth, device=dev),
+        trav=trav,
         trav_o=z3.clone(), trav_d=dz.clone(), path_o=z3.clone(), path_d=dz.clone(),
         hit_t=zf.clone(), hit_uv_bary=torch.zeros((2, b), **f32),
         hit_tri=torch.full((b,), -1, **i32), hit_inst=torch.full((b,), -1, **i32),
@@ -540,6 +607,8 @@ def _initial_state(b: int, depth: int, shard: tuple, dev) -> FusedState:
         rec_keys=torch.full((cap,), _UNWRITTEN_KEY, **i32),
         rec_rgb=torch.zeros((3, cap), **f32),
         rec_cursor=zero.clone(),
+        rec_pending=torch.zeros((b,), dtype=torch.bool, device=dev),
+        film=torch.zeros((shard[1] + b, 3) if scatter_film else (0, 3), **f32),
         shard=shard,
     )
 
@@ -560,12 +629,18 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
     tensors), the last a host int.  Raises ``ValueError`` when the
     configuration samples the HDRI of a scene that has none (its 1x1
     placeholder table), reads oct attribute rows (``attr_compact=3``)
-    that the scene does not have, or gets a shard off the film."""
+    that the scene does not have, reads compact rows (modes 1-3) of a
+    scene past 65,536 materials (the reference's message), or gets a
+    shard off the film."""
     if (config.sky_mode == SKY_MODE_ENVIRONMENT and config.has_environment_texture
             and tuple(scene.env.image.shape[:2]) == (1, 1)):
         raise ValueError("sky_mode 0 with has_environment_texture samples the scene's HDRI, "
                          "and this scene has none (Scene.set_environment); for the constant "
                          "environment set has_environment_texture=False")
+    if config.attr_compact and scene.materials.shape[0] > 0x10000:
+        raise ValueError("config.attr_compact requires <= 65536 materials (the compact rows "
+                         "store a u16 index; the scene build degraded the table to a "
+                         "placeholder)")
     if config.attr_compact == 3 and scene.attr_shade_o.shape[0] == 0:
         raise ValueError("attr_compact=3 reads the oct attribute rows, and this SceneData "
                          "has none (build it with Scene.build, or pass attr_shade_o)")
@@ -581,13 +656,16 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
     # Pool: given, configured or min(budget, 96K) lanes, rounded up to a
     # multiple of 1024 as the reference does whenever its kernels run.
     b = ((pool_size or config.pool_size or min(budget, 3 << 15)) + 1023) & ~1023
-    dev = scene.wide16_nodes.device
-    nodes = scene.wide16_nodes
+    wide8 = config.traversal == "wide8"
+    nodes = scene.wide8_nodes if wide8 else scene.wide16_nodes
+    dev = nodes.device
     te = config.transition_every
     has_instances = scene.inst_w2l.shape[0] > 0
     transition = (_transition_kernel_path if _kernel_transition_supported(scene, config)
                   else _transition)
-    s = _initial_state(b, scene.stack_depth, shard, dev)
+    record = config.use_record_film
+    s = _initial_state(b, scene.stack_depth, shard, dev, config.traversal,
+                       scatter_film=not record)
 
     iters = 0
     while bool(((s.mode != MODE_DEAD).any() | (s.queue_head < budget)).item()):
@@ -597,21 +675,42 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         shadowing = (s.mode == MODE_SHADOW_ENV) | (s.mode == MODE_SHADOW_LIGHT)
         stepping = live & (s.trav.ptr >= 0)   # before the arrivals update ptr in place
         # te arrivals; a shadow lane stops at its first hit.
-        s.trav = arrival_steps16_cuda(nodes, s.trav_o, s.trav_d, inv, s.trav, te, live,
-                                      shadowing, has_instances)
+        if wide8:
+            s.trav = tw8.arrival_steps8(nodes, s.trav_o.T, s.trav_d.T, inv.T, s.trav, te,
+                                        live, shadowing, has_instances)
+        else:
+            s.trav = arrival_steps16_cuda(nodes, s.trav_o, s.trav_d, inv, s.trav, te, live,
+                                          shadowing, has_instances)
         s.arrivals = s.arrivals + te * stepping.sum()
         s.busy = s.busy + live.sum()
         s.ticks = s.ticks + b
         transition(scene, config, params, s, budget, current_sample)
-        fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
-                 & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
-        s.trav = tw16.prestep16(nodes, scene.wide16_top, s.trav_o.T, s.trav_d.T,
-                                safe_rcp(s.trav_d).T, s.trav, fresh)
+        if not wide8:
+            fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
+                     & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
+            s.trav = tw16.prestep16(nodes, scene.wide16_top, s.trav_o.T, s.trav_d.T,
+                                    safe_rcp(s.trav_d).T, s.trav, fresh)
 
-    # Resolve: one stable sort by shard-local pixel; every pixel owns
-    # exactly spp_l records, so a reshape-sum makes the film.
-    _, order = torch.sort(s.rec_keys, stable=True)
-    film = s.rec_rgb[:, order[:budget]].reshape(3, npix_l, spp_l).sum(dim=2).T
+    pix_local = s.pixel - pixel_base
+    if record:
+        # The records still waiting (film_k_shift > 0) go in behind the
+        # cursor; then one stable sort by shard-local pixel, and since every
+        # pixel owns exactly spp_l records, a reshape-sum makes the film.
+        if config.film_k_shift > 0:
+            key = torch.where(s.rec_pending, pix_local, torch.full_like(pix_local, _UNWRITTEN_KEY))
+            ks, perm = torch.sort(key, stable=True)
+            at = s.rec_cursor + torch.arange(b, device=dev)
+            s.rec_keys[at] = ks
+            s.rec_rgb[:, at] = s.radiance[:, perm]
+        _, order = torch.sort(s.rec_keys, stable=True)
+        film = s.rec_rgb[:, order[:budget]].reshape(3, npix_l, spp_l).sum(dim=2).T
+    else:
+        if config.use_sorted_film and config.film_k_shift > 0:
+            # The waiting records, each to its pixel.
+            lane = torch.arange(b, device=dev, dtype=torch.int32)
+            s.film.index_add_(0, torch.where(s.rec_pending, pix_local, npix_l + lane),
+                              s.radiance.T)
+        film = s.film[:npix_l]
     occupancy = s.busy.to(torch.float32) / torch.clamp_min(s.ticks.to(torch.float32), 1.0)
     return film, occupancy, s.rays, s.arrivals, iters
 

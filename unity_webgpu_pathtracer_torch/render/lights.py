@@ -31,6 +31,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     EPSILON,
     FAR_PLANE,
     PI,
+    sqrt,
     vcross,
     vdot,
     vneg,
@@ -61,7 +62,7 @@ def _gate(use: torch.Tensor, ld: tuple, contrib) -> tuple:
 
 
 def _length(v) -> torch.Tensor:
-    return torch.sqrt(torch.clamp_min(vdot(v, v), 0.0))
+    return sqrt(torch.clamp_min(vdot(v, v), 0.0))
 
 
 def direct_light(scene, config: RenderConfig, params: RenderParams, hit, mat, ray_dir,

@@ -33,6 +33,7 @@ import torch
 from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams
 from unity_webgpu_pathtracer_torch.ops import get_intersectors
 from unity_webgpu_pathtracer_torch.render.film import Film
+from unity_webgpu_pathtracer_torch.utils.math import sqrt
 
 DEPTH_REL_TOL = 0.03
 
@@ -47,7 +48,7 @@ def _times_rows(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2])
+    return sqrt(v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1] + v[:, 2] * v[:, 2])
 
 
 def _center_rays(config: RenderConfig, params: RenderParams):

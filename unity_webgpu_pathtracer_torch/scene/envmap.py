@@ -67,13 +67,12 @@ def _build_alias(weights: np.ndarray):
 def build_envmap(image: np.ndarray) -> EnvMap:
     """Luminance CDF, alias table and merged rows of an equirect image.
 
-    The main path needs the merged rows, so images above
-    ``QUAD_ROWS_MAX_TEXELS`` texels are refused."""
+    Above ``QUAD_ROWS_MAX_TEXELS`` texels the footprint and merged rows
+    are the reference's one-row placeholders: kernel K2 then stays off
+    and the transition samples the image through ``sample_env_map_alias``
+    and the bilinear lookup."""
     img = np.asarray(image, np.float32)
     h, w = img.shape[0], img.shape[1]
-    if h * w > QUAD_ROWS_MAX_TEXELS:
-        raise ValueError(f"environment of {h * w} texels exceeds the "
-                         f"merged-row limit {QUAD_ROWS_MAX_TEXELS}")
     lum = img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
     flat = lum.reshape(-1)
     cdf = np.cumsum(flat, dtype=np.float64).astype(np.float32)
@@ -86,12 +85,16 @@ def build_envmap(image: np.ndarray) -> EnvMap:
     alias_row[:, 2:5] = texels
     alias_row[:, 5:8] = texels[alias]
 
-    right = np.roll(img, -1, axis=1)
-    down = np.roll(img, -1, axis=0)       # wrap in v, as the reference does
-    downright = np.roll(right, -1, axis=0)
-    quad_rows = np.concatenate([img, right, down, downright],
-                               axis=-1).reshape(-1, 12).astype(np.float32)
-    merged = np.concatenate([alias_row, quad_rows], axis=1)
+    if h * w <= QUAD_ROWS_MAX_TEXELS:
+        right = np.roll(img, -1, axis=1)
+        down = np.roll(img, -1, axis=0)       # wrap in v, as the reference does
+        downright = np.roll(right, -1, axis=0)
+        quad_rows = np.concatenate([img, right, down, downright],
+                                   axis=-1).reshape(-1, 12).astype(np.float32)
+        merged = np.concatenate([alias_row, quad_rows], axis=1)
+    else:
+        quad_rows = np.zeros((1, 12), np.float32)
+        merged = np.zeros((1, 20), np.float32)
     return EnvMap(
         image=img, cdf=cdf, cdf_sum=np.float32(cdf[-1]),
         alias_prob=prob, alias_idx=alias, alias_row=alias_row,
@@ -218,6 +221,22 @@ def _solid_angle_pdf(color, cdf_sum, k: int, sin_theta):
     return torch.where(sin_theta <= 0.0, torch.zeros_like(pdf), pdf)
 
 
+def sample_env_map_alias(env: EnvMap, rotation, state: torch.Tensor):
+    """The O(1) alias-method sample (the CDF sampler's distribution): one
+    ``alias_row`` read a lane, two uniforms.  Returns ``(direction (B, 3),
+    color (B, 3), pdf (B,), state)``."""
+    h, w = env.image.shape[0], env.image.shape[1]
+    k = h * w
+    (u1, u2), state = urng.random_floats(state, 2)
+    bin_ = torch.clamp((u1 * k).to(torch.int32), 0, k - 1)
+    row = env.alias_row[bin_.long()]                            # (B, 8)
+    take_alias = u2 >= row[:, 0]
+    idx = torch.where(take_alias, row[:, 1].contiguous().view(torch.int32), bin_)
+    color = torch.where(take_alias[:, None], row[:, 5:8], row[:, 2:5])
+    direction, sin_theta = _texel_direction(h, w, idx, rotation)
+    return direction, color, _solid_angle_pdf(color, env.cdf_sum, k, sin_theta), state
+
+
 def sample_env_transition(env: EnvMap, rotation, directions: torch.Tensor,
                           want_alias: torch.Tensor, state: torch.Tensor,
                           need: torch.Tensor | None = None):
@@ -226,7 +245,11 @@ def sample_env_transition(env: EnvMap, rotation, directions: torch.Tensor,
     ``directions`` (B, 3) are the lanes' path directions (sky lookup on a
     miss); ``want_alias`` selects the lanes that take an env-NEE sample
     from the alias row instead.  Lanes outside ``need`` gather row 0 (their
-    results are never consumed).  Every lane draws two uniforms.
+    results are never consumed).  Every lane draws two uniforms.  When the
+    merged rows do not cover the image (an environment past
+    ``QUAD_ROWS_MAX_TEXELS``), the sky takes the bilinear lookup and the
+    NEE sample ``sample_env_map_alias`` (two more uniforms), as in the
+    reference.
 
     Returns ``(sky_color, sky_pdf, nee_dir, nee_color, nee_pdf, state)``,
     vectors as (B, 3)."""
@@ -240,6 +263,12 @@ def sample_env_transition(env: EnvMap, rotation, directions: torch.Tensor,
     phi_atan = torch.atan2(d[..., 2], d[..., 0])
     uv = torch.stack([(PI + phi_atan) * INV_TWO_PI + rotation,
                       1.0 - theta * INV_PI], dim=-1)
+
+    if env.merged_rows.shape[0] != k:
+        sky_color = env_bilinear(env, uv)
+        sky_pdf = _solid_angle_pdf(sky_color, env.cdf_sum, k, torch.sin(theta))
+        nee_dir, nee_color, nee_pdf, state = sample_env_map_alias(env, rotation, state)
+        return sky_color, sky_pdf, nee_dir, nee_color, nee_pdf, state
 
     x0i, y0i, fx, fy = _bilerp_coords(h, w, uv)
     idx = torch.where(want_alias, bin_, y0i * w + x0i)

@@ -18,7 +18,7 @@ import torch
 
 from unity_webgpu_pathtracer_torch.render.bsdf import Material
 from unity_webgpu_pathtracer_torch.scene import texture as tex
-from unity_webgpu_pathtracer_torch.utils.math import vcross, vdot, vwhere
+from unity_webgpu_pathtracer_torch.utils.math import sqrt, vcross, vdot, vwhere
 
 MATERIAL_SIZE = 32
 
@@ -131,7 +131,7 @@ def derive_material(md, ray_dir, normal, uv=None, texture_data=None,
     roughness = torch.clamp_min(roughness, 0.001)
     ior = torch.clamp(md[11], 1.001, 2.0)
     anisotropic = torch.clamp(md[13], -0.9, 0.9)
-    aspect = torch.sqrt(1.0 - anisotropic * 0.9)
+    aspect = sqrt(1.0 - anisotropic * 0.9)
     entering = (ray_dir[0] * normal[0] + ray_dir[1] * normal[1]
                 + ray_dir[2] * normal[2]) < 0.0
     return Material(
@@ -177,10 +177,10 @@ def apply_normal_map(md, uv, normal, tangent, texture_data, has_textures: bool):
     # Gram-Schmidt the interpolated tangent against the normal.
     t_dot_n = vdot(tangent, normal)
     t_orth = tuple(tangent[c] - normal[c] * t_dot_n for c in range(3))
-    t_len = torch.sqrt(torch.clamp_min(vdot(t_orth, t_orth), 1e-20))
+    t_len = sqrt(torch.clamp_min(vdot(t_orth, t_orth), 1e-20))
     t_hat = tuple(t_orth[c] / t_len for c in range(3))
     b_hat = vcross(normal, t_hat)
     n_new = tuple(t_hat[c] * tsx + b_hat[c] * tsy + normal[c] * tsz for c in range(3))
-    n_len = torch.sqrt(torch.clamp_min(vdot(n_new, n_new), 1e-20))
+    n_len = sqrt(torch.clamp_min(vdot(n_new, n_new), 1e-20))
     n_new = tuple(n_new[c] / n_len for c in range(3))
     return vwhere((t_nm >= 0) & (t_len > 1e-6), n_new, normal)

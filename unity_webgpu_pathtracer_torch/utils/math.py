@@ -22,6 +22,19 @@ INV_TWO_PI = 0.15915494309189533
 FAR_PLANE = 1.0e5
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root, as the CUDA kernels' ``sqrtf``.
+
+    On a CUDA tensor this is ``torch.sqrt``, which is IEEE there.  On a
+    CPU tensor ``torch.sqrt`` of f32 is not correctly rounded on every
+    host (its vectorised path can be an ulp off), so the root is taken
+    in f64 and rounded once to the input's type: exact for f32, since
+    53 >= 2 * 24 + 2."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p = a * b
     return p[..., 0] + p[..., 1] + p[..., 2]
@@ -29,7 +42,7 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def normalize(v: torch.Tensor, eps: float = 1.0e-20) -> torch.Tensor:
     """``v * (1 / sqrt(max(dot(v, v), eps)))`` over the last axis."""
-    return v * (1.0 / torch.sqrt(torch.clamp_min(dot(v, v), eps)))[..., None]
+    return v * (1.0 / sqrt(torch.clamp_min(dot(v, v), eps)))[..., None]
 
 
 def luminance(color: torch.Tensor) -> torch.Tensor:
@@ -39,7 +52,7 @@ def luminance(color: torch.Tensor) -> torch.Tensor:
 
 def length(v: torch.Tensor) -> torch.Tensor:
     """Euclidean length over the last axis."""
-    return torch.sqrt(torch.clamp_min(dot(v, v), 0.0))
+    return sqrt(torch.clamp_min(dot(v, v), 0.0))
 
 
 def concentric_sample_disk(u1: torch.Tensor, u2: torch.Tensor):
@@ -103,7 +116,7 @@ def vwhere(m: torch.Tensor, a, b) -> tuple:
 
 
 def vnormalize(v, eps: float = 1.0e-20) -> tuple:
-    return vscale(v, 1.0 / torch.sqrt(torch.clamp_min(vdot(v, v), eps)))
+    return vscale(v, 1.0 / sqrt(torch.clamp_min(vdot(v, v), eps)))
 
 
 def vluminance(c) -> torch.Tensor:
@@ -119,7 +132,7 @@ def vrefract(i, n, eta) -> tuple:
     """Refracted direction, zero on total internal reflection."""
     cos_i = -vdot(i, n)
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
-    coef = eta * cos_i - torch.sqrt(torch.clamp_min(k, 0.0))
+    coef = eta * cos_i - sqrt(torch.clamp_min(k, 0.0))
     refr = (eta * i[0] + coef * n[0], eta * i[1] + coef * n[1],
             eta * i[2] + coef * n[2])
     zero = torch.zeros_like(k)
