@@ -102,7 +102,7 @@ Phases, each printing one or more lines:
     port's ``read_png`` and held equal to ``Renderer.image()``, with the
     write's seconds; (b) ``cli.main(["render", "builtin:<name>", ...])`` in
     process for each of the nine builtins at the cli's defaults (512x512,
-    passes of 4 spp, 5 bounces, ACES) but 16 spp, each pass timed by a
+    passes of 4 spp, 5 bounces, ACES) but 8 spp, each pass timed by a
     local hook around ``Renderer.step``, K1 launched once a super-iteration on
     every scene and K2 on ``brdf`` and ``sponza_like`` only, the PNG read
     back equal to ``Renderer.image()``; (c) the benchmark grid at 1920x1080
@@ -214,7 +214,27 @@ Phases, each printing one or more lines:
     scene build, also with the library disabled, loads it from the numpy
     builder's own cache key, which the native key does not name), one fused
     pass on it through K1 and K2, and K1 on a captured state against its
-    twin (``check_run``).
+    twin (``check_run``);
+19. the reference's other traversal backends, plain PyTorch, no kernel:
+    (a) the main path's grid built natively for ``mbvh``,
+    ``skip``, ``wide`` (1 and 8 octant orders) and ``wide2``, each
+    build's seconds and table bytes on the card, and the first 5,040
+    triangles built natively and in numpy (``native.disabled()``) held to
+    the same hits on 65,536 aimed rays (the builders order some leaves'
+    triangles otherwise, so the bytes differ); (b) the 480x270 primary
+    rays through each backend's ``closest_hit`` against K1's hits on the
+    wide16 table (the share with the same triangle record, or miss, and
+    t), each call's seconds, host reads and, from ``torch.profiler`` on
+    a second call, its kernels; (c) one megakernel pass (1 spp) on
+    ``mbvh``, ``skip``, ``wide`` and ``wide2`` and one fused pass (4 spp,
+    the main path's settings, the general transition) on ``wide`` and
+    ``wide2``, at 480x270, each held to K1's wide16 film of the same
+    configuration by 18e's bounds, with s/pass, traversals and host reads
+    a pass, and peak memory; (d) ``cli render builtin:tlas`` at its
+    512x512 default, one pass of 4 spp, on ``wide`` and ``wide2``, held
+    to the port's two-level wide16 (K1's instanced kernel) film (PNGs
+    in phase 16's output directory's sibling ``phase19``).  K1's and
+    K2's launches in 19's comparison runs stand as ``backends_check``.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -253,8 +273,9 @@ several sizes reports its last row.  ``arrival16_run``'s ``launches``
 sums its launches on the render paths that use it whole (phase 4's
 fused pass, 15a's megakernel, 15b's wavefront), given one by one in
 ``launches_by_path``, with phase 16's ``reproject``, ``preview``,
-``viewer`` and ``animate`` and phase 17's ``multigpu`` (both ranks'
-launches) (``arrival16_inst_run`` and ``transition16`` likewise add the
+``viewer`` and ``animate``, phase 17's ``multigpu`` (both ranks'
+launches), phase 18's paths and phase 19's ``backends_check``
+(``arrival16_inst_run`` and ``transition16`` likewise add the
 viewer's and animate's launches, and ``transition16`` phase 17's);
 ``megakernel_launch`` gives its time, bound and error on 15a's first
 launch (B = 2,073,600), ``primary_depth_launch`` and ``preview_launch``
@@ -286,9 +307,9 @@ FLOAT_TOL = dict(rtol=1e-5, atol=1e-6)
 TILE = 32        # film tile statistic of phases 7, 11 and 12
 K2_AT = (4, 150, 151)   # super-iterations whose transition state phase 3 captures
 # Phase 14b's cli render: the cli's defaults (512x512, passes of 4 spp, ACES)
-# but 16 spp, not 64: four passes a builtin keep the smoke within half its
-# time limit since phase 15 joined it.
-CLI_ARGS = ("--spp", "16")
+# but 8 spp, not 64: two passes a builtin (four until phase 19 joined the
+# smoke) keep it within its time limit.
+CLI_ARGS = ("--spp", "8")
 RANKS = 2           # phase 17's rank processes, sharing the one card over gloo
 RANK_LIMIT_S = 420  # phase 17 fails if a rank has not ended by then
 
@@ -1333,7 +1354,7 @@ def main() -> int:
         f"back equal to Renderer.image(), PNG mean {back.mean():.3f}; card: {card}")
     del main_film, shown, back
 
-    # 14b: cli render of every builtin at the cli's defaults but 16 spp, each pass
+    # 14b: cli render of every builtin at the cli's defaults but 8 spp, each pass
     # timed by a local hook around Renderer.step.
     passes = []
     step = api.Renderer.step
@@ -2385,13 +2406,249 @@ def main() -> int:
              "numpy_build", k2=True)
     (ncap,), _ = capture_inputs(nsd, ncfg, npr, k1_calls=(4,))
     check_run("arrival16_run", ncap, "phase 18f (numpy tables)", record_it=False)
-    del nsd, nscene, ncap, sd, flat_img
+    del nsd, nscene, ncap, flat_img
     for k, by_path in p18.items():
         for path, n in by_path.items():
             kernels[k]["launches_by_path"][path] = n
             kernels[k]["launches"] += n
     log(f"phase 18: {time.perf_counter() - t18:.1f} s; K1/K2 launches by path {p18}; numpy BVH "
         f"builds {w16.CACHE_STATS['numpy']}; card: {card}")
+
+    # ---- 19. the reference's other traversal backends (plain PyTorch, no
+    # kernel): mbvh, skip, wide (1 and 8 octant orders) and wide2, held to
+    # K1's wide16 on the same rays and configurations ----
+    from unity_webgpu_pathtracer_torch import accel
+    from unity_webgpu_pathtracer_torch.ops import get_intersectors
+    from unity_webgpu_pathtracer_torch.ops import traverse_mbvh, traverse_skip, traverse_wide
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide2
+    from unity_webgpu_pathtracer_torch.scene.mesh import Mesh
+    from unity_webgpu_pathtracer_torch.scene.scene import Scene
+
+    t19 = time.perf_counter()
+    p19 = {"arrival16_run": {}, "arrival16_inst_run": {}, "transition16": {}}
+    backends = (("mbvh", 1), ("skip", 1), ("wide", 1), ("wide", 8), ("wide2", 1))
+    stats19 = {"mbvh": traverse_mbvh.TRAVERSE_STATS, "skip": traverse_skip.TRAVERSE_STATS,
+               "wide": traverse_wide.TRAVERSE_STATS, "wide2": traverse_wide2.TRAVERSE_STATS}
+    fields19 = {"mbvh": ("bvh_bounds", "bvh_child", "tris"), "skip": ("skip_nodes", "tris"),
+                "wide": ("wide_nodes",),
+                "wide2": ("wide2_inner", "wide2_leaf", "wide2_leaf_skip")}
+
+    def pass19(label, fn, want, path):
+        """``fn`` with the counts at 0 and the peak memory reset: exactly the
+        kernels of ``want(result, counts)`` launched; returns ``(result,
+        seconds, counts, peak GiB)``."""
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        want = want(out, got)
+        expect_only(got, want, label)
+        for k, v in want.items():
+            p19[k][path] = p19[k].get(path, 0) + v
+        return out, dt, got, torch.cuda.max_memory_allocated() / 2**30
+
+    def key19(trav, octants):
+        return trav if octants == 1 else f"{trav}/o{octants}"
+
+    # 19a: the native builds of the main path's scene, and the numpy
+    # builder's tables on a BLAS-sized subset (the instanced grid's sphere).
+    sds = {}
+    n_tris = scene.flatten().count
+    for trav, octants in backends:
+        t0 = time.perf_counter()
+        sds[key19(trav, octants)] = scene.build(trav, device=dev, octants=octants)
+        build_s = time.perf_counter() - t0
+        sd_b = sds[key19(trav, octants)]
+        nbytes = sum(getattr(sd_b, f).numel() * getattr(sd_b, f).element_size()
+                     for f in fields19[trav])
+        log(f"phase 19a {key19(trav, octants)} build ({n_tris} triangles, "
+            f"native): {build_s:.2f} s, tables {nbytes / 2**20:.1f} MiB on the card "
+            f"({', '.join(f'{f} {tuple(getattr(sd_b, f).shape)}' for f in fields19[trav])})")
+    # The native and numpy builders make the same trees but order some
+    # leaves' triangles and children otherwise (so do the reference's): the
+    # subset's tables are held to the same hits, on rays aimed at it.
+    sub = scene.flatten()
+    sub_pos = sub.positions[:5040]
+    sub_scene = Scene()
+    sub_scene.add_mesh(Mesh(vertices=sub_pos.reshape(-1, 3),
+                            indices=np.arange(3 * sub_pos.shape[0]).reshape(-1, 3)))
+    rng_np = np.random.default_rng(19)
+    cent = sub_pos.mean(axis=1)
+    o_sub = (cent.mean(0) + rng_np.normal(0, 1, (1 << 16, 3)) * np.ptp(cent, 0)).astype(np.float32)
+    d_sub = (cent[rng_np.integers(0, cent.shape[0], 1 << 16)] - o_sub).astype(np.float32)
+    o_sub, d_sub = torch.from_numpy(o_sub).to(dev), torch.from_numpy(d_sub).to(dev)
+    t0 = time.perf_counter()
+    for trav, octants in backends:
+        k = key19(trav, octants)
+        closest, _occ = get_intersectors(dataclasses.replace(mk1, traversal=trav))
+        built = {}
+        for native_on in (True, False):
+            with (contextlib.nullcontext() if native_on else native.disabled()):
+                built[native_on] = sub_scene.build(trav, device=dev, octants=octants)
+        same_bytes = all(torch.equal(getattr(built[True], f), getattr(built[False], f))
+                         for f in fields19[trav])
+        (ta, _ba, sa, _ia), (tb_, _bb, sb, _ib) = (closest(built[x], o_sub, d_sub)
+                                                   for x in (True, False))
+        ra = built[True].tris[sa.clamp_min(0).long()]
+        rb = built[False].tris[sb.clamp_min(0).long()]
+        same = ((sa >= 0) == (sb >= 0)) & ((sa < 0) | (ra == rb).all(-1))
+        share = float(same.float().mean())
+        if share < 0.999:
+            raise AssertionError(f"phase 19a: {k} native and numpy tables of the 5,040-triangle "
+                                 f"subset agree on {share:.6f} of the rays")
+        log(f"phase 19a {k}: the native and numpy tables of the first 5,040 triangles "
+            f"{'byte for byte equal' if same_bytes else 'differ in bytes'}; {share:.6f} of "
+            f"{o_sub.shape[0]} aimed rays ({int((sa >= 0).sum())} hits) with the same hit, t "
+            f"bitwise equal on {float((ta == tb_)[same & (sa >= 0)].float().mean()):.6f} of "
+            f"those")
+    log(f"phase 19a subset checks: {time.perf_counter() - t0:.1f} s")
+
+    # 19b: one camera's primary rays at 480x270 through each backend's
+    # closest_hit, against K1's hits on the wide16 table.
+    w19, h19 = 480, 270
+    mk19 = dataclasses.replace(mk1, width=w19, height=h19)
+    ps19 = make_camera_params(width=w19, height=h19, device=dev, **cam)
+    pix = torch.arange(w19 * h19, device=dev, dtype=torch.int64)
+    rng0 = urng.seed(pix, torch.zeros_like(pix), ps19.seed_root)
+    coords, rng0 = ucamera.jittered_pixel_coords(pix, mk19, rng0)
+    o19, d19, _ = ucamera.get_screen_ray(coords, mk19, ps19, rng0)
+    (hit16, dt16, got16, _pk) = pass19(
+        "phase 19b K1 primary rays", lambda: tw16.closest_hit(sd.wide16_nodes, o19, d19,
+                                                              sd.stack_depth),
+        lambda o_, g: {"arrival16_run": g["arrival16_run"]}, "backends_check")
+    t16, _b16, tri16, _i16 = hit16
+    h16 = tri16 >= 0
+    rec16 = sd.tris[tri16.clamp_min(0).long()]
+    log(f"phase 19b K1 on the 480x270 primary rays: {dt16:.3f} s, {int(h16.sum())} hits, "
+        f"{got16['arrival16_run']} launches")
+    hits19 = {}
+    for trav, octants in backends:
+        k = key19(trav, octants)
+        closest, _occ = get_intersectors(dataclasses.replace(mk19, traversal=trav))
+        st = stats19[trav]
+        reads0 = st["host_reads"]
+        (hit_b, dt_b, _got, peak_b) = pass19(f"phase 19b {k} primary rays",
+                                             lambda closest=closest, k=k: closest(sds[k], o19, d19),
+                                             lambda o_, g: {}, "backends")
+        reads = st["host_reads"] - reads0
+        prof = k2_span._profile(lambda closest=closest, k=k: closest(sds[k], o19, d19))
+        tb, _bb, tri_b, _ib = hit_b
+        hb = tri_b >= 0
+        same_rec = (sds[k].tris[tri_b.clamp_min(0).long()] == rec16).all(-1)
+        same = (hb == h16) & (~hb | same_rec)
+        both = hb & h16 & same_rec
+        t_rel = ((tb - t16).abs() / t16.clamp_min(1e-3))[both]
+        share = float(same.float().mean())
+        hits19[k] = share
+        if share < 0.99:
+            raise AssertionError(f"phase 19b: {k} and K1 agree on {share:.6f} of primary rays")
+        log(f"phase 19b {k} closest_hit on the 480x270 primary rays: {dt_b:.3f} s, {reads} "
+            f"host reads (one every {tw16.CHECK_EVERY} loop rounds), {prof['kernels']} kernels "
+            f"and {prof['memcpy_memset']} copies/sets a call (torch.profiler, a second call), "
+            f"peak {peak_b:.3f} GiB; {share:.6f} of {w19 * h19} rays with the same hit "
+            f"(triangle record, or miss) as K1, t rel diff on the same hits max "
+            f"{float(t_rel.max()):.3e}, median {float(t_rel.median()):.3e}, bitwise share "
+            f"{float((tb == t16)[both].float().mean()):.6f}")
+    del hit16, t16, tri16, rec16, o19, d19
+
+    # 19c: one megakernel pass (1 spp) on each backend and one fused pass
+    # (4 spp, the main path's settings) on wide and wide2, at 480x270, held
+    # to K1's wide16 film of the same configuration by the 18e bounds (at 1
+    # spp the fused film means differ by up to 1.9%: the general
+    # transition's draws follow the traversal's timing).
+    (film_k1, dt_k1, got_k1, peak_k1) = pass19(
+        "phase 19c megakernel wide16", lambda: integrator.render_pass(sd, mk19, ps19, 0),
+        lambda o_, g: {"arrival16_run": g["arrival16_run"]}, "backends_check")
+    img_k1 = film_k1.reshape(h19, w19, 3)
+    check_film(img_k1, (h19, w19, 3), "phase 19c megakernel wide16")
+    log(f"phase 19c megakernel wide16 (K1, 480x270, 1 spp): {dt_k1:.3f} s/pass, "
+        f"{got_k1['arrival16_run']} K1 launches, peak {peak_k1:.3f} GiB")
+    passes19 = {}
+    for trav, octants in (("mbvh", 1), ("skip", 1), ("wide", 1), ("wide2", 1)):
+        k = key19(trav, octants)
+        st = stats19[trav]
+        calls0, reads0 = st["calls"], st["host_reads"]
+        (film_b, dt_b, _got, peak_b) = pass19(
+            f"phase 19c megakernel {k}",
+            lambda trav=trav, k=k: integrator.render_pass(
+                sds[k], dataclasses.replace(mk19, traversal=trav), ps19, 0),
+            lambda o_, g: {}, "backends")
+        img_b = film_b.reshape(h19, w19, 3)
+        check_film(img_b, (h19, w19, 3), f"phase 19c megakernel {k}")
+        rel = abs(float(img_b.mean()) / float(img_k1.mean()) - 1.0)
+        close = share_close(img_b, img_k1, 0.05, 0.02)
+        passes19[f"megakernel {k}"] = (dt_b, rel)
+        if rel > 0.02 or close < 0.95:
+            raise AssertionError(f"phase 19c: the megakernel on {k} against wide16: mean rel "
+                                 f"{rel:g}, {close:.4f} of pixels within rtol 0.05 / atol 0.02")
+        log(f"phase 19c megakernel {k} (480x270, 1 spp): {dt_b:.3f} s/pass, "
+            f"{st['calls'] - calls0} traversals, {st['host_reads'] - reads0} host reads, no "
+            f"counted kernel, peak {peak_b:.3f} GiB; film mean rel to wide16 {rel:.3e}, "
+            f"{close:.6f} of pixels within rtol 0.05 / atol 0.02")
+    small19 = dataclasses.replace(cfg, width=w19, height=h19)
+    (res16, dt_f16, got_f16, peak_f16) = pass19(
+        "phase 19c fused wide16", lambda: fused.fused_pass_with_stats(sd, small19, ps19, 0),
+        lambda o_, g: {"arrival16_run": o_[4], "transition16": o_[4]}, "backends_check")
+    img_f16 = res16[0].reshape(h19, w19, 3) / small19.samples_per_pass
+    check_film(img_f16, (h19, w19, 3), "phase 19c fused wide16")
+    log(f"phase 19c fused wide16 (K1 + K2, 480x270, 4 spp): {dt_f16:.3f} s/pass, "
+        f"{res16[4]} super-iterations, launches {got_f16}, peak {peak_f16:.3f} GiB")
+    for trav in ("wide", "wide2"):
+        st = stats19[trav]
+        (out_b, dt_b, _got, peak_b) = pass19(
+            f"phase 19c fused {trav}",
+            lambda trav=trav: fused.fused_pass_with_stats(
+                sds[trav], dataclasses.replace(small19, traversal=trav), ps19, 0),
+            lambda o_, g: {}, "backends")
+        img_b = out_b[0].reshape(h19, w19, 3) / small19.samples_per_pass
+        check_film(img_b, (h19, w19, 3), f"phase 19c fused {trav}")
+        rel = abs(float(img_b.mean()) / float(img_f16.mean()) - 1.0)
+        passes19[f"fused {trav}"] = (dt_b, rel)
+        if rel > 0.02:
+            raise AssertionError(f"phase 19c: fused {trav} film mean off wide16's by {rel:g}")
+        log(f"phase 19c fused {trav} (general transition, 480x270, 4 spp): {dt_b:.3f} s/pass, "
+            f"{out_b[4]} super-iterations, rays {int(out_b[2])} (wide16 {int(res16[2])}), "
+            f"arrivals {int(out_b[3])}, no counted kernel, peak {peak_b:.3f} GiB; film mean "
+            f"rel to wide16 {rel:.3e}")
+    del sds, film_k1, img_k1, res16, img_f16
+
+    # 19d: builtin:tlas through the cli at its 512x512 default (one pass of
+    # 4 spp) on wide and wide2, held to the port's two-level wide16 (K1).
+    tlas_imgs = {}
+    out19 = os.path.join(os.path.dirname(out16), "phase19")
+    os.makedirs(out19, exist_ok=True)
+    for trav in ("wide16", "wide", "wide2"):
+        out_png = os.path.join(out19, f"tlas-{trav}.png")
+        (r19, dt_b, got_b, peak_b) = pass19(
+            f"phase 19d cli render builtin:tlas {trav}",
+            lambda trav=trav, out_png=out_png: cli.main(
+                ["render", "builtin:tlas", "--traversal", trav, "--spp", "4", "--out", out_png]),
+            lambda o_, g, trav=trav: ({"arrival16_inst_run": g["arrival16_inst_run"]}
+                                      if trav == "wide16" else {}),
+            "backends_check" if trav == "wide16" else "backends")
+        tlas_imgs[trav] = r19.film.accum
+        check_film(tlas_imgs[trav], (512, 512, 3), f"phase 19d {trav}")
+        log(f"phase 19d cli render builtin:tlas --traversal {trav} (512x512, 4 spp, fused): "
+            f"{dt_b:.3f} s in all with the build, stats {r19.stats()}, launches {got_b}, peak "
+            f"{peak_b:.3f} GiB")
+    for trav in ("wide", "wide2"):
+        rel = abs(float(tlas_imgs[trav].mean()) / float(tlas_imgs["wide16"].mean()) - 1.0)
+        if rel > 0.02:
+            raise AssertionError(f"phase 19d: builtin:tlas on {trav} off wide16's film mean by "
+                                 f"{rel:g}")
+        log(f"phase 19d builtin:tlas on {trav}: film mean rel to the two-level wide16 "
+            f"{rel:.3e}")
+    del tlas_imgs, sd
+    for k, by_path in p19.items():
+        for path, n in by_path.items():
+            kernels[k]["launches_by_path"][path] = n
+            kernels[k]["launches"] += n
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s; K1/K2 launches by path {p19}; hits "
+        f"agreeing with K1 {hits19}; card: {card}")
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",

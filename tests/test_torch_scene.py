@@ -88,11 +88,14 @@ def test_cache_key_names_the_committed_table():
 @pytest.mark.parametrize("knob", [
     # attr_compact=3 stores no uv: refused with textures or normal maps, as
     # the reference does.
-    dict(traversal="wide2"), dict(integrator="megakernel", traversal="skip"),
+    # The fused integrator has no route for mbvh/bvh2/skip/bruteforce (the
+    # reference's never ends on them); every integrator refuses unknown
+    # backends and octant counts other than 1 and 8.
+    dict(traversal="skip"), dict(integrator="megakernel", traversal="wide4"),
     dict(attr_compact=3, has_textures=True),
     dict(sky_mode=3), dict(attr_compact=4), dict(attr_compact=3, has_normal_maps=True),
-    dict(integrator="fused", traversal="bruteforce"), dict(traversal="wide"),
-    dict(traversal="bvh2"), dict(integrator="wavefront", traversal="mbvh"),
+    dict(integrator="fused", traversal="bruteforce"), dict(traversal="mbvh"),
+    dict(traversal="bvh2"), dict(integrator="wavefront", bvh_octants=4),
     dict(integrator="pallas"),
     dict(transition_every=0), dict(film_k_shift=-1), dict(use_lane_film=True),
 ])
@@ -131,7 +134,10 @@ def test_port_imports_no_jax():
         "new = ('render.integrator', 'render.wavefront', 'render.hitinfo', 'render.lights',\n"
         "       'scene.obj', 'scene.gltf', 'ops', 'render.reproject', 'render.preview',\n"
         "       'viewer', 'parallel.film_tiling', 'utils.profiling', 'experiments.multigpu',\n"
-        "       'accel.wide8', 'accel.cwbvh', 'accel.mbvh', 'ops.traverse_wide8')\n"
+        "       'accel.wide8', 'accel.cwbvh', 'accel.mbvh', 'ops.traverse_wide8',\n"
+        "       'accel.linearize', 'accel.wide', 'accel.wide2', 'accel.tlas',\n"
+        "       'ops.traverse_mbvh', 'ops.traverse_skip', 'ops.traverse_wide',\n"
+        "       'ops.traverse_wide2')\n"
         "assert all(p.__name__ + '.' + m in mods for m in new), mods\n"
         "assert 'jax' not in sys.modules\n"
         "print(len(mods))\n")

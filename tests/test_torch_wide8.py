@@ -278,4 +278,4 @@ def test_wide8_config_and_cli():
     from unity_webgpu_pathtracer_torch import cli
 
     with pytest.raises(SystemExit):
-        cli.main(["render", "builtin:cornell", "--traversal", "wide2"])
+        cli.main(["render", "builtin:cornell", "--traversal", "wide32"])

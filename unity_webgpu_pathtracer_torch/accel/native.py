@@ -1,13 +1,17 @@
 """ctypes binding to the repository's C++ BVH builder (``native/``).
 
-Three entries are bound: ``build_wide16_ex`` (96-float rows, 16-triangle
+Six entries are bound: ``build_wide16_ex`` (96-float rows, 16-triangle
 leaves) and ``build_wide16l8_ex`` (48-float leaf8 rows, 8-triangle
-leaves), with the same arguments, and ``build_wide8`` (the 48-float wide8
-rows).  The library is built with ``make -C native`` when it is missing.
-When it cannot be built or loaded, the builders here return None and the
-callers build in numpy (``accel/wide16.py::build_wide16``,
-``accel/wide8.py::build_wide8``), as the reference's binding does; no
-device path depends on it.  ``disabled()`` makes the library count as
+leaves), with the same arguments, ``build_wide8`` (the 48-float wide8
+rows), and the reference's first three formats, with its argument lists:
+``build_mbvh8`` (the 8-wide MBVH of ``accel/mbvh.py``), ``build_skip_bvh``
+(the skip rows of ``accel/linearize.py``) and ``build_wide_bvh`` (the
+fat rows of ``accel/wide.py``).  The library is built with ``make -C
+native`` when it is missing.  When it cannot be built or loaded, the
+builders here return None and the callers build in numpy
+(``accel/wide16.py::build_wide16``, ``accel/wide8.py::build_wide8``,
+``accel/__init__.py``), as the reference's binding does; no device path
+depends on it.  ``disabled()`` makes the library count as
 missing for a block (the fallback's test and its chip phase).
 """
 
@@ -88,6 +92,25 @@ def _load() -> ctypes.CDLL | None:
         ctypes.POINTER(ctypes.c_int),               # out depth
         ctypes.c_void_p,                            # out order (tris)
     ]
+    lib.build_mbvh8.restype = ctypes.c_int
+    lib.build_mbvh8.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # positions, tris, leaf size
+        ctypes.c_void_p, ctypes.c_void_p,           # out bounds (cap, 48), child (cap, 8)
+        ctypes.c_void_p, ctypes.c_int,              # out order (tris), node capacity
+    ]
+    lib.build_skip_bvh.restype = ctypes.c_int
+    lib.build_skip_bvh.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # positions, tris, leaf size
+        ctypes.c_void_p, ctypes.c_void_p,           # out nodes (8, cap, 8), order (tris)
+        ctypes.c_int,                               # per-octant node capacity
+    ]
+    lib.build_wide_bvh.restype = ctypes.c_int
+    lib.build_wide_bvh.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # positions, tris, leaf size
+        ctypes.c_void_p,                            # tri records, original order
+        ctypes.c_void_p, ctypes.c_int,              # out nodes (octants, cap, 48), capacity
+        ctypes.c_int,                               # octants (1 or 8)
+    ]
     _LIB = lib
     return lib
 
@@ -154,3 +177,59 @@ def native_wide8_or_none(positions: np.ndarray, tri_records: np.ndarray,
     if n <= 0:
         return None
     return np.ascontiguousarray(rows[:n]), int(depth.value), order
+
+
+def native_build_or_none(positions: np.ndarray, leaf_size: int = 4):
+    """Native 8-wide MBVH: ``(bounds (N, 48) f32, child (N, 8) i32, order
+    (F,) i32)``, or None when the library is unavailable or the build
+    fails."""
+    lib = _load()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(np.asarray(positions, np.float32).reshape(-1, 9))
+    f = pos.shape[0]
+    cap = max(2 * f, 16)
+    bounds = np.empty((cap, 48), np.float32)
+    child = np.empty((cap, 8), np.int32)
+    order = np.empty((f,), np.int32)
+    n = lib.build_mbvh8(pos.ctypes.data, f, leaf_size, bounds.ctypes.data, child.ctypes.data,
+                        order.ctypes.data, cap)
+    if n <= 0:
+        return None
+    return bounds[:n].copy(), child[:n].copy(), order
+
+
+def native_linearize_or_none(positions: np.ndarray, leaf_size: int = 4):
+    """Native skip rows: ``(nodes (8, N, 8) f32, order (F,) i32)``, or None
+    when the library is unavailable or the build fails."""
+    lib = _load()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(np.asarray(positions, np.float32).reshape(-1, 9))
+    f = pos.shape[0]
+    cap = max(2 * f + 8, 16)
+    nodes = np.empty((8, cap, 8), np.float32)
+    order = np.empty((f,), np.int32)
+    n = lib.build_skip_bvh(pos.ctypes.data, f, leaf_size, nodes.ctypes.data,
+                           order.ctypes.data, cap)
+    if n <= 0:
+        return None
+    return np.ascontiguousarray(nodes[:, :n]), order
+
+
+def native_wide_or_none(positions: np.ndarray, tri_records: np.ndarray,
+                        leaf_size: int = 4, octants: int = 1):
+    """Native fat rows: ``(octants, N, 48)`` f32, or None when the library
+    is unavailable or the build fails."""
+    lib = _load()
+    if lib is None:
+        return None
+    pos, recs = _soup(positions, tri_records)
+    f = pos.shape[0]
+    cap = max(f + f // 2 + 8, 16)
+    nodes = np.empty((octants, cap, 48), np.float32)
+    n = lib.build_wide_bvh(pos.ctypes.data, f, leaf_size, recs.ctypes.data,
+                           nodes.ctypes.data, cap, octants)
+    if n <= 0:
+        return None
+    return np.ascontiguousarray(nodes[:, :n])

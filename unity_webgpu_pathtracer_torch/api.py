@@ -55,7 +55,8 @@ class Renderer:
         self.device = resolve_device(device)
         self._host_scene = scene if isinstance(scene, Scene) else None
         if isinstance(scene, Scene):
-            scene = scene.build(config.traversal, device=self.device)
+            scene = scene.build(config.traversal, device=self.device,
+                                octants=config.bvh_octants)
         if not isinstance(scene, SceneData):
             raise TypeError("scene must be a Scene or SceneData")
         if scene.materials.device != self.device:
@@ -79,14 +80,20 @@ class Renderer:
         return self._host_scene
 
     def update_instance_transform(self, instance_id: int, transform) -> None:
-        """Move an instance: only the TLAS rows of the node table and the
-        instance transforms are re-emitted and copied to the device, the
-        rows in place (cost independent of the BLAS sizes, as the
-        reference's per-frame TLAS upload, ``BVHScene.cs:823-838``);
-        accumulation restarts."""
+        """Move an instance; accumulation restarts.  On wide16 and wide8 only
+        the TLAS rows of the node table and the instance transforms are
+        re-emitted and copied to the device, the rows in place (cost
+        independent of the BLAS sizes, as the reference's per-frame TLAS
+        upload, ``BVHScene.cs:823-838``); on the other backends the scene
+        is built again (wide and wide2 reuse the cached BLASes), as the
+        reference does."""
         host = self._require_host_scene()
         host.set_instance_transform(instance_id, transform)
-        fmt = "wide8" if self.config.traversal == "wide8" else "wide16"
+        fmt = self.config.traversal
+        if fmt not in ("wide8", "wide16"):
+            self.scene = host.build(fmt, device=self.device, octants=self.config.bvh_octants)
+            self.reset()
+            return
         rows, l2w, w2l = rebuild_tlas_rows(host, fmt)
         getattr(self.scene, f"{fmt}_nodes")[: rows.shape[0]].copy_(torch.from_numpy(rows))
         self.scene = self.scene._replace(

@@ -41,6 +41,11 @@ ALPHA_MODE_OPAQUE = 0
 ALPHA_MODE_BLEND = 1
 ALPHA_MODE_MASK = 2
 
+# Traversal backends: every one runs under the megakernel and wavefront
+# integrators, the fat-row and quantized ones under the fused integrator.
+TRAVERSALS = ("bruteforce", "bvh2", "mbvh", "skip", "wide", "wide2", "wide8", "wide16")
+FUSED_TRAVERSALS = ("wide", "wide2", "wide8", "wide16")
+
 # Light types (common.hlsl:137-145)
 LIGHT_TYPE_SPOT = 0
 LIGHT_TYPE_DIRECTIONAL = 1
@@ -56,10 +61,19 @@ class RenderConfig:
     ``"megakernel"`` (``render/integrator.py``: every lane of a sample
     steps through the bounces together) or ``"wavefront"``
     (``render/wavefront.py``: a pool of ``pool_size`` lanes refilled from
-    the pass's work queue; 0 = ``min(pixels, 65536)``).  Each runs on
-    ``traversal`` ``"wide16"`` (kernel K1) or ``"wide8"`` (the reference's
-    cross-check backend, plain PyTorch); the last two also on the
-    brute-force oracle ``"bruteforce"``.
+    the pass's work queue; 0 = ``min(pixels, 65536)``).  ``traversal``
+    names the backend (``FUSED_TRAVERSALS`` for the fused integrator,
+    every one of ``TRAVERSALS`` for the other two): ``"wide16"`` runs
+    kernel K1; the reference's other backends run in plain PyTorch:
+    ``"wide8"`` (its cross-check), ``"mbvh"`` and ``"bvh2"`` (one backend:
+    the 8-wide MBVH stack walk), ``"skip"`` (skip pointers), ``"wide"``
+    (fat rows) and ``"wide2"`` (split fat rows); ``"bruteforce"`` is the
+    oracle.  ``bvh_octants`` (1 or 8) is the number of DFS orders of the
+    wide and wide2 tables.  The default is the main path's ``"wide16"``;
+    the reference's is ``"mbvh"``.  The fused integrator refuses
+    ``"mbvh"``, ``"bvh2"``, ``"skip"`` and ``"bruteforce"``: the
+    reference's fused pass has no route for them (it walks an empty
+    fat-row table and never ends).
 
     ``sky_mode`` 0 is the environment (the HDRI when
     ``has_environment_texture``, else the constant ``environment_color``),
@@ -119,6 +133,7 @@ class RenderConfig:
     has_normal_maps: bool = False
     use_depth_of_field: bool = False
     traversal: str = "wide16"
+    bvh_octants: int = 1
     integrator: str = "fused"
     # Lanes resident in the pass; 0 = the integrator's own choice (fused:
     # min(pixels * spp, 96K), rounded up to a multiple of 1024; wavefront:
@@ -137,8 +152,8 @@ class RenderConfig:
     def __post_init__(self):
         unsupported = {
             "traversal": self.traversal not in (
-                ("wide16", "wide8") if self.integrator == "fused"
-                else ("wide16", "wide8", "bruteforce")),
+                FUSED_TRAVERSALS if self.integrator == "fused" else TRAVERSALS),
+            "bvh_octants": self.bvh_octants not in (1, 8),
             "integrator": self.integrator not in ("fused", "megakernel", "wavefront"),
             "attr_compact": self.attr_compact not in (0, 1, 2, 3),
             "sky_mode": self.sky_mode not in (SKY_MODE_ENVIRONMENT, SKY_MODE_BASIC,
@@ -149,10 +164,11 @@ class RenderConfig:
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise ValueError(
-                "the PyTorch port implements integrator 'fused' on traversal 'wide16' or "
-                "'wide8' and 'megakernel' or 'wavefront' on 'wide16', 'wide8' or "
-                "'bruteforce' (attr_compact 0-3, sky modes 0-2, the record, sorted and "
-                f"legacy films, film_k_shift >= 0); unsupported settings: {bad}")
+                f"the PyTorch port implements integrator 'fused' on traversal "
+                f"{', '.join(FUSED_TRAVERSALS)} and 'megakernel' or 'wavefront' on "
+                f"{', '.join(TRAVERSALS)} (bvh_octants 1 or 8, attr_compact 0-3, sky "
+                "modes 0-2, the record, sorted and legacy films, film_k_shift >= 0); "
+                f"unsupported settings: {bad}")
         if self.attr_compact == 3 and (self.has_textures or self.has_normal_maps):
             raise ValueError("attr_compact=3 requires has_textures=False and "
                              "has_normal_maps=False (no uv in the oct-normal rows); "

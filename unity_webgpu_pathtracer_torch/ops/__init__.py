@@ -5,18 +5,24 @@ reference).
 returns ``(closest, occluded)`` with the reference's signatures::
 
     closest(scene, origins (B, 3), directions (B, 3), live=None)
-        -> (t, bary (B, 2), row (B,) int32, instance (B,) int32)
+        -> (t, bary (B, 2), slot (B,) int32, instance (B,) int32)
     occluded(scene, origins, directions, t_max (B,), live=None) -> bool (B,)
 
-``row`` indexes ``scene.tri_index`` (the identity on every table the port
-builds), -1 on a miss, where ``t`` is the far plane.  ``live`` (None: every
-lane) names the lanes whose result is read: the others may come back as
-misses.  ``wide16`` runs kernel K1 (``ops/cuda_arrival.py``) through
-``traverse_wide16.closest_hit``/``occluded`` on CUDA tensors and its
-plain twin on CPU tensors; ``wide8`` runs the reference's cross-check
-traversal in plain PyTorch (``traverse_wide8``, no kernel);
-``bruteforce`` tests every ray against every triangle
-(``ops/intersect.py``).
+``slot`` indexes ``scene.tri_index``, which maps it to the hit's attribute
+row, -1 on a miss, where ``t`` is the far plane.  On mbvh/bvh2 and skip
+the slot is a row of ``scene.tris`` in the leaves' order and ``tri_index``
+that permutation; on wide and wide2 it is the attribute row itself (the
+leaves inline it), on wide16, wide8 and the brute force the row of the
+tables in BVH (or scene) order, and ``tri_index`` is the identity on all
+of those.  ``live`` (None: every lane) names the lanes whose result is
+read: the others may come back as misses.  ``wide16`` runs kernel K1
+(``ops/cuda_arrival.py``) through ``traverse_wide16.closest_hit``/
+``occluded`` on CUDA tensors and its plain twin on CPU tensors; the
+reference's other backends run in plain PyTorch, no kernel: ``wide8``
+(``traverse_wide8``), ``mbvh`` and ``bvh2`` (``traverse_mbvh``), ``skip``
+(``traverse_skip``), ``wide`` (``traverse_wide``), ``wide2``
+(``traverse_wide2``); ``bruteforce`` tests every ray against every
+triangle (``ops/intersect.py``).
 """
 
 from __future__ import annotations
@@ -62,11 +68,72 @@ def _occluded_bruteforce(scene, origins, directions, t_max, live=None):
     return intersect.occluded_bruteforce(scene.tris, origins, directions, t_max)
 
 
+def _closest_mbvh(scene, origins, directions, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_mbvh
+
+    return traverse_mbvh.closest_hit(scene.bvh_bounds, scene.bvh_child, scene.tris, origins,
+                                     directions, live)
+
+
+def _occluded_mbvh(scene, origins, directions, t_max, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_mbvh
+
+    return traverse_mbvh.occluded(scene.bvh_bounds, scene.bvh_child, scene.tris, origins,
+                                  directions, t_max, live)
+
+
+def _closest_skip(scene, origins, directions, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_skip
+
+    return traverse_skip.closest_hit(scene.skip_nodes, scene.tris, origins, directions, live)
+
+
+def _occluded_skip(scene, origins, directions, t_max, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_skip
+
+    return traverse_skip.occluded(scene.skip_nodes, scene.tris, origins, directions, t_max,
+                                  live)
+
+
+def _closest_wide(scene, origins, directions, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide
+
+    return traverse_wide.closest_hit(scene.wide_nodes, scene.inst_w2l, origins, directions,
+                                     live)
+
+
+def _occluded_wide(scene, origins, directions, t_max, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide
+
+    return traverse_wide.occluded(scene.wide_nodes, scene.inst_w2l, origins, directions,
+                                  t_max, live)
+
+
+def _closest_wide2(scene, origins, directions, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide2
+
+    return traverse_wide2.closest_hit(scene, origins, directions, live)
+
+
+def _occluded_wide2(scene, origins, directions, t_max, live=None):
+    from unity_webgpu_pathtracer_torch.ops import traverse_wide2
+
+    return traverse_wide2.occluded(scene, origins, directions, t_max, live)
+
+
+_BACKENDS = {
+    "bruteforce": (_closest_bruteforce, _occluded_bruteforce),
+    "bvh2": (_closest_mbvh, _occluded_mbvh),
+    "mbvh": (_closest_mbvh, _occluded_mbvh),
+    "skip": (_closest_skip, _occluded_skip),
+    "wide": (_closest_wide, _occluded_wide),
+    "wide2": (_closest_wide2, _occluded_wide2),
+    "wide8": (_closest_wide8, _occluded_wide8),
+    "wide16": (_closest_wide16, _occluded_wide16),
+}
+
+
 def get_intersectors(config):
-    if config.traversal == "wide16":
-        return _closest_wide16, _occluded_wide16
-    if config.traversal == "wide8":
-        return _closest_wide8, _occluded_wide8
-    if config.traversal == "bruteforce":
-        return _closest_bruteforce, _occluded_bruteforce
-    raise ValueError(f"the PyTorch port has no traversal backend {config.traversal!r}")
+    if config.traversal not in _BACKENDS:
+        raise ValueError(f"unknown traversal backend {config.traversal!r}")
+    return _BACKENDS[config.traversal]

@@ -1,12 +1,16 @@
 """Fused wavefront integrator (``render/fused.py`` of the reference).
 
 One pass is a loop of super-iterations over a pool of B lanes.  Each
-super-iteration runs ``transition_every`` arrivals (on wide16 tables
-kernel K1, ``ops/cuda_arrival.py``, one launch that updates the traversal
-state in place, its instanced variant on two-level tables; on wide8 tables
-the reference's cross-check traversal in plain PyTorch), one transition,
-and on wide16 the gather-free prestep on fresh lanes, in the reference's
-order: the RNG stream depends on it.
+super-iteration runs ``transition_every`` arrivals, one transition, and on
+wide16 the gather-free prestep on fresh lanes, in the reference's order:
+the RNG stream depends on it.  The arrivals take the route of
+``config.traversal``, as the reference's do: on wide16 tables kernel K1
+(``ops/cuda_arrival.py``, one launch that updates the traversal state in
+place, its instanced variant on two-level tables); on the reference's
+other tables its traversals in plain PyTorch: wide8 (its cross-check),
+wide (fat rows, ``ops/traverse_wide.py::arrival_step``) and wide2 (split
+fat rows: ``transition_every`` node steps and one leaf step,
+``ops/traverse_wide2.py``), flat or two-level.
 
 The transition is routed per pass as the reference routes it
 (``_pallas_transition_supported``): the HDRI configuration on a flat
@@ -17,8 +21,8 @@ in place (``_transition_kernel_path``), on wide16 tables with the f16 or
 oct rows (``attr_compact`` 2 or 3) and the record film; every other
 configuration the port admits (the constant environment, the basic sky,
 no sky, instanced scenes, analytic lights, textures and normal maps, the
-f32 rows of mode 0 and the f16 rows of mode 1, wide8 tables, the sorted
-and legacy films, scenes past 65,536 materials) runs the general
+f32 rows of mode 0 and the f16 rows of mode 1, wide8, wide and wide2
+tables, the sorted and legacy films, scenes past 65,536 materials) runs the general
 transition (``_transition``), plain PyTorch like the reference's XLA one.
 Both end in the same film append and work-queue regeneration (with the
 thin lens's sample when ``use_depth_of_field``).  ``attr_in_kernel``
@@ -53,6 +57,7 @@ import torch
 from unity_webgpu_pathtracer_torch.config import (
     ALPHA_MODE_BLEND,
     ALPHA_MODE_MASK,
+    FUSED_TRAVERSALS,
     LIGHT_TYPE_POINT,
     LIGHT_TYPE_RECTANGLE,
     LIGHT_TYPE_SPOT,
@@ -60,6 +65,8 @@ from unity_webgpu_pathtracer_torch.config import (
     RenderConfig,
     RenderParams,
 )
+from unity_webgpu_pathtracer_torch.ops import traverse_wide as tw
+from unity_webgpu_pathtracer_torch.ops import traverse_wide2 as tw2
 from unity_webgpu_pathtracer_torch.ops import traverse_wide8 as tw8
 from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw16
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
@@ -109,7 +116,8 @@ _UNWRITTEN_KEY = 1 << 30
 @dataclasses.dataclass
 class FusedState:
     mode: torch.Tensor            # (B,) int32
-    trav: tw16.Wide16State | tw8.Wide8State   # active traversal registers
+    # Active traversal registers, the state of the pass's route.
+    trav: tw16.Wide16State | tw8.Wide8State | tw.WideState | tw2.Wide2State
     trav_o: torch.Tensor          # (3, B) active ray origin
     trav_d: torch.Tensor          # (3, B) active ray direction
     # Primary-path registers (survive across shadow traversals).
@@ -147,6 +155,8 @@ class FusedState:
     # (pixel_base, npix_l, sample_base, spp_l); the whole film is
     # (0, npix, 0, samples_per_pass).
     shard: tuple
+    # The root's position: row 0, or wide2's signed entry code.
+    trav_root: int = 0
 
 
 def _stack(v) -> torch.Tensor:
@@ -157,18 +167,28 @@ def _stack(v) -> torch.Tensor:
 def _set_trav(s: FusedState, mask: torch.Tensor, o, d, t_max=None) -> None:
     """Start masked lanes on a fresh world-space segment along ``(o, d)``
     ((3, B) planes) at the root, registers reset; the segment ends at
-    ``t_max`` ((B,), or the far plane when None)."""
+    ``t_max`` ((B,), or the far plane when None).  The route's own
+    registers are reset by the state's type: the stack of wide16 and wide8,
+    the parked leaf of wide2 (a root leaf starts parked)."""
     tr = s.trav
     if t_max is None:
         t_max = torch.full_like(tr.t, FAR_PLANE)
     zi = torch.zeros_like(tr.ptr)
     zf = torch.zeros_like(tr.t)
     minus1 = torch.full_like(tr.tri, -1)
-    full = tw8.FULL if isinstance(tr, tw8.Wide8State) else tw16.FULL
+    extra = {}
+    ptr0 = 0
+    if isinstance(tr, (tw16.Wide16State, tw8.Wide8State)):
+        full = tw8.FULL if isinstance(tr, tw8.Wide8State) else tw16.FULL
+        extra = dict(pend=torch.where(mask, torch.full_like(tr.pend, full), tr.pend),
+                     sp=torch.where(mask, zi, tr.sp))
+    elif isinstance(tr, tw2.Wide2State):
+        ptr0, pending0 = tw2.entry_registers(s.trav_root)
+        extra = dict(pending=torch.where(mask, torch.full_like(tr.pending, pending0),
+                                         tr.pending))
     s.trav = tr._replace(
-        ptr=torch.where(mask, zi, tr.ptr),
-        pend=torch.where(mask, torch.full_like(tr.pend, full), tr.pend),
-        sp=torch.where(mask, zi, tr.sp),
+        **extra,
+        ptr=torch.where(mask, torch.full_like(zi, ptr0), tr.ptr),
         t=torch.where(mask, t_max, tr.t),
         u=torch.where(mask, zf, tr.u),
         v=torch.where(mask, zf, tr.v),
@@ -322,7 +342,8 @@ def _transition_kernel_path(scene, config: RenderConfig, params: RenderParams,
 
 
 def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState,
-                budget: int, current_sample: int) -> None:
+                budget: int, current_sample: int,
+                trav_done: torch.Tensor | None = None) -> None:
     """The general transition (the reference's ``_transition``): miss ->
     sky with MIS; a primary ray that meets an analytic light first ->
     the light's emission, and the path ends; hit -> shade (textured
@@ -333,11 +354,14 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
     canary, lane cap; then the record-film append and regeneration.  The
     uniforms are drawn in the reference's order: the env sample, the alpha
     draw (every lane), the constant-env pair, the light pick, the light
-    pair, the BSDF triple, the RR draw.  Updates ``s`` in place."""
+    pair, the BSDF triple, the RR draw.  ``trav_done`` marks the lanes whose
+    segment ended (None: ``ptr < 0``, the stack routes' end).  Updates
+    ``s`` in place."""
     env_nee = config.sky_mode == SKY_MODE_ENVIRONMENT
     light_nee = _light_nee(scene, config)
     tr = s.trav
-    trav_done = tr.ptr < 0
+    if trav_done is None:
+        trav_done = tr.ptr < 0
     shadow_done = trav_done | tr.found
     rng = s.rng
     a = (s.mode == MODE_PRIMARY) & trav_done
@@ -575,8 +599,19 @@ def _transition(scene, config: RenderConfig, params: RenderParams, s: FusedState
                            _stack(rad_out))
 
 
-def _initial_state(b: int, depth: int, shard: tuple, dev, traversal: str = "wide16",
-                   scatter_film: bool = False) -> FusedState:
+def _initial_trav(scene, traversal: str, b: int, dev):
+    """Every lane's traversal registers at the end of a segment."""
+    if traversal == "wide":
+        return tw.init_state(b, 0.0, ptr0=scene.wide_nodes.shape[1], device=dev)
+    if traversal == "wide2":
+        return tw2.init_state2(b, 0.0, 0, device=dev)
+    if traversal == "wide8":
+        return tw8.init_state8(b, 0.0, ptr0=tw8.DONE, depth=scene.stack_depth, device=dev)
+    return tw16.init_state16(b, 0.0, ptr0=tw16.DONE, depth=scene.stack_depth, device=dev)
+
+
+def _initial_state(b: int, trav, shard: tuple, dev, scatter_film: bool = False,
+                   trav_root: int = 0) -> FusedState:
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
     z3 = torch.zeros((3, b), **f32)
@@ -589,9 +624,6 @@ def _initial_state(b: int, depth: int, shard: tuple, dev, traversal: str = "wide
     # last append's garbage tail; never-written rows sort behind every
     # pixel.  The scatter films keep none.
     cap = 0 if scatter_film else shard[1] * shard[3] + b
-    trav = (tw8.init_state8(b, 0.0, ptr0=tw8.DONE, depth=depth, device=dev)
-            if traversal == "wide8" else
-            tw16.init_state16(b, 0.0, ptr0=tw16.DONE, depth=depth, device=dev))
     return FusedState(
         mode=torch.full((b,), MODE_DEAD, **i32),
         trav=trav,
@@ -610,6 +642,7 @@ def _initial_state(b: int, depth: int, shard: tuple, dev, traversal: str = "wide
         rec_pending=torch.zeros((b,), dtype=torch.bool, device=dev),
         film=torch.zeros((shard[1] + b, 3) if scatter_film else (0, 3), **f32),
         shard=shard,
+        trav_root=trav_root,
     )
 
 
@@ -656,16 +689,25 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
     # Pool: given, configured or min(budget, 96K) lanes, rounded up to a
     # multiple of 1024 as the reference does whenever its kernels run.
     b = ((pool_size or config.pool_size or min(budget, 3 << 15)) + 1023) & ~1023
-    wide8 = config.traversal == "wide8"
-    nodes = scene.wide8_nodes if wide8 else scene.wide16_nodes
-    dev = nodes.device
+    route = config.traversal
+    if route not in FUSED_TRAVERSALS:
+        raise ValueError(f"the fused integrator runs on {', '.join(FUSED_TRAVERSALS)}, "
+                         f"not {route!r}")
+    dev = scene.materials.device
     te = config.transition_every
     has_instances = scene.inst_w2l.shape[0] > 0
+    inst_w2l = scene.inst_w2l if has_instances else None
     transition = (_transition_kernel_path if _kernel_transition_supported(scene, config)
                   else _transition)
     record = config.use_record_film
-    s = _initial_state(b, scene.stack_depth, shard, dev, config.traversal,
-                       scatter_film=not record)
+    if route == "wide":
+        n_orders, n_nodes = scene.wide_nodes.shape[0], scene.wide_nodes.shape[1]
+        nodes_flat = scene.wide_nodes.reshape(n_orders * n_nodes, scene.wide_nodes.shape[2])
+    elif route == "wide2":
+        inner_flat, n_inner, n_orders, leaf_geo, skip_flat = tw2.tables(scene)
+    s = _initial_state(b, _initial_trav(scene, route, b, dev), shard, dev,
+                       scatter_film=not record,
+                       trav_root=scene.wide2_entry if route == "wide2" else 0)
 
     iters = 0
     while bool(((s.mode != MODE_DEAD).any() | (s.queue_head < budget)).item()):
@@ -673,23 +715,50 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         inv = safe_rcp(s.trav_d)
         live = s.mode != MODE_DEAD
         shadowing = (s.mode == MODE_SHADOW_ENV) | (s.mode == MODE_SHADOW_LIGHT)
-        stepping = live & (s.trav.ptr >= 0)   # before the arrivals update ptr in place
-        # te arrivals; a shadow lane stops at its first hit.
-        if wide8:
-            s.trav = tw8.arrival_steps8(nodes, s.trav_o.T, s.trav_d.T, inv.T, s.trav, te,
-                                        live, shadowing, has_instances)
+        # te arrivals; a shadow lane stops at its first hit.  ``stepping``
+        # is read before the arrivals (K1 updates ptr in place).
+        trav_done = None
+        if route == "wide16":
+            stepping = live & (s.trav.ptr >= 0)
+            s.trav = arrival_steps16_cuda(scene.wide16_nodes, s.trav_o, s.trav_d, inv, s.trav,
+                                          te, live, shadowing, has_instances)
+        elif route == "wide8":
+            stepping = live & (s.trav.ptr >= 0)
+            s.trav = tw8.arrival_steps8(scene.wide8_nodes, s.trav_o.T, s.trav_d.T, inv.T,
+                                        s.trav, te, live, shadowing, has_instances)
+        elif route == "wide":
+            stepping = live & (s.trav.ptr < n_nodes)
+            base = torch.remainder(tw.octant_index(s.trav_d.T), n_orders) * n_nodes
+            trav = s.trav
+            for _ in range(te):
+                trav = tw.arrival_step(nodes_flat, n_nodes, base, s.trav_o.T, s.trav_d.T, inv.T,
+                                       trav, live & ~(shadowing & trav.found), inst_w2l)
+            s.trav = trav
+            trav_done = trav.ptr >= n_nodes
         else:
-            s.trav = arrival_steps16_cuda(nodes, s.trav_o, s.trav_d, inv, s.trav, te, live,
-                                          shadowing, has_instances)
+            stepping = live & tw2.live2(s.trav)
+            oct_ = torch.remainder(tw.octant_index(s.trav_d.T), n_orders)
+            base, skip_base = oct_ * n_inner, oct_ * leaf_geo.shape[0]
+            trav = s.trav
+            for _ in range(te):
+                trav = tw2.node_step2(inner_flat, base, s.trav_o.T, s.trav_d.T, inv.T, trav,
+                                      live & ~(shadowing & trav.found), inst_w2l)
+            trav = tw2.leaf_step2(leaf_geo, skip_flat, skip_base, s.trav_o.T, s.trav_d.T, trav,
+                                  live & ~(shadowing & trav.found), inst_w2l)
+            s.trav = trav
+            trav_done = ~tw2.live2(trav)
         s.arrivals = s.arrivals + te * stepping.sum()
         s.busy = s.busy + live.sum()
         s.ticks = s.ticks + b
-        transition(scene, config, params, s, budget, current_sample)
-        if not wide8:
+        if trav_done is None:
+            transition(scene, config, params, s, budget, current_sample)
+        else:
+            transition(scene, config, params, s, budget, current_sample, trav_done)
+        if route == "wide16":
             fresh = ((s.trav.ptr == 0) & (s.trav.pend == tw16.FULL)
                      & (s.trav.sp == 0) & (s.mode != MODE_DEAD))
-            s.trav = tw16.prestep16(nodes, scene.wide16_top, s.trav_o.T, s.trav_d.T,
-                                    safe_rcp(s.trav_d).T, s.trav, fresh)
+            s.trav = tw16.prestep16(scene.wide16_nodes, scene.wide16_top, s.trav_o.T,
+                                    s.trav_d.T, safe_rcp(s.trav_d).T, s.trav, fresh)
 
     pix_local = s.pixel - pixel_base
     if record:

@@ -9,7 +9,14 @@ moving an instance re-emits only the TLAS rows (``rebuild_tlas_rows``).
 ``leaf8`` builds every table with 48-float rows and 8-triangle leaves.
 
 ``build("wide8")`` builds the reference's 8-wide cross-check table
-(``accel/wide8.py``) the same two ways, one level or two.
+(``accel/wide8.py``) the same two ways, one level or two.  The reference's
+other backends build their own tables: ``"mbvh"`` (or ``"bvh2"``, the same
+table) the 8-wide MBVH (``bvh_bounds``, ``bvh_child``), ``"skip"`` the
+skip rows (``skip_nodes``), ``"wide"`` the fat rows (``wide_nodes``, one
+order or, with ``octants=8``, one per ray octant) and ``"wide2"`` their
+split (``wide2_*``).  ``wide`` and ``wide2`` build instanced scenes two-level
+too, over ``accel/tlas.py::build_tlas_wide``; the others refuse them, as
+the reference does.
 
 ``SceneData`` holds what the integrators read: the wide16 node table
 and its root slot table (or the wide8 table), the stack depth, the
@@ -19,8 +26,14 @@ atlas, the analytic lights, the instance transforms and the environment
 tables.  The megakernel and wavefront integrators (``render/integrator.py``)
 read the f32 per-triangle tables instead of the packed rows: ``tris``
 (``[e2, e1, v0]`` records, the brute-force backend's input), ``tri_index``
-and ``attr_normals``/``attr_uvs``/``attr_material``, all in BVH order, as
-the reference lays them out (``tri_index`` is the identity there).  The
+(a hit's slot in ``tris`` -> its attribute row) and
+``attr_normals``/``attr_uvs``/``attr_material``, laid out as the
+reference lays them out per backend.  On wide16 and wide8 all are in BVH
+order and ``tri_index`` is the identity; on wide and wide2 all stay in
+scene order (the leaves inline their records and attribute rows) and
+``tri_index`` is the identity; on mbvh and skip ``tris`` and
+``tri_index`` are permuted into the leaves' order and the attribute
+tables stay in scene order, so ``tri_index`` is that permutation.  The
 fused integrator's ``attr_compact=0`` reads the last three too: they hold
 the values of the reference's f32 ``attr_shade`` rows, which
 ``scene_to_numpy`` packs byte for byte (``_pack_attr_shade``) and the
@@ -44,8 +57,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from unity_webgpu_pathtracer_torch import accel
 from unity_webgpu_pathtracer_torch.accel import wide8 as w8
 from unity_webgpu_pathtracer_torch.accel import wide16 as w16
+from unity_webgpu_pathtracer_torch.accel.tlas import build_tlas_wide
+from unity_webgpu_pathtracer_torch.accel.wide2 import split_wide
+from unity_webgpu_pathtracer_torch.config import TRAVERSALS
 from unity_webgpu_pathtracer_torch.device import resolve_device
 from unity_webgpu_pathtracer_torch.scene import lights as ulights
 from unity_webgpu_pathtracer_torch.scene import material as umaterial
@@ -134,11 +151,16 @@ def _pack_attr_shade_o(normals9: np.ndarray, material: np.ndarray) -> np.ndarray
     return np.ascontiguousarray(out)   # (T_pad, 4)
 
 
-def _attr_tables(flat: FlatTriangles) -> dict:
+def _attr_tables(flat: FlatTriangles, order: np.ndarray | None = None) -> dict:
     """The packed rows of the fused integrator and the f32 tables of the
     megakernel (which the fused integrator's mode 0 reads too), from
-    triangles already in the order the leaves index."""
+    triangles in the order of the attribute rows.  ``order`` (mbvh and
+    skip) permutes ``tris`` into the leaves' order and makes it
+    ``tri_index``; without it the leaves index ``flat``'s order."""
     m = flat.count
+    tris, tri_index = flat.tri_records(), np.arange(m, dtype=np.int32)
+    if order is not None:
+        tris, tri_index = tris[order], tri_index[order].astype(np.int32)
     normals9, uvs6 = flat.normals.reshape(m, 9), flat.uvs.reshape(m, 6)
     return dict(attr_shade_c=_pack_or_placeholder(_pack_attr_shade_c,
                                                   np.zeros((2, 8), np.uint32),
@@ -147,8 +169,7 @@ def _attr_tables(flat: FlatTriangles) -> dict:
                                                   np.zeros((4, 4), np.uint32),
                                                   normals9, flat.material),
                 attr_tangents=flat.tangents.reshape(m, 9),
-                tris=flat.tri_records(), tri_index=np.arange(m, dtype=np.int32),
-                attr_normals=normals9, attr_uvs=uvs6,
+                tris=tris, tri_index=tri_index, attr_normals=normals9, attr_uvs=uvs6,
                 attr_material=flat.material)
 
 
@@ -159,6 +180,15 @@ class SceneData(NamedTuple):
     wide16_top: torch.Tensor     # (16, 119) root slot table, or (1, 119) placeholder
     wide8_nodes: torch.Tensor    # (N8, 48) float32 wide8 table; (1, 48) absent
     stack_depth: int             # register-stack planes (tree depth + 1; +4 instanced)
+    # The reference's other backends' tables (placeholders when absent).
+    bvh_bounds: torch.Tensor     # (N, 48) float32 8-wide MBVH boxes; (1, 48)
+    bvh_child: torch.Tensor      # (N, 8) int32 child codes; (1, 8)
+    skip_nodes: torch.Tensor     # (O, N, 8) float32 skip rows; (1, 1, 8)
+    wide_nodes: torch.Tensor     # (O, N, 48) float32 fat rows; (1, 1, 48)
+    wide2_inner: torch.Tensor    # (O, Ni, 32) float32 split inner rows; (1, 1, 32)
+    wide2_leaf: torch.Tensor     # (Nl, 48) float32 shared leaf rows; (1, 48)
+    wide2_leaf_skip: torch.Tensor  # (O, Nl) int32 leaf continuations; (1, 1)
+    wide2_entry: int             # root code: 1, or -1 when the root is a leaf
     attr_shade_c: torch.Tensor   # (T_pad, 8) int32 view of the uint32 rows; (2, 8) placeholder
     attr_shade_o: torch.Tensor   # (T_pad4, 4) int32 view of the oct rows; (0, 4) absent,
                                  # (4, 4) placeholder
@@ -206,6 +236,8 @@ class Scene:
     # The same for the last instanced wide8 build.
     _blas8_cache: tuple | None = dataclasses.field(default=None, repr=False)
     _tlas8_layout: w8.TlasLayout | None = dataclasses.field(default=None, repr=False)
+    # Per-mesh fat-row BLASes of the wide and wide2 builds.
+    _blas_cache: tuple | None = dataclasses.field(default=None, repr=False)
 
     def add_material(self, desc: umaterial.MaterialDesc) -> int:
         self.materials.append(desc)
@@ -273,31 +305,52 @@ class Scene:
             raise ValueError("scene has no meshes")
         return concat_flat([flatten_mesh(m, xf) for m, xf in self.meshes])
 
-    def build_arrays(self, leaf8: bool | None = None, traversal: str = "wide16") -> dict:
+    def build_arrays(self, leaf8: bool | None = None, traversal: str = "wide16",
+                     octants: int = 1) -> dict:
         """Host build of the device tables as numpy arrays (the layout of
         ``scene_from_numpy``'s input); ``leaf8`` as in
-        ``accel/wide16.py::build_scene_wide16``.  ``traversal="wide8"``
-        builds the 8-wide table instead; ``"bruteforce"`` builds no node
-        table and keeps the triangles in scene order."""
-        if traversal not in ("wide16", "wide8", "bruteforce"):
-            raise ValueError(f"the PyTorch port builds 'wide16', 'wide8' or 'bruteforce', "
-                             f"not {traversal!r}")
+        ``accel/wide16.py::build_scene_wide16``.  ``traversal`` names the
+        table (``TRAVERSALS``): ``"bruteforce"`` builds no node table and
+        keeps the triangles in scene order; ``octants`` (1 or 8) is the
+        number of DFS orders of the ``wide`` and ``wide2`` tables."""
+        if traversal not in TRAVERSALS:
+            raise ValueError(f"unknown traversal backend {traversal!r}")
+        if octants not in (1, 8):
+            raise ValueError(f"octants must be 1 or 8, not {octants}")
         no16 = dict(wide16_nodes=np.zeros((1, w16.ROW), np.float32),
                     wide16_top=np.zeros((1, w16.TOP_COLS), np.float32))
-        if traversal == "bruteforce":
-            if self.instances:
-                raise ValueError("instanced scenes need traversal='wide16' or 'wide8'")
-            return dict(
-                **no16,
-                stack_levels=np.zeros((24,), np.int32),
-                **_attr_tables(self.flatten()),
-                **self._shading_arrays(),
-            )
         if self.instances:
+            if traversal in ("wide", "wide2"):
+                return self._build_instanced_wide(traversal)
             if traversal == "wide8":
                 return self._build_instanced_arrays(False, "wide8")
-            return self._build_instanced_arrays(w16.resolve_leaf8(leaf8), "wide16")
+            if traversal == "wide16":
+                return self._build_instanced_arrays(w16.resolve_leaf8(leaf8), "wide16")
+            raise ValueError("instanced scenes require traversal='wide', 'wide2', "
+                             "'wide8' or 'wide16'")
         flat = self.flatten()
+        shading = self._shading_arrays()
+        # The register-stack planes of the other backends: the reference's
+        # default, unread by their traversals.
+        stack24 = np.zeros((24,), np.int32)
+        if traversal == "bruteforce":
+            return dict(**no16, stack_levels=stack24, **_attr_tables(flat), **shading)
+        if traversal in ("bvh2", "mbvh"):
+            bounds, child, order = accel.build_scene_bvh(flat.positions)
+            return dict(**no16, bvh_bounds=bounds, bvh_child=child, stack_levels=stack24,
+                        **_attr_tables(flat, order), **shading)
+        if traversal == "skip":
+            skip, order = accel.build_scene_skip_bvh(flat.positions)
+            return dict(**no16, skip_nodes=skip, stack_levels=stack24,
+                        **_attr_tables(flat, order), **shading)
+        if traversal in ("wide", "wide2"):
+            # Inline leaves: the triangles stay in scene order.
+            table = accel.build_scene_wide_bvh(flat.positions, flat.tri_records(),
+                                               octants=octants)
+            nodes = (dict(wide_nodes=table) if traversal == "wide"
+                     else _wide2_arrays(table))
+            return dict(**no16, **nodes, stack_levels=stack24, **_attr_tables(flat),
+                        **shading)
         if traversal == "wide8":
             w = w8.build_scene_wide8(flat.positions, flat.tri_records())
             return dict(
@@ -305,7 +358,7 @@ class Scene:
                 wide8_nodes=w.nodes,
                 stack_levels=np.zeros((w.depth + 1,), np.int32),
                 **_attr_tables(flat.permuted(w.order)),
-                **self._shading_arrays(),
+                **shading,
             )
         w = w16.build_scene_wide16(flat.positions, flat.tri_records(), w16.resolve_leaf8(leaf8))
         top = w16.derive_top16(w.nodes)
@@ -316,7 +369,48 @@ class Scene:
             wide16_top=top if top is not None else np.zeros((1, w16.TOP_COLS), np.float32),
             stack_levels=np.zeros((w.depth + 1,), np.int32),
             **_attr_tables(flat),
+            **shading,
+        )
+
+    def _build_instanced_wide(self, traversal: str) -> dict:
+        """Two-level fat rows (the reference's ``_build_instanced``): cached
+        per-mesh BLASes (one order each, mesh space, leaf attribute indices
+        rebased to the joined tables) and the TLAS over the instances,
+        split afterwards for ``wide2``.  Attributes stay in mesh space, in
+        scene order."""
+        if self._blas_cache is None:
+            tables, bounds, parts = [], [], []
+            attr_base = 0
+            for mesh, _transform in self.meshes:
+                flat = flatten_mesh(mesh, None)
+                table = np.array(accel.build_scene_wide_bvh(flat.positions, flat.tri_records(),
+                                                            octants=1))
+                kinds = table[0, :, 44:46].view(np.int32)[:, 1]
+                idx = table[0, :, 36:40].view(np.int32)
+                idx[kinds > 0] += attr_base
+                table[0, :, 36:40] = idx.view(np.float32)
+                tables.append(table)
+                p = flat.positions.reshape(-1, 3)
+                bounds.append((p.min(0), p.max(0)))
+                parts.append(flat)
+                attr_base += flat.count
+            self._blas_cache = (tables, bounds, parts)
+        tables, bounds, parts = self._blas_cache
+        tl = build_tlas_wide(tables, bounds, list(self.instances))
+        offsets = np.zeros((len(self.instances), 4), np.int32)
+        offsets[:, 3] = tl.inst_material
+        # The reference keeps the joined table beside its split.
+        nodes = dict(wide_nodes=tl.nodes)
+        if traversal == "wide2":
+            nodes.update(_wide2_arrays(tl.nodes))
+        return dict(
+            wide16_nodes=np.zeros((1, w16.ROW), np.float32),
+            wide16_top=np.zeros((1, w16.TOP_COLS), np.float32),
+            **nodes,
+            stack_levels=np.zeros((24,), np.int32),
+            **_attr_tables(concat_flat(parts)),
             **self._shading_arrays(),
+            inst_l2w=tl.inst_l2w, inst_w2l=tl.inst_w2l, inst_offsets=offsets,
         )
 
     def _build_instanced_arrays(self, leaf8: bool, fmt: str) -> dict:
@@ -378,13 +472,26 @@ class Scene:
         )
 
     def build(self, traversal: str = "wide16", device=None,
-              leaf8: bool | None = None) -> SceneData:
-        """Build the tables of ``traversal`` (``"wide16"``, ``"wide8"`` or
-        ``"bruteforce"``) and move them to ``device`` (None: the CUDA
-        device; ``"cpu"`` for the CPU).  ``leaf8`` selects 48-float rows
-        with 8-triangle leaves (``accel/wide16.py::resolve_leaf8``)."""
-        arrays = self.build_arrays(leaf8, traversal)
+              leaf8: bool | None = None, octants: int = 1) -> SceneData:
+        """Build the tables of ``traversal`` (one of ``TRAVERSALS``) and move
+        them to ``device`` (None: the CUDA device; ``"cpu"`` for the CPU).
+        ``leaf8`` selects wide16's 48-float rows with 8-triangle leaves
+        (``accel/wide16.py::resolve_leaf8``), ``octants`` the number of DFS
+        orders of the wide and wide2 tables (1 or 8).  The port's default
+        is the main path's wide16; the reference's is ``"mbvh"``."""
+        arrays = self.build_arrays(leaf8, traversal, octants)
         return scene_from_numpy(arrays, resolve_device(device))
+
+
+def _wide2_arrays(table: np.ndarray) -> dict:
+    """The split tables of a unified fat-row table, as the reference stores
+    them: an empty inner table (the root is a leaf) becomes one zero row
+    per order and the entry code -1."""
+    w2 = split_wide(np.asarray(table))
+    has_inner = w2.inner.shape[1] > 0
+    inner = w2.inner if has_inner else np.zeros((w2.inner.shape[0], 1, 32), np.float32)
+    return dict(wide2_inner=inner, wide2_leaf=w2.leaf_geo, wide2_leaf_skip=w2.leaf_skip,
+                wide2_entry=np.int32(1 if has_inner else -1))
 
 
 def rebuild_tlas_rows(scene: Scene, fmt: str = "wide16"):
@@ -418,7 +525,9 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
     arrays keyed by the reference's ``SceneData`` field names:
     ``wide16_nodes``, ``wide16_top``, ``stack_levels`` (only its length is
     read), ``attr_shade_c``, ``materials``, ``env`` (a dict of the
-    ``EnvMap`` fields) and, optional, ``wide8_nodes``,
+    ``EnvMap`` fields) and, optional, ``wide8_nodes``, ``bvh_bounds``,
+    ``bvh_child``, ``skip_nodes``, ``wide_nodes``, the ``wide2_*`` tables
+    and ``wide2_entry``,
     ``attr_shade_o``, ``attr_tangents``,
     ``texture_data`` (the uint32 atlas), ``lights``, for instanced
     scenes ``inst_l2w``, ``inst_w2l`` and ``inst_offsets``, and the
@@ -440,6 +549,14 @@ def scene_from_numpy(arrays: dict, device=None) -> SceneData:
         wide16_top=t(arrays["wide16_top"]),
         wide8_nodes=t(arrays.get("wide8_nodes", np.zeros((1, w8.ROW), np.float32))),
         stack_depth=int(np.asarray(arrays["stack_levels"]).shape[0]),
+        bvh_bounds=t(arrays.get("bvh_bounds", np.zeros((1, 48), np.float32))),
+        bvh_child=t(arrays.get("bvh_child", np.zeros((1, 8), np.int32))),
+        skip_nodes=t(arrays.get("skip_nodes", np.zeros((1, 1, 8), np.float32))),
+        wide_nodes=t(arrays.get("wide_nodes", np.zeros((1, 1, 48), np.float32))),
+        wide2_inner=t(arrays.get("wide2_inner", np.zeros((1, 1, 32), np.float32))),
+        wide2_leaf=t(arrays.get("wide2_leaf", np.zeros((1, 48), np.float32))),
+        wide2_leaf_skip=t(arrays.get("wide2_leaf_skip", np.zeros((1, 1), np.int32))),
+        wide2_entry=int(np.asarray(arrays.get("wide2_entry", 1))),
         attr_shade_c=t(arrays["attr_shade_c"], np.int32),
         attr_shade_o=t(arrays.get("attr_shade_o", np.zeros((0, 4), np.uint32)), np.int32),
         attr_tangents=t(arrays.get("attr_tangents", np.zeros((0, 9), np.float32))),
@@ -470,6 +587,10 @@ def scene_to_numpy(scene: SceneData) -> dict:
         wide16_top=n(scene.wide16_top),
         wide8_nodes=n(scene.wide8_nodes),
         stack_levels=np.zeros((scene.stack_depth,), np.int32),
+        bvh_bounds=n(scene.bvh_bounds), bvh_child=n(scene.bvh_child),
+        skip_nodes=n(scene.skip_nodes), wide_nodes=n(scene.wide_nodes),
+        wide2_inner=n(scene.wide2_inner), wide2_leaf=n(scene.wide2_leaf),
+        wide2_leaf_skip=n(scene.wide2_leaf_skip), wide2_entry=np.int32(scene.wide2_entry),
         attr_shade=_pack_attr_shade(n(scene.attr_normals), n(scene.attr_uvs),
                                     n(scene.attr_material)),
         attr_shade_c=n(scene.attr_shade_c).view(np.uint32),

@@ -12,7 +12,8 @@ standard library:
 - ``DisneyBRDFTest.cs:49-89``: the 12 material sliders, pushed into the
   running render by ``Renderer.update_material``.
 - ``Bounce.cs:1-18``: optional instance animation on TLAS scenes
-  (``Renderer.update_instance_transform``, the TLAS rows only).
+  (``Renderer.update_instance_transform``: the TLAS rows only on wide16
+  and wide8, a rebuild over the cached BLASes on wide and wide2).
 
 One render thread steps the ``Renderer`` under ``Viewer.lock``; the HTTP
 handler threads (``ThreadingHTTPServer``) apply edits and encode frames
