@@ -30,8 +30,8 @@ Phases, each printing one or more lines:
    (K1 and K2 once per super-iteration) and the kernel launches per
    super-iteration that ``torch.profiler`` counts over three of them;
    then one pass at a time with the
-   one-arrival loop and with the multi-arrival kernel in turns (one-step,
-   new, new, one-step) through a local hook, for s/pass and Mrays/s;
+   one-arrival loop and with the multi-arrival kernel in turns (``TURNS``:
+   one-step, new) through a local hook, for s/pass and Mrays/s;
 5. the whole slice with kernels against the slice with twins on the
    card, and against the twins on the CPU, on seven small cases: a
    2,000-triangle scene (K2 path; on leaf8 rows with ``attr_in_kernel``;
@@ -135,7 +135,8 @@ Phases, each printing one or more lines:
     ``cli.main(["render", <file>, "--size", "512", "--spp", "8"])``, with
     the seconds to load, build and render (the model files are deleted
     after, keeping the output directory small); (d) the
-    megakernel on the goldens of every builtin but ``tlas`` under
+    megakernel on four goldens (``MEGAKERNEL_GOLDENS``: one for each of
+    its shading features) under
     ``tests/golden_gen.py``'s cross-check gate (four passes,
     ``golden_common.dual_flags`` at z 8: bad fraction below 1%, or below
     3% with the mean within 0.5%, and the mean within 2%), and Cornell on
@@ -186,13 +187,13 @@ Phases, each printing one or more lines:
 18. the rest of the reference: (a) ``utils/math.py::sqrt`` on the card
     equals the correctly rounded f32 root of the CPU helper bit for bit
     on 2^24 values over [0, 1e6] with 0, -0, subnormals, inf and NaN;
-    (b) the main path's scene and settings (1080p, 4 spp, one pass each)
-    at ``attr_compact=0`` and at
+    (b) the main path's scene and settings (at ``W18`` x ``H18``, 960x540,
+    4 spp, one pass each) at ``attr_compact=0`` and at
     ``attr_compact=1``: the general transition, so K1 once a
     super-iteration and K2 never; mode 1 against the mode-2 pass of the
     same samples (K2; >= 99% of pixels within rtol 1e-3 / atol 1e-5, mean
-    within 0.5%) and, with mode 0, against phase 4's film
-    (``film_vs_flat``); (c) the grid with 65,537 materials (the five
+    within 0.5%) and, with mode 0, against phase 4's film averaged over
+    2x2 pixels (``film_vs_flat``); (c) the grid with 65,537 materials (the five
     repeated round-robin; the meshes' indices reach 65,536): the build
     warns with the reference's text, the megakernel renders it bit for bit
     as it renders the grid's own materials, the fused pass at mode 0
@@ -234,7 +235,37 @@ Phases, each printing one or more lines:
     512x512 default, one pass of 4 spp, on ``wide`` and ``wide2``, held
     to the port's two-level wide16 (K1's instanced kernel) film (PNGs
     in phase 16's output directory's sibling ``phase19``).  K1's and
-    K2's launches in 19's comparison runs stand as ``backends_check``.
+    K2's launches in 19's comparison runs stand as ``backends_check``;
+20. tree quality (``accel/wide16.py::build_scene_wide16``'s ``quality``,
+    ``UWPT_BVH_QUALITY``, ``UWPT_COLLAPSE=dp``) at the main path's
+    configuration: (a) ``beam_scene(400_000)`` (long thin beams, the
+    reference's tree-quality stress case) built natively at quality 0
+    (binned SAH), 1 (SBVH spatial splits) and 3 (SBVH with the DP
+    collapse), and as leaf8 at 3, the 1M grid at 0 and 3 (1 is phase 4's
+    committed table), each validated (``validate_wide16``), with its build
+    seconds, rows, depth, table MiB and references against the builder's
+    budget f + f/2 + 64 and its buffers; (b) the 1080p primary rays
+    through K1 (``closest_hit``) on every table, as original triangle
+    ids: against the scene's quality-1 table, and on 4,096 of them against
+    the brute-force oracle over the table's own leaf triangles
+    (``leaf_triangles``: the f16 triangles K1 reads) and over the f32
+    records; the grid is held to both and across qualities, the beams to
+    their leaf triangles (their f16 edges shift hits by more than a beam's
+    width: the f32 shares are printed); (c) the two A/B scripts'
+    functions (``experiments/round9_sbvh_beams.py``,
+    ``round6_sbvh_ab.py``: one throwaway pass, then the qualities in
+    turns) at qualities 0, 1 and 3, the grid at 4 spp and two rounds, the
+    beams at ``BEAM_SPP`` and ``BEAM_REPS`` (a 4-spp pass takes over a
+    minute there), K1 and K2 launched once a super-iteration, the films'
+    means within 1% of quality 1's, each table's K1 and K2 launches of
+    super-iteration 4 against their twins (``check_run``,
+    ``check_transition``), and one leaf8 pass on the beams at quality 3
+    (``arrival16_leaf8_run``); (d) ``cli render builtin:tlas`` at
+    512x512, 4 spp, under the defaults, ``UWPT_BVH_QUALITY=0`` and
+    ``UWPT_COLLAPSE=dp``: the BLASes follow the switch (the two-level
+    table differs from quality 1's), K1's instanced kernel, the means
+    within 1% of quality 1's (PNGs in ``phase20``).  K1's and K2's
+    launches there stand as ``tree_quality``.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -274,9 +305,11 @@ sums its launches on the render paths that use it whole (phase 4's
 fused pass, 15a's megakernel, 15b's wavefront), given one by one in
 ``launches_by_path``, with phase 16's ``reproject``, ``preview``,
 ``viewer`` and ``animate``, phase 17's ``multigpu`` (both ranks'
-launches), phase 18's paths and phase 19's ``backends_check``
-(``arrival16_inst_run`` and ``transition16`` likewise add the
-viewer's and animate's launches, and ``transition16`` phase 17's);
+launches), phase 18's paths, phase 19's ``backends_check`` and phase
+20's ``tree_quality`` (``arrival16_inst_run`` and ``transition16``
+likewise add the viewer's and animate's launches, ``transition16``
+phase 17's, and ``arrival16_leaf8_run`` has path C's and
+``tree_quality``);
 ``megakernel_launch`` gives its time, bound and error on 15a's first
 launch (B = 2,073,600), ``primary_depth_launch`` and ``preview_launch``
 on 16a's and 16b's.
@@ -310,6 +343,21 @@ K2_AT = (4, 150, 151)   # super-iterations whose transition state phase 3 captur
 # but 8 spp, not 64: two passes a builtin (four until phase 19 joined the
 # smoke) keep it within its time limit.
 CLI_ARGS = ("--spp", "8")
+# Phase 15d's goldens for the megakernel: one scene for each of its shading
+# features (emitters and diffuse walls, textures, analytic lights, the thin
+# lens); phase 14d holds all eight on the fused integrator.  Four of eight
+# since phase 20 joined the smoke (the eight took ~181 s).
+MEGAKERNEL_GOLDENS = ("cornell", "texture", "lights", "aperture")
+# Phase 18b-18d's passes on the general transition, at a quarter of the
+# main path's pixels since phase 20 joined (~75 s at 1920x1080).
+W18, H18 = 960, 540
+# Phase 20's passes on the beams: 1 spp, one timed pass a quality (a 4-spp
+# 1080p pass took 68-83 s there: ~12,000 super-iterations, host-bound).
+BEAM_SPP, BEAM_REPS = 1, 1
+# Phases 4, 7, 11 and 12 end with one pass on the one-arrival loop and
+# one on the multi-arrival kernel (one-step, new, new, one-step until
+# phase 20 joined: the instanced passes take ~9.5 s each).
+TURNS = ("one-step", "new")
 RANKS = 2           # phase 17's rank processes, sharing the one card over gloo
 RANK_LIMIT_S = 420  # phase 17 fails if a rank has not ended by then
 
@@ -851,11 +899,11 @@ def main() -> int:
     def turns(r, label, one_name, run_name, te):
         """One pass at a time from a reset film (the same work each time)
         with the one-arrival loop and with the multi-arrival kernel, in
-        turns (one-step, new, new, one-step); records the one-arrival
-        kernel's launches over its two passes as its ``turn_launches``."""
+        the order of ``TURNS``; records the one-arrival kernel's launches
+        over its passes as its ``turn_launches``."""
         arrive = fused.arrival_steps16_cuda
         secs, one_launches = {"one-step": [], "new": []}, 0
-        for mode in ("one-step", "new", "new", "one-step"):
+        for mode in TURNS:
             r.reset()
             torch.cuda.synchronize()
             reset_counts()
@@ -1645,11 +1693,10 @@ def main() -> int:
                 os.remove(os.path.join(out15, name))
     del r, model, want_pos, got_pos
 
-    # 15d: the megakernel on the goldens under golden_gen's cross-check gate
-    # (tests/golden_gen.py: four passes, dual flags at z 8 against the
+    # 15d: the megakernel on four goldens under golden_gen's cross-check
+    # gate (tests/golden_gen.py: four passes, dual flags at z 8 against the
     # fixture), and Cornell on the brute-force oracle.
-    for name, trav in [(n, "wide16") for n in golden_common.SCENES if n != "tlas"] \
-            + [("cornell", "bruteforce")]:
+    for name, trav in [(n, "wide16") for n in MEGAKERNEL_GOLDENS] + [("cornell", "bruteforce")]:
         reset_counts()
         t0 = time.perf_counter()
         mk = golden_megakernel_passes(name, golden_common, trav)
@@ -2175,10 +2222,15 @@ def main() -> int:
     scene, cam = million_triangle_scene(1_000_000)
     sd = scene.build("wide16", device=dev)
     pr18 = make_camera_params(width=w, height=h, device=dev, **cam)
+    # The fused passes of 18b-18d at W18 x H18, held to phase 4's film
+    # averaged over 2x2 pixels.
+    cfg18 = dataclasses.replace(cfg, width=W18, height=H18)
+    pr18s = make_camera_params(width=W18, height=H18, device=dev, **cam)
+    flat18 = flat_img.reshape(H18, h // H18, W18, w // W18, 3).mean(dim=(1, 3))
     imgs, stats18 = {}, {}
     for label, over in (("mode2", {}), ("mode0", dict(attr_compact=0)),
                         ("mode1", dict(attr_compact=1))):
-        img, rays, arr = fused_18(sd, dataclasses.replace(cfg, **over), pr18,
+        img, rays, arr = fused_18(sd, dataclasses.replace(cfg18, **over), pr18s,
                                   f"phase 18b {label}", "attr_modes", k2=label == "mode2")
         imgs[label], stats18[label] = img, (rays, arr)
 
@@ -2191,14 +2243,14 @@ def main() -> int:
     if m1_share < 0.99 or m1_mean > 0.005:
         raise AssertionError(f"phase 18b: mode 1 against mode 2 (K2): {m1_share:.6f} of pixels "
                              f"within rtol 1e-3 / atol 1e-5, mean rel {m1_mean:g}")
-    flat_rel = {k: film_vs_flat(imgs[k], flat_img, f"phase 18b {k}")
+    flat_rel = {k: film_vs_flat(imgs[k], flat18, f"phase 18b {k}")
                 for k in ("mode0", "mode1")}
     log(f"phase 18b: mode 1 against the mode-2 pass "
         f"of the same samples (K2): {m1_share:.6f} of pixels within rtol 1e-3 / atol 1e-5, "
         f"bitwise {share_close(imgs['mode1'], imgs['mode2'], 0, 0):.6f}, mean rel {m1_mean:.3e}, "
         f"rays {stats18['mode1'][0]} / {stats18['mode2'][0]}; mode 0 (f32 normals) against "
-        f"mode 2: mean rel {m0_mean:.3e}; against phase 4's film (mean rel, tile statistic): "
-        f"{flat_rel}")
+        f"mode 2: mean rel {m0_mean:.3e}; against phase 4's film over 2x2 pixels (mean rel, "
+        f"tile statistic): {flat_rel}; {W18}x{H18}")
 
     # 18c: 65,537 materials, the five repeated round-robin (index 65,536 is
     # the first mesh's); each mesh keeps its material's record under an
@@ -2240,13 +2292,13 @@ def main() -> int:
     # 18b's mode-0 pass on these tables: its film is 18b's (the grid's five
     # materials) bit for bit.
     img_m, _rays, _arr = fused_18(
-        msd, dataclasses.replace(cfg, attr_compact=0), pr18,
+        msd, dataclasses.replace(cfg18, attr_compact=0), pr18s,
         "phase 18c fused mode 0, 65,537 materials", "attr_modes")
     if not torch.equal(img_m, imgs["mode0"]):
         raise AssertionError("phase 18c: the mode-0 film on the 65,537 materials differs from "
                              "18b's on the grid's five")
     try:
-        fused.fused_pass_with_stats(msd, cfg, pr18, 0)
+        fused.fused_pass_with_stats(msd, cfg18, pr18s, 0)
         raise AssertionError("phase 18c: a mode-2 pass on 65,537 materials was not refused")
     except ValueError as e:
         if "config.attr_compact requires <= 65536 materials" not in str(e):
@@ -2266,7 +2318,7 @@ def main() -> int:
                   ("sorted_k1", dict(use_record_film=False, film_k_shift=1), "mode1"),
                   ("record_k1", dict(film_k_shift=1), "mode2"))
     for label, over, ref in film_cases:
-        img, rays, arr = fused_18(sd, dataclasses.replace(cfg, **over), pr18,
+        img, rays, arr = fused_18(sd, dataclasses.replace(cfg18, **over), pr18s,
                                   f"phase 18d {label}", "films", k2=ref == "mode2")
         imgs[label] = img
         if (rays, arr) != stats18[ref]:
@@ -2374,7 +2426,7 @@ def main() -> int:
             with native.disabled(), warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 t0 = time.perf_counter()
-                wn = w16.build_scene_wide16(flat.positions, flat.tri_records(), False)
+                wn = w16.build_scene_wide16(flat.positions, flat.tri_records(), leaf8=False)
                 build_s = time.perf_counter() - t0
             if w16.CACHE_STATS["numpy"] != 1 or not any(
                     "native BVH builder is unavailable" in str(c.message) for c in caught):
@@ -2387,7 +2439,7 @@ def main() -> int:
             with native.disabled():
                 nsd = nscene.build("wide16", device=dev)
             native_key = os.path.exists(w16.bvh_cache_path(
-                flat.positions, flat.tri_records(), False, native_built=True))
+                flat.positions, flat.tri_records(), native_built=True))
         finally:
             if cache_env is None:
                 os.environ.pop("UWPT_BVH_CACHE_DIR", None)
@@ -2649,6 +2701,243 @@ def main() -> int:
             kernels[k]["launches"] += n
     log(f"phase 19: {time.perf_counter() - t19:.1f} s; K1/K2 launches by path {p19}; hits "
         f"agreeing with K1 {hits19}; card: {card}")
+
+    # ---- 20. tree quality: binned SAH, SBVH spatial splits and the DP
+    # collapse on the beams and the grid, through K1 and K2 ----
+    from unity_webgpu_pathtracer_torch.experiments import round6_sbvh_ab, round9_sbvh_beams
+    from unity_webgpu_pathtracer_torch.models.benchmark import beam_scene
+    from unity_webgpu_pathtracer_torch.ops.intersect import closest_hit_bruteforce
+
+    t20 = time.perf_counter()
+    p20 = {"arrival16_run": 0, "arrival16_leaf8_run": 0, "arrival16_inst_run": 0,
+           "transition16": 0}
+
+    def pass20(label, fn, want):
+        """``fn`` with the counts at 0: exactly the kernels of ``want(result,
+        counts)`` launched; returns ``(result, seconds, counts)``."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = counts()
+        want = want(out, got)
+        expect_only(got, want, label)
+        for k, v in want.items():
+            p20[k] += v
+        return out, dt, got
+
+    # 20a: the builds, each validated, with the builder's buffers.
+    bscene, bcam = beam_scene(round9_sbvh_beams.TRIS)
+    scenes20 = {"beams": (bscene, bcam), "grid": (scene, cam)}
+    flats20 = {k: sc.flatten() for k, (sc, _c) in scenes20.items()}
+    tables20 = {}
+    for name, q, l8 in (("beams", 0, False), ("beams", 1, False), ("beams", 3, False),
+                        ("grid", 0, False), ("grid", 1, False), ("grid", 3, False),
+                        ("beams", 3, True)):
+        fl = flats20[name]
+        misses = w16.CACHE_STATS["miss"]
+        t0 = time.perf_counter()
+        wq = w16.build_scene_wide16(fl.positions, fl.tri_records(), quality=q, leaf8=l8)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        w16.validate_wide16(wq, fl.count)
+        valid_s = time.perf_counter() - t0
+        f, refs = fl.count, int(wq.order.shape[0])
+        budget = f + f // 2 + 64
+        row_cap, order_cap = native.wide16_capacity(f, l8)
+        if refs > budget or wq.nodes.shape[0] > row_cap:
+            raise AssertionError(f"phase 20a {name} q{q}: {refs} refs (budget {budget}), "
+                                 f"{wq.nodes.shape[0]} rows (capacity {row_cap})")
+        key = f"{name} q{q}{' leaf8' if l8 else ''}"
+        tables20[key] = (name, wq)
+        log(f"phase 20a {key}: {'built' if w16.CACHE_STATS['miss'] > misses else 'cache hit'} "
+            f"in {build_s:.2f} s, validated in {valid_s:.2f} s; {f} triangles, "
+            f"{wq.nodes.shape[0]} rows of {wq.nodes.shape[1]} floats (capacity {row_cap}), "
+            f"depth {wq.depth}, refs {refs} (budget {budget}, order buffer {order_cap}), "
+            f"{wq.nodes.nbytes / 2**20:.1f} MiB")
+
+    # 20b: the 1080p primary rays through K1 on every table, as original
+    # triangle ids (``order``), against the scene's quality-1 table, and on
+    # a sample against two brute-force oracles: the f32 records in scene
+    # order, and the table's own leaf triangles as K1 reads them (f16
+    # edges and corners).  The bounds are tests/test_wide16.py's (>= 99% of
+    # ids equal, the 99th percentile of t within 5e-3) and, across
+    # qualities, >= 99.9% of ids equal with t within 1e-6 at the median.
+    # The beams are held to their own leaf triangles only: a beam is
+    # 0.008-0.04 wide and up to 5 long, and its f16 edges are off by up to
+    # ~0.002 (2^-11 relative), so each table loses or gains a few percent of
+    # exact hits, and another table (other leaves, other anchors) others.
+    def oracle(recs_np, ids, o_, d_):
+        recs_t = torch.from_numpy(recs_np).to(dev)
+        ids_t = torch.from_numpy(np.asarray(ids, np.int64)).to(dev)
+        t_all, id_all = [], []
+        for c in range(0, sample.numel(), 32):
+            ray = sample[c:c + 32]
+            t_c, _b, s_c, _i = closest_hit_bruteforce(recs_t, o_[ray], d_[ray])
+            t_all.append(t_c)
+            id_all.append(torch.where(s_c >= 0, ids_t[s_c.clamp_min(0).long()], -1))
+        return torch.cat(t_all), torch.cat(id_all)
+
+    def held(ids_a, t_a, ids_b, t_b, q=0.99):
+        """(share of equal ids, the q-quantile and the median of t's
+        relative difference where both hit the same triangle)."""
+        same = ids_a == ids_b
+        rel = ((t_a - t_b).abs() / t_b.clamp_min(1e-3))[same & (ids_b >= 0)]
+        if rel.numel() == 0:
+            return float(same.float().mean()), float("inf"), float("inf")
+        return (float(same.float().mean()), float(torch.quantile(rel.float(), q)),
+                float(rel.median()))
+
+    n_sample = min(4096, w * h)
+    sample = torch.arange(n_sample, device=dev) * (w * h // n_sample)
+    hits20 = {}
+    for name, (_sc, cam_) in scenes20.items():
+        pr = make_camera_params(width=w, height=h, device=dev, **cam_)
+        pix = torch.arange(w * h, device=dev, dtype=torch.int64)
+        rng0 = urng.seed(pix, torch.zeros_like(pix), pr.seed_root)
+        coords, rng0 = ucamera.jittered_pixel_coords(pix, mk1, rng0)
+        o20, d20, _ = ucamera.get_screen_ray(coords, mk1, pr, rng0)
+        t0 = time.perf_counter()
+        t32, id32 = oracle(flats20[name].tri_records(), np.arange(flats20[name].count), o20,
+                           d20)
+        oracle_s = time.perf_counter() - t0
+        # The scene's quality-1 table first: the others are held to it.
+        for key in sorted((k for k, (sn, _w) in tables20.items() if sn == name),
+                          key=lambda k, name=name: k != f"{name} q1"):
+            wq = tables20[key][1]
+            nodes_t = torch.from_numpy(wq.nodes).to(dev)
+            order_t = torch.from_numpy(wq.order.astype(np.int64)).to(dev)
+            kname = "arrival16_leaf8_run" if wq.nodes.shape[1] == w16.ROW8 else "arrival16_run"
+            (hit, dt, got) = pass20(f"phase 20b {key} primary rays",
+                                    lambda nodes_t=nodes_t, wq=wq: tw16.closest_hit(
+                                        nodes_t, o20, d20, wq.depth + 1),
+                                    lambda o_, g, kname=kname: {kname: g[kname]})
+            t_k, _b, slot, _i = hit
+            ids = torch.where(slot >= 0, order_t[slot.clamp_min(0).long()], -1)
+            t16, id16 = oracle(*w16.leaf_triangles(wq), o20, d20)
+            own = held(ids[sample], t_k[sample], id16, t16)
+            exact = held(ids[sample], t_k[sample], id32, t32)
+            hits20[key] = (ids, t_k)
+            base_ids, base_t = hits20[f"{name} q1"]
+            cross = held(ids, t_k, base_ids, base_t)
+            bad = own[0] < 0.99 or own[1] >= 5e-3
+            if name == "grid":
+                bad |= exact[0] < 0.99 or exact[1] >= 5e-3 or cross[0] < 0.999 or cross[2] > 1e-6
+            if bad:
+                raise AssertionError(f"phase 20b {key}: ids equal to its leaf triangles' oracle "
+                                     f"{own}, to the f32 oracle {exact}, to {name} q1's {cross} "
+                                     f"(share, t rel 99th percentile, median)")
+            log(f"phase 20b {key} K1 closest_hit on the {w * h} 1080p primary rays: {dt:.3f} s, "
+                f"{got[kname]} launches of {kname}, {int((ids >= 0).sum())} hits; ids equal to "
+                f"{name} q1's on {cross[0]:.6f} (t rel median {cross[2]:.3e}, 99th percentile "
+                f"{cross[1]:.3e}); on {n_sample} rays against its leaf triangles' oracle "
+                f"{own[0]:.6f} (t rel 99th percentile {own[1]:.3e}), against the f32 oracle "
+                f"({oracle_s:.2f} s) {exact[0]:.6f} (t rel 99th percentile {exact[1]:.3e})")
+            del nodes_t, order_t, hit, t_k, slot, t16, id16
+        for key in [k for k in hits20 if k.startswith(name)]:
+            del hits20[key]
+        del o20, d20, t32, id32
+
+    # 20c: the two scripts' A/B at qualities 0, 1 and 3 (1 throwaway pass,
+    # then 2 rounds on the grid at 4 spp, 1 on the beams at BEAM_SPP), the
+    # films' means within 1% of quality 1's (the draws
+    # follow the traversal's timing, so the films are not bitwise), then
+    # each table's K1 and K2 launches of super-iteration 4 (phase 2's: the
+    # first launches with lanes in flight) against their twins.
+    ab20 = {}
+    for name, script, spp20, reps20 in (("beams", round9_sbvh_beams, BEAM_SPP, BEAM_REPS),
+                                        ("grid", round6_sbvh_ab, SPP, 2)):
+        res, dt, got = pass20(
+            f"phase 20c {name}",
+            lambda script=script, name=name, spp20=spp20, reps20=reps20: script.run(
+                (0, 1, 3), width=w, height=h, spp=spp20, te=TE, pool=POOL, reps=reps20,
+                log=lambda m, name=name: log(f"phase 20c {script.__name__.split('.')[-1]} "
+                                             f"{name} {m}")),
+            lambda o_, g: {"arrival16_run": sum(r["si_total"] for r in o_["rows"]),
+                           "transition16": sum(r["si_total"] for r in o_["rows"])})
+        ab20[name] = res
+        base = float(res["films"][1].mean())
+        for r in res["rows"]:
+            rel = abs(float(res["films"][r["quality"]].mean()) / base - 1.0)
+            if rel > 0.01 or r["k1_launches"] != r["si_total"]:
+                raise AssertionError(f"phase 20c {name} q{r['quality']}: film mean rel {rel:g}, "
+                                     f"K1 launches {r['k1_launches']} for {r['si_total']} "
+                                     f"super-iterations")
+            r["film_mean_rel"] = rel
+        log(f"phase 20c {name}: {dt:.1f} s in all, launches {got}; film mean rel to q1 "
+            f"{[(r['quality'], round(r['film_mean_rel'], 6)) for r in res['rows']]}; card: "
+            f"{card}")
+        for q, sd_q in res["tables"].items():
+            (k1cap,), (k2cap,) = capture_inputs(sd_q, res["config"], res["params"],
+                                                k1_calls=(4,), k2_calls=(4,))
+            check_run("arrival16_run", k1cap, f"phase 20c {name} q{q} super-iteration 4",
+                      record_it=False)
+            check_transition("transition16", k2cap, f"phase 20c {name} q{q} super-iteration 4",
+                             record_it=False)
+            del k1cap, k2cap
+    # One leaf8 pass on the beams at quality 3 (K1 <false, 48>).
+    (sd_l8, _build_s), = round6_sbvh_ab.tables(bscene, (3,), dev, leaf8=True).values()
+    cfg20, pr20 = ab20["beams"]["config"], ab20["beams"]["params"]
+    out_l8, dt_l8, got_l8 = pass20(
+        "phase 20c beams q3 leaf8", lambda: fused.fused_pass_with_stats(sd_l8, cfg20, pr20, 0),
+        lambda o_, g: {"arrival16_leaf8_run": o_[4], "transition16": o_[4]})
+    rel_l8 = abs(float(out_l8[0].mean()) / float(ab20["beams"]["films"][1].mean()) - 1.0)
+    if rel_l8 > 0.01:
+        raise AssertionError(f"phase 20c beams q3 leaf8: film mean rel to q1 {rel_l8:g}")
+    log(f"phase 20c beams q3 leaf8 (1080p, {BEAM_SPP} spp): {dt_l8:.3f} s/pass, "
+        f"{int(out_l8[2]) / dt_l8 / 1e6:.3f} Mrays/s, arrivals/ray "
+        f"{int(out_l8[3]) / int(out_l8[2]):.2f}, super-iterations {out_l8[4]}, launches "
+        f"{got_l8}, film mean rel to q1 {rel_l8:.3e}")
+    (k1cap,), _ = capture_inputs(sd_l8, cfg20, pr20, k1_calls=(4,))
+    check_run("arrival16_leaf8_run", k1cap, "phase 20c beams q3 leaf8 super-iteration 4",
+              record_it=False)
+    del ab20, sd_l8, out_l8, k1cap
+
+    # 20d: builtin:tlas through the cli at 512x512 (one pass of 4 spp) with
+    # binned and DP BLASes (K1's instanced kernel), against quality 1's.
+    out20 = os.path.join(os.path.dirname(out16), "phase20")
+    os.makedirs(out20, exist_ok=True)
+    tlas20 = {}
+    for label, env20 in (("q1", {}), ("q0", {"UWPT_BVH_QUALITY": "0"}),
+                         ("dp", {"UWPT_COLLAPSE": "dp"})):
+        old = {k: os.environ.get(k) for k in ("UWPT_BVH_QUALITY", "UWPT_COLLAPSE")}
+        os.environ.update(env20)
+        try:
+            out_png = os.path.join(out20, f"tlas-{label}.png")
+            r20, dt, got = pass20(
+                f"phase 20d cli render builtin:tlas {label}",
+                lambda out_png=out_png: cli.main(["render", "builtin:tlas", "--spp", "4",
+                                                  "--out", out_png]),
+                lambda o_, g: {"arrival16_inst_run": g["arrival16_inst_run"]})
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        img = r20.film.accum
+        check_film(img, (512, 512, 3), f"phase 20d {label}")
+        tlas20[label] = (img, r20.scene.wide16_nodes)
+        rel = abs(float(img.mean()) / float(tlas20["q1"][0].mean()) - 1.0)
+        # The switch reached the BLAS builds: the two-level table differs.
+        same_table = torch.equal(tlas20[label][1].view(torch.int32),
+                                 tlas20["q1"][1].view(torch.int32))
+        if rel > 0.01 or (label != "q1" and same_table):
+            raise AssertionError(f"phase 20d {label}: film mean rel {rel:g}, the table "
+                                 f"{'equals' if same_table else 'differs from'} q1's")
+        log(f"phase 20d cli render builtin:tlas under {env20 or 'the defaults'} (512x512, 4 "
+            f"spp): {dt:.3f} s in all with the build, {tlas20[label][1].shape[0]} rows "
+            f"({'the' if same_table else 'not the'} q1 table), stats {r20.stats()}, launches "
+            f"{got}, film mean rel to q1 {rel:.3e}")
+    del tlas20, bscene, scenes20, flats20, tables20
+    leaf8_run = kernels["arrival16_leaf8_run"]
+    leaf8_run["launches_by_path"] = {"path_c": leaf8_run["launches"]}
+    for k, n in p20.items():
+        kernels[k]["launches_by_path"]["tree_quality"] = n
+        kernels[k]["launches"] += n
+    log(f"phase 20: {time.perf_counter() - t20:.1f} s; K1/K2 launches {p20}; card: {card}")
 
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",

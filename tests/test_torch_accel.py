@@ -32,7 +32,8 @@ from unity_webgpu_pathtracer_tpu.accel import wide16 as jw16
 @pytest.fixture
 def no_native(monkeypatch, tmp_path):
     """Both packages' native builders missing, the tables cached under
-    ``tmp_path`` (the reference's cache off)."""
+    ``tmp_path``, the cache off (``UWPT_BVH_CACHE=0``) until a test
+    turns it on."""
     monkeypatch.setattr(tnative, "_load", lambda: None)
     monkeypatch.setattr(jnative, "native_wide16_or_none", lambda *a, **k: None)
     monkeypatch.setattr(jnative, "native_wide8_or_none", lambda *a, **k: None)
@@ -85,13 +86,15 @@ def test_cwbvh_parity_format():
 
 
 @pytest.mark.parametrize("leaf8", [False, True])
-def test_wide16_numpy_build_byte_identical(no_native, leaf8):
+def test_wide16_numpy_build_byte_identical(no_native, monkeypatch, leaf8):
     tris = random_tris(600, seed=5)
     recs = recs_of(tris)
     want = jw16.build_scene_wide16(tris, recs, leaf8=leaf8)
+    # The port's build with the cache on (the reference's ran without).
+    monkeypatch.delenv("UWPT_BVH_CACHE")
     misses, numpy_builds = tw16.CACHE_STATS["miss"], tw16.CACHE_STATS["numpy"]
     with pytest.warns(UserWarning, match="native BVH builder is unavailable"):
-        got = tw16.build_scene_wide16(tris, recs, leaf8)
+        got = tw16.build_scene_wide16(tris, recs, leaf8=leaf8)
     assert tw16.CACHE_STATS["numpy"] == numpy_builds + 1
     assert tw16.CACHE_STATS["miss"] == misses + 1
     _same(got.nodes, want.nodes)
@@ -99,7 +102,7 @@ def test_wide16_numpy_build_byte_identical(no_native, leaf8):
     assert got.depth == want.depth
     tw16.validate_wide16(got, 600)
     # The table went to the cache: the next build loads it.
-    again = tw16.build_scene_wide16(tris, recs, leaf8)
+    again = tw16.build_scene_wide16(tris, recs, leaf8=leaf8)
     assert tw16.CACHE_STATS["numpy"] == numpy_builds + 1
     _same(again.nodes, got.nodes)
 
@@ -114,7 +117,7 @@ def test_cache_key_is_the_reference_key(monkeypatch, tmp_path, native_built):
     tris = random_tris(100, seed=3)
     recs = recs_of(tris)
     want = jw16._bvh_cache_path(tris, recs, tw16.LEAF_SIZE, tw16.QUALITY, False)
-    got = tw16.bvh_cache_path(tris, recs, False, native_built)
+    got = tw16.bvh_cache_path(tris, recs, tw16.LEAF_SIZE, tw16.QUALITY, False, native_built)
     assert got == want
 
 
@@ -126,9 +129,9 @@ def test_numpy_table_is_not_a_hit_for_the_native_builder(monkeypatch, tmp_path):
     tris = random_tris(400, seed=11)
     recs = recs_of(tris)
     with tnative.disabled(), pytest.warns(UserWarning, match="native BVH builder"):
-        from_numpy = tw16.build_scene_wide16(tris, recs, False)
+        from_numpy = tw16.build_scene_wide16(tris, recs, leaf8=False)
     stats = dict(tw16.CACHE_STATS)
-    from_native = tw16.build_scene_wide16(tris, recs, False)
+    from_native = tw16.build_scene_wide16(tris, recs, leaf8=False)
     assert tw16.CACHE_STATS == dict(stats, miss=stats["miss"] + 1)
     rows, depth, order = tnative.native_wide16(tris, recs, tw16.LEAF_SIZE, tw16.QUALITY)
     _same(from_native.nodes, rows)
@@ -137,8 +140,8 @@ def test_numpy_table_is_not_a_hit_for_the_native_builder(monkeypatch, tmp_path):
     assert from_native.nodes.tobytes() != from_numpy.nodes.tobytes()
     assert len(list(tmp_path.iterdir())) == 2
     with tnative.disabled():
-        _same(tw16.build_scene_wide16(tris, recs, False).nodes, from_numpy.nodes)
-    _same(tw16.build_scene_wide16(tris, recs, False).nodes, from_native.nodes)
+        _same(tw16.build_scene_wide16(tris, recs, leaf8=False).nodes, from_numpy.nodes)
+    _same(tw16.build_scene_wide16(tris, recs, leaf8=False).nodes, from_native.nodes)
     assert tw16.CACHE_STATS["hit"] == stats["hit"] + 2
 
 

@@ -152,7 +152,7 @@ def _instanced_table(leaf8=False):
     inst = [(0, transform_trs(translate=(x, 0.0, 0.0), rotate_y=0.4 * x, scale=0.5 + 0.3 * k),
              None) for k, x in enumerate((-2.5, 0.0, 2.5))]
     w, _l2w, _w2l, _layout = wide16.build_tlas_wide16(
-        [wide16.build_scene_wide16(tris, recs, leaf8)], [(p.min(0), p.max(0))], inst, [0])
+        [wide16.build_scene_wide16(tris, recs, leaf8=leaf8)], [(p.min(0), p.max(0))], inst, [0])
     return w.nodes, w.depth
 
 
@@ -212,7 +212,7 @@ def test_run_kernels_match_plain(cuda, leaf8, instanced):
         tris = (c + rng.uniform(-0.4, 0.4, (3000, 3, 3))).astype(np.float32)
         recs = np.concatenate([tris[:, 2] - tris[:, 0], tris[:, 1] - tris[:, 0], tris[:, 0]],
                               axis=1).astype(np.float32)
-        w = wide16.build_scene_wide16(tris, recs, leaf8)
+        w = wide16.build_scene_wide16(tris, recs, leaf8=leaf8)
         nodes, depth = w.nodes, w.depth
         aim = rng.uniform(-5.0, 5.0, (8192, 3))
     b = 8192

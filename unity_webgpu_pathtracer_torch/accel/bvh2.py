@@ -134,3 +134,36 @@ def build_bvh2(positions: np.ndarray, leaf_size: int = 4) -> BVH2:
         count=np.asarray(count, np.int32),
         order=order,
     )
+
+
+def validate_bvh2(bvh: BVH2, positions: np.ndarray) -> None:
+    """Raise ``ValueError`` unless ``order`` is a permutation, every
+    triangle lies in exactly one leaf and inside its box, and every child
+    box lies inside its parent's (the reference's invariants, 1e-4
+    slack)."""
+    f = positions.shape[0]
+    if sorted(bvh.order.tolist()) != list(range(f)):
+        raise ValueError("order is not a permutation")
+    tmin, tmax = positions.min(axis=1), positions.max(axis=1)
+    covered = np.zeros(f, bool)
+    stack = [0]
+    while stack:
+        ni = stack.pop()
+        if bvh.count[ni] > 0:
+            idx = bvh.order[bvh.start[ni] : bvh.start[ni] + bvh.count[ni]]
+            if covered[idx].any():
+                raise ValueError(f"leaf {ni}: a triangle in two leaves")
+            covered[idx] = True
+            if not ((tmin[idx] >= bvh.nmin[ni] - 1e-4).all()
+                    and (tmax[idx] <= bvh.nmax[ni] + 1e-4).all()):
+                raise ValueError(f"leaf {ni}: a triangle outside its box")
+        else:
+            li = bvh.left[ni]
+            for c in (li, li + 1):
+                if not ((bvh.nmin[c] >= bvh.nmin[ni] - 1e-4).all()
+                        and (bvh.nmax[c] <= bvh.nmax[ni] + 1e-4).all()):
+                    raise ValueError(f"node {c} outside its parent {ni}")
+                stack.append(c)
+    if not covered.all():
+        raise ValueError(f"{int((~covered).sum())} triangles in no leaf")
+

@@ -1,7 +1,7 @@
 """The 8-wide MBVH that the CWBVH exporter quantizes (``accel/mbvh.py``
-of the reference): ``collapse_to_mbvh8`` and its child encoding.  The
-reference's ``mbvh`` traversal backend is frozen and not ported; this
-module serves ``accel/cwbvh.py`` only.
+of the reference): ``collapse_to_mbvh8``, its child encoding and
+``validate_mbvh``.  The tables of the ``mbvh``/``bvh2`` backend
+(``accel/__init__.py``) and of the CWBVH exporter (``accel/cwbvh.py``).
 
 Child slot encoding (``child[n, k]``): ``0`` an empty slot; ``c > 0`` the
 inner child node ``c - 1``; ``c < 0`` a leaf of triangles ``order[off :
@@ -100,3 +100,35 @@ def collapse_to_mbvh8(bvh: BVH2):
 def _surface_area(nmin, nmax):
     d = np.maximum(nmax - nmin, 0.0)
     return d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2] + d[:, 2] * d[:, 0]
+
+
+def validate_mbvh(bounds: np.ndarray, child: np.ndarray, positions: np.ndarray,
+                  order: np.ndarray) -> None:
+    """Raise ``ValueError`` unless every triangle is reached exactly once
+    from the root and lies inside its leaf slot's box (the reference's
+    invariants, 1e-4 slack)."""
+    f = positions.shape[0]
+    tmin, tmax = positions.min(axis=1), positions.max(axis=1)
+    seen = np.zeros(f, bool)
+    stack = [0]
+    while stack:
+        n = stack.pop()
+        row = bounds[n].reshape(6, WIDTH)
+        for k in range(WIDTH):
+            c = int(child[n, k])
+            if c == 0:
+                continue
+            if c > 0:
+                stack.append(c - 1)
+                continue
+            off, cnt = decode_leaf(c)
+            idx = order[off : off + cnt]
+            if seen[idx].any():
+                raise ValueError(f"node {n} slot {k}: a triangle reached twice")
+            seen[idx] = True
+            if not ((tmin[idx] >= row[0:3, k] - 1e-4).all()
+                    and (tmax[idx] <= row[3:6, k] + 1e-4).all()):
+                raise ValueError(f"node {n} slot {k}: a triangle outside its box")
+    if not seen.all():
+        raise ValueError(f"{int((~seen).sum())} triangles not reached")
+

@@ -1,12 +1,13 @@
 """ctypes binding to the repository's C++ BVH builder (``native/``).
 
-Six entries are bound: ``build_wide16_ex`` (96-float rows, 16-triangle
+Seven entries are bound: ``build_wide16_ex`` (96-float rows, 16-triangle
 leaves) and ``build_wide16l8_ex`` (48-float leaf8 rows, 8-triangle
 leaves), with the same arguments, ``build_wide8`` (the 48-float wide8
-rows), and the reference's first three formats, with its argument lists:
+rows), the reference's first three formats, with its argument lists:
 ``build_mbvh8`` (the 8-wide MBVH of ``accel/mbvh.py``), ``build_skip_bvh``
 (the skip rows of ``accel/linearize.py``) and ``build_wide_bvh`` (the
-fat rows of ``accel/wide.py``).  The library is built with ``make -C
+fat rows of ``accel/wide.py``), and ``f2h_batch``, the builder's f32 ->
+f16 conversion (``native_f2h_or_none``).  The library is built with ``make -C
 native`` when it is missing.  When it cannot be built or loaded, the
 builders here return None and the callers build in numpy
 (``accel/wide16.py::build_wide16``, ``accel/wide8.py::build_wide8``,
@@ -111,6 +112,8 @@ def _load() -> ctypes.CDLL | None:
         ctypes.c_void_p, ctypes.c_int,              # out nodes (octants, cap, 48), capacity
         ctypes.c_int,                               # octants (1 or 8)
     ]
+    lib.f2h_batch.restype = None
+    lib.f2h_batch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]  # in, out, n
     _LIB = lib
     return lib
 
@@ -126,25 +129,34 @@ def _soup(positions: np.ndarray, tri_records: np.ndarray):
     return pos, recs
 
 
+def wide16_capacity(tri_count: int, leaf8: bool = False) -> tuple[int, int]:
+    """The wide16 build's buffers, as the reference's binding sizes them:
+    ``(row capacity, order capacity)``.  The order holds the SBVH's
+    references (the builder's budget is ``f + f // 2 + 64``); leaf8 leaves
+    hold half the triangles, so up to about twice the rows."""
+    order_cap = tri_count + tri_count // 2 + 128
+    return max(order_cap // 2 + order_cap // 8 + 64, 16) * (2 if leaf8 else 1), order_cap
+
+
 def native_wide16(positions: np.ndarray, tri_records: np.ndarray,
                   leaf_size: int, quality: int, leaf8: bool = False):
     """Native wide16 build: ``(rows (N, 96) f32, depth, order)``, or
     ``(N, 48)`` leaf8 rows with ``leaf8``; None when the library is
     unavailable.
 
-    ``quality`` 1 = SBVH spatial splits, 0 = binned SAH.  With SBVH,
-    ``order`` is a reference list (original triangle ids, length >= the
-    triangle count, repeats allowed)."""
+    ``quality`` bit 0: SBVH spatial splits (else binned SAH); bit 1: the
+    SAH-optimal DP collapse (else the greedy one).  With SBVH, ``order`` is
+    a reference list (original triangle ids, length >= the triangle count,
+    repeats allowed).  Raises ``RuntimeError`` when the builder refuses
+    (no triangles, a leaf size outside [1, leaf slots], a full buffer),
+    where the reference's binding returns None."""
     lib = _load()
     if lib is None:
         return None
     fn = lib.build_wide16l8_ex if leaf8 else lib.build_wide16_ex
     pos, recs = _soup(positions, tri_records)
     f = pos.shape[0]
-    # Same buffer bounds as the reference binding (SBVH ref budget).
-    order_cap = f + f // 2 + 128
-    # leaf8 leaves hold half the triangles: up to ~2x the rows.
-    cap = max(order_cap // 2 + order_cap // 8 + 64, 16) * (2 if leaf8 else 1)
+    cap, order_cap = wide16_capacity(f, leaf8)
     rows = np.empty((cap, 48 if leaf8 else 96), np.float32)
     order = np.empty((order_cap,), np.int32)
     depth = ctypes.c_int(0)
@@ -233,3 +245,19 @@ def native_wide_or_none(positions: np.ndarray, tri_records: np.ndarray,
     if n <= 0:
         return None
     return np.ascontiguousarray(nodes[:, :n])
+
+
+def native_f2h_or_none(vals: np.ndarray) -> np.ndarray | None:
+    """The builder's f32 -> canonical f16 conversion (``f2h``) of ``vals``,
+    as uint16 bits, or None when the library is unavailable.  The numpy
+    builders' ``accel/wide16.py::_canon_f16`` (after numpy's f16 rounding)
+    must give the same bits on every input, or tables of one builder break
+    the kernels' f16 decode contract (no subnormals or -0, no inf or
+    nan)."""
+    lib = _load()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(np.asarray(vals, np.float32).ravel())
+    out = np.empty(x.size, np.uint16)
+    lib.f2h_batch(x.ctypes.data, out.ctypes.data, x.size)
+    return out

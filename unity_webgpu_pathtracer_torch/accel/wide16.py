@@ -29,13 +29,19 @@ at 4:40 (word w = slot w low, slot ``w + 4`` high: ``PERM_H8_POS``) and
 8 attribute indices at 40:48.  Every consumer reads the width from
 ``nodes.shape[1]``.
 
-Tables are built by the native SBVH builder and cached on disk under
-``UWPT_BVH_CACHE_DIR`` (default: the repository's ``.bvh_cache``), keyed
-exactly as the reference keys them, so a table committed there for the
-benchmark scene is loaded instead of rebuilt.  When the native library
-cannot be built or loaded, ``build_wide16`` emits the table in numpy from
-a binned-SAH BVH2 (no spatial splits), with a warning, and the cache
-stores it under the same key, as the reference does.
+Tables are built by the native builder at the tree quality the caller
+or the environment picks (``resolve_quality``): binned SAH
+(``UWPT_BVH_QUALITY=0``) or SBVH spatial splits (1, the default), with
+the greedy 16-wide collapse or, under ``UWPT_COLLAPSE=dp`` (quality bit
+2), the SAH-optimal dynamic program, whose node cost
+``UWPT_COLLAPSE_CNODE`` sets.  They are cached on disk under
+``UWPT_BVH_CACHE_DIR`` (default: the repository's ``.bvh_cache``;
+``UWPT_BVH_CACHE=0``: no cache), keyed exactly as the reference keys
+them, so a table committed there for the benchmark scene is loaded
+instead of rebuilt.  When the native library cannot be built or loaded,
+``build_wide16`` emits the table in numpy from a binned-SAH BVH2 (no
+spatial splits, whatever the quality), with a warning, and the cache
+stores it under the reference's key for that builder.
 
 Two-level (instanced) tables put a 16-wide TLAS over the instance boxes in
 rows ``[0, tlas_cap)`` and the per-mesh BLAS tables at fixed offsets after
@@ -87,8 +93,9 @@ PERM_Q = np.array([4 * (s % 4) + s // 4 for s in range(16)])
 
 TOP_COLS = 119  # anchor 3 | scale 3 | qlo 48 | qhi 48 | ptrs 16 | meta 1
 
-# Build options the main path uses: SBVH spatial splits, greedy collapse,
-# leaf size 4 (the reference's defaults).
+# The default build options (the reference's): SBVH spatial splits, the
+# greedy collapse, leaf size 4.  Quality bit 0 = spatial splits, bit 1 =
+# the DP collapse (``native/bvh_builder.cpp::build_wide16_impl``).
 QUALITY = 1
 LEAF_SIZE = 4
 # Bump with the reference's _BVH_CACHE_VERSION (shared cache files).
@@ -146,13 +153,18 @@ def derive_top16(nodes: np.ndarray) -> np.ndarray | None:
 
 
 def bvh_cache_path(positions: np.ndarray, tri_records: np.ndarray,
-                   leaf8: bool = False, native_built: bool = True) -> str:
+                   leaf_size: int = LEAF_SIZE, quality: int = QUALITY, leaf8: bool = False,
+                   native_built: bool = True) -> str | None:
     """Content-keyed cache path, computed exactly as the reference's
-    ``_bvh_cache_path``: geometry bytes, build options (leaf8 among them),
-    the builder's ``UWPT_COLLAPSE_CNODE`` knob and the builder's identity,
-    the sha1 of ``native/bvh_builder.cpp`` or, for a table the numpy
-    builder made (``native_built`` False), ``numpy-fallback``.  So a numpy
-    table never answers for the native builder, nor the other way round."""
+    ``_bvh_cache_path``: geometry bytes, the resolved build options
+    (``leaf_size``, ``quality``, ``leaf8``), the builder's
+    ``UWPT_COLLAPSE_CNODE`` knob and the builder's identity, the sha1 of
+    ``native/bvh_builder.cpp`` or, for a table the numpy builder made
+    (``native_built`` False), ``numpy-fallback``.  So a numpy table never
+    answers for the native builder, nor the other way round.  None under
+    ``UWPT_BVH_CACHE=0`` (no cache)."""
+    if os.environ.get("UWPT_BVH_CACHE", "1") == "0":
+        return None
     c_node = os.environ.get("UWPT_COLLAPSE_CNODE", "")
     cache_dir = os.environ.get("UWPT_BVH_CACHE_DIR") or os.path.join(
         os.path.dirname(native.NATIVE_DIR), ".bvh_cache")
@@ -164,7 +176,7 @@ def bvh_cache_path(positions: np.ndarray, tri_records: np.ndarray,
     h = hashlib.sha1()
     h.update(np.ascontiguousarray(positions, np.float32).tobytes())
     h.update(np.ascontiguousarray(tri_records, np.float32).tobytes())
-    h.update(f"v{_BVH_CACHE_VERSION}|{LEAF_SIZE}|{QUALITY}|{int(leaf8)}|"
+    h.update(f"v{_BVH_CACHE_VERSION}|{leaf_size}|{quality}|{int(leaf8)}|"
              f"cnode={c_node}|{lib_id}".encode())
     return os.path.join(cache_dir, f"wide16-{h.hexdigest()}.npz")
 
@@ -175,24 +187,51 @@ def resolve_leaf8(leaf8: bool | None) -> bool:
     return os.environ.get("UWPT_WIDE16_LEAF8", "0") == "1" if leaf8 is None else bool(leaf8)
 
 
+def resolve_quality(quality: int | None) -> int:
+    """The build quality as the reference resolves it: ``quality``, or for
+    None ``UWPT_BVH_QUALITY`` (default 1); ``UWPT_COLLAPSE=dp`` then sets
+    bit 2 (the DP collapse) of a quality 0 or 1.  0 = binned SAH, 1 =
+    SBVH spatial splits, 2 / 3 = the same with the DP collapse."""
+    if quality is None:
+        quality = int(os.environ.get("UWPT_BVH_QUALITY", str(QUALITY)))
+    if quality in (0, 1) and os.environ.get("UWPT_COLLAPSE", "greedy") == "dp":
+        quality |= 2
+    return quality
+
+
 def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
+                       leaf_size: int = LEAF_SIZE, quality: int | None = None,
                        leaf8: bool | None = None) -> Wide16:
     """Load the table from the disk cache, or build it and store it there:
-    natively, or in numpy with a warning when the native library cannot be
-    built or loaded (each builder under its own key, ``bvh_cache_path``).
+    natively at ``quality`` (``resolve_quality``), or in numpy (binned SAH,
+    whatever the quality) with a warning when the native library cannot
+    be built or loaded; each builder under its own key
+    (``bvh_cache_path``).  Leaves hold at most ``leaf_size`` triangles;
     ``leaf8`` selects 48-float rows with 8-triangle leaves
-    (``resolve_leaf8``)."""
+    (``resolve_leaf8``).  With spatial splits ``order`` is a reference list:
+    original triangle ids, longer than the triangle count, repeats
+    allowed.  Raises ``ValueError`` for a leaf size outside [1, the row's
+    leaf slots], which the native builder refuses (the reference then
+    builds in numpy without a word)."""
+    quality = resolve_quality(quality)
     leaf8 = resolve_leaf8(leaf8)
+    slots = LEAF8 if leaf8 else MAX_LEAF
+    if not 1 <= leaf_size <= slots:
+        raise ValueError(f"leaf_size {leaf_size} outside [1, {slots}] (the "
+                         f"{'leaf8' if leaf8 else '16-slot'} rows' leaf slots)")
     native_ok = native.available()
-    path = bvh_cache_path(positions, tri_records, leaf8, native_ok)
-    if os.path.exists(path):
-        with np.load(path) as z:
-            w = Wide16(nodes=z["nodes"], depth=int(z["depth"]), order=z["order"])
-        CACHE_STATS["hit"] += 1
-        return w
+    path = bvh_cache_path(positions, tri_records, leaf_size, quality, leaf8, native_ok)
+    if path is not None and os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                w = Wide16(nodes=z["nodes"], depth=int(z["depth"]), order=z["order"])
+            CACHE_STATS["hit"] += 1
+            return w
+        except Exception:   # a corrupt or partial file: rebuild and overwrite it
+            pass
     CACHE_STATS["miss"] += 1
     if native_ok:
-        rows, depth, order = native.native_wide16(positions, tri_records, LEAF_SIZE, QUALITY,
+        rows, depth, order = native.native_wide16(positions, tri_records, leaf_size, quality,
                                                   leaf8)
         if depth >= MAX_DEPTH:
             raise ValueError(f"tree depth {depth} >= {MAX_DEPTH}")
@@ -202,10 +241,11 @@ def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
                       "be built or loaded); building the wide16 table in numpy (binned SAH, "
                       "no spatial splits)", stacklevel=2)
         CACHE_STATS["numpy"] += 1
-        bvh = build_bvh2(positions, leaf_size=LEAF_SIZE)
+        bvh = build_bvh2(positions, leaf_size=leaf_size)
         w = build_wide16(bvh, tri_records, np.arange(positions.shape[0], dtype=np.int32),
                          leaf8=leaf8)
-    _cache_store(path, w)
+    if path is not None:
+        _cache_store(path, w)
     return w
 
 
@@ -520,16 +560,38 @@ def build_tlas_wide16(blas: list, blas_bounds, instances, attr_bases: list):
 def decode_leaf_tris(row: np.ndarray):
     """One leaf row (96 or 48 floats) -> ``(count, records (count, 9),
     attribute indices (count,))``, the records in world space."""
-    slots, off_idx = (WIDTH, OFF_IDX) if row.shape[0] == ROW else (LEAF8, OFF_IDX8)
-    cnt = int(row[OFF_META : OFF_META + 1].view(np.int32)[0])
-    words = row[OFF_TRIS : OFF_TRIS + 9 * slots // 2].view(np.uint32).reshape(9, slots // 2)
+    recs, used, idx = _leaf_slots(row[None], np.zeros(1, np.int64))
+    cnt = int(used.sum())
+    return cnt, recs[0, :cnt], idx[0, :cnt]
+
+
+def _leaf_slots(nodes: np.ndarray, leaves: np.ndarray):
+    """Leaf rows ``leaves`` decoded as ``decode_leaf_tris`` decodes one:
+    ``(records (L, slots, 9) in world space, slot in use (L, slots),
+    attribute indices (L, slots))``."""
+    slots, off_idx = (WIDTH, OFF_IDX) if nodes.shape[1] == ROW else (LEAF8, OFF_IDX8)
+    words = nodes[leaves, OFF_TRIS : OFF_TRIS + 9 * slots // 2].view(np.uint32)
+    words = words.reshape(-1, 9, slots // 2)
     # SPLIT order: word w = slot w (low half) | slot w + slots/2 (high half).
     halves = np.concatenate([(words & 0xFFFF).astype(np.uint16),
                              (words >> 16).astype(np.uint16)], axis=-1)
-    comps = halves.view(np.float16).astype(np.float32)            # (9, slots)
-    comps[6:9] += row[0:3][:, None]
-    idx = row[off_idx : off_idx + slots].view(np.int32)
-    return cnt, comps[:, :cnt].T, idx[:cnt]
+    comps = halves.view(np.float16).astype(np.float32)            # (L, 9, slots)
+    comps[:, 6:9] += nodes[leaves, 0:3][:, :, None]
+    used = np.arange(slots)[None, :] < nodes[leaves, OFF_META].view(np.int32)[:, None]
+    idx = nodes[leaves, off_idx : off_idx + slots].view(np.int32)
+    return comps.transpose(0, 2, 1), used, idx
+
+
+def leaf_triangles(w: Wide16) -> tuple[np.ndarray, np.ndarray]:
+    """Every leaf slot's triangle as K1 reads it, over the whole table: the
+    f16 edges and anchor-relative corner decoded to f32 and the anchor
+    added.  Returns ``(records (R, 9) [e2, e1, v0] float32, original
+    triangle ids (R,))``, one per reference, so a triangle that spatial
+    splits put in several leaves appears once for each (decoded against
+    each leaf's anchor)."""
+    leaves = np.nonzero(w.nodes[:, OFF_META].view(np.int32) > 0)[0]
+    recs, used, idx = _leaf_slots(w.nodes, leaves)
+    return np.ascontiguousarray(recs[used]), np.asarray(w.order)[idx[used]]
 
 
 def validate_wide16(w: Wide16, tri_count: int) -> None:
@@ -537,44 +599,56 @@ def validate_wide16(w: Wide16, tri_count: int) -> None:
     (at least once for SBVH tables, whose ``order`` is longer than
     ``tri_count``; exactly once otherwise), every leaf's triangles lie in
     its quantized child box (not checked for SBVH tables, whose leaf boxes
-    bound clipped fragments), and the depth is below ``MAX_DEPTH``."""
+    bound clipped fragments), and the depth is below ``MAX_DEPTH``.  The
+    rows reachable from the root are visited a level at a time, each level
+    at once."""
     spatial = w.order is not None and w.order.shape[0] != tri_count
     nodes = w.nodes
+    slots, off_idx = (WIDTH, OFF_IDX) if nodes.shape[1] == ROW else (LEAF8, OFF_IDX8)
     meta = nodes[:, OFF_META].view(np.int32)
     seen = np.zeros(tri_count, np.int32)
-    stack = [0]
-    while stack:
-        r = stack.pop()
-        m = meta[r]
-        if m > 0:
-            _cnt, _recs, idx = decode_leaf_tris(nodes[r])
+    level = np.zeros(1, np.int64)
+    while level.size:
+        m = meta[level]
+        leaves, inner = level[m > 0], level[m == 0]
+        if leaves.size:
+            idx = nodes[leaves, off_idx : off_idx + slots].view(np.int32)
+            idx = idx[np.arange(slots)[None, :] < meta[leaves][:, None]]
             np.add.at(seen, w.order[idx] if spatial else idx, 1)
-        elif m < 0:
-            stack.append(int(nodes[r, OFF_BLAS : OFF_BLAS + 1].view(np.int32)[0]))
-        else:
-            anchor = nodes[r, 0:3]
-            e = int(nodes[r, OFF_EXPS : OFF_EXPS + 1].view(np.int32)[0])
-            ex = np.array([e & 255, (e >> 8) & 255, (e >> 16) & 255]) - 127
-            scale = np.ldexp(np.ones(3, np.float32), ex)
-            qb = (nodes[r, OFF_QBOX : OFF_QBOX + 24].view(np.uint8)
-                  .reshape(6, 16)[:, PERM_Q])                    # slot order
-            ptrs = nodes[r, OFF_PTRS : OFF_PTRS + 16].view(np.int32)
-            for k in range(WIDTH):
-                child = int(ptrs[k])
-                if child < 0:
-                    continue
-                if meta[child] > 0 and not spatial:
-                    lo = anchor + qb[0:3, k] * scale
-                    hi = anchor + qb[3:6, k] * scale
-                    _cnt, recs, _idx = decode_leaf_tris(nodes[child])
-                    v0 = recs[:, 6:9]
-                    pts = np.concatenate([v0, v0 + recs[:, 3:6], v0 + recs[:, 0:3]])
-                    tol = 1e-2 + 1e-3 * np.abs(pts)
-                    if not ((pts >= lo - tol) & (pts <= hi + tol)).all():
-                        raise ValueError(f"leaf row {child} is not inside its box in row {r}")
-                stack.append(child)
+        ptrs = nodes[inner, OFF_PTRS : OFF_PTRS + 16].view(np.int32)
+        if not spatial:
+            r, k = np.nonzero((ptrs >= 0) & (meta[np.maximum(ptrs, 0)] > 0))
+            _check_leaf_boxes(nodes, inner[r], k, ptrs[r, k])
+        blas = nodes[level[m < 0], OFF_BLAS].view(np.int32)
+        level = np.concatenate([ptrs[ptrs >= 0], blas]).astype(np.int64)
     if not ((seen >= 1) if spatial else (seen == 1)).all():
         raise ValueError(f"leaf coverage broken: {int((seen == 0).sum())} triangles in no "
                          f"leaf, {int((seen > 1).sum())} in several")
     if w.depth >= MAX_DEPTH:
         raise ValueError(f"tree depth {w.depth} >= {MAX_DEPTH}")
+
+
+def _check_leaf_boxes(nodes: np.ndarray, rows: np.ndarray, slot: np.ndarray,
+                      leaves: np.ndarray) -> None:
+    """Raise ``ValueError`` unless the triangles of leaf row ``leaves[i]``
+    lie in slot ``slot[i]``'s quantized box of inner row ``rows[i]`` (the
+    corners decoded from f16, 1e-2 + 1e-3 |x| of slack)."""
+    if rows.size == 0:
+        return
+    anchor = nodes[rows, 0:3]
+    e = nodes[rows, OFF_EXPS].view(np.int32)[:, None]
+    ex = ((e >> np.array([0, 8, 16])) & 255) - 127
+    scale = np.ldexp(np.ones(3, np.float32), ex)
+    qb = nodes[rows, OFF_QBOX : OFF_QBOX + 24].view(np.uint8).reshape(-1, 6, 16)[:, :, PERM_Q]
+    q = qb[np.arange(rows.size), :, slot]                        # (P, 6), slot order
+    lo = (anchor + q[:, 0:3] * scale)[:, None, :]
+    hi = (anchor + q[:, 3:6] * scale)[:, None, :]
+    recs, used, _idx = _leaf_slots(nodes, leaves)
+    v0 = recs[:, :, 6:9]
+    for pts in (v0, v0 + recs[:, :, 3:6], v0 + recs[:, :, 0:3]):
+        tol = 1e-2 + 1e-3 * np.abs(pts)
+        inside = ((pts >= lo - tol) & (pts <= hi + tol)).all(axis=2)
+        bad = ~(inside | ~used).all(axis=1)
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(f"leaf row {leaves[i]} is not inside its box in row {rows[i]}")

@@ -1,8 +1,10 @@
-"""The benchmark scene (``models/benchmark.py`` of the reference).
+"""The benchmark scenes (``models/benchmark.py`` of the reference).
 
 ``million_triangle_scene``: a grid of smooth spheres over a ground plane
 (~1M triangles at the default size) under a procedural HDRI;
-``instanced_million_triangle_scene``: the same scene as a two-level one.
+``instanced_million_triangle_scene``: the same scene as a two-level one;
+``beam_scene``: long thin beams crossing a cube, the tree-quality stress
+case.
 """
 
 from __future__ import annotations
@@ -64,9 +66,7 @@ def million_triangle_scene(target_tris: int = 1_000_000) -> tuple[Scene, dict]:
             m = mats[(i * grid + j) % len(mats)]
             x = (i - grid / 2) * 1.1 + rng.uniform(-0.1, 0.1)
             z = (j - grid / 2) * 1.1 + rng.uniform(-0.1, 0.1)
-            scene.add_mesh(Mesh(vertices=sphere.vertices, indices=sphere.indices,
-                                normals=sphere.normals, tangents=sphere.tangents,
-                                uvs=sphere.uvs, material_index=m),
+            scene.add_mesh(sphere_copy(sphere, m),
                            prim.transform_trs(translate=(x, 0.45, z)))
     g = prim.quad(size=(grid * 1.4, grid * 1.4), material_index=ground)
     rx = np.eye(4, dtype=np.float32)
@@ -80,6 +80,68 @@ def million_triangle_scene(target_tris: int = 1_000_000) -> tuple[Scene, dict]:
         target=(0.0, 0.0, 0.0),
         fov_y_deg=45.0,
     )
+    return scene, cam
+
+
+def sphere_copy(mesh: Mesh, material_index: int) -> Mesh:
+    """``mesh``'s arrays (shared, not copied) under ``material_index``."""
+    return Mesh(vertices=mesh.vertices, indices=mesh.indices, normals=mesh.normals,
+                tangents=mesh.tangents, uvs=mesh.uvs, material_index=material_index)
+
+
+def beam_scene(target_tris: int = 400_000, extent: float = 5.0,
+               seed: int = 7) -> tuple[Scene, dict]:
+    """Long thin beams crossing a cube: the tree-quality stress case.
+
+    Every beam's box spans a large share of the scene, so binned-SAH
+    object splits make heavily overlapping nodes; spatial splits
+    (``UWPT_BVH_QUALITY=1``) clip the references, as far as the native
+    builder's reference budget (half the triangle count) lets them: at
+    the default size the budget fills.  One quad (two triangles) a beam,
+    ``target_tris // 2`` beams from ``seed``, split over three materials;
+    the same procedural HDRI and a camera outside the cube.  Returns
+    ``(scene, camera kwargs)``."""
+    scene = Scene()
+    mats = [
+        scene.add_material(MaterialDesc(base_color=(0.75, 0.7, 0.6, 1.0), roughness=0.55)),
+        scene.add_material(MaterialDesc(base_color=(0.4, 0.45, 0.55, 1.0),
+                                        metallic=0.9, roughness=0.25)),
+        scene.add_material(MaterialDesc(base_color=(0.6, 0.25, 0.2, 1.0), roughness=0.75)),
+    ]
+    n_beams = max(target_tris // 2, 1)
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-extent, extent, (n_beams, 3)).astype(np.float32)
+    # Lengths U(0.5, extent): long enough that object splits overlap,
+    # short of the full diagonal (which degrades both tree types alike).
+    dirn = rng.normal(size=(n_beams, 3)).astype(np.float32)
+    dirn /= np.maximum(np.linalg.norm(dirn, axis=1, keepdims=True), 1e-8)
+    length = rng.uniform(0.5, extent, (n_beams, 1)).astype(np.float32)
+    b = a + dirn * length
+    d = b - a
+    up = rng.normal(size=(n_beams, 3)).astype(np.float32)
+    w = np.cross(d, up)
+    w /= np.maximum(np.linalg.norm(w, axis=1, keepdims=True), 1e-8)
+    half_w = rng.uniform(0.004, 0.02, (n_beams, 1)).astype(np.float32)
+    w *= half_w
+    # A quad a beam, A-w, A+w, B+w, B-w: two triangles.
+    verts = np.stack([a - w, a + w, b + w, b - w], axis=1)       # (N, 4, 3)
+    base = (np.arange(n_beams, dtype=np.int32) * 4)[:, None]
+    tris = np.concatenate([base + np.array([[0, 1, 2]], np.int32),
+                           base + np.array([[0, 2, 3]], np.int32)], axis=1).reshape(-1, 3)
+    n = np.cross(d, w)
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-8)
+    normals = np.repeat(n[:, None, :], 4, axis=1)                # (N, 4, 3)
+    third = n_beams // 3 or 1
+    for mi, mat in enumerate(mats):
+        lo, hi = mi * third, (mi + 1) * third if mi < 2 else n_beams
+        if lo >= hi:
+            continue
+        scene.add_mesh(Mesh(vertices=verts[lo:hi].reshape(-1, 3),
+                            indices=tris[: 2 * (hi - lo)].reshape(-1, 3),
+                            normals=normals[lo:hi].reshape(-1, 3), material_index=mat))
+    scene.set_environment(procedural_hdri(128))
+    cam = dict(eye=(extent * 1.7, extent * 1.1, extent * 1.7), target=(0.0, 0.0, 0.0),
+               fov_y_deg=45.0)
     return scene, cam
 
 

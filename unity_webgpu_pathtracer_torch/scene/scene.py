@@ -360,7 +360,7 @@ class Scene:
                 **_attr_tables(flat.permuted(w.order)),
                 **shading,
             )
-        w = w16.build_scene_wide16(flat.positions, flat.tri_records(), w16.resolve_leaf8(leaf8))
+        w = w16.build_scene_wide16(flat.positions, flat.tri_records(), leaf8=leaf8)
         top = w16.derive_top16(w.nodes)
         # Leaf rows index attributes by BVH reference position.
         flat = flat.permuted(w.order)
@@ -419,9 +419,14 @@ class Scene:
         reference's ``_build_instanced_quant``).  Attributes stay in mesh
         space; shading takes normals to world space per hit."""
         if fmt == "wide16":
+            # The BLASes follow the build options: rebuilt when the row
+            # width or the tree quality (``UWPT_BVH_QUALITY``,
+            # ``UWPT_COLLAPSE``) changed since the last build.
+            options = (leaf8, w16.resolve_quality(None))
             cache = self._blas16_cache
-            fresh = cache is None or cache[4] != leaf8
+            fresh = cache is None or cache[4] != options
         else:
+            options = None
             cache = self._blas8_cache
             fresh = cache is None
         if fresh:
@@ -429,7 +434,8 @@ class Scene:
             attr_base = 0
             for mesh, _transform in self.meshes:
                 flat = flatten_mesh(mesh, None)
-                w = (w16.build_scene_wide16(flat.positions, flat.tri_records(), leaf8)
+                w = (w16.build_scene_wide16(flat.positions, flat.tri_records(),
+                                            quality=options[1], leaf8=leaf8)
                      if fmt == "wide16" else
                      w8.build_scene_wide8(flat.positions, flat.tri_records()))
                 blas.append(w)
@@ -439,12 +445,12 @@ class Scene:
                 parts.append(flat.permuted(w.order))
                 attr_bases.append(attr_base)
                 attr_base += int(w.order.shape[0])
-            cache = (blas, bounds, parts, attr_bases, leaf8)
+            cache = (blas, bounds, parts, attr_bases, options)
             if fmt == "wide16":
                 self._blas16_cache = cache
             else:
                 self._blas8_cache = cache
-        blas, bounds, parts, attr_bases, _leaf8 = cache
+        blas, bounds, parts, attr_bases, _options = cache
         flat = concat_flat(parts)
         if fmt == "wide16":
             w, l2w, w2l, self._tlas16_layout = w16.build_tlas_wide16(
@@ -477,8 +483,12 @@ class Scene:
         them to ``device`` (None: the CUDA device; ``"cpu"`` for the CPU).
         ``leaf8`` selects wide16's 48-float rows with 8-triangle leaves
         (``accel/wide16.py::resolve_leaf8``), ``octants`` the number of DFS
-        orders of the wide and wide2 tables (1 or 8).  The port's default
-        is the main path's wide16; the reference's is ``"mbvh"``."""
+        orders of the wide and wide2 tables (1 or 8).  The wide16 tables,
+        flat and the BLASes of a two-level scene, are built at the tree
+        quality of ``UWPT_BVH_QUALITY`` and ``UWPT_COLLAPSE``
+        (``accel/wide16.py::resolve_quality``), as the reference's are.  The
+        port's default is the main path's wide16; the reference's is
+        ``"mbvh"``."""
         arrays = self.build_arrays(leaf8, traversal, octants)
         return scene_from_numpy(arrays, resolve_device(device))
 
