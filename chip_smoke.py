@@ -675,6 +675,7 @@ def main() -> int:
     import numpy as np
 
     from unity_webgpu_pathtracer_torch import api, cli
+    from unity_webgpu_pathtracer_torch.accel import native
     from unity_webgpu_pathtracer_torch.accel import wide16 as w16
     from unity_webgpu_pathtracer_torch.api import Renderer
     from unity_webgpu_pathtracer_torch.config import RenderConfig
@@ -949,6 +950,9 @@ def main() -> int:
                        transition_every=TE, pool_size=POOL)
     log(f"scene: {sd.wide16_nodes.shape[0]} rows, depth {sd.stack_depth}, "
         f"bvh cache {w16.CACHE_STATS}, set-up {time.perf_counter() - t0:.1f} s")
+    nb = native.BUILD_INFO
+    log(f"native BVH library: {nb['path'] or nb['error']} "
+        f"({'compiled' if nb['compiled'] else 'reused'}, {nb['seconds']:.2f} s); card: {card}")
     (cap,), k2caps = capture_inputs(sd, cfg, params, k1_calls=(4,), k2_calls=K2_AT)
     check_arrival("arrival16", arrival_state(cap, 3), False, "phase 2")
     check_run("arrival16_run", cap, "phase 2")
@@ -2160,7 +2164,6 @@ def main() -> int:
     import tempfile
     import warnings
 
-    from unity_webgpu_pathtracer_torch.accel import native
     from unity_webgpu_pathtracer_torch.ops import traverse_wide8 as tw8
     from unity_webgpu_pathtracer_torch.render import camera as ucamera
     from unity_webgpu_pathtracer_torch.scene.scene import scene_from_numpy

@@ -16,6 +16,7 @@ exporter, against the reference's, on the CPU.
 import numpy as np
 import pytest
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.test_wide8 import random_tris, recs_of
 from unity_webgpu_pathtracer_torch.accel import bvh2 as tbvh2
 from unity_webgpu_pathtracer_torch.accel import cwbvh as tcw
@@ -156,7 +157,7 @@ def test_native_disabled_block():
 
 
 @pytest.mark.parametrize("n", [12, 300, 4000])
-def test_wide8_build_byte_identical(n):
+def test_wide8_build_byte_identical(native_pair, n):  # noqa: F811
     tris = random_tris(n, seed=n)
     recs = recs_of(tris)
     got, want = tw8.build_scene_wide8(tris, recs), jw8.build_scene_wide8(tris, recs)

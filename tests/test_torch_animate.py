@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch import cli as tcli
 from unity_webgpu_pathtracer_torch.render.reproject import primary_depth
 from unity_webgpu_pathtracer_torch.utils.image import read_png

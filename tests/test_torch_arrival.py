@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as ttw
 from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_step16_cuda
 from unity_webgpu_pathtracer_torch.utils.math import safe_rcp

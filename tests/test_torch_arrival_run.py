@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from tests.test_torch_arrival import _rays, _recs, _torch_state, _tris
 from tests.test_torch_leaf8 import _instanced_rays, _two_instances
 from tests.test_torch_tlas import _two_instance_fixture

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.ops import cuda_transition as tct
 from unity_webgpu_pathtracer_torch.render import fused as tfused

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.render import bsdf as tbsdf
 from unity_webgpu_pathtracer_tpu.render import bsdf as jbsdf
 

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.api import Renderer as TRenderer
 from unity_webgpu_pathtracer_torch.models import primitives as tprim
@@ -113,7 +114,7 @@ def legacy(cornell):
     return _port(cornell, **LEGACY)
 
 
-def test_attr_shade_byte_identical():
+def test_attr_shade_byte_identical(native_pair):  # noqa: F811
     """The f32 rows the port's scene exports (packed from its per-triangle
     tables) and the rest of its tables equal the reference's, on Cornell
     and on the bruteforce build."""

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.api import Renderer
 from unity_webgpu_pathtracer_torch.config import SKY_MODE_ENVIRONMENT, RenderConfig
 from unity_webgpu_pathtracer_torch.models import primitives as prim

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from tests import golden_common
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.models.cornell import cornell_box as tcornell

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.api import Renderer
 from unity_webgpu_pathtracer_torch.models import benchmark as tbench
@@ -150,7 +151,7 @@ def _arrays(sd) -> dict:
 
 @pytest.mark.parametrize("name", ["cornell", "quad", "texture", "lights", "rect_lights",
                                   "aperture", "brdf", "tlas", "sponza_like", "textured_blend"])
-def test_megakernel_tables_byte_identical(name):
+def test_megakernel_tables_byte_identical(native_pair, name):  # noqa: F811
     """The megakernel's tables of the port's ``Scene.build`` equal the
     reference's (flat builds: ``build("wide16")``; instanced:
     ``_build_instanced_wide16()``), byte for byte."""

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.test_torch_arrival import _rays, _recs, _torch_state, _tris
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.accel import wide16 as tw16
@@ -91,7 +92,7 @@ def _jax_arrays(sd) -> dict:
 # ---- tables ----
 
 @pytest.mark.parametrize("n", [12, 300, 4000])
-def test_leaf8_soup_tables_byte_identical(n):
+def test_leaf8_soup_tables_byte_identical(native_pair, n):  # noqa: F811
     tris = _tris(n, seed=n)
     got = tw16.build_scene_wide16(tris, _recs(tris), leaf8=True)
     want = jw16.build_scene_wide16(tris, _recs(tris), leaf8=True)
@@ -103,7 +104,7 @@ def test_leaf8_soup_tables_byte_identical(n):
     assert got.nodes[:, tw16.OFF_META].view(np.int32).max() <= tw16.LEAF8
 
 
-def test_leaf8_bench_scene_tables_byte_identical(jax_leaf8):
+def test_leaf8_bench_scene_tables_byte_identical(native_pair, jax_leaf8):  # noqa: F811
     """``Scene.build_arrays(leaf8=True)`` of the 2,000-triangle bench scene
     against the reference's ``Scene.build("wide16")`` under the switch."""
     scene, _cam = tbench.million_triangle_scene(2000)
@@ -150,7 +151,7 @@ def _two_instances(pkg):
                                  [(0, np.eye(4, dtype=np.float32), None), (0, t2, None)], [0])
 
 
-def test_leaf8_two_level_tables_byte_identical(jax_leaf8):
+def test_leaf8_two_level_tables_byte_identical(native_pair, jax_leaf8):  # noqa: F811
     (jw, jl2w, jw2l, jlayout), (tw, tl2w, tw2l, tlayout) = (
         _two_instances(jw16), _two_instances(tw16))
     assert tw.nodes.shape[1] == tw16.ROW8

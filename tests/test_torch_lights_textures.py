@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.test_torch_general import _capture, _pairs, _to_jax
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.models import examples as texamples
@@ -119,7 +120,7 @@ def _jax_scene(name):
 
 @pytest.mark.parametrize("name", ["lights", "rect_lights", "texture", "tlas", "cornell", "brdf",
                                   "quad", "aperture", "sponza_like"])
-def test_tables_byte_identical(name):
+def test_tables_byte_identical(native_pair, name):  # noqa: F811
     """The port's ``Scene.build`` of a builtin equals the reference's
     ``SceneData`` field for field, byte for byte."""
     jscene = _jax_scene(name)[0]

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.test_loaders import MTL_TEXT, OBJ_TEXT, _make_glb, _textured_glb
 from unity_webgpu_pathtracer_torch import cli as tcli
 from unity_webgpu_pathtracer_torch.models import primitives as tprim
@@ -111,7 +112,7 @@ def _textured_obj(tmp_path, mask: bool):
 
 
 @pytest.mark.parametrize("mask", [False, True])
-def test_textured_obj_tables_match_reference(tmp_path, mask):
+def test_textured_obj_tables_match_reference(native_pair, tmp_path, mask):  # noqa: F811
     path = _textured_obj(tmp_path, mask)
     scene = load_obj(path)
     assert len(scene.textures) == 1 and len(scene.meshes) == 2
@@ -122,7 +123,7 @@ def test_textured_obj_tables_match_reference(tmp_path, mask):
 
 
 @pytest.mark.parametrize("instancing", [False, True])
-def test_textured_glb_tables_match_reference(tmp_path, instancing):
+def test_textured_glb_tables_match_reference(native_pair, tmp_path, instancing):  # noqa: F811
     rng = np.random.default_rng(4)
     png = timage.encode_png(rng.integers(0, 256, (16, 8, 4), np.uint8))
     path = _textured_glb(tmp_path, png, "image/png")

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.torch_backends import numpy_builders  # noqa: F401  (fixture)
 from tests.torch_backends import built_pair, hits_match, ray_sets, tie_case
 from unity_webgpu_pathtracer_torch import accel as taccel
@@ -54,9 +55,8 @@ def _mbvh_skip_tables(pos):
 
 
 @pytest.mark.parametrize("n", [1, 33, 2000])
-def test_tables_byte_identical_native(n):
+def test_tables_byte_identical_native(native_pair, n):  # noqa: F811
     pos = ray_sets(n, 1)[0]
-    assert tnative.available()
     got, want = _mbvh_skip_tables(pos)
     for g, w in zip(got, want):
         for a, b in zip(g, w):
@@ -85,7 +85,7 @@ def test_native_bindings_count_as_missing_when_disabled():
 @pytest.mark.parametrize("traversal,ntri,nray", [
     ("mbvh", 1, 64), ("mbvh", 50, 256), ("mbvh", 1000, 512), ("bvh2", 50, 256),
     ("skip", 1, 64), ("skip", 50, 256), ("skip", 1000, 512)])
-def test_hits_match_reference(traversal, ntri, nray):
+def test_hits_match_reference(native_pair, traversal, ntri, nray):  # noqa: F811
     pos, o, d = ray_sets(ntri, nray)
     jsd, tsd = built_pair(pos, traversal)
     if ntri > 1:
@@ -96,7 +96,7 @@ def test_hits_match_reference(traversal, ntri, nray):
 
 
 @pytest.mark.parametrize("traversal", ["mbvh", "skip"])
-def test_ties_match_reference(traversal):
+def test_ties_match_reference(native_pair, traversal):  # noqa: F811
     pos, o, d = tie_case()
     jsd, tsd = built_pair(pos, traversal)
     assert hits_match(jsd, tsd, traversal, o, d) >= 200

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch import cli as tcli
 from unity_webgpu_pathtracer_torch.config import PostParams as TPost
 from unity_webgpu_pathtracer_torch.post import tonemap as ttm

@@ -37,6 +37,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from tests import torch_parallel_worker as worker
 from tests.test_torch_fused import both  # noqa: F401  (the HDRI scene of both packages)
 from tests.test_torch_fused import _film_close

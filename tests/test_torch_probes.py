@@ -29,6 +29,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.experiments import round2_probe as port_round2
 from unity_webgpu_pathtracer_torch.experiments import round18_mosaic_probe as port_mosaic
 from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import assert_native_pair, native_pair  # noqa: F401  (fixture)
 from tests.test_torch_fused import _film_close
 from tests.test_torch_scene import ENV_FIELDS, jax_arrays
 from tests.test_wide8 import random_rays, random_tris, recs_of
@@ -87,7 +88,7 @@ def _same(got: tw16.Wide16, want) -> None:
 @pytest.mark.parametrize("leaf8", [False, True], ids=["flat", "leaf8"])
 @pytest.mark.parametrize("quality", [0, 1, 2, 3])
 @pytest.mark.parametrize("soup", ["r300", "r4000", "beams400"])
-def test_build_byte_identical(fresh, soup, quality, leaf8):
+def test_build_byte_identical(native_pair, fresh, soup, quality, leaf8):  # noqa: F811
     tris, recs = _soup(soup)
     got = tw16.build_scene_wide16(tris, recs, quality=quality, leaf8=leaf8)
     _same(got, jw16.build_scene_wide16(tris, recs, quality=quality, leaf8=leaf8))
@@ -106,7 +107,8 @@ def test_build_byte_identical(fresh, soup, quality, leaf8):
     ({"UWPT_COLLAPSE": "dp"}, 3, 3),            # 2 and 3 pass through
     ({"UWPT_BVH_QUALITY": "3"}, 0, 0),          # an explicit quality wins
 ])
-def test_switches_resolve_as_the_reference(fresh, switches, quality, want):
+def test_switches_resolve_as_the_reference(native_pair, fresh,  # noqa: F811
+                                           switches, quality, want):
     for k, v in switches.items():
         fresh.setenv(k, v)
     assert tw16.resolve_quality(quality) == want
@@ -118,7 +120,7 @@ def test_switches_resolve_as_the_reference(fresh, switches, quality, want):
     _same(got, tw16.build_scene_wide16(tris, recs, quality=want))
 
 
-def test_collapse_cnode_changes_the_dp_table_and_misses(env, tmp_path):
+def test_collapse_cnode_changes_the_dp_table_and_misses(native_pair, env, tmp_path):  # noqa: F811
     """``UWPT_COLLAPSE_CNODE`` weighs the DP collapse's inner rows: another
     weight builds another table (the reference's), under another key."""
     tris, recs = _soup("r4000")
@@ -215,6 +217,7 @@ def beams():
     quality 0 and 3: the reference's ``SceneData`` as numpy arrays and the
     port's ``build_arrays`` and table, each built under
     ``UWPT_BVH_QUALITY`` with the cache off."""
+    assert_native_pair()
     mp = pytest.MonkeyPatch()
     for k in SWITCHES:
         mp.delenv(k, raising=False)
@@ -233,7 +236,7 @@ def beams():
 
 
 @pytest.mark.parametrize("quality", [0, 3])
-def test_beam_tables_byte_identical(beams, quality):
+def test_beam_tables_byte_identical(native_pair, beams, quality):  # noqa: F811
     _scene, _cam, _flat, out = beams
     want, got = jax_arrays(out[quality]["jax"]), out[quality]["port"]
     for f in ("wide16_nodes", "wide16_top", "attr_shade_c", "materials"):
@@ -245,7 +248,7 @@ def test_beam_tables_byte_identical(beams, quality):
 
 
 @pytest.mark.parametrize("quality", [0, 3])
-def test_k1_twin_on_beams_matches_oracle(beams, quality):
+def test_k1_twin_on_beams_matches_oracle(native_pair, beams, quality):  # noqa: F811
     """``tests/test_wide16.py::test_wide16_beams_matches_bruteforce``'s
     bounds on the port's tables of the beam scene: K1's plain twin
     (``closest_hit``) against the brute-force oracle over the table's leaf
@@ -362,7 +365,7 @@ def test_validate_mbvh_as_the_reference(fault):
         tmbvh.validate_mbvh(bounds, child, pos, order)
 
 
-def test_f2h_matches_canon_f16():
+def test_f2h_matches_canon_f16(native_pair):  # noqa: F811
     """``tests/test_native.py::test_f2h_parity_fuzz``'s inputs: the
     builder's f2h through the port's binding, the port's numpy
     ``_canon_f16`` and the reference's binding agree bit for bit."""

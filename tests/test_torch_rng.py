@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.utils import rng as trng
 from unity_webgpu_pathtracer_tpu.utils import rng as jrng
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.render import sampling as tsp
 from unity_webgpu_pathtracer_torch.scene import envmap as tenv
 from unity_webgpu_pathtracer_torch.utils import math as tmath

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import assert_native_pair, native_pair  # noqa: F401  (fixture)
 from unity_webgpu_pathtracer_torch.accel import wide16 as tw16
 from unity_webgpu_pathtracer_torch.config import RenderConfig
 from unity_webgpu_pathtracer_torch.models import benchmark as tbench
@@ -33,9 +34,16 @@ def jax_arrays(sd) -> dict:
 
 
 @pytest.fixture(scope="module")
-def jax_scene():
-    scene, _cam = jbench.million_triangle_scene(2000)
-    return jax_arrays(scene.build("wide16"))
+def jax_scene(tmp_path_factory):
+    """The reference's native build, into a cache of its own."""
+    assert_native_pair()
+    mp = pytest.MonkeyPatch()
+    mp.setenv("UWPT_BVH_CACHE_DIR", str(tmp_path_factory.mktemp("bvh_cache")))
+    try:
+        scene, _cam = jbench.million_triangle_scene(2000)
+        return jax_arrays(scene.build("wide16"))
+    finally:
+        mp.undo()
 
 
 def _same_bytes(a, b, name):
@@ -44,10 +52,9 @@ def _same_bytes(a, b, name):
     assert a.tobytes() == b.tobytes(), name
 
 
-def test_host_build_byte_identical(jax_scene, tmp_path, monkeypatch):
+def test_host_build_byte_identical(native_pair, jax_scene):  # noqa: F811
     """The port's own build (native SBVH into an empty cache) equals the
     reference's tables byte for byte."""
-    monkeypatch.setenv("UWPT_BVH_CACHE_DIR", str(tmp_path))
     before = dict(tw16.CACHE_STATS)
     scene, _cam = tbench.million_triangle_scene(2000)
     got = scene.build_arrays()

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests import golden_common
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.accel import wide16 as tw16
@@ -103,7 +104,7 @@ def _two_instance_fixture(pkg):
                                  [(0, np.eye(4, dtype=np.float32), None), (0, t2, None)], [0])
 
 
-def test_tlas_scene_tables_byte_identical():
+def test_tlas_scene_tables_byte_identical(native_pair):  # noqa: F811
     want = _jax_arrays(jexamples.tlas_scene(n=4)[0]._build_instanced_wide16())
     got = texamples.tlas_scene(n=4)[0].build_arrays()
     for f in TABLE_FIELDS:
@@ -113,7 +114,7 @@ def test_tlas_scene_tables_byte_identical():
         _same_bytes(got["env"][f], want["env"][f], f"env.{f}")
 
 
-def test_two_instance_fixture_byte_identical():
+def test_two_instance_fixture_byte_identical(native_pair):  # noqa: F811
     (jw, jl2w, jw2l, jlayout), (tw, tl2w, tw2l, tlayout) = (
         _two_instance_fixture(jw16), _two_instance_fixture(tw16))
     _same_bytes(tw.nodes, jw.nodes, "nodes")
@@ -123,7 +124,7 @@ def test_two_instance_fixture_byte_identical():
     assert dataclasses.asdict(tlayout) == dataclasses.asdict(jlayout)
 
 
-def test_rebuild_tlas_rows_byte_identical():
+def test_rebuild_tlas_rows_byte_identical(native_pair):  # noqa: F811
     """The transform-only refresh after ``set_instance_transform``."""
     move = tprim.transform_trs(translate=(0.3, 2.1, -0.4), rotate_y=0.5, scale=1.2)
     js = jexamples.tlas_scene(n=4)[0]

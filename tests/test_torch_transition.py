@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch.ops import cuda_transition as tct
 from unity_webgpu_pathtracer_torch.scene import envmap as tenv
 from unity_webgpu_pathtracer_tpu.config import SKY_MODE_ENVIRONMENT, RenderConfig

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests import torch_native  # noqa: F401  (loads both packages' native builders whole)
 from unity_webgpu_pathtracer_torch import cli as tcli
 from unity_webgpu_pathtracer_torch import viewer as tviewer
 from unity_webgpu_pathtracer_torch.api import Renderer

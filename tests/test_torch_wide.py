@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.torch_backends import numpy_builders  # noqa: F401  (fixture)
 from tests.torch_backends import (
     built_pair,
@@ -98,7 +99,7 @@ def _wide_tables(n):
 
 
 @pytest.mark.parametrize("n", [1, 33, 2000])
-def test_wide_tables_byte_identical_native(n):
+def test_wide_tables_byte_identical_native(native_pair, n):  # noqa: F811
     _wide_tables(n)
 
 
@@ -124,7 +125,7 @@ def _tlas_inputs():
     return tables, bounds, instances
 
 
-def test_tlas_and_export_byte_identical():
+def test_tlas_and_export_byte_identical(native_pair):  # noqa: F811
     tables, bounds, instances = _tlas_inputs()
     got = ttlas.build_tlas_wide(tables, bounds, instances)
     want = jtlas.build_tlas_wide(tables, bounds, instances)
@@ -158,7 +159,7 @@ def test_instanced_scene_tables_byte_identical(numpy_builders, traversal):  # no
 @pytest.mark.parametrize("traversal,ntri,nray,octants", [
     ("wide", 1, 64, 1), ("wide", 50, 256, 8), ("wide", 1000, 512, 1), ("wide", 1000, 512, 8),
     ("wide2", 50, 256, 1), ("wide2", 1000, 512, 1), ("wide2", 1000, 512, 8)])
-def test_hits_match_reference(traversal, ntri, nray, octants):
+def test_hits_match_reference(native_pair, traversal, ntri, nray, octants):  # noqa: F811
     pos, o, d = ray_sets(ntri, nray)
     jsd, tsd = built_pair(pos, traversal, octants)
     hits = hits_match(jsd, tsd, traversal, o, d, seed=ntri,
@@ -168,14 +169,14 @@ def test_hits_match_reference(traversal, ntri, nray, octants):
 
 @pytest.mark.parametrize("traversal", ["wide", "wide2"])
 @pytest.mark.parametrize("octants", [1, 8])
-def test_ties_match_reference(traversal, octants):
+def test_ties_match_reference(native_pair, traversal, octants):  # noqa: F811
     pos, o, d = tie_case()
     jsd, tsd = built_pair(pos, traversal, octants)
     assert hits_match(jsd, tsd, traversal, o, d) >= 200
 
 
 @pytest.mark.parametrize("traversal", ["wide", "wide2"])
-def test_instanced_hits_match_reference(traversal):
+def test_instanced_hits_match_reference(native_pair, traversal):  # noqa: F811
     """Rays at the instances of ``tlas_scene(n=3)``: slots are the rebased
     attribute rows, instances the hit instance."""
     jsc, _cam, _o = jexamples.tlas_scene(n=3)
@@ -309,7 +310,7 @@ def test_two_level_wide16_matches_reference_wide_render():
 
 
 @pytest.mark.parametrize("traversal", ["wide", "wide2"])
-def test_update_instance_transform_equals_fresh_build(traversal):
+def test_update_instance_transform_equals_fresh_build(native_pair, traversal):  # noqa: F811
     tsc, cam, over = texamples.tlas_scene(n=3)
     cfg = tconfig.RenderConfig(width=8, height=8, traversal=traversal, integrator="megakernel",
                                sky_mode=over["sky_mode"], has_environment_texture=False)

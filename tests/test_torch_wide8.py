@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_native import native_pair  # noqa: F401  (fixture)
 from tests.test_wide8 import random_rays, random_tris, recs_of
 from unity_webgpu_pathtracer_torch import config as tconfig
 from unity_webgpu_pathtracer_torch.accel import wide8 as tw8a
@@ -151,13 +152,13 @@ def _tlas_pair(n=5):
     return out
 
 
-def test_wide8_instanced_tables_byte_identical():
+def test_wide8_instanced_tables_byte_identical(native_pair):  # noqa: F811
     jsc, tsc = _tlas_pair()
     _same_tables(tscene.scene_to_numpy(tsc.build("wide8", device="cpu")),
                  _arrays(jsc.build("wide8")))
 
 
-def test_wide8_tlas_only_update_matches_full_rebuild():
+def test_wide8_tlas_only_update_matches_full_rebuild(native_pair):  # noqa: F811
     """A transform-only update rewrites only the TLAS rows, in place on the
     device table (``Renderer.update_instance_transform``): the result
     equals a rebuild from scratch and the reference's rows."""

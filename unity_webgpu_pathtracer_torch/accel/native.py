@@ -7,33 +7,51 @@ rows), the reference's first three formats, with its argument lists:
 ``build_mbvh8`` (the 8-wide MBVH of ``accel/mbvh.py``), ``build_skip_bvh``
 (the skip rows of ``accel/linearize.py``) and ``build_wide_bvh`` (the
 fat rows of ``accel/wide.py``), and ``f2h_batch``, the builder's f32 ->
-f16 conversion (``native_f2h_or_none``).  The library is built with ``make -C
-native`` when it is missing.  When it cannot be built or loaded, the
-builders here return None and the callers build in numpy
-(``accel/wide16.py::build_wide16``, ``accel/wide8.py::build_wide8``,
-``accel/__init__.py``), as the reference's binding does; no device path
-depends on it.  ``disabled()`` makes the library count as
-missing for a block (the fallback's test and its chip phase).
+f16 conversion (``native_f2h_or_none``).
+
+The package builds its own copy of the library at first use:
+``native/bvh_builder.cpp`` compiled by ``g++`` with ``native/Makefile``'s
+flags into ``_build/libtpubvh-<key>.so``, the key a hash of the source
+and the flags.  The compiler writes a temporary file that is renamed into
+place, under a lock on ``_build/libtpubvh.lock``, so processes started
+together compile once and none opens a partial file.  When ``g++`` is
+missing or the compile fails, the builders here return None and the
+callers build in numpy (``accel/wide16.py::build_wide16``,
+``accel/wide8.py::build_wide8``, ``accel/__init__.py``), as the
+reference's binding does; no device path depends on it.  ``disabled()``
+makes the library count as missing for a block (the fallback's test and
+its chip phase).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 
-NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native")
-LIB_PATH = os.path.join(NATIVE_DIR, "libtpubvh.so")
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NATIVE_DIR = os.path.join(os.path.dirname(PKG_DIR), "native")
 SRC_PATH = os.path.join(NATIVE_DIR, "bvh_builder.cpp")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+# ``native/Makefile``'s flags: other flags would make another builder.
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 
 _LIB = None
 _TRIED = False
 _DISABLED = False
+# The library this process loaded (``path``), whether this process
+# compiled it (``compiled``, else it was reused), the seconds to build and
+# load it, and why it could not be built or loaded (``error``, with the
+# compiler's stderr).
+BUILD_INFO = {"path": None, "compiled": False, "seconds": 0.0, "error": ""}
 
 
 @contextlib.contextmanager
@@ -47,6 +65,40 @@ def disabled():
         _DISABLED = old
 
 
+def lib_path() -> str:
+    """Where the library for the current source and flags is built."""
+    h = hashlib.sha1(" ".join(CXX_FLAGS).encode())
+    with open(SRC_PATH, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libtpubvh-{h.hexdigest()[:16]}.so")
+
+
+def _build(path: str) -> None:
+    """Compile the library into ``path`` unless another process has; the
+    file appears whole, by a rename, or not at all.  Raises
+    ``RuntimeError`` with the reason when it cannot be built."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "libtpubvh.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return
+        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
+        os.close(fd)
+        try:
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SRC_PATH],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed ({proc.returncode}): {proc.stderr.strip()}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        BUILD_INFO["compiled"] = True
+
+
 def _load() -> ctypes.CDLL | None:
     """The library, built first when missing; None when it cannot be built
     or loaded (the attempt is made once a process)."""
@@ -56,25 +108,16 @@ def _load() -> ctypes.CDLL | None:
     if _TRIED:
         return _LIB
     _TRIED = True
-    if not os.path.exists(LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", NATIVE_DIR, "-s"], capture_output=True,
-                           text=True, timeout=600)
-        except (OSError, subprocess.SubprocessError):
-            return None
-        if not os.path.exists(LIB_PATH):
-            return None
-    # Another process (the JAX package builds the same file in place) may
-    # still be writing the library: retry the load for a while.
-    deadline = time.monotonic() + 120.0
-    while True:
-        try:
-            lib = ctypes.CDLL(LIB_PATH)
-            break
-        except OSError:
-            if time.monotonic() > deadline:
-                return None
-            time.sleep(1.0)
+    t0 = time.perf_counter()
+    try:
+        path = lib_path()
+        if not os.path.exists(path):
+            _build(path)
+        lib = ctypes.CDLL(path)
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        BUILD_INFO["error"] = str(e)
+        return None
+    BUILD_INFO.update(path=path, seconds=time.perf_counter() - t0)
     for fn in (lib.build_wide16_ex, lib.build_wide16l8_ex):
         fn.restype = ctypes.c_int
         fn.argtypes = [

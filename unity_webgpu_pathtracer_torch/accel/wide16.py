@@ -237,9 +237,10 @@ def build_scene_wide16(positions: np.ndarray, tri_records: np.ndarray,
             raise ValueError(f"tree depth {depth} >= {MAX_DEPTH}")
         w = Wide16(nodes=rows, depth=depth, order=order)
     else:
-        warnings.warn("the native BVH builder is unavailable (native/libtpubvh.so could not "
-                      "be built or loaded); building the wide16 table in numpy (binned SAH, "
-                      "no spatial splits)", stacklevel=2)
+        why = native.BUILD_INFO["error"] or "disabled"
+        warnings.warn(f"the native BVH builder is unavailable (the port's library in "
+                      f"{native.BUILD_DIR} could not be built or loaded: {why}); building the "
+                      "wide16 table in numpy (binned SAH, no spatial splits)", stacklevel=2)
         CACHE_STATS["numpy"] += 1
         bvh = build_bvh2(positions, leaf_size=leaf_size)
         w = build_wide16(bvh, tri_records, np.arange(positions.shape[0], dtype=np.int32),
