@@ -119,9 +119,9 @@ Phases, each printing one or more lines:
     megakernel (``integrator="megakernel"``) on phase 4's scene at
     1920x1080, 1 spp (2,073,600 lanes a bounce), 5 bounces, the HDRI,
     two passes through ``Renderer``, only K1 launched (its flat kernel,
-    through ``closest_hit``/``occluded``), each pass's s/pass, rays (a hook
-    around ``integrator.render_pass`` passes ``trace_bounce``'s
-    ``with_stats`` counts), K1 launches and host reads, peak memory; the
+    through ``closest_hit``/``occluded``), each pass's s/pass, rays, K1
+    launches and host reads (``Renderer.stats()``, its K1 launches held to
+    the launch counter), peak memory; the
     film held to phase 4's as path A is; K1's first launch of the pass
     (every lane at the root) against its twin, timed, at that width;
     (f) a checkpoint after pass 1, loaded into a new ``Renderer``: pass 2
@@ -1519,14 +1519,8 @@ def main() -> int:
         expect_only(got, {"arrival16_run": got["arrival16_run"]}, label)
         return got["arrival16_run"]
 
-    # 15a: the megakernel at full width through Renderer, each pass's rays
-    # counted by trace_bounce(with_stats=True) through a local hook.
-    render_pass = integrator.render_pass
-    pass_stats = {}
-
-    def counted_pass(*a, **k):
-        return render_pass(*a, stats=pass_stats, **k)
-
+    # 15a: the megakernel at full width through Renderer, each pass's rays,
+    # K1 launches and host reads from Renderer.stats().
     scene, cam = million_triangle_scene(1_000_000)
     mk_cfg = RenderConfig(width=w, height=h, samples_per_pass=1, max_bounces=5,
                           integrator="megakernel")
@@ -1539,38 +1533,35 @@ def main() -> int:
     # The first K1 launch of the first pass (every lane at the root of its
     # closest-hit traversal), kept to time K1 at B = 2,073,600.
     k1_caps = []
-    integrator.render_pass = counted_pass
     mk_launches, mk_rows = 0, []
-    try:
-        with first_k1(k1_caps):
-            for p in range(2):
-                pass_stats.clear()
-                tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                reset_counts()
-                t0 = time.perf_counter()
-                r.render(passes=1)   # ends in a synchronize
-                dt = time.perf_counter() - t0
-                launches = k1_only(f"phase 15a pass {p}")
-                mk_launches += launches
-                closest, shadow = int(pass_stats["closest"]), int(pass_stats["shadow"])
-                bounces = pass_stats["bounces"]
-                mk_rows.append((dt, closest + shadow))
-                log(f"phase 15a megakernel pass {p} ({w}x{h}, 1 spp, {w * h} lanes): {dt:.3f} "
-                    f"s/pass, {(closest + shadow) / dt / 1e6:.3f} Mrays/s, rays {closest + shadow} "
-                    f"(closest {closest}, shadow {shadow}), bounces {bounces}, K1 launches "
-                    f"{launches} ({launches / bounces:.2f} a bounce), traversals "
-                    f"{tw16.TRAVERSE_STATS['calls']}, host reads {tw16.TRAVERSE_STATS['host_reads']} "
-                    f"+ {bounces} loop tests, peak memory "
-                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
-                if p == 0:
-                    r.save_checkpoint(ckpt)
-                    mk_first = r.film.accum.clone()
-    finally:
-        integrator.render_pass = render_pass
-    if r.stats() != {}:
-        raise AssertionError(f"phase 15a: stats after a megakernel pass {r.stats()}")
+    with first_k1(k1_caps):
+        for p in range(2):
+            tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            r.render(passes=1)   # ends in a synchronize
+            dt = time.perf_counter() - t0
+            launches = k1_only(f"phase 15a pass {p}")
+            mk_launches += launches
+            st = r.stats()
+            closest, shadow, bounces = st["closest_rays"], st["shadow_rays"], st["bounces"]
+            alive_tests = st["host_reads"] - tw16.TRAVERSE_STATS["host_reads"]
+            if st["k1_launches"] != launches or not bounces <= alive_tests <= bounces + 1:
+                raise AssertionError(f"phase 15a pass {p}: stats {st} against {launches} K1 "
+                                     f"launches, {tw16.TRAVERSE_STATS} traversals")
+            mk_rows.append((dt, closest + shadow))
+            log(f"phase 15a megakernel pass {p} ({w}x{h}, 1 spp, {w * h} lanes): {dt:.3f} "
+                f"s/pass, {(closest + shadow) / dt / 1e6:.3f} Mrays/s, rays {closest + shadow} "
+                f"(closest {closest}, shadow {shadow}), bounces {bounces}, K1 launches "
+                f"{launches} ({launches / bounces:.2f} a bounce), traversals "
+                f"{tw16.TRAVERSE_STATS['calls']}, host reads {tw16.TRAVERSE_STATS['host_reads']} "
+                f"+ {alive_tests} loop tests, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
+            if p == 0:
+                r.save_checkpoint(ckpt)
+                mk_first = r.film.accum.clone()
     img = r.film.accum
     check_film(img, (h, w, 3), "phase 15a")
     mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 15a")

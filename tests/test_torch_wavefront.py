@@ -100,7 +100,12 @@ def test_wavefront_matches_megakernel_statistically():
                 seed_root=np.uint32(1000 + i * 1000003), device="cpu")
             r = Renderer(scene, cfg, params, device="cpu")
             r.render(1)
-            assert r.stats() == {}
+            # A wavefront pass leaves no counters; a megakernel pass its own.
+            if integ == "wavefront":
+                assert r.stats() == {}
+            else:
+                st = r.stats()
+                assert st["closest_rays"] > 0 and st["bounces"] >= 1
             passes.append(r.radiance())
         passes = np.stack(passes)
         assert np.isfinite(passes).all()

@@ -37,6 +37,7 @@ from unity_webgpu_pathtracer_torch.scene.scene import (
     rebuild_tlas_rows,
 )
 from unity_webgpu_pathtracer_torch.utils.image import write_png
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 
 class Renderer:
@@ -66,7 +67,7 @@ class Renderer:
         self.config = config
         self.params = params.to(self.device)
         self.film = ufilm.new_film(config.height, config.width, self.device)
-        self._last = None   # (occupancy, rays, arrivals, super_iterations)
+        self._last = None   # the last pass's counters: stats()'s keys to values
 
     def reset(self) -> None:
         """Restart accumulation; the last pass's statistics go with it."""
@@ -138,14 +139,23 @@ class Renderer:
     def step(self) -> None:
         """Render one progressive pass (``samples_per_pass`` samples/pixel)
         with ``config.integrator``."""
-        if self.config.integrator == "fused":
-            self.film, *self._last = fused_pass_and_accumulate(
-                self.scene, self.config, self.params, self.film)
-            return
-        step = (wavefront_pass_and_accumulate if self.config.integrator == "wavefront"
-                else megakernel_pass_and_accumulate)
-        self.film = step(self.scene, self.config, self.params, self.film)
-        self._last = None
+        with span("api.step"):
+            if self.config.integrator == "fused":
+                self.film, occ, rays, arrivals, iters = fused_pass_and_accumulate(
+                    self.scene, self.config, self.params, self.film)
+                self._last = {"occupancy": occ, "rays": rays, "arrivals": arrivals,
+                              "super_iterations": iters}
+            elif self.config.integrator == "wavefront":
+                self.film = wavefront_pass_and_accumulate(self.scene, self.config, self.params,
+                                                          self.film)
+                self._last = None
+            else:
+                st = {}
+                self.film = megakernel_pass_and_accumulate(self.scene, self.config,
+                                                           self.params, self.film, stats=st)
+                self._last = {"closest_rays": st["closest"], "shadow_rays": st["shadow"],
+                              "bounces": st.get("bounces", 0),
+                              "k1_launches": st["k1_launches"], "host_reads": st["host_reads"]}
 
     def render(self, passes: int = 1) -> ufilm.Film:
         for _ in range(passes):
@@ -155,16 +165,18 @@ class Renderer:
         return self.film
 
     def stats(self) -> dict:
-        """The last fused pass's lane occupancy, rays traced (closest +
-        shadow), arrivals and super-iterations; ``{}`` before the first
-        pass, after ``reset`` and after a megakernel or wavefront pass (as
-        in the reference).  Reads device scalars, so it waits for the
-        pass."""
+        """The last pass's counters.  After a fused pass: lane
+        ``occupancy``, ``rays`` traced (closest + shadow), ``arrivals`` and
+        ``super_iterations``.  After a megakernel pass: ``closest_rays``,
+        ``shadow_rays``, ``bounces``, ``k1_launches`` (K1's launches; 0 on
+        the CPU, where its plain twin runs) and ``host_reads`` (the
+        traversal loops' tests and the bounces' alive tests).  ``{}``
+        before the first pass, after ``reset`` and after a wavefront pass.
+        The pass keeps its ray counts on the device; this reads them, so it
+        waits for the pass."""
         if self._last is None:
             return {}
-        occ, rays, arrivals, iters = self._last
-        return {"occupancy": float(occ), "rays": int(rays),
-                "arrivals": int(arrivals), "super_iterations": int(iters)}
+        return {k: float(v) if k == "occupancy" else int(v) for k, v in self._last.items()}
 
     @property
     def sample_count(self) -> int:
@@ -179,8 +191,9 @@ class Renderer:
         """Display-ready uint8 (H, W, 3), row 0 = top (the image
         convention; the film's row 0 is the bottom).  The presentation chain
         runs on the film's device; one host copy, of the uint8 result."""
-        out = torch.clamp(present(self.film.accum, post), 0.0, 1.0) * 255 + 0.5
-        return out.to(torch.uint8).flip(0).cpu().numpy()
+        with span("api.image"):
+            out = torch.clamp(present(self.film.accum, post), 0.0, 1.0) * 255 + 0.5
+            return out.to(torch.uint8).flip(0).cpu().numpy()
 
     def save_png(self, path: str, post: PostParams = PostParams()) -> None:
         write_png(path, self.image(post))

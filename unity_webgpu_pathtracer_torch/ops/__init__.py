@@ -137,3 +137,25 @@ def get_intersectors(config):
     if config.traversal not in _BACKENDS:
         raise ValueError(f"unknown traversal backend {config.traversal!r}")
     return _BACKENDS[config.traversal]
+
+
+def pass_counters() -> tuple[int, int]:
+    """``(K1's multi-arrival launches, host reads of the traversal loops'
+    test)`` so far in this process: ``arrival_steps16_cuda.launches`` (CUDA
+    tensors only; the plain twin on the CPU counts none) and every
+    backend's ``TRAVERSE_STATS``; a pass's counts are the difference of
+    two readings."""
+    from unity_webgpu_pathtracer_torch.ops import (
+        traverse_mbvh,
+        traverse_skip,
+        traverse_wide,
+        traverse_wide2,
+        traverse_wide8,
+        traverse_wide16,
+    )
+    from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
+
+    reads = sum(m.TRAVERSE_STATS["host_reads"] for m in (
+        traverse_mbvh, traverse_skip, traverse_wide, traverse_wide2, traverse_wide8,
+        traverse_wide16))
+    return sum(arrival_steps16_cuda.launches.values()), reads

@@ -22,6 +22,7 @@ import torch
 from unity_webgpu_pathtracer_torch.accel.mbvh import LEAF_CNT_BITS, WIDTH
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import CHECK_EVERY, DET_EPS, T_MIN
 from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, dot, safe_rcp
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 STACK_DEPTH = 64
 MAX_LEAF = 4
@@ -163,8 +164,9 @@ def _traverse(bounds, child, tris, origins, directions, t_max, any_hit: bool,
         if any_hit:
             running = running & ~s.found
         TRAVERSE_STATS["host_reads"] += 1
-        if not bool(running.any()):
-            return s
+        with span("sync.loop_test"):
+            if not bool(running.any()):
+                return s
 
 
 def closest_hit(bounds: torch.Tensor, child: torch.Tensor, tris: torch.Tensor,

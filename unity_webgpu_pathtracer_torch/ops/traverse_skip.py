@@ -23,6 +23,7 @@ from unity_webgpu_pathtracer_torch.ops.traverse_mbvh import leaf_hits, take_best
 from unity_webgpu_pathtracer_torch.ops.traverse_wide8 import octant_index
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import CHECK_EVERY
 from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 LEAF_EVERY = 4   # node steps per leaf step
 
@@ -101,8 +102,9 @@ def _traverse(nodes: torch.Tensor, tris: torch.Tensor, origins: torch.Tensor,
         if any_hit:
             running = running & ~s.found
         TRAVERSE_STATS["host_reads"] += 1
-        if not bool(running.any()):
-            return s
+        with span("sync.loop_test"):
+            if not bool(running.any()):
+                return s
 
 
 def closest_hit(nodes: torch.Tensor, tris: torch.Tensor, origins: torch.Tensor,

@@ -34,6 +34,7 @@ import torch
 
 from unity_webgpu_pathtracer_torch.accel.wide16 import LEAF8, OFF_IDX, OFF_IDX8, ROW, WIDTH
 from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 DONE = -1
 FULL = 0xFFFF
@@ -405,8 +406,9 @@ def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tens
         if live is not None:
             running = running & live
         TRAVERSE_STATS["host_reads"] += 1
-        if not bool(running.any()):
-            return s
+        with span("sync.loop_test"):
+            if not bool(running.any()):
+                return s
 
 
 def closest_hit(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,

@@ -25,6 +25,7 @@ from unity_webgpu_pathtracer_torch.ops.traverse_wide8 import octant_index
 from unity_webgpu_pathtracer_torch.ops.traverse_wide import leaf4_hits, slab4, to_instance
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import CHECK_EVERY
 from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 LEAF_EVERY = 4
 
@@ -216,8 +217,9 @@ def _traverse(scene, origins: torch.Tensor, directions: torch.Tensor, t_max, any
         if any_hit:
             running = running & ~s.found
         TRAVERSE_STATS["host_reads"] += 1
-        if not bool(running.any()):
-            return s
+        with span("sync.loop_test"):
+            if not bool(running.any()):
+                return s
 
 
 def closest_hit(scene, origins: torch.Tensor, directions: torch.Tensor,

@@ -24,9 +24,13 @@ import torch
 from unity_webgpu_pathtracer_torch.accel.wide8 import MAX_DEPTH
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import CHECK_EVERY, DET_EPS, T_MIN
 from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE, safe_rcp
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 DONE = -1
 FULL = 0xFF
+# Traversals run by ``closest_hit``/``occluded`` and host reads of their
+# loop test in this process (reset by the caller).
+TRAVERSE_STATS = {"calls": 0, "host_reads": 0}
 
 
 class Wide8State(NamedTuple):
@@ -250,13 +254,14 @@ def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tens
               live: torch.Tensor | None = None) -> Wide8State:
     """Arrivals until every lane in ``live`` (None: every lane) is done, or,
     with ``any_hit``, has found a hit; the loop test is read on the host
-    every ``CHECK_EVERY`` arrivals."""
+    every ``CHECK_EVERY`` arrivals (counted in ``TRAVERSE_STATS``)."""
     b, dev = origins.shape[0], origins.device
     inv = safe_rcp(directions)
     s = init_state8(b, 0.0, depth=depth, device=dev)
     s = s._replace(t=torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
                                                         device=dev), (b,)).clone())
     stop = torch.ones((b,), dtype=torch.bool, device=dev) if any_hit else None
+    TRAVERSE_STATS["calls"] += 1
     while True:
         s = arrival_steps8(nodes, origins, directions, inv, s, CHECK_EVERY, live, stop,
                            has_instances)
@@ -265,8 +270,10 @@ def _traverse(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tens
             running = running & ~s.found
         if live is not None:
             running = running & live
-        if not bool(running.any()):
-            return s
+        TRAVERSE_STATS["host_reads"] += 1
+        with span("sync.loop_test"):
+            if not bool(running.any()):
+                return s
 
 
 def closest_hit(nodes: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor,

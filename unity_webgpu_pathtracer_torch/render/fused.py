@@ -108,6 +108,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     vscale,
     vwhere,
 )
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 # Sort key of record rows never written in a pass (behind every pixel).
 _UNWRITTEN_KEY = 1 << 30
@@ -710,7 +711,10 @@ def fused_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
                        trav_root=scene.wide2_entry if route == "wide2" else 0)
 
     iters = 0
-    while bool(((s.mode != MODE_DEAD).any() | (s.queue_head < budget)).item()):
+    while True:
+        with span("sync.queue"):
+            if not bool(((s.mode != MODE_DEAD).any() | (s.queue_head < budget)).item()):
+                break
         iters += 1
         inv = safe_rcp(s.trav_d)
         live = s.mode != MODE_DEAD

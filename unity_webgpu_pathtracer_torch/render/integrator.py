@@ -11,7 +11,9 @@ kernel K1 on CUDA tensors), then shades in plain PyTorch, as the
 reference shades in XLA.  Every lane draws the same uniforms in the same
 order as the reference's, so each lane's RNG stream is the reference's.
 Lane vectors are (3, B) planes; the loop test is read on the host once a
-bounce.
+bounce.  The pass's layers are marked by ``utils.profiling.span`` ranges
+(``uwpt.mega.camera``, ``closest``, ``shade``, ``shadow``,
+``accumulate``, ``uwpt.sync.alive``), recorded while a profiler records.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from unity_webgpu_pathtracer_torch.config import (
     RenderConfig,
     RenderParams,
 )
-from unity_webgpu_pathtracer_torch.ops import get_intersectors
+from unity_webgpu_pathtracer_torch.ops import get_intersectors, pass_counters
 from unity_webgpu_pathtracer_torch.render import bsdf as ubsdf
 from unity_webgpu_pathtracer_torch.render import camera as ucamera
 from unity_webgpu_pathtracer_torch.render import film as ufilm
@@ -42,6 +44,7 @@ from unity_webgpu_pathtracer_torch.render.sky import sample_sky_radiance
 from unity_webgpu_pathtracer_torch.scene.material import apply_normal_map, derive_material
 from unity_webgpu_pathtracer_torch.utils import rng as urng
 from unity_webgpu_pathtracer_torch.utils.math import EPSILON, luminance, vdot, vneg, vwhere
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 # Alpha passthrough re-continues a ray without consuming a bounce
 # (pathtrace.hlsl:84-89); the loop runs at most max_bounces + 1 + this.
@@ -100,86 +103,89 @@ def trace_bounce(scene, config: RenderConfig, params: RenderParams, s: PathState
     d, tp = s.direction, s.throughput
     zero = torch.zeros_like(s.prev_pdf)
 
-    t, bary, slot, inst = closest_fn(scene, s.origin.T, d.T, alive)
-    hit = shade_prep(scene, s.origin, d, t, bary, slot, inst)
-    if config.has_lights:
-        hit = intersect_analytic_lights(scene, s.origin, d, hit)
+    with span("mega.closest"):
+        t, bary, slot, inst = closest_fn(scene, s.origin.T, d.T, alive)
+    with span("mega.shade"):
+        hit = shade_prep(scene, s.origin, d, t, bary, slot, inst)
+        if config.has_lights:
+            hit = intersect_analytic_lights(scene, s.origin, d, hit)
 
-    # --- Miss: sky radiance with MIS against the previous bounce's pdf.
-    sky_color, sky_pdf = sample_sky_radiance(config, params, d.T, s.depth, scene.env)
-    sky_color = sky_color.T
-    mis = torch.where(s.depth > 0, power_heuristic(s.prev_pdf, sky_pdf), torch.ones_like(zero))
-    miss = alive & ~hit.valid
-    radiance = _add(miss & (mis > 0.0), s.radiance,
-                    tuple(mis * sky_color[c] * tp[c] for c in range(3)))
-    alive = alive & hit.valid
+        # --- Miss: sky radiance with MIS against the previous bounce's pdf.
+        sky_color, sky_pdf = sample_sky_radiance(config, params, d.T, s.depth, scene.env)
+        sky_color = sky_color.T
+        mis = torch.where(s.depth > 0, power_heuristic(s.prev_pdf, sky_pdf), torch.ones_like(zero))
+        miss = alive & ~hit.valid
+        radiance = _add(miss & (mis > 0.0), s.radiance,
+                        tuple(mis * sky_color[c] * tp[c] for c in range(3)))
+        alive = alive & hit.valid
 
-    # --- Analytic light hit: add emission, terminate (pathtrace.hlsl:42-47).
-    if config.has_lights and scene.lights.shape[0] > 0:
-        light_hit = alive & (hit.intersect_type == INTERSECT_LIGHT)
-        l_em = scene.lights[torch.clamp_min(hit.light_index, 0).long(), 4:7].T
-        radiance = _add(light_hit, radiance, tuple(l_em[c] * tp[c] for c in range(3)))
-        alive = alive & ~light_hit
+        # --- Analytic light hit: add emission, terminate (pathtrace.hlsl:42-47).
+        if config.has_lights and scene.lights.shape[0] > 0:
+            light_hit = alive & (hit.intersect_type == INTERSECT_LIGHT)
+            l_em = scene.lights[torch.clamp_min(hit.light_index, 0).long(), 4:7].T
+            radiance = _add(light_hit, radiance, tuple(l_em[c] * tp[c] for c in range(3)))
+            alive = alive & ~light_hit
 
-    # --- Material fetch + roughness regularisation (pathtrace.hlsl:63-68).
-    md = scene.materials[torch.clamp_min(hit.material, 0).long()].T    # (32, B)
-    if config.has_normal_maps:
-        nm = apply_normal_map(md, hit.uv, hit.normal, hit.tangent, scene.texture_data,
-                              config.has_textures)
-        hit = hit._replace(normal=nm, ffnormal=vwhere(vdot(nm, d) <= 0.0, nm, vneg(nm)))
-    mat = derive_material(md, d, hit.normal, hit.uv, scene.texture_data, config.has_textures)
-    max_roughness = torch.where(alive, torch.maximum(s.max_roughness, mat.roughness),
-                                s.max_roughness)
-    mat = ubsdf.with_roughness(mat, max_roughness)
+        # --- Material fetch + roughness regularisation (pathtrace.hlsl:63-68).
+        md = scene.materials[torch.clamp_min(hit.material, 0).long()].T    # (32, B)
+        if config.has_normal_maps:
+            nm = apply_normal_map(md, hit.uv, hit.normal, hit.tangent, scene.texture_data,
+                                  config.has_textures)
+            hit = hit._replace(normal=nm, ffnormal=vwhere(vdot(nm, d) <= 0.0, nm, vneg(nm)))
+        mat = derive_material(md, d, hit.normal, hit.uv, scene.texture_data, config.has_textures)
+        max_roughness = torch.where(alive, torch.maximum(s.max_roughness, mat.roughness),
+                                    s.max_roughness)
+        mat = ubsdf.with_roughness(mat, max_roughness)
 
-    # --- Mesh emission (not importance sampled, pathtrace.hlsl:78).
-    radiance = _add(alive, radiance, tuple(mat.emission[c] * tp[c] for c in range(3)))
+        # --- Mesh emission (not importance sampled, pathtrace.hlsl:78).
+        radiance = _add(alive, radiance, tuple(mat.emission[c] * tp[c] for c in range(3)))
 
-    # --- Bounce budget (pathtrace.hlsl:80-81).
-    alive = alive & (s.depth < config.max_bounces)
+        # --- Bounce budget (pathtrace.hlsl:80-81).
+        alive = alive & (s.depth < config.max_bounces)
 
-    # --- Alpha passthrough (pathtrace.hlsl:84-89): every lane draws.
-    u_alpha, rng = urng.random_float(s.rng)
-    passthrough = alive & (
-        ((mat.alpha_mode == ALPHA_MODE_MASK) & (mat.opacity < mat.alpha_cutoff))
-        | ((mat.alpha_mode == ALPHA_MODE_BLEND) & (u_alpha > mat.opacity)))
-    shade = alive & ~passthrough
+        # --- Alpha passthrough (pathtrace.hlsl:84-89): every lane draws.
+        u_alpha, rng = urng.random_float(s.rng)
+        passthrough = alive & (
+            ((mat.alpha_mode == ALPHA_MODE_MASK) & (mat.opacity < mat.alpha_cutoff))
+            | ((mat.alpha_mode == ALPHA_MODE_BLEND) & (u_alpha > mat.opacity)))
+        shade = alive & ~passthrough
 
-    # --- NEE (pathtrace.hlsl:93).
-    ld, rng = direct_light(scene, config, params, hit, mat, d, rng, occluded_fn, live=shade)
-    radiance = _add(shade, radiance, tuple(ld[c] * tp[c] for c in range(3)))
+        # --- NEE (pathtrace.hlsl:93).
+        ld, rng = direct_light(scene, config, params, hit, mat, d, rng, occluded_fn, live=shade)
+        radiance = _add(shade, radiance, tuple(ld[c] * tp[c] for c in range(3)))
 
-    # --- BSDF sample (pathtrace.hlsl:98-113).
-    f, l, pdf, rng = ubsdf.sample_brdf(mat, vneg(d), hit.ffnormal, rng)
-    nan_lane = torch.isnan(f[0]) | torch.isnan(f[1]) | torch.isnan(f[2]) | torch.isnan(pdf)
-    dead_sample = shade & (nan_lane | (pdf <= 0.0))
-    if config.debug_nan_canary:
-        # The NaN-BSDF canary (pathtrace.hlsl:100-104): pure green.
-        green = torch.tensor([0.0, 1.0, 0.0], device=zero.device)[:, None]
-        radiance = torch.where(shade & nan_lane, green, radiance)
-    den = torch.clamp_min(pdf, 1e-20)
-    throughput = torch.where(shade & ~dead_sample,
-                             torch.stack([tp[c] * f[c] / den for c in range(3)]), tp)
-    alive = alive & ~dead_sample
+        # --- BSDF sample (pathtrace.hlsl:98-113).
+        f, l, pdf, rng = ubsdf.sample_brdf(mat, vneg(d), hit.ffnormal, rng)
+        nan_lane = torch.isnan(f[0]) | torch.isnan(f[1]) | torch.isnan(f[2]) | torch.isnan(pdf)
+        dead_sample = shade & (nan_lane | (pdf <= 0.0))
+        if config.debug_nan_canary:
+            # The NaN-BSDF canary (pathtrace.hlsl:100-104): pure green.
+            green = torch.tensor([0.0, 1.0, 0.0], device=zero.device)[:, None]
+            radiance = torch.where(shade & nan_lane, green, radiance)
+        den = torch.clamp_min(pdf, 1e-20)
+        throughput = torch.where(shade & ~dead_sample,
+                                 torch.stack([tp[c] * f[c] / den for c in range(3)]), tp)
+        alive = alive & ~dead_sample
 
-    # --- Continue the ray (pathtrace.hlsl:116-118); passthrough keeps its
-    # direction.
-    new_dir = vwhere(passthrough, d, l)
-    new_origin = torch.stack([hit.position[c] + new_dir[c] * EPSILON for c in range(3)])
-    origin = torch.where(alive, new_origin, s.origin)
-    direction = torch.where(alive, torch.stack(new_dir), d)
-    depth = torch.where(alive, torch.where(passthrough, s.depth, s.depth + 1), s.depth)
-    prev_pdf = torch.where(shade, pdf, s.prev_pdf)
+        # --- Continue the ray (pathtrace.hlsl:116-118); passthrough keeps its
+        # direction.
+        new_dir = vwhere(passthrough, d, l)
+        new_origin = torch.stack([hit.position[c] + new_dir[c] * EPSILON for c in range(3)])
+        origin = torch.where(alive, new_origin, s.origin)
+        direction = torch.where(alive, torch.stack(new_dir), d)
+        depth = torch.where(alive, torch.where(passthrough, s.depth, s.depth + 1), s.depth)
+        prev_pdf = torch.where(shade, pdf, s.prev_pdf)
 
-    # --- Russian roulette (pathtrace.hlsl:121-127).
-    if config.use_russian_roulette:
-        u_rr, rng = urng.random_float(rng)
-        p_cont = torch.clamp_max(
-            torch.maximum(torch.maximum(throughput[0], throughput[1]), throughput[2]) + 0.001,
-            0.95)
-        killed = alive & ~passthrough & (u_rr >= p_cont)
-        throughput = torch.where(alive & ~passthrough & ~killed, throughput / p_cont, throughput)
-        alive = alive & ~killed
+        # --- Russian roulette (pathtrace.hlsl:121-127).
+        if config.use_russian_roulette:
+            u_rr, rng = urng.random_float(rng)
+            p_cont = torch.clamp_max(
+                torch.maximum(torch.maximum(throughput[0], throughput[1]), throughput[2]) + 0.001,
+                0.95)
+            killed = alive & ~passthrough & (u_rr >= p_cont)
+            throughput = torch.where(alive & ~passthrough & ~killed, throughput / p_cont,
+                                     throughput)
+            alive = alive & ~killed
 
     out = PathState(origin=origin, direction=direction, radiance=radiance,
                     throughput=throughput, rng=rng, alive=alive, prev_pdf=prev_pdf,
@@ -194,21 +200,34 @@ def path_trace(scene, config: RenderConfig, params: RenderParams, origins: torch
     """Trace (3, B) rays to completion: ``(radiance (3, B), rng)``.  The
     loop ends when no lane is alive (one host read a bounce) or after
     ``max_bounces + 1 + ALPHA_SLACK`` bounces.  ``stats`` (a dict, or
-    None) gathers ``closest`` and ``shadow`` rays (device scalars) and
-    ``bounces``."""
+    None) gathers ``closest`` and ``shadow`` rays (device scalars: per-lane
+    counts, one add a bounce each, summed once at the end; no host read),
+    ``bounces`` and ``alive_tests`` (the host reads of the loop test)."""
     closest_fn, occluded_fn = get_intersectors(config)
     s = new_path_state(origins, directions, rng_state)
-    for _ in range(config.max_bounces + 1 + ALPHA_SLACK):
-        if not bool(s.alive.any()):
-            break
+    n_iter = config.max_bounces + 1 + ALPHA_SLACK
+    if stats is not None:
+        # Bounces each lane was traced in (row 0) and shaded in (row 1).
+        lanes = torch.zeros((2, origins.shape[1]), device=origins.device,
+                            dtype=torch.uint8 if n_iter < 256 else torch.int32)
+    for _ in range(n_iter):
+        if stats is not None:
+            stats["alive_tests"] = stats.get("alive_tests", 0) + 1
+        with span("sync.alive"):
+            if not bool(s.alive.any()):
+                break
         if stats is None:
             s = trace_bounce(scene, config, params, s, closest_fn, occluded_fn)
             continue
-        stats["closest"] = stats.get("closest", 0) + s.alive.sum()
+        lanes[0] += s.alive
         s, shade = trace_bounce(scene, config, params, s, closest_fn, occluded_fn,
                                 with_stats=True)
-        stats["shadow"] = stats.get("shadow", 0) + shade.sum() * _nee_branches(scene, config)
+        lanes[1] += shade
         stats["bounces"] = stats.get("bounces", 0) + 1
+    if stats is not None:
+        closest, shaded = lanes.sum(dim=1)
+        stats["closest"] = stats.get("closest", 0) + closest
+        stats["shadow"] = stats.get("shadow", 0) + shaded * _nee_branches(scene, config)
     return s.radiance, s.rng
 
 
@@ -242,20 +261,31 @@ def render_pass(scene, config: RenderConfig, params: RenderParams, current_sampl
     state = urng.seed(pixel_indices, current_sample, params.seed_root)
     total = torch.zeros((3, pixel_indices.shape[0]), dtype=torch.float32, device=dev)
     for _ in range(config.samples_per_pass):
-        coords, state = ucamera.jittered_pixel_coords(pixel_indices, config, state)
-        o, d, state = ucamera.get_screen_ray(coords, config, params, state)
+        with span("mega.camera"):
+            coords, state = ucamera.jittered_pixel_coords(pixel_indices, config, state)
+            o, d, state = ucamera.get_screen_ray(coords, config, params, state)
         radiance, state = path_trace(scene, config, params, o.T.contiguous(),
                                      d.T.contiguous(), state, stats)
-        if config.use_firefly_filter:
-            radiance = firefly_clamp(radiance, params)
-        total = total + radiance
+        with span("mega.accumulate"):
+            if config.use_firefly_filter:
+                radiance = firefly_clamp(radiance, params)
+            total = total + radiance
     return total.T
 
 
 def megakernel_pass_and_accumulate(scene, config: RenderConfig, params: RenderParams,
-                                   film: ufilm.Film) -> ufilm.Film:
+                                   film: ufilm.Film, stats: dict) -> ufilm.Film:
     """One pass of ``render_pass`` accumulated into ``film``, seeded from
-    its largest sample count (per-pixel counts after a reprojection)."""
-    total = render_pass(scene, config, params, film.sample_count)
-    total = total.reshape(config.height, config.width, 3)
-    return ufilm.accumulate(film, total, config.samples_per_pass)
+    its largest sample count (per-pixel counts after a reprojection).
+    ``stats`` (an empty dict) gathers ``render_pass``'s counters, and K1's
+    launches (``k1_launches``) and the host reads (``host_reads``: the
+    traversal loops' tests and the bounces' ``alive_tests``)."""
+    k1_before, reads_before = pass_counters()
+    total = render_pass(scene, config, params, film.sample_count, stats=stats)
+    with span("mega.accumulate"):
+        film = ufilm.accumulate(film, total.reshape(config.height, config.width, 3),
+                                config.samples_per_pass)
+    k1, reads = pass_counters()
+    stats["k1_launches"] = k1 - k1_before
+    stats["host_reads"] = reads - reads_before + stats["alive_tests"]
+    return film

@@ -38,6 +38,7 @@ from unity_webgpu_pathtracer_torch.utils.math import (
     vnormalize,
     vwhere,
 )
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 
 def _unity_falloff(dist: torch.Tensor, range_: torch.Tensor) -> torch.Tensor:
@@ -84,7 +85,8 @@ def direct_light(scene, config: RenderConfig, params: RenderParams, hit, mat, ra
         if config.has_environment_texture:
             light_dir, color, light_pdf, state = sample_env_map(
                 scene.env, params.environment_rotation, state)
-            shadowed = occluded_fn(scene, scatter_t, light_dir, far, live)
+            with span("mega.shadow"):
+                shadowed = occluded_fn(scene, scatter_t, light_dir, far, live)
             light_dir, color = light_dir.T, color.T
             f, bsdf_pdf = ubsdf.eval_brdf(mat, v, hit.ffnormal, light_dir)
             mis = power_heuristic(light_pdf, bsdf_pdf)
@@ -99,7 +101,9 @@ def direct_light(scene, config: RenderConfig, params: RenderParams, hit, mat, ra
             light_dir = uniform_sample_sphere(r1, r2)
             li = params.environment_color * params.environment_intensity
             light_pdf = 1.0 / (4.0 * PI)
-            shadowed = occluded_fn(scene, scatter_t, torch.stack(light_dir, dim=-1), far, live)
+            with span("mega.shadow"):
+                shadowed = occluded_fn(scene, scatter_t, torch.stack(light_dir, dim=-1), far,
+                                       live)
             f, bsdf_pdf = ubsdf.eval_brdf(mat, v, hit.ffnormal, light_dir)
             mis = power_heuristic(light_pdf, bsdf_pdf)
             contrib = tuple(mis * li[c] * f[c] / light_pdf for c in range(3))
@@ -149,8 +153,9 @@ def direct_light(scene, config: RenderConfig, params: RenderParams, hit, mat, ra
         falloff = torch.where(is_rect & (cos_theta < 0.0), zero, falloff)
         falloff = torch.where(is_spot, falloff * spot_cone_fade(cos_theta, rec[12], rec[13]),
                               falloff)
-        shadowed = occluded_fn(scene, scatter_t, torch.stack(light_dir, dim=-1),
-                               light_dist - EPSILON, live)
+        with span("mega.shadow"):
+            shadowed = occluded_fn(scene, scatter_t, torch.stack(light_dir, dim=-1),
+                                   light_dist - EPSILON, live)
         # The reference evaluates analytic-light NEE about hit.normal
         # (light.hlsl:105).
         f, _bsdf_pdf = ubsdf.eval_brdf(mat, v, hit.normal, light_dir)

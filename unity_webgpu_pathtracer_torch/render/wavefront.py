@@ -35,6 +35,7 @@ from unity_webgpu_pathtracer_torch.render.integrator import (
     trace_bounce,
 )
 from unity_webgpu_pathtracer_torch.utils import rng as urng
+from unity_webgpu_pathtracer_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -139,7 +140,10 @@ def wavefront_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         records=torch.zeros((budget + p, 3), **f32),
         queue_head=zero.clone(), alive_ticks=zero.clone(), shade_ticks=zero.clone(), ticks=0)
 
-    while bool((s.path.alive.any() | (s.queue_head < budget)).item()):
+    while True:
+        with span("sync.queue"):
+            if not bool((s.path.alive.any() | (s.queue_head < budget)).item()):
+                break
         _regenerate(s, config, params, budget, current_sample)
         was_alive = s.path.alive
         path, shade = trace_bounce(scene, config, params, s.path, closest_fn, occluded_fn,

@@ -7,6 +7,8 @@
   (``fused_pass_with_stats``, ``parallel/film_tiling.py``);
 * :func:`trace`: a ``torch.profiler`` scope whose Chrome trace is written
   to a directory;
+* :func:`span`: the port's named ranges (``uwpt.*``) at its layer
+  boundaries, recorded only while a profiler records;
 * :func:`scene_summary`: the scene's counts and device bytes.
 """
 
@@ -18,6 +20,10 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+SPAN_PREFIX = "uwpt."
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _tensors(tree):
@@ -99,6 +105,19 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A range named ``"uwpt." + name`` around a block: while a
+    ``torch.profiler`` records (``trace``, or any other profiler scope), a
+    ``record_function``, so the range lands in the same trace and on the
+    same clock as the card's kernels and copies, nested in the enclosing
+    range of its thread; otherwise one shared no-op context, after a single
+    flag test (no ``RecordFunction`` is made, which costs about as much as
+    a few small PyTorch ops)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
 
 
 def scene_summary(scene_data) -> dict:

@@ -156,7 +156,8 @@ class Viewer:
                     self.passes += 1
                     self.pass_s += (0.3 if self.pass_s else 1.0) * (dt - self.pass_s)
                     st = self.r.stats()
-                    if st and self.pass_s > 0:
+                    # The fused pass's counters (a megakernel pass has others).
+                    if "super_iterations" in st and self.pass_s > 0:
                         self.rays_per_s = st["rays"] / self.pass_s
                         self.occupancy = st["occupancy"]
                         self.super_iterations += st["super_iterations"]
