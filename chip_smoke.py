@@ -118,10 +118,11 @@ Phases, each printing one or more lines:
 15. the reference's other integrators, loaders and checkpoints: (a) the
     megakernel (``integrator="megakernel"``) on phase 4's scene at
     1920x1080, 1 spp (2,073,600 lanes a bounce), 5 bounces, the HDRI,
-    two passes through ``Renderer``, only K1 launched (its flat kernel,
-    through ``closest_hit``/``occluded``), each pass's s/pass, rays, K1
-    launches and host reads (``Renderer.stats()``, its K1 launches held to
-    the launch counter), peak memory; the
+    two passes through ``Renderer``, only K1 launched of the traversal
+    kernels (its flat kernel, through ``closest_hit``/``occluded``), each
+    pass's s/pass, rays, K1 launches, shading launches and host reads
+    (``Renderer.stats()``, its K1 and shading launches held to the launch
+    counters, the shading kernel's to two a bounce), peak memory; the
     film held to phase 4's as path A is; K1's first launch of the pass
     (every lane at the root) against its twin, timed, at that width;
     (f) a checkpoint after pass 1, loaded into a new ``Renderer``: pass 2
@@ -266,6 +267,23 @@ Phases, each printing one or more lines:
     table differs from quality 1's), K1's instanced kernel, the means
     within 1% of quality 1's (PNGs in ``phase20``).  K1's and K2's
     launches there stand as ``tree_quality``.
+
+21. the megakernel's shading kernel (``csrc/shade16.cu``, route
+    ``ops/cuda_shade.py``) alone, on the first bounce of a 1920x1080
+    sample of each benchmark scene (the flat 1M grid and
+    ``instanced_million_triangle_scene``), its closest hit from K1: the
+    kernel route's bounce against the plain ``trace_bounce`` on the same
+    CUDA tensors, every state plane and the shade mask as integers (max
+    abs error 0); the first entry timed cold in place at 2,073,600 lanes
+    (``time_in_place_ms``), beside its bound
+    (``experiments/_common.py::shade_work``: the planes and rows it
+    touches, each once, over 3.35 TB/s, and ``SHADE_OPS`` by lane case at
+    33.45e12/s), the second entry the same way, and the plain shading of
+    the same bounce (``time_ms``, the closest hit and the occlusion test
+    handed in).  ``launches`` are each kernel's on the megakernel path,
+    both entries, held to ``Renderer.stats()["shade_launches"]`` and to two
+    a bounce: ``shade16``'s over 15a's two flat 1080p passes,
+    ``shade16_inst``'s over one 1080p pass of the instanced scene here.
 
 Every kernel's line gives its launches on its path, its largest error
 against its twin, its device time and its twin's, and its bound: the
@@ -693,7 +711,8 @@ def main() -> int:
         instanced_million_triangle_scene, million_triangle_scene)
     from unity_webgpu_pathtracer_torch.models.cornell import cornell_box
     from unity_webgpu_pathtracer_torch.models.examples import EXAMPLES, lights_scene, tlas_scene
-    from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_transition
+    from unity_webgpu_pathtracer_torch.ops import (cuda_arrival, cuda_build, cuda_shade,
+                                                   cuda_transition)
     from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw16
     from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16, arrival_steps16
     from unity_webgpu_pathtracer_torch.render import fused, integrator, wavefront
@@ -706,9 +725,10 @@ def main() -> int:
     arrivals_n = cuda_arrival.arrival_step16_cuda.launches
     runs_n = cuda_arrival.arrival_steps16_cuda.launches
     transitions_n = cuda_transition.transition16_cuda.launches
+    shades_n = cuda_shade.shade16_cuda.launches
 
     def reset_counts():
-        for counter in (arrivals_n, runs_n, transitions_n):
+        for counter in (arrivals_n, runs_n, transitions_n, shades_n):
             for k in counter:
                 counter[k] = 0
 
@@ -1533,7 +1553,7 @@ def main() -> int:
     # The first K1 launch of the first pass (every lane at the root of its
     # closest-hit traversal), kept to time K1 at B = 2,073,600.
     k1_caps = []
-    mk_launches, mk_rows = 0, []
+    mk_launches, mk_shade, mk_rows = 0, 0, []
     with first_k1(k1_caps):
         for p in range(2):
             tw16.TRAVERSE_STATS.update(calls=0, host_reads=0)
@@ -1551,11 +1571,18 @@ def main() -> int:
             if st["k1_launches"] != launches or not bounces <= alive_tests <= bounces + 1:
                 raise AssertionError(f"phase 15a pass {p}: stats {st} against {launches} K1 "
                                      f"launches, {tw16.TRAVERSE_STATS} traversals")
+            # Every bounce shaded by the kernel: its two entries once each.
+            shade_launches = sum(shades_n.values())
+            if not st["shade_launches"] == shade_launches == 2 * bounces > 0:
+                raise AssertionError(f"phase 15a pass {p}: stats {st} against {shades_n} "
+                                     "shading launches, expected two a bounce")
+            mk_shade += shade_launches
             mk_rows.append((dt, closest + shadow))
             log(f"phase 15a megakernel pass {p} ({w}x{h}, 1 spp, {w * h} lanes): {dt:.3f} "
                 f"s/pass, {(closest + shadow) / dt / 1e6:.3f} Mrays/s, rays {closest + shadow} "
                 f"(closest {closest}, shadow {shadow}), bounces {bounces}, K1 launches "
-                f"{launches} ({launches / bounces:.2f} a bounce), traversals "
+                f"{launches} ({launches / bounces:.2f} a bounce), shading launches "
+                f"{shade_launches}, traversals "
                 f"{tw16.TRAVERSE_STATS['calls']}, host reads {tw16.TRAVERSE_STATS['host_reads']} "
                 f"+ {alive_tests} loop tests, peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; card: {card}")
@@ -1567,7 +1594,7 @@ def main() -> int:
     mean_rel, tile_stat = film_vs_flat(img, flat_img, "phase 15a")
     log(f"phase 15a megakernel: {r.sample_count} spp, film mean {float(img.mean()):.6f} (phase "
         f"4 {float(flat_img.mean()):.6f}, rel {mean_rel:.5f}), {TILE}x{TILE} tile statistic "
-        f"{tile_stat:.5f}, K1 launches {mk_launches}; card: {card}")
+        f"{tile_stat:.5f}, K1 launches {mk_launches}, shading launches {mk_shade}; card: {card}")
     path_launches["megakernel"] = mk_launches
     k1_mk = check_run("arrival16_run", k1_caps[0], "phase 15a (the megakernel's first launch)",
                       record_it=False)
@@ -2933,9 +2960,138 @@ def main() -> int:
         kernels[k]["launches"] += n
     log(f"phase 20: {time.perf_counter() - t20:.1f} s; K1/K2 launches {p20}; card: {card}")
 
+    # ---- 21. the megakernel's shading kernel alone, on a first bounce ----
+    from unity_webgpu_pathtracer_torch.experiments._common import shade_work
+    from unity_webgpu_pathtracer_torch.ops import get_intersectors
+    from unity_webgpu_pathtracer_torch.render import camera as ucamera
+
+    t21 = time.perf_counter()
+    # Each kernel's launches on its megakernel path: 15a's two flat passes,
+    # and one pass of the instanced scene here.
+    shade_paths = {"shade16": mk_shade}
+
+    def path_clone(st):
+        return integrator.PathState(**{f.name: getattr(st, f.name).clone()
+                                       for f in dataclasses.fields(st)})
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for name21, make21 in (("shade16", lambda: million_triangle_scene(1_000_000)),
+                           ("shade16_inst", instanced_million_triangle_scene)):
+        scene21, cam21 = make21()
+        sd21 = scene21.build("wide16", device=dev)
+        cfg21 = RenderConfig(width=w, height=h, max_bounces=5, integrator="megakernel")
+        ps21 = make_camera_params(width=w, height=h, device=dev, **cam21)
+        if not cuda_shade.covers(cfg21, sd21):
+            raise AssertionError(f"phase 21 {name21}: the route refuses the benchmark's config")
+        pix = torch.arange(w * h, dtype=torch.int64, device=dev)
+        rng21 = urng.seed(pix, 0, ps21.seed_root)
+        coords, rng21 = ucamera.jittered_pixel_coords(pix, cfg21, rng21)
+        o21, d21, rng21 = ucamera.get_screen_ray(coords, cfg21, ps21, rng21)
+        s21 = integrator.new_path_state(o21.T.contiguous(), d21.T.contiguous(), rng21)
+        closest21, occluded21 = get_intersectors(cfg21)
+        hit21 = closest21(sd21, s21.origin.T, s21.direction.T, s21.alive)
+
+        def given_hit(*_a, hit=hit21):
+            return hit
+
+        # The kernel route's bounce against the plain one, on the same tensors.
+        got, got_shade = integrator.trace_bounce(sd21, cfg21, ps21, path_clone(s21), given_hit,
+                                                 occluded21, with_stats=True,
+                                                 work=cuda_shade.new_work(w * h, dev))
+        covers = cuda_shade.covers
+        cuda_shade.covers = lambda config, scene: False
+        try:
+            want, want_shade = integrator.trace_bounce(sd21, cfg21, ps21, path_clone(s21),
+                                                       given_hit, occluded21, with_stats=True)
+        finally:
+            cuda_shade.covers = covers
+        differ = {f.name: int((bits(getattr(got, f.name)) != bits(getattr(want, f.name))).sum())
+                  for f in dataclasses.fields(want)}
+        differ["shade"] = int((got_shade != want_shade).sum())
+        if any(differ.values()):
+            raise AssertionError(f"phase 21 {name21}: lanes differ from the plain bounce {differ}")
+        err = 0.0
+
+        # The first entry alone, in place on a copy of the state, cold.
+        work = cuda_shade.new_work(w * h, dev)
+        st21 = path_clone(s21)
+        saved = path_clone(st21)
+
+        def restore(st=st21, saved=saved):
+            for f in dataclasses.fields(saved):
+                getattr(st, f.name).copy_(getattr(saved, f.name))
+
+        def entry(st=st21, work=work, sd=sd21, cfg=cfg21, ps=ps21, hit=hit21):
+            cuda_shade.shade16_cuda(sd, cfg, ps, st, hit, work)
+
+        restore()
+        entry()
+        after = path_clone(st21)
+        nbytes, ops, counts = shade_work(sd21, saved, after, hit21, work.shade)
+        ms, ms_pair, ms_restore = time_in_place_ms(entry, restore, cold=True)
+        shadowed = occluded21(sd21, work.shadow_o, work.shadow_d, work.far, work.shade)
+        rad = st21.radiance.clone()
+
+        def restore_rad(st=st21, rad=rad):
+            st.radiance.copy_(rad)
+
+        def nee(st=st21, work=work, shadowed=shadowed):
+            cuda_shade.nee16_cuda(st, work, shadowed)
+
+        ms_nee = time_in_place_ms(nee, restore_rad, cold=True)[0]
+        nee_bytes = 2 * w * h + 24 * int((work.shade & ~shadowed).sum())
+
+        def plain(sd=sd21, cfg=cfg21, ps=ps21, s0=s21, hit=hit21, shadowed=shadowed):
+            return integrator.trace_bounce(sd, cfg, ps, s0, lambda *_a: hit,
+                                           lambda *_a: shadowed)
+
+        cuda_shade.covers = lambda config, scene: False
+        try:
+            plain_ms = time_ms(plain, reps=20)
+        finally:
+            cuda_shade.covers = covers
+        b21 = record(name21, "shade16.cu",
+                     "none: the reference shades the megakernel's bounce in XLA "
+                     "(render/integrator.py::trace_bounce)", err, ms, plain_ms, nbytes, ops,
+                     "shade16_kernel")
+        if name21 == "shade16_inst":
+            # One megakernel pass of the instanced scene through Renderer:
+            # every bounce through the kernel, two launches a bounce.
+            r21 = Renderer(sd21, cfg21, ps21, device=dev)
+            reset_counts()
+            r21.render(passes=1)
+            st = r21.stats()
+            got21 = sum(shades_n.values())
+            if not st["shade_launches"] == got21 == 2 * st["bounces"] > 0:
+                raise AssertionError(f"phase 21 {name21} pass: stats {st} against {shades_n} "
+                                     "shading launches, expected two a bounce")
+            shade_paths[name21] = got21
+            del r21
+        kernels[name21]["launches"] = shade_paths[name21]
+        kernels[name21]["launches_by_path"] = {"megakernel": shade_paths[name21]}
+        kernels[name21]["nee_ms"] = ms_nee
+        kernels[name21]["nee_bound_ms"] = bound(nee_bytes, 0)[0]
+        kernels[name21]["counts"] = counts
+        log(f"phase 21 {name21} ({w}x{h}, first bounce): planes equal to the plain bounce "
+            f"bit for bit; {counts}; launches on the megakernel path "
+            f"{shade_paths[name21]}; shade16 cold {ms:.4f} ms (pair {ms_pair:.4f}, restore "
+            f"{ms_restore:.4f}); {b21}; shade16_nee cold {ms_nee:.4f} ms (bound "
+            f"{kernels[name21]['nee_bound_ms']:.4f} ms, {nee_bytes / 1e6:.2f} MB); plain "
+            f"shading of the same bounce {plain_ms:.3f} ms; card: {card}")
+        del scene21, sd21, s21, hit21, got, want, work, st21, saved, after, shadowed, rad
+    build_log = cuda_build.BUILD_INFO["log"]
+    ptxas21 = [ln.split(":", 1)[-1].strip() for ln in
+               build_log[build_log.find("shade16.cu:"):].splitlines()
+               if "Compiling entry" in ln or "Used" in ln or "spill" in ln][:6]
+    log(f"phase 21: {time.perf_counter() - t21:.1f} s; launches on the megakernel path "
+        f"{shade_paths}; ptxas {ptxas21}")
+
     order = ("arrival16_run", "arrival16_inst_run", "arrival16_leaf8_run",
              "arrival16_inst_leaf8_run", "arrival16", "arrival16_inst", "arrival16_leaf8",
-             "arrival16_inst_leaf8", "transition16", "transition16_oct", *probe_order)
+             "arrival16_inst_leaf8", "transition16", "transition16_oct", "shade16",
+             "shade16_inst", *probe_order)
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

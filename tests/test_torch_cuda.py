@@ -24,7 +24,13 @@ import torch
 
 from unity_webgpu_pathtracer_torch.config import RenderConfig
 from unity_webgpu_pathtracer_torch.models.benchmark import million_triangle_scene
-from unity_webgpu_pathtracer_torch.ops import cuda_arrival, cuda_build, cuda_probes, cuda_transition
+from unity_webgpu_pathtracer_torch.ops import (
+    cuda_arrival,
+    cuda_build,
+    cuda_probes,
+    cuda_shade,
+    cuda_transition,
+)
 from unity_webgpu_pathtracer_torch.ops.traverse_wide16 import arrival_step16, arrival_steps16
 from unity_webgpu_pathtracer_torch.render import fused
 from unity_webgpu_pathtracer_torch.render.camera import make_camera_params
@@ -89,7 +95,8 @@ def test_entries_match_sources():
             assert len(args.split(",")) == len(entries[entry]), entry
         assert 'extern "C" const char* cuda_error_string' in text
     launches = {f"{k}_launch" for k in (*cuda_arrival.RUN_KERNELS.values(),
-                                         *cuda_transition.KERNELS.values())}
+                                         *cuda_transition.KERNELS.values(),
+                                         *cuda_shade.KERNELS)}
     assert launches <= {e for entries in cuda_build.ENTRIES.values() for e in entries}
     with open(os.path.join(cuda_build.SRC_DIR, "arrival16.cu")) as f:
         k1 = f.read()
@@ -105,6 +112,9 @@ def test_entries_match_sources():
         cuda_arrival.RUN_KERNELS.values())
     assert set(cuda_transition.transition16_cuda.launches) == set(
         cuda_transition.KERNELS.values())
+    # The megakernel's shading kernel: its two entries, each counted.
+    assert set(cuda_build.ENTRIES["shade16"]) == {f"{k}_launch" for k in cuda_shade.KERNELS}
+    assert set(cuda_shade.shade16_cuda.launches) == set(cuda_shade.KERNELS)
     # The probes: K1's probe modes behind two entries, the others in probes.cu.
     assert {"arrival16_run_probe_launch", "arrival16_diet_launch"} <= set(
         cuda_build.ENTRIES["arrival16"])

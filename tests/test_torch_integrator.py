@@ -335,14 +335,17 @@ def test_converges_no_nans(cornell_render):
     assert np.isfinite(img).all()
     assert cornell_render.sample_count == 8
     st = cornell_render.stats()
-    assert set(st) == {"closest_rays", "shadow_rays", "bounces", "k1_launches", "host_reads"}
+    assert set(st) == {"closest_rays", "shadow_rays", "bounces", "k1_launches",
+                       "shade_launches", "host_reads"}
     # The box is lit by its emissive quad, with no sky sample and no
     # analytic light: no NEE branch, so no shadow ray.
     assert st["closest_rays"] > 0 and st["shadow_rays"] == 0 and st["bounces"] >= 1
-    # The brute force has no loop test and launches no K1: the host reads
-    # are the alive tests, one a bounce and at most one more a sample.
+    # The brute force has no loop test and launches no K1, and the CPU
+    # shades in plain PyTorch: the host reads are the alive tests, one a
+    # bounce and at most one more a sample.
     spp = cornell_render.config.samples_per_pass
-    assert st["k1_launches"] == 0 and st["bounces"] <= st["host_reads"] <= st["bounces"] + spp
+    assert st["k1_launches"] == 0 and st["shade_launches"] == 0
+    assert st["bounces"] <= st["host_reads"] <= st["bounces"] + spp
 
 
 def test_global_illumination_structure(cornell_render):

@@ -158,7 +158,8 @@ def test_megakernel_stats_match_the_counters(grid, monkeypatch):
     ``path_trace(stats=...)`` over the pass's samples, summed by hand; K1's
     launches the delta of ``arrival_steps16_cuda.launches`` (counted here
     by a wrapper on the CPU, where the plain twin runs), one a traversal
-    loop test; host reads the loop tests and the alive tests.  The rays
+    loop test; the shading kernel's launches 0 (the CPU shades in plain
+    PyTorch); host reads the loop tests and the alive tests.  The rays
     stay device scalars until ``stats()`` reads them."""
     real = cuda_arrival.arrival_steps16_cuda
 
@@ -192,7 +193,7 @@ def test_megakernel_stats_match_the_counters(grid, monkeypatch):
         want.update({k: int(v) for k, v in one.items()})
     assert want["closest"] > 0 and want["shadow"] > 0 and want["bounces"] >= 2
     assert st == {"closest_rays": want["closest"], "shadow_rays": want["shadow"],
-                  "bounces": want["bounces"], "k1_launches": k1,
+                  "bounces": want["bounces"], "k1_launches": k1, "shade_launches": 0,
                   "host_reads": loop_tests + want["alive_tests"]}
     assert k1 == loop_tests > 0
     r.reset()

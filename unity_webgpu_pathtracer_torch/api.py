@@ -155,7 +155,9 @@ class Renderer:
                                                            self.params, self.film, stats=st)
                 self._last = {"closest_rays": st["closest"], "shadow_rays": st["shadow"],
                               "bounces": st.get("bounces", 0),
-                              "k1_launches": st["k1_launches"], "host_reads": st["host_reads"]}
+                              "k1_launches": st["k1_launches"],
+                              "shade_launches": st["shade_launches"],
+                              "host_reads": st["host_reads"]}
 
     def render(self, passes: int = 1) -> ufilm.Film:
         for _ in range(passes):
@@ -169,8 +171,11 @@ class Renderer:
         ``occupancy``, ``rays`` traced (closest + shadow), ``arrivals`` and
         ``super_iterations``.  After a megakernel pass: ``closest_rays``,
         ``shadow_rays``, ``bounces``, ``k1_launches`` (K1's launches; 0 on
-        the CPU, where its plain twin runs) and ``host_reads`` (the
-        traversal loops' tests and the bounces' alive tests).  ``{}``
+        the CPU, where its plain twin runs), ``shade_launches`` (the
+        shading kernel's, two a bounce where ``ops/cuda_shade.py::covers``
+        routes the bounces to it; 0 on the plain shading and on the CPU)
+        and ``host_reads`` (the traversal loops' tests and the bounces'
+        alive tests).  ``{}``
         before the first pass, after ``reset`` and after a wavefront pass.
         The pass keeps its ray counts on the device; this reads them, so it
         waits for the pass."""

@@ -41,6 +41,22 @@ K1_OPS_INNER, K1_OPS_TRI, K1_OPS_INST = 576, 55, 30
 # integer work only (its PCG steps).
 K2_OPS = dict(lane=40, miss=68, hit=50, normal={2: 36, 3: 93}, material=43, eval=622,
               sample=219, rr=14)
+# f32 operations of the megakernel's shading kernel (csrc/shade16.cu) by
+# lane case, counted from its source as K2_OPS is (each add, multiply,
+# divide, square root, transcendental, floor, minimum and maximum one;
+# selects, comparisons and integer work none), with K2's counts for the
+# BSDF code the two kernels share (shade_common.cuh): every lane alive at
+# the bounce's start (its uniforms, the radiance sums the plain code adds,
+# zeros included); a lane not shaded (its zero NEE sum); a miss (the sky's
+# direction, bilinear lookup, pdf and MIS); a hit (the normal's
+# interpolation and normalize, the position, the material, the emission);
+# a hit inside an instance (the normal's transform and normalize); a shaded
+# lane (the env sample's texel, direction and pdf, the shadow ray, one BSDF
+# evaluation with its frame and lobe probabilities, the NEE terms, the lobe
+# sample, a second evaluation (K2_OPS["eval"] less its frame, its
+# probabilities and its two local transforms, 453), the world direction,
+# the throughput, the continued ray and Russian roulette).
+SHADE_OPS = dict(lane=13, unshaded=3, miss=74, hit=61, inst=26, shade=1446)
 
 
 # Calls of the timed function captured back to back in one CUDA graph.
@@ -523,6 +539,61 @@ def transition_work(cap: K2Launch, after, died):
               + K2_OPS["eval"]) * counts["hit"]
            + (K2_OPS["normal"][cfg.attr_compact] + K2_OPS["material"] + K2_OPS["eval"]
               + K2_OPS["sample"] + K2_OPS["rr"]) * counts["shadow"])
+    return reads + writes, ops, counts
+
+
+def shade_work(sd, before, after, hit, shade):
+    """(bytes, f32 operations, counts) of the shading kernel's first entry
+    on the path state ``before`` with the closest hit ``hit`` (``after`` the
+    state it leaves, ``shade`` the lanes it shaded; from a run on a clone).
+    Bytes: the alive flag and RNG state of every lane read, the RNG state
+    and shade flag written; for each lane alive at the start its state and
+    hit read once (the barycentrics, and the instance of a two-level table,
+    where it hit); each state element whose value changes written once;
+    the shadow ray and the unoccluded radiance of each shaded lane; each
+    distinct ``tri_index`` entry, attribute row (normals and material),
+    material row (24 words) and instance row (its 3x4 and override) once;
+    the environment's image and CDF once.  Operations: ``SHADE_OPS`` by
+    lane case.  ``counts``: lanes by case and distinct rows."""
+    import dataclasses
+
+    from unity_webgpu_pathtracer_torch.utils.math import FAR_PLANE
+
+    t, _bary, slot, inst = hit
+    b = before.alive.shape[0]
+    live = before.alive
+    valid = live & (slot >= 0) & (t < FAR_PLANE)
+    rows = sd.tri_index[slot[valid].long()].long()
+    mats = sd.attr_material[rows]
+    n_inst = sd.inst_w2l.shape[0]
+    in_inst = valid & (inst >= 0) if n_inst else torch.zeros_like(valid)
+    if n_inst:
+        iv = inst[valid]
+        over = sd.inst_offsets[iv.clamp_min(0).long(), 3]
+        mats = torch.where((iv >= 0) & (over >= 0), over, mats)
+    counts = dict(lanes=b, live=int(live.sum()), miss=int((live & ~valid).sum()),
+                  hit=int(valid.sum()), inst=int(in_inst.sum()), shade=int(shade.sum()),
+                  slots=int(torch.unique(slot[valid]).numel()),
+                  attr_rows=int(torch.unique(rows).numel()),
+                  material_rows=int(torch.unique(mats).numel()),
+                  instance_rows=int(torch.unique(inst[in_inst]).numel()))
+    k = sd.env.image.shape[0] * sd.env.image.shape[1]
+    reads = (9 * b + 68 * counts["live"] + (8 + 4 * bool(n_inst)) * counts["hit"]
+             + 4 * counts["slots"] + 40 * counts["attr_rows"] + 96 * counts["material_rows"]
+             + 52 * counts["instance_rows"] + 16 * k + 12)
+    writes = 9 * b + 36 * counts["shade"]
+    for f in dataclasses.fields(before):
+        if f.name in ("rng", "alive"):
+            continue
+        x, y = getattr(before, f.name), getattr(after, f.name)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        writes += int((x != y).sum()) * x.element_size()
+    writes += int((before.alive != after.alive).sum())
+    ops = (SHADE_OPS["lane"] * counts["live"]
+           + SHADE_OPS["unshaded"] * (counts["live"] - counts["shade"])
+           + SHADE_OPS["miss"] * counts["miss"] + SHADE_OPS["hit"] * counts["hit"]
+           + SHADE_OPS["inst"] * counts["inst"] + SHADE_OPS["shade"] * counts["shade"])
     return reads + writes, ops, counts
 
 

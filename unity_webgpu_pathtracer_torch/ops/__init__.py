@@ -139,12 +139,13 @@ def get_intersectors(config):
     return _BACKENDS[config.traversal]
 
 
-def pass_counters() -> tuple[int, int]:
+def pass_counters() -> tuple[int, int, int]:
     """``(K1's multi-arrival launches, host reads of the traversal loops'
-    test)`` so far in this process: ``arrival_steps16_cuda.launches`` (CUDA
-    tensors only; the plain twin on the CPU counts none) and every
-    backend's ``TRAVERSE_STATS``; a pass's counts are the difference of
-    two readings."""
+    test, the shading kernel's launches)`` so far in this process:
+    ``arrival_steps16_cuda.launches`` (CUDA tensors only; the plain twin on
+    the CPU counts none), every backend's ``TRAVERSE_STATS`` and
+    ``cuda_shade.shade16_cuda.launches`` (both entries); a pass's counts
+    are the difference of two readings."""
     from unity_webgpu_pathtracer_torch.ops import (
         traverse_mbvh,
         traverse_skip,
@@ -154,8 +155,10 @@ def pass_counters() -> tuple[int, int]:
         traverse_wide16,
     )
     from unity_webgpu_pathtracer_torch.ops.cuda_arrival import arrival_steps16_cuda
+    from unity_webgpu_pathtracer_torch.ops.cuda_shade import shade16_cuda
 
     reads = sum(m.TRAVERSE_STATS["host_reads"] for m in (
         traverse_mbvh, traverse_skip, traverse_wide, traverse_wide2, traverse_wide8,
         traverse_wide16))
-    return sum(arrival_steps16_cuda.launches.values()), reads
+    return (sum(arrival_steps16_cuda.launches.values()), reads,
+            sum(shade16_cuda.launches.values()))

@@ -10,7 +10,10 @@ every kernel rounds op for op like its plain PyTorch twin; never
 square roots.
 
 Constants both sides must agree on (lane modes, traversal sentinels,
-epsilons) are defined once in Python and passed as ``-D`` macros.
+epsilons) are defined once in Python and passed as ``-D`` macros.  A
+source's key also covers the headers of ``csrc/`` it includes
+(``shade_common.cuh``: the device BSDF that K2 and the shading kernel
+share).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,6 +47,10 @@ ENTRIES = {
         "transition16_launch": [_P, _P],                 # args struct, stream
         "transition16_oct_launch": [_P, _P],
         "transition16_decode_check": [_P, _P, _I, _P, _P, _I, _P],
+    },
+    "shade16": {
+        "shade16_launch": [_P, _P],                      # args struct, stream
+        "shade16_nee_launch": [_P, _P],
     },
     "probes": {                                          # the experiments/ probes
         "ring_gather_launch": [_P, _P, _I, _P, _P],      # table, idx, chunk, out, stream
@@ -73,8 +81,10 @@ BUILD_INFO = {"seconds": 0.0, "log": ""}
 
 
 def _defines() -> list[str]:
+    from unity_webgpu_pathtracer_torch.config import ALPHA_MODE_BLEND, ALPHA_MODE_MASK
     from unity_webgpu_pathtracer_torch.ops import cuda_arrival as ca
     from unity_webgpu_pathtracer_torch.ops import cuda_probes as cp
+    from unity_webgpu_pathtracer_torch.ops import cuda_shade as cs
     from unity_webgpu_pathtracer_torch.ops import cuda_transition as ct
     from unity_webgpu_pathtracer_torch.ops import traverse_wide16 as tw
     from unity_webgpu_pathtracer_torch.utils.math import EPSILON, FAR_PLANE
@@ -82,6 +92,8 @@ def _defines() -> list[str]:
     ints = dict(MODE_PRIMARY=ct.MODE_PRIMARY, MODE_SHADOW_ENV=ct.MODE_SHADOW_ENV,
                 MODE_DEAD=ct.MODE_DEAD, TRAV_DONE=tw.DONE, TRAV_FULL=tw.FULL, PROBE_PROD=0,
                 K1_MIN_BLOCKS=ca.K1_MIN_BLOCKS, K2_THREADS=ct.K2_THREADS,
+                SHADE_THREADS=cs.SHADE_THREADS, ALPHA_MODE_MASK=ALPHA_MODE_MASK,
+                ALPHA_MODE_BLEND=ALPHA_MODE_BLEND,
                 SCAN_TILE=cp.SCAN_TILE, SUM_THREADS=cp.SUM_THREADS, SUM_VEC=cp.SUM_VEC,
                 SUM_MAX_BLOCKS=cp.SUM_MAX_BLOCKS, TABLE_THREADS=cp.TABLE_THREADS,
                 TABLE_MAX_BLOCKS=cp.TABLE_MAX_BLOCKS, TABLE_SMEM=cp.TABLE_SMEM,
@@ -106,9 +118,14 @@ def _nvcc() -> str:
 
 
 def _source_key(name: str, flags: list[str]) -> str:
+    """sha1 of the flags, the source and the ``csrc/`` headers it includes."""
     h = hashlib.sha1(" ".join(flags).encode())
     with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+        text = f.read()
+    h.update(text)
+    for header in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(SRC_DIR, header.decode()), "rb") as f:
+            h.update(f.read())
     return h.hexdigest()
 
 
@@ -156,7 +173,8 @@ def _build(stale: dict[str, str], flags: list[str]) -> None:
 
 def load() -> dict[str, ctypes.CDLL]:
     """The kernel libraries by source name (``"arrival16"``,
-    ``"transition16"``, ``"probes"``), built first where a source changed."""
+    ``"transition16"``, ``"shade16"``, ``"probes"``), built first where a
+    source or a header it includes changed."""
     if _LIBS:
         return _LIBS
     flags = NVCC_FLAGS + _defines()

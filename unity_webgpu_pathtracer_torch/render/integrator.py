@@ -7,13 +7,18 @@ predicate (``util/pathtrace.hlsl:10-131``).  ``render_pass`` traces every
 pixel of a sample at once (at 1920x1080, 2,073,600 lanes).  Each bounce
 traces the closest hit of the live lanes and the shadow rays of the
 shaded ones through the intersectors of ``ops.get_intersectors`` (wide16:
-kernel K1 on CUDA tensors), then shades in plain PyTorch, as the
-reference shades in XLA.  Every lane draws the same uniforms in the same
-order as the reference's, so each lane's RNG stream is the reference's.
-Lane vectors are (3, B) planes; the loop test is read on the host once a
-bounce.  The pass's layers are marked by ``utils.profiling.span`` ranges
-(``uwpt.mega.camera``, ``closest``, ``shade``, ``shadow``,
-``accumulate``, ``uwpt.sync.alive``), recorded while a profiler records.
+kernel K1 on CUDA tensors).  Where ``ops/cuda_shade.py::covers`` holds
+(CUDA tables, the HDRI environment, no analytic lights, textures or
+normal maps, the NaN canary off) the CUDA kernel ``csrc/shade16.cu``
+shades the bounce, in two launches around the shadow rays, on the path
+state in place; everywhere else the bounce shades in plain PyTorch, as
+the reference shades in XLA, and that plain code is the kernel's twin.
+Every lane draws the same uniforms in the same order as the reference's,
+so each lane's RNG stream is the reference's.  Lane vectors are (3, B)
+planes; the loop test is read on the host once a bounce.  The pass's
+layers are marked by ``utils.profiling.span`` ranges (``uwpt.mega.camera``,
+``closest``, ``shade``, ``shadow``, ``accumulate``, ``uwpt.sync.alive``),
+recorded while a profiler records.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from unity_webgpu_pathtracer_torch.config import (
     RenderConfig,
     RenderParams,
 )
-from unity_webgpu_pathtracer_torch.ops import get_intersectors, pass_counters
+from unity_webgpu_pathtracer_torch.ops import cuda_shade, get_intersectors, pass_counters
 from unity_webgpu_pathtracer_torch.render import bsdf as ubsdf
 from unity_webgpu_pathtracer_torch.render import camera as ucamera
 from unity_webgpu_pathtracer_torch.render import film as ufilm
@@ -93,12 +98,32 @@ def _nee_branches(scene, config: RenderConfig) -> int:
 
 
 def trace_bounce(scene, config: RenderConfig, params: RenderParams, s: PathState,
-                 closest_fn, occluded_fn, with_stats: bool = False):
+                 closest_fn, occluded_fn, with_stats: bool = False,
+                 work: cuda_shade.ShadeWork | None = None):
     """One bounce for all lanes (the body of ``pathtrace.hlsl:25-128``).
     Only live lanes are traced (a dead lane's hit is masked everywhere and
     moves no RNG).  With ``with_stats=True`` returns ``(state,
     shade_mask)``, the lanes that ran NEE this bounce (each fires one
-    shadow ray per NEE branch)."""
+    shadow ray per NEE branch).
+
+    Where ``cuda_shade.covers(config, scene)`` the kernel shades the
+    bounce into ``work`` (``cuda_shade.new_work``, allocated once by the
+    caller and handed to every bounce; ``s`` as ``cuda_shade.check_state``
+    holds it); elsewhere the plain code, its twin, does.  On either route
+    the returned state is the only valid one: the kernel updates ``s`` in
+    place and returns it, the plain code returns a new state, so a caller
+    copies what it keeps of ``s`` before the call.  The shade mask is
+    valid until the next bounce (the kernel's is ``work.shade``)."""
+    if cuda_shade.covers(config, scene):
+        return _trace_bounce_kernel(scene, config, params, s, closest_fn, occluded_fn,
+                                    with_stats, work)
+    return _trace_bounce_plain(scene, config, params, s, closest_fn, occluded_fn, with_stats)
+
+
+def _trace_bounce_plain(scene, config: RenderConfig, params: RenderParams, s: PathState,
+                        closest_fn, occluded_fn, with_stats: bool):
+    """``trace_bounce`` in plain PyTorch: the reference's bounce, and the
+    shading kernel's twin."""
     alive = s.alive
     d, tp = s.direction, s.throughput
     zero = torch.zeros_like(s.prev_pdf)
@@ -195,6 +220,23 @@ def trace_bounce(scene, config: RenderConfig, params: RenderParams, s: PathState
     return out
 
 
+def _trace_bounce_kernel(scene, config: RenderConfig, params: RenderParams, s: PathState,
+                         closest_fn, occluded_fn, with_stats: bool,
+                         work: cuda_shade.ShadeWork | None):
+    """``trace_bounce`` on the kernel's route: the closest hit, the kernel's
+    first launch, the shadow rays it wrote, its second launch."""
+    with span("mega.closest"):
+        hit = closest_fn(scene, s.origin.T, s.direction.T, s.alive)
+    with span("mega.shade"):
+        cuda_shade.shade16_cuda(scene, config, params, s, hit, work)
+        with span("mega.shadow"):
+            shadowed = occluded_fn(scene, work.shadow_o, work.shadow_d, work.far, work.shade)
+        cuda_shade.nee16_cuda(s, work, shadowed)
+    if with_stats:
+        return s, work.shade
+    return s
+
+
 def path_trace(scene, config: RenderConfig, params: RenderParams, origins: torch.Tensor,
                directions: torch.Tensor, rng_state: torch.Tensor, stats: dict | None = None):
     """Trace (3, B) rays to completion: ``(radiance (3, B), rng)``.  The
@@ -202,8 +244,16 @@ def path_trace(scene, config: RenderConfig, params: RenderParams, origins: torch
     ``max_bounces + 1 + ALPHA_SLACK`` bounces.  ``stats`` (a dict, or
     None) gathers ``closest`` and ``shadow`` rays (device scalars: per-lane
     counts, one add a bounce each, summed once at the end; no host read),
-    ``bounces`` and ``alive_tests`` (the host reads of the loop test)."""
+    ``bounces`` and ``alive_tests`` (the host reads of the loop test).  On the
+    shading kernel's route the state's planes are contiguous copies of the
+    inputs, updated in place over the bounces, and the kernel's work planes
+    are allocated here, once."""
     closest_fn, occluded_fn = get_intersectors(config)
+    work = None
+    if cuda_shade.covers(config, scene):
+        origins, directions, rng_state = (x.clone(memory_format=torch.contiguous_format)
+                                          for x in (origins, directions, rng_state))
+        work = cuda_shade.new_work(origins.shape[1], origins.device)
     s = new_path_state(origins, directions, rng_state)
     n_iter = config.max_bounces + 1 + ALPHA_SLACK
     if stats is not None:
@@ -217,11 +267,11 @@ def path_trace(scene, config: RenderConfig, params: RenderParams, origins: torch
             if not bool(s.alive.any()):
                 break
         if stats is None:
-            s = trace_bounce(scene, config, params, s, closest_fn, occluded_fn)
+            s = trace_bounce(scene, config, params, s, closest_fn, occluded_fn, work=work)
             continue
         lanes[0] += s.alive
         s, shade = trace_bounce(scene, config, params, s, closest_fn, occluded_fn,
-                                with_stats=True)
+                                with_stats=True, work=work)
         lanes[1] += shade
         stats["bounces"] = stats.get("bounces", 0) + 1
     if stats is not None:
@@ -278,14 +328,17 @@ def megakernel_pass_and_accumulate(scene, config: RenderConfig, params: RenderPa
     """One pass of ``render_pass`` accumulated into ``film``, seeded from
     its largest sample count (per-pixel counts after a reprojection).
     ``stats`` (an empty dict) gathers ``render_pass``'s counters, and K1's
-    launches (``k1_launches``) and the host reads (``host_reads``: the
-    traversal loops' tests and the bounces' ``alive_tests``)."""
-    k1_before, reads_before = pass_counters()
+    launches (``k1_launches``), the shading kernel's (``shade_launches``:
+    two a bounce on its route, 0 on the plain one) and the host reads
+    (``host_reads``: the traversal loops' tests and the bounces'
+    ``alive_tests``)."""
+    k1_before, reads_before, shade_before = pass_counters()
     total = render_pass(scene, config, params, film.sample_count, stats=stats)
     with span("mega.accumulate"):
         film = ufilm.accumulate(film, total.reshape(config.height, config.width, 3),
                                 config.samples_per_pass)
-    k1, reads = pass_counters()
+    k1, reads, shade = pass_counters()
     stats["k1_launches"] = k1 - k1_before
+    stats["shade_launches"] = shade - shade_before
     stats["host_reads"] = reads - reads_before + stats["alive_tests"]
     return film

@@ -23,7 +23,7 @@ import dataclasses
 import torch
 
 from unity_webgpu_pathtracer_torch.config import RenderConfig, RenderParams
-from unity_webgpu_pathtracer_torch.ops import get_intersectors
+from unity_webgpu_pathtracer_torch.ops import cuda_shade, get_intersectors
 from unity_webgpu_pathtracer_torch.render import camera as ucamera
 from unity_webgpu_pathtracer_torch.render import film as ufilm
 from unity_webgpu_pathtracer_torch.render.integrator import (
@@ -82,9 +82,11 @@ def _regenerate(s: PoolState, config: RenderConfig, params: RenderParams, budget
     o_new, d_new, rng_new = ucamera.get_screen_ray(coords, config, params, rng_new)
 
     zf = torch.zeros_like(p.prev_pdf)
+    # Contiguous (3, P) planes, each of its own storage: the shading
+    # kernel's layout (``cuda_shade.check_state``).
     s.path = PathState(
-        origin=torch.where(take, o_new.T, p.origin),
-        direction=torch.where(take, d_new.T, p.direction),
+        origin=torch.where(take, o_new.T.contiguous(), p.origin),
+        direction=torch.where(take, d_new.T.contiguous(), p.direction),
         radiance=torch.where(take, zf, p.radiance),
         throughput=torch.where(take, torch.ones_like(zf), p.throughput),
         rng=torch.where(take, rng_new, p.rng),
@@ -139,15 +141,19 @@ def wavefront_pass_with_stats(scene, config: RenderConfig, params: RenderParams,
         lane_depth_cap=torch.zeros((p,), **i32),
         records=torch.zeros((budget + p, 3), **f32),
         queue_head=zero.clone(), alive_ticks=zero.clone(), shade_ticks=zero.clone(), ticks=0)
+    # The shading kernel's work planes, where it shades: one set for the pass.
+    work = cuda_shade.new_work(p, dev) if cuda_shade.covers(config, scene) else None
 
     while True:
         with span("sync.queue"):
             if not bool((s.path.alive.any() | (s.queue_head < budget)).item()):
                 break
         _regenerate(s, config, params, budget, current_sample)
-        was_alive = s.path.alive
+        # A copy: on the shading kernel's route trace_bounce updates the
+        # path state in place.
+        was_alive = s.path.alive.clone()
         path, shade = trace_bounce(scene, config, params, s.path, closest_fn, occluded_fn,
-                                   with_stats=True)
+                                   with_stats=True, work=work)
         s.lane_depth_cap = s.lane_depth_cap - 1
         path.alive = path.alive & (s.lane_depth_cap > 0)
         _splat(s, path.radiance, was_alive & ~path.alive, config, params)
