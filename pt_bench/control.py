@@ -6,10 +6,16 @@ reference, at the cell's own size.
 
 ``--passes`` is the number of passes the cell's window renders (the film's
 samples a pixel).  Prints one JSON line a seed with the numbers and the
-cell's limits; the benchmark's own runs never run this.  The control's
-film is the bfloat16 reference's (geometry, ray casts and the path state
-between bounces in bfloat16); its image is the presentation computed in
-bfloat16 of the float32 reference's film, at the sampled pixels.
+cell's limits; the benchmark's own runs never run this.  A megakernel
+cell's control film is the bfloat16 reference's (geometry, ray casts and
+the path state between bounces in bfloat16); its image is the presentation
+computed in bfloat16 of the float32 reference's film, at the sampled
+pixels.  A fused cell's control needs the program's inputs to replay: the
+port renders ``--passes`` passes and the checked pass at the cell's size,
+and the line gives the program's numbers beside the control's (the
+reference's answers in bfloat16 on the same inputs: casts and geometry,
+the transition's path state, the new samples' camera rays, the records' sum
+and the film's mean).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import sys
 import numpy as np
 import torch
 
-from pt_bench import check, registry, scenes
+from pt_bench import check, registry, run, scenes
 from pt_bench.reference import camera as rcamera
 from pt_bench.reference import config as rconfig
 from pt_bench.reference import render as rrender
@@ -63,6 +69,27 @@ def control_numbers(cell, seed: int, passes: int, device, overrides=None) -> dic
     return numbers
 
 
+def fused_numbers(cell, seed: int, passes: int, device, overrides=None) -> tuple:
+    """``(the program's numbers, the control's)`` of a fused cell's check
+    after ``passes`` passes and the checked pass, at the cell's size: the
+    benchmark's own driver steps (``run.build``, ``run.checked_pass``,
+    ``run.fused_reference``) without its window."""
+    ov = overrides or {}
+    cfg = {**cell.config, **ov.get("config", {})}
+    traffic = {**cell.traffic, **ov.get("traffic", {})}
+    spp = traffic["samples_per_pass"]
+    root = seed_root(seed)
+    spec, pr, _kernels_s, _scene_s = run.build(cfg, traffic, root, device)
+    for _ in range(passes):
+        pr.step()
+    cap = run.checked_pass(pr, seed, traffic, device)
+    del pr
+    run._free(device)
+    side, ref = run.fused_reference(spec, cfg, traffic, root, cap, passes * spp, device)
+    return (check.fused_program_numbers(cap, ref, spp),
+            check.fused_control_numbers(side, cap, ref, passes * spp, spp))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -72,10 +99,14 @@ def main(argv=None) -> int:
     cell = registry.cell(registry.load_manifest(ROOT), args.workload)
     device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
     for seed in args.seeds:
-        numbers = control_numbers(cell, seed, args.passes, device)
+        line = {"workload": args.workload, "seed": seed, "passes": args.passes}
+        if cell.traffic["integrator"] == "fused":
+            program, numbers = fused_numbers(cell, seed, args.passes, device)
+            line["program"] = check.judge(program, cell.check["limits"])[1]
+        else:
+            numbers = control_numbers(cell, seed, args.passes, device)
         correct, report = check.judge(numbers, cell.check["limits"])
-        print(json.dumps({"workload": args.workload, "seed": seed, "passes": args.passes,
-                          "correct": correct, "check": report}), flush=True)
+        print(json.dumps({**line, "correct": correct, "check": report}), flush=True)
     return 0
 
 

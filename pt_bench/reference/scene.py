@@ -1,9 +1,10 @@
 """The reference's own tables, worked out from the benchmark's scene arrays
 (``pt_bench.scenes.SceneSpec``): every placement flattened to world-space
 triangles (a two-level scene too), their per-vertex shading attributes, the
-packed materials, the environment's sampling tables, and clusters of
-consecutive triangles with their boxes for the intersector.  Nothing here
-reads a table of the program."""
+packed materials, the texture atlas and the analytic lights' records, the
+environment's sampling tables, and clusters of consecutive triangles with
+their boxes for the intersector.  Nothing here reads a table of the
+program."""
 
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ import numpy as np
 import torch
 
 from pt_bench.reference.envmap import EnvMap, build_envmap
+from pt_bench.reference.lightpack import LightDesc, pack_lights
 from pt_bench.reference.material import MaterialDesc, pack_materials
+from pt_bench.reference.texture import build_atlas
 
 # Triangles a cluster (``intersect.py`` tests a ray against the clusters'
 # boxes, then against every triangle of a cluster it enters).
@@ -33,8 +36,8 @@ class RefScene(NamedTuple):
     attr_uvs: torch.Tensor       # (T, 6)
     attr_material: torch.Tensor  # (T,) int32
     materials: torch.Tensor      # (M, 32)
-    texture_data: torch.Tensor   # (0,) no textures
-    lights: torch.Tensor         # (0, 16) no analytic lights
+    texture_data: torch.Tensor   # (K,) int32 view of the uint32 atlas; (0,) no textures
+    lights: torch.Tensor         # (L, 16) light records; (0, 16) no analytic lights
     inst_w2l: torch.Tensor       # (0, 12): world-space triangles, no instances
     inst_offsets: torch.Tensor   # (0, 4)
     env: EnvMap
@@ -68,8 +71,19 @@ def build(spec, device) -> RefScene:
     corners = torch.cat([p, p[-1:].expand(pad, 3, 3)]).reshape(k, CLUSTER * 3, 3)
     tangents = torch.zeros((t, 3, 3), dtype=torch.float32, device=device)
     tangents[..., 0] = 1.0
-    mats = [MaterialDesc(**{a: tuple(b) if isinstance(b, list) else b for a, b in m.items()})
-            for m in spec.materials]
+
+    def desc(d):
+        return {a: tuple(b) if isinstance(b, list) else b for a, b in d.items()}
+
+    mats = [MaterialDesc(**desc(m)) for m in spec.materials]
+    if spec.textures:
+        atlas = torch.from_numpy(build_atlas(spec.textures).view(np.int32)).to(device)
+    else:
+        atlas = torch.zeros((0,), dtype=torch.float32, device=device)
+    if spec.lights:
+        lights = torch.from_numpy(pack_lights([LightDesc(**desc(x)) for x in spec.lights]))
+    else:
+        lights = torch.zeros((0, 16), dtype=torch.float32)
     return RefScene(
         v0=v0.contiguous(), e1=e1.contiguous(), e2=e2.contiguous(),
         box_lo=corners.amin(1), box_hi=corners.amax(1),
@@ -79,8 +93,8 @@ def build(spec, device) -> RefScene:
         attr_uvs=torch.from_numpy(flat["uvs"].reshape(t, 6)).to(device),
         attr_material=torch.from_numpy(flat["material"]).to(device),
         materials=torch.from_numpy(pack_materials(mats)).to(device),
-        texture_data=torch.zeros((0,), dtype=torch.float32, device=device),
-        lights=torch.zeros((0, 16), dtype=torch.float32, device=device),
+        texture_data=atlas,
+        lights=lights.to(device),
         inst_w2l=torch.zeros((0, 12), dtype=torch.float32, device=device),
         inst_offsets=torch.zeros((0, 4), dtype=torch.int32, device=device),
         env=build_envmap(spec.env_image).to_tensors(device))

@@ -7,9 +7,13 @@ configuration, the port's renderer with its kernels and tables, and renders
 one warm-up pass at the cell's shape; the window then renders passes back to
 back (a closed loop: the next pass starts when the last one, and its
 presentation, has ended) for ``--seconds``; with ``--trace 1`` a few more
-passes run under the profiler.  Then the film is judged against the plain
-reference (``check.py``), and the last line of standard output is the
-result: end-to-end metrics with ``--trace 0``, per-layer metrics with
+passes run under the profiler.  Then the work is judged against the plain
+reference (``check.py``): a megakernel cell's film after the window, a fused
+cell's one more pass, whose kernels' inputs and outputs and new samples the
+harness captures (``port.capture_fused``; with ``--trace 1`` it also counts
+the least time of each K1 and K2 launch, which the roofline metrics set
+against the traced passes' device time).  The last line of standard output
+is the result: end-to-end metrics with ``--trace 0``, per-layer metrics with
 ``--trace 1``.  Exits with 2 and prints no result without the CUDA devices
 the cell asks for, with 3 if a forbidden module was loaded.
 """
@@ -64,6 +68,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _free(device) -> None:
+    """Return the program's freed memory to the card before the reference runs."""
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _power_limit() -> str:
     try:
         out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -84,7 +97,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
     have run."""
     import torch
 
-    from pt_bench import check, port, scenes
+    from pt_bench import check
     from pt_bench import trace as ptrace
 
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
@@ -94,17 +107,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
     traffic = {**cell.traffic, **ov.get("traffic", {})}
     w, h, spp = traffic["width"], traffic["height"], traffic["samples_per_pass"]
     present = bool(traffic["present"])
+    fused = traffic["integrator"] == "fused"
     root = seed_root(seed)
 
     # ---- set-up
-    t0 = time.perf_counter()
-    port.load_kernels(device)
-    kernels_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    spec = scenes.generate(cfg)
-    pr = port.PortRenderer(spec, cfg, traffic, w, h, root, device)
-    _sync(device)
-    scene_s = time.perf_counter() - t0
+    spec, pr, kernels_s, scene_s = build(cfg, traffic, root, device)
     pr.step()
     if present:
         pr.image()
@@ -115,7 +122,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
 
     # ---- window: closed loop
     frames, presents = [], []
-    c0 = port.counters()
+    c0 = dict(pr.counts)
     _sync(device)
     w0 = time.perf_counter()
     image = None
@@ -134,7 +141,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
         if f1 - w0 >= seconds:
             break
     window_s = time.perf_counter() - w0
-    c1 = port.counters()
+    c1 = dict(pr.counts)
     passes = len(frames)
 
     # ---- traced passes
@@ -150,34 +157,50 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
                             image = pr.image()
                         _sync(device)
         tr = holder.trace
+    c2 = dict(pr.counts)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    if trace and traffic["integrator"] == "megakernel" and device.type == "cuda":
+    if trace and not fused and device.type == "cuda":
         k1_bounds = _k1_first_traversal(pr, spec, cfg, traffic, w, h, root, passes, device)
 
     # ---- the check
     total_passes = passes + n_traced
-    film = pr.film
     pix = check.sample_pixels(seed, w * h, int(traffic["check_pixels"]))
     pix_t = torch.from_numpy(pix).to(device)
-    film_px = film.reshape(-1, 3)[pix_t].clone()
     numbers = {}
-    if present:
-        numbers["image_lsb_max"] = check.image_lsb_max(image, film)
-    del film, pr
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ref_px = _reference(spec, cfg, traffic, w, h, root, pix_t, total_passes, device)
-    check_s = time.perf_counter() - t0
-    numbers = {**check.film_numbers(film_px, ref_px), **numbers}
+    checked = None
+    if fused:
+        samples_before = total_passes * spp
+        total_passes += 1
+        cap = checked_pass(pr, seed, traffic, device, count_work=trace)
+        checked = types.SimpleNamespace(k1_ms=cap.k1_ms, k2_ms=cap.k2_ms,
+                                        super_iterations=cap.super_iterations)
+        del pr
+        _free(device)
+        t0 = time.perf_counter()
+        _side, ref = fused_reference(spec, cfg, traffic, root, cap, samples_before, device)
+        numbers = check.fused_program_numbers(cap, ref, spp)
+        check_s = time.perf_counter() - t0
+        del cap, ref
+    else:
+        film = pr.film
+        film_px = film.reshape(-1, 3)[pix_t].clone()
+        if present:
+            numbers["image_lsb_max"] = check.image_lsb_max(image, film)
+        del film, pr
+        _free(device)
+        t0 = time.perf_counter()
+        ref_px = _reference(spec, cfg, traffic, w, h, root, pix_t, total_passes, device)
+        check_s = time.perf_counter() - t0
+        numbers = {**check.film_numbers(film_px, ref_px), **numbers}
     correct, report = check.judge(numbers, cell.check["limits"])
 
     ctx = types.SimpleNamespace(
         cell=cell.name, traffic=traffic, passes=passes, window_s=window_s, frames=frames,
         presents=presents, n_traced=n_traced,
-        counters={k: c1[k] - c0[k] for k in c0}, kernels_s=kernels_s, scene_s=scene_s,
-        setup_s=setup_s, trace=tr, k1_bounds=k1_bounds, pixels=w * h, spp=spp)
+        counters={k: c1[k] - c0.get(k, 0) for k in c1},
+        traced_counters={k: c2[k] - c1.get(k, 0) for k in c2}, kernels_s=kernels_s,
+        scene_s=scene_s, setup_s=setup_s, trace=tr, k1_bounds=k1_bounds, checked=checked,
+        pixels=w * h, spp=spp)
     if trace:
         from pt_bench import registry
 
@@ -187,8 +210,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         log(f"card: {_power_limit() if device.type == 'cuda' else 'cpu'}")
-        log(f"K1 launches and host reads of the traversals' loop test a pass: "
-            f"{ctx.counters['k1_launches'] / passes}, {ctx.counters['host_reads'] / passes}")
     else:
         e2e = {
             "msamples_per_s": passes * spp * w * h / window_s / 1e6,
@@ -213,13 +234,79 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, log=None,
     q = statistics.quantiles(frames, n=10, method="inclusive") if len(frames) >= 2 else frames
     log(f"frame ms: min {min(frames) * 1e3:.1f}, median {statistics.median(frames) * 1e3:.1f}, "
         f"p90 {q[-1] * 1e3:.1f}, max {max(frames) * 1e3:.1f}")
-    log(f"passes {passes} in {window_s:.3f} s (+{n_traced} traced), set-up {setup_s:.3f} s "
-        f"(kernels {kernels_s:.3f} s, scene {scene_s:.3f} s), reference {check_s:.3f} s "
-        f"over {pix.shape[0]} pixels")
+    if fused:
+        log(f"super-iterations a pass: {ctx.counters.get('super_iterations', 0) / passes}")
+    else:
+        log(f"K1 launches, host reads (loop and alive tests) and bounces a pass: "
+            f"{ctx.counters.get('k1_launches', 0) / passes}, "
+            f"{ctx.counters.get('host_reads', 0) / passes}, "
+            f"{ctx.counters.get('bounces', 0) / passes}")
+    log(f"passes {passes} in {window_s:.3f} s (+{total_passes - passes} traced and checked), "
+        f"set-up {setup_s:.3f} s (kernels {kernels_s:.3f} s, scene {scene_s:.3f} s), "
+        f"reference {check_s:.3f} s over {pix.shape[0]} pixels")
     for k, v in report.items():
         log(f"check {k} = {v['value']!r} (limit {v['limit']!r})")
     result["check"] = report
     return result
+
+
+def build(cfg: dict, traffic: dict, root: int, device):
+    """The cell's scene spec and the port's renderer of it, with the seconds
+    the kernel libraries and the scene took: ``(spec, renderer,
+    kernels_s, scene_s)``."""
+    from pt_bench import port, scenes
+
+    t0 = time.perf_counter()
+    port.load_kernels(device)
+    kernels_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = scenes.generate(cfg)
+    pr = port.PortRenderer(spec, cfg, traffic, traffic["width"], traffic["height"], root,
+                           device)
+    _sync(device)
+    return spec, pr, kernels_s, time.perf_counter() - t0
+
+
+def checked_pass(pr, seed: int, traffic: dict, device, count_work: bool = False):
+    """One more pass of the fused renderer ``pr``, captured for the check
+    at the traffic's lanes and at its pixels drawn from the seed
+    (``port.checked_fused_pass``); with ``count_work``, each K1 and K2
+    launch's least time counted from what it did (the yardstick)."""
+    import torch
+
+    from pt_bench import check, port
+
+    work = None
+    if count_work:
+        from pt_bench.yardstick.roofline import arrival_launch_bound
+        from pt_bench.yardstick.transition_work import launch_bound
+
+        work = types.SimpleNamespace(k1=arrival_launch_bound, k2=launch_bound)
+    w, h = traffic["width"], traffic["height"]
+    pix = torch.from_numpy(check.sample_pixels(seed, w * h, int(traffic["check_pixels"])))
+    return port.checked_fused_pass(pr, seed, pix.to(device), int(traffic["check_lanes"]), work)
+
+
+def fused_reference(spec, cfg: dict, traffic: dict, root: int, cap, samples_before: int,
+                    device):
+    """The reference's side of a fused cell's check: its scene, tables,
+    configuration and camera (``side``), and its answers on the checked
+    pass's capture ``cap`` (``reference/replay.py::answers``);
+    ``samples_before`` is the film's samples a pixel by the passes the
+    harness ran before the checked one."""
+    from pt_bench.reference import camera as rcamera
+    from pt_bench.reference import config as rconfig
+    from pt_bench.reference import replay
+    from pt_bench.reference import scene as rscene
+
+    w, h = traffic["width"], traffic["height"]
+    rs = rscene.build(spec, device)
+    rc = rconfig.RenderConfig(width=w, height=h, samples_per_pass=traffic["samples_per_pass"],
+                              integrator="fused", **cfg["render"])
+    rp = rcamera.make_camera_params(width=w, height=h, seed_root=root, device=device,
+                                    **spec.camera)
+    side = types.SimpleNamespace(rs=rs, tables=replay.tables(rs), config=rc, params=rp)
+    return side, replay.answers(side, cap, samples_before, traffic["samples_per_pass"])
 
 
 def _reference(spec, cfg, traffic, w, h, root, pix_t, passes, device):

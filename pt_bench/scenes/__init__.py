@@ -2,7 +2,9 @@
 ``generator`` key; each ``generate(cfg)`` returns a :class:`SceneSpec`:
 plain numpy arrays that the port (``pt_bench/port.py``) and the plain
 reference (``pt_bench/reference/scene.py``) each turn into their own
-tables."""
+tables.  ``textures`` and ``lights`` are empty unless the configuration
+names some; a material's texture indices (``base_color_texture``,
+``normal_texture``, ...) count in ``textures``' order."""
 
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ class SceneSpec:
     env_image: np.ndarray           # (H, 2H, 3) float32 equirect
     camera: dict                    # eye, target, fov_y_deg
     instanced: bool                 # one BLAS a mesh and an instance a placement
+    textures: list = dataclasses.field(default_factory=list)   # (H, W, 3|4) float32 images
+    lights: list = dataclasses.field(default_factory=list)     # LightDesc keyword dicts
 
     @property
     def triangle_count(self) -> int:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pt_bench.scenes import MeshSpec, Placement, SceneSpec
+from pt_bench.scenes import MeshSpec, Placement, SceneSpec, textures
 
 
 def procedural_hdri(height: int) -> np.ndarray:
@@ -87,7 +87,9 @@ def translate(x: float, y: float, z: float) -> np.ndarray:
 
 
 def generate(cfg: dict) -> SceneSpec:
-    """The scene of configuration ``cfg`` (its file's JSON object)."""
+    """The scene of configuration ``cfg`` (its file's JSON object); its
+    optional ``textures`` (procedural images, ``scenes/textures.py``) and
+    ``lights`` (light keyword dicts) go into the scene as they are."""
     sph = cfg["sphere"]
     sphere = uv_sphere(sph["radius"], sph["stacks"], sph["slices"])
     grid = max(int(np.sqrt(cfg["target_tris"] / sphere.indices.shape[0])), 1)
@@ -113,4 +115,6 @@ def generate(cfg: dict) -> SceneSpec:
         env_image=procedural_hdri(cfg["hdri_height"]),
         camera=dict(eye=tuple(grid * k for k in cam["eye_scale"]),
                     target=tuple(cam["target"]), fov_y_deg=cam["fov_y_deg"]),
-        instanced=bool(cfg["instanced"]))
+        instanced=bool(cfg["instanced"]),
+        textures=[textures.make(t) for t in cfg.get("textures", [])],
+        lights=[dict(x) for x in cfg.get("lights", [])])

@@ -60,13 +60,13 @@ def test_cli_refuses_in_a_checkout_without_the_port(tmp_path):
 
 
 @pytest.mark.gpu
-def test_cli_on_the_card():
-    """One cell through the command on the card: a result line, correct."""
+@pytest.mark.parametrize("name", cells())
+def test_cli_on_the_card(name):
+    """Each cell through the command on the card: a result line, correct."""
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    name = cells()[0]
     if torch.cuda.device_count() < cell(name).chips:
         pytest.skip(f"{name} needs {cell(name).chips} CUDA devices")
     out = subprocess.run([sys.executable, "-m", "pt_bench.run", "--workload", name,

@@ -11,7 +11,7 @@ import types
 import pytest
 
 from pt_bench import guard, run
-from pt_bench.tests.tiny import ROOT, cells, run_tiny
+from pt_bench.tests.tiny import ROOT, cells, fused, run_tiny
 
 
 def test_whole_top_level_names():
@@ -49,7 +49,8 @@ def test_reference_loads_nothing_of_the_port():
     names = sorted(f[:-3] for f in os.listdir(os.path.join(ROOT, "pt_bench", "reference"))
                    if f.endswith(".py") and f != "__init__.py")
     mods = _loaded_after("\n".join(f"import pt_bench.reference.{n}" for n in names)
-                         + "\nimport pt_bench.check, pt_bench.yardstick.roofline")
+                         + "\nimport pt_bench.check, pt_bench.yardstick.roofline"
+                         + "\nimport pt_bench.yardstick.transition_work")
     assert "pt_bench.reference.integrator" in mods
     assert guard.forbidden(mods, extra=("unity_webgpu_pathtracer_torch",)) == []
 
@@ -124,3 +125,44 @@ def test_cli_prints_no_result_on_a_forbidden_module(monkeypatch, capsys):
     assert run.main(["--workload", cells()[0], "--seed", "1", "--seconds", "1",
                      "--trace", "0"]) == 3
     assert capsys.readouterr().out == ""
+
+
+FUSED = [n for n in cells() if fused(n)]
+# The fused check's own modules: the frozen transition and its replay, the
+# comparison, and K2's yardstick.
+FUSED_MODULES = ("pt_bench.reference.transition", "pt_bench.reference.replay",
+                 "pt_bench.check", "pt_bench.yardstick.transition_work")
+
+
+@pytest.mark.parametrize("module", FUSED_MODULES)
+def test_fused_check_module_binding_the_port_gives_no_result(module, monkeypatch):
+    """A module of the reference, the check or the yardstick that has bound
+    anything of the port fails a fused run before any result exists."""
+    import importlib
+
+    import unity_webgpu_pathtracer_torch.ops.cuda_transition as ct
+
+    mod = importlib.import_module(module)
+    monkeypatch.setattr(mod, "transition16_plain_of_the_port", ct.transition16_plain,
+                        raising=False)
+    assert guard.reference_imports() == ["unity_webgpu_pathtracer_torch.ops.cuda_transition"]
+    with pytest.raises(run.Forbidden):
+        run_tiny(FUSED[0])
+
+
+def test_replay_binding_the_port_during_the_check_gives_no_result(monkeypatch):
+    """A binding made while the fused check runs, after the window, is
+    still found before the result is made."""
+    from pt_bench.reference import replay
+
+    import unity_webgpu_pathtracer_torch.render.fused as pfused
+
+    real = replay.transition
+
+    def binding(*a, **k):
+        monkeypatch.setattr(replay, "fused", pfused, raising=False)
+        return real(*a, **k)
+
+    monkeypatch.setattr(replay, "transition", binding)
+    with pytest.raises(run.Forbidden):
+        run_tiny(FUSED[0])

@@ -12,6 +12,11 @@ from pt_bench.tests.tiny import ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# The fused check's numbers (pt_bench/check.py): K2, K1, the new samples,
+# the records, the film.
+FUSED_NUMBERS = {"k2_rng_off", "k2_off_share", "k1_hit_off_share",
+                 "k1_t_gap_median", "k1_occl_off_share", "regen_off", "regen_ray_gap_max",
+                 "rec_count_off", "rec_gap_max", "film_samples_off", "film_gap_max"}
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +81,9 @@ def test_each_cell_reports_what_it_must(manifest):
             # The metric a per-layer metric moves is reported in its cell.
             assert m["moves"] in e2e, (w["name"], m["name"])
             assert os.path.exists(os.path.join(registry.BENCH_DIR, "metrics", f"{m['name']}.py"))
-        assert set(cell.check["limits"]) >= {"px_err_median", "px_bad_share"}
+        want = FUSED_NUMBERS if cell.traffic["integrator"] == "fused" else {"px_err_median",
+                                                                            "px_bad_share"}
+        assert set(cell.check["limits"]) >= want
 
 
 def test_per_layer_workloads_name_cells(manifest):

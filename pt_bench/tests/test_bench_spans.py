@@ -9,7 +9,7 @@ import pytest
 
 from pt_bench import registry
 from pt_bench.trace import Trace
-from pt_bench.tests.tiny import cells, run_tiny
+from pt_bench.tests.tiny import cells, fused, run_tiny
 
 HOST_SPAN_METRICS = ("mega.syncs_per_pass", "mega.sync_ms_per_pass", "mega.shade_host_ms_per_pass")
 IDLE_METRICS = ("mega.shade_idle_ms_per_pass", "mega.traverse_idle_ms_per_pass")
@@ -85,7 +85,7 @@ def test_idle_reader_is_silent_without_device_events(name):
     assert _read(name, _trace(with_device=False)) is None
 
 
-@pytest.mark.parametrize("name", cells())
+@pytest.mark.parametrize("name", [n for n in cells() if not fused(n)])
 def test_tiny_traced_run_reports_the_host_span_metrics(name):
     result, _lines = run_tiny(name, trace=True)
     assert result["correct"] is True
@@ -95,3 +95,40 @@ def test_tiny_traced_run_reports_the_host_span_metrics(name):
     assert got["mega.syncs_per_pass"]["unit"] == "reads"
     # The CPU trace has no device events.
     assert not set(IDLE_METRICS) & set(got)
+
+
+@pytest.mark.parametrize("name", [n for n in cells() if fused(n)])
+def test_tiny_traced_fused_run_reports_its_counter_metric(name):
+    """A fused cell's traced run reports the super-iterations' pace from
+    the port's counter, and none of the megakernel's span metrics."""
+    result, _lines = run_tiny(name, trace=True)
+    assert result["correct"] is True
+    got = result["metrics"]
+    assert got["fused.si_ms"]["value"] > 0 and got["fused.si_ms"]["unit"] == "ms"
+    assert not set(HOST_SPAN_METRICS + IDLE_METRICS) & set(got)
+
+
+def _fused_ctx(k2_launches, sis=2, checked_sis=3):
+    """One traced pass of ``sis`` super-iterations, K2 taking 10 us a launch
+    beside other kernels; a checked pass of ``checked_sis`` with bounds of
+    2 us a launch."""
+    kernels = [("transition16_kernel", 20 * k, 20 * k + 10) for k in range(k2_launches)]
+    kernels += [("elementwise", 15, 18)]
+    tr = Trace(window=(0, 100), passes=[(0, 100)], kernels=kernels, copies=[], host=[])
+    checked = types.SimpleNamespace(k1_ms=[], k2_ms=[0.002] * checked_sis,
+                                    super_iterations=checked_sis)
+    return types.SimpleNamespace(trace=tr, checked=checked, n_traced=1,
+                                 traced_counters={"super_iterations": sis}, k1_bounds=None)
+
+
+def test_fused_roofline_on_a_known_trace():
+    """The checked pass's least time (3 x 2 us) over K2's device time a
+    traced pass (2 x 10 us), K2's launches alone; K1 silent without bounds."""
+    ctx = _fused_ctx(2)
+    assert registry.reader("k2.roofline_pct")(ctx) == pytest.approx(100.0 * 6 / 20)
+    assert registry.reader("k1.roofline_pct")(ctx) is None
+
+
+def test_fused_roofline_refuses_launches_off_the_super_iterations():
+    with pytest.raises(ValueError, match="transition16"):
+        registry.reader("k2.roofline_pct")(_fused_ctx(3))

@@ -1,5 +1,7 @@
 """A cell's path at a size the CPU runs in a test: the configuration's
-shapes with 9 spheres of 528 triangles, a 48x27 film, 64 checked pixels."""
+shapes with 9 spheres of 528 triangles, a 48x27 film, 64 checked pixels;
+a fused cell's pool of 1,024 lanes, a fifth of a pass's 5,184 samples, so
+that lanes start new samples all through the pass, as at full size."""
 
 import os
 import time
@@ -26,10 +28,25 @@ def cell(name):
     return registry.cell(manifest(), name)
 
 
+def fused(name) -> bool:
+    return cell(name).traffic["integrator"] == "fused"
+
+
+FUSED_POOL = 1024
+
+
+def overrides(name) -> dict:
+    """``OVERRIDES``, with a fused cell's pool at ``FUSED_POOL`` lanes."""
+    if not fused(name):
+        return OVERRIDES
+    return dict(config=OVERRIDES["config"],
+                traffic=dict(OVERRIDES["traffic"], pool_size=FUSED_POOL))
+
+
 def run_tiny(name, trace=False, seconds=0.5, seed=SEED):
     """``run.run_cell`` on the CPU at the tiny size: (result, stderr lines)."""
     lines = []
     result = run.run_cell(cell(name), seed, seconds, trace, torch.device("cpu"),
-                          log=lines.append, overrides=OVERRIDES,
+                          log=lines.append, overrides=overrides(name),
                           t_start=time.perf_counter())
     return result, lines

@@ -120,3 +120,24 @@ def window_span():
 def pass_span(k: int):
     return torch.profiler.record_function(f"{PASS}{k}")
 
+
+
+def fused_roofline(ctx, name: str, bounds_ms: list) -> float | None:
+    """A fused cell's share (%) of the roofline of the kernel ``name``, which
+    the fused loop launches once a super-iteration: the summed least time of
+    its launches in the checked pass (``bounds_ms``, counted there by the
+    yardstick from each launch's state) over its device time a traced pass
+    (the traced passes run no copies of the state, so the kernel runs there
+    as in the window).  None without bounds or device events (a run on
+    the CPU); raises where a pass's launches are not one a super-iteration."""
+    tr, checked = ctx.trace, ctx.checked
+    if tr is None or checked is None or not bounds_ms or not tr.passes or not tr.kernels:
+        return None
+    launches = [x for x in tr.kernels if name in x[0]]
+    traced_sis = ctx.traced_counters.get("super_iterations", 0)
+    if len(launches) != traced_sis or len(bounds_ms) != checked.super_iterations:
+        raise ValueError(f"{name}: {len(launches)} launches in the traced passes of "
+                         f"{traced_sis} super-iterations, {len(bounds_ms)} bounds in the "
+                         f"checked pass of {checked.super_iterations}")
+    device_us = sum(e - s for _n, s, e in launches) / len(tr.passes)
+    return 100.0 * sum(bounds_ms) * 1e3 / device_us

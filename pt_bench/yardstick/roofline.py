@@ -4,9 +4,10 @@ Frozen from ``unity_webgpu_pathtracer_torch/experiments/_common.py``
 (``PEAK_BYTES``, ``PEAK_F32``, ``PEAK_BF16``, ``K1_OPS_*``, ``bound``,
 ``_k1_ops``, ``running``, ``arrivals_work``) and
 ``ops/cuda_arrival.py`` (``_FLAT_FIELDS``, ``_INST_FIELDS``) at commit
-628fc1bc0151d37c4767d2275c25b153616afc0d.  ``traversal_work`` is the
-benchmark's own: the launches of one ``closest_hit`` traversal, each
-counted by ``arrivals_work``.
+628fc1bc0151d37c4767d2275c25b153616afc0d.  ``traversal_work`` (the launches
+of one ``closest_hit`` traversal) and ``arrival_launch_bound`` (one launch
+of the fused loop) are the benchmark's own, each launch counted by
+``arrivals_work``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from pt_bench.reference.vmath import FAR_PLANE, safe_rcp
-from pt_bench.yardstick.wide16_plain import arrival_step16, init_state16
+from pt_bench.yardstick.wide16_plain import Wide16State, arrival_step16, init_state16
 
 # H100 SXM rates: HBM bytes/s (NVIDIA's data sheet); f32 and packed bf16
 # operations without tensor cores at the card's issue rate, 132 SMs x 128
@@ -124,3 +125,14 @@ def traversal_work(nodes, origins, directions, depth: int, has_instances: bool):
         out.append(bound(nbytes, ops))
         if not bool((s.ptr >= 0).any()):
             return out
+
+
+def arrival_launch_bound(nodes, oT, dT, invT, s, steps: int, live=None, stop_on_found=None,
+                         has_instances: bool = False) -> float:
+    """The least time (ms) of one K1 launch of ``steps`` arrivals on the
+    traversal state ``s`` (any tuple with ``Wide16State``'s fields, as it
+    stood before the launch), counted by ``arrivals_work``."""
+    s = Wide16State(**{f: getattr(s, f) for f in Wide16State._fields})
+    nbytes, ops, _after, _counts = arrivals_work(nodes, oT, dT, invT, s, steps, live,
+                                                 stop_on_found, has_instances)
+    return bound(nbytes, ops)[0]
